@@ -1,0 +1,52 @@
+"""Forward STFT featurization, plain PyTorch (the oracle of kernel K1).
+
+Same contract as ``quickvc_tpu/dsp/stft.py`` and reference
+``mel_processing.py:15-98``: reflect-pad ``(n_fft - hop)/2`` both sides,
+periodic Hann window, ``center=False``, magnitude ``sqrt(re^2 + im^2 + 1e-6)``,
+Slaney mel matmul, ``log(clamp(x, 1e-5))``.
+
+Layout: waveforms ``(..., T)``; spectrograms time-major ``(..., Frame, Freq)``
+as in the JAX package, so the two compare like with like.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def hann_window(n: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window, identical to ``torch.hann_window(n)``."""
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n) / n))).astype(dtype)
+
+
+def padded_window(n_fft: int, win_size: int) -> np.ndarray:
+    """Hann(win_size) centred in n_fft samples, as torch.stft pads it."""
+    w = np.zeros(n_fft, np.float32)
+    off = (n_fft - win_size) // 2
+    w[off : off + win_size] = hann_window(win_size)
+    return w
+
+
+def wave_to_spec(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int) -> torch.Tensor:
+    """Linear spectrogram: (..., T) -> (..., T//hop, n_fft//2+1), float32."""
+    pad = (n_fft - hop_size) // 2
+    lead = y.shape[:-1]
+    y = F.pad(y.float().reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")[:, 0]
+    frames = y.unfold(-1, n_fft, hop_size)                # (N, Frame, n_fft)
+    w = torch.as_tensor(padded_window(n_fft, win_size), device=y.device)
+    z = torch.fft.rfft(frames * w, dim=-1)
+    spec = torch.sqrt(z.real * z.real + z.imag * z.imag + 1e-6)
+    return spec.reshape(*lead, *spec.shape[-2:])
+
+
+def spec_to_mel(spec: torch.Tensor, mel_basis: torch.Tensor) -> torch.Tensor:
+    """(..., Frame, Freq) x (Mel, Freq) -> log-mel (..., Frame, Mel)."""
+    return torch.log(torch.clamp(spec @ mel_basis.T, min=1e-5))
+
+
+def wave_to_mel(y: torch.Tensor, mel_basis: torch.Tensor, n_fft: int,
+                hop_size: int, win_size: int) -> torch.Tensor:
+    """(..., T) -> (..., T//hop, Mel): reference ``wave_to_mel``."""
+    return spec_to_mel(wave_to_spec(y, n_fft, hop_size, win_size), mel_basis)

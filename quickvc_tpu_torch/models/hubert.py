@@ -1,0 +1,159 @@
+"""HuBERT-soft content encoder, wave -> 256-d soft units, bshall/hubert key layout.
+
+Port of ``quickvc_tpu/models/hubert.py``: 7-conv 512-wide feature extractor
+(GroupNorm after conv0), LayerNorm + 768-d projection, grouped positional
+conv (k=128, 16 groups, weight norm over dim 2, trailing sample trimmed),
+LayerNorm, 12 post-norm transformer layers whose attention core is kernel
+K2 on the packed q/k/v, and the 256-d soft projection. Keys follow
+``quickvc_tpu/utils/hubert_port.py:expected_hubert_sd_shapes``, so a bshall
+``hubert-soft.pt`` loads strictly (``utils/weights.py:load_hubert``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from quickvc_tpu_torch.models.layers import WNConv1d
+from quickvc_tpu_torch.ops.fused_attention import attention_packed
+from quickvc_tpu_torch.ops.fused_extractor import groupnorm_affine_closed_form
+
+FRONTS = ("faststats", "xla")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU in float32; the tanh form in bf16 (models/hubert.py:48-60)."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+class FeatureExtractor(nn.Module):
+    """Wave (B, T) -> features (B, 512, ~T/320).
+
+    ``front`` picks how conv0's GroupNorm is taken: ``"xla"`` reduces over
+    conv0's output like the reference; ``"faststats"`` (the serving default)
+    gets the same affine in closed form from the wave
+    (``ops/fused_extractor.py``). The names follow the JAX package's
+    ``--hubert-front`` choices.
+    """
+
+    def __init__(self, channels: int = 512, front: str = "faststats"):
+        super().__init__()
+        if front not in FRONTS:
+            raise ValueError(f"front {front!r} not in {FRONTS}")
+        self.front = front
+        c = channels
+        self.conv0 = nn.Conv1d(1, c, 10, 5, bias=False)
+        self.norm0 = nn.GroupNorm(c, c)
+        for i in range(1, 5):
+            setattr(self, f"conv{i}", nn.Conv1d(c, c, 3, 2, bias=False))
+        for i in range(5, 7):
+            setattr(self, f"conv{i}", nn.Conv1d(c, c, 2, 2, bias=False))
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        y = self.conv0(wav[:, None])
+        if self.front == "faststats":
+            scale, shift = groupnorm_affine_closed_form(
+                wav, self.conv0.weight, self.norm0.weight, self.norm0.bias)
+            x = gelu(y * scale[:, :, None].to(y.dtype) + shift[:, :, None].to(y.dtype))
+        else:
+            x = gelu(self.norm0(y))
+        for i in range(1, 7):
+            x = gelu(getattr(self, f"conv{i}")(x))
+        return x
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, conv_dim: int = 512, embed_dim: int = 768):
+        super().__init__()
+        self.norm = nn.LayerNorm(conv_dim)
+        self.projection = nn.Linear(conv_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.projection(self.norm(x))
+
+
+class PositionalConvEmbedding(nn.Module):
+    def __init__(self, embed_dim: int = 768, kernel_size: int = 128, groups: int = 16):
+        super().__init__()
+        self.conv = WNConv1d(embed_dim, embed_dim, kernel_size, padding=kernel_size // 2,
+                             groups=groups, norm_dim=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) -> (B, T, D); the even kernel's trailing sample is trimmed."""
+        y = self.conv(x.transpose(1, 2))
+        return gelu(y[:, :, :-1]).transpose(1, 2)
+
+
+class SelfAttention(nn.Module):
+    """``nn.MultiheadAttention`` parameters; the core runs through K2."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        d = x.shape[-1] // self.num_heads
+        return self.out_proj(attention_packed(q, k, v, self.num_heads, 1.0 / math.sqrt(d)))
+
+
+class TransformerLayer(nn.Module):
+    """Post-norm encoder layer (torch ``TransformerEncoderLayer``, GELU)."""
+
+    def __init__(self, embed_dim: int = 768, num_heads: int = 12, ffn_dim: int = 3072):
+        super().__init__()
+        self.self_attn = SelfAttention(embed_dim, num_heads)
+        self.linear1 = nn.Linear(embed_dim, ffn_dim)
+        self.linear2 = nn.Linear(ffn_dim, embed_dim)
+        self.norm1 = nn.LayerNorm(embed_dim)
+        self.norm2 = nn.LayerNorm(embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(x + self.self_attn(x))
+        return self.norm2(x + self.linear2(gelu(self.linear1(x))))
+
+
+class Encoder(nn.Module):
+    def __init__(self, num_layers: int, **layer_kw):
+        super().__init__()
+        self.layers = nn.ModuleList(TransformerLayer(**layer_kw) for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class HubertSoft(nn.Module):
+    """Wave (B, T) -> soft units (B, T//320, unit_dim) via :meth:`units`."""
+
+    def __init__(self, embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
+                 ffn_dim: int = 3072, extractor_channels: int = 512, unit_dim: int = 256,
+                 pos_kernel_size: int = 128, pos_groups: int = 16,
+                 front: str = "faststats"):
+        super().__init__()
+        self.feature_extractor = FeatureExtractor(extractor_channels, front)
+        self.feature_projection = FeatureProjection(extractor_channels, embed_dim)
+        self.positional_embedding = PositionalConvEmbedding(embed_dim, pos_kernel_size,
+                                                            pos_groups)
+        self.norm = nn.LayerNorm(embed_dim)
+        self.encoder = Encoder(num_layers, embed_dim=embed_dim, num_heads=num_heads,
+                               ffn_dim=ffn_dim)
+        self.proj = nn.Linear(embed_dim, unit_dim)
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        x = self.feature_extractor(wav).transpose(1, 2)
+        x = self.feature_projection(x)
+        x = self.norm(x + self.positional_embedding(x))
+        return self.proj(self.encoder(x))
+
+    def units(self, wav: torch.Tensor) -> torch.Tensor:
+        """Reference ``HubertSoft.units``: pad (400-320)//2 samples both sides first."""
+        pad = (400 - 320) // 2
+        return self(F.pad(wav, (pad, pad)))

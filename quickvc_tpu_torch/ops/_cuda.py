@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` -> one shared library -> ctypes.
+
+The sources under ``quickvc_tpu_torch/csrc/`` have a plain C interface (no
+PyTorch headers), so each compiles in seconds. At first use
+:func:`library` compiles every source at once (one ``nvcc`` process each,
+for ``sm_90a``), links them into ``libqvc_<hash>.so`` and loads it: in a
+checkout of the repo under ``build/quickvc_tpu_torch/``, for an installed
+package under the user's cache directory (``$XDG_CACHE_HOME`` or
+``~/.cache``, then ``quickvc_tpu_torch/``). The name carries a hash of the sources,
+so an edited source is rebuilt, and a file lock serialises builds from
+concurrent processes. Nothing is built when the package is imported.
+
+Every C entry point takes device pointers and a stream as ``void*``, launches
+on that stream and returns ``cudaGetLastError()``; :func:`check` raises on
+anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "qvc_wave_to_mel": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _P],
+    "qvc_attention_packed": [_P, _P, _P, _P, _I, _I, _I] + [_L] * 6 + [_F, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+
+
+class KernelStats:
+    """Launch count of one kernel; a wrapper adds one per kernel launch."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (set CUDA_HOME)")
+
+
+def build_dir() -> Path:
+    """Where the library is built: the checkout's ``build/`` when the package
+    runs from a checkout of the repo, else a per-user cache directory."""
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").exists() and (root / "quickvc_tpu_torch").is_dir():
+        return root / "build" / "quickvc_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "quickvc_tpu_torch"
+
+
+def _sources_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if not yet built) and return the library path."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"libqvc_{_sources_hash()}.so"
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():
+            return lib_path
+        nvcc = _nvcc()
+        procs = []
+        for name in SOURCES:
+            obj = out_dir / (Path(name).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            print("\n".join(log), file=sys.stderr)
+            raise RuntimeError(f"nvcc failed for {failed}; see {out_dir}/build.log")
+        tmp = lib_path.with_suffix(".tmp")
+        subprocess.run([nvcc, NVCC_FLAGS[0], "-shared", "-o", str(tmp),
+                        *[str(obj) for _, obj, _ in procs]], check=True)
+        tmp.rename(lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """Raw handle of the current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is float32 on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                             f"got {[str(x.device) for x in tensors]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")

@@ -1,0 +1,67 @@
+"""PyTorch port as a package: it imports no JAX, and nothing falls back to
+the CPU quietly (a CUDA request without a card raises; a kernel entry point
+refuses CPU tensors instead of running the plain version).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_cli_cuda_without_card_raises(tmp_path):
+    """The default --device cuda never falls back to the CPU."""
+    from quickvc_tpu_torch import convert
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        convert.main(["--outdir", str(tmp_path / "out")])
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, import neither JAX nor quickvc_tpu."""
+    code = """
+import importlib, pkgutil, runpy, sys
+import quickvc_tpu_torch
+for m in pkgutil.walk_packages(quickvc_tpu_torch.__path__, "quickvc_tpu_torch."):
+    importlib.import_module(m.name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "quickvc_tpu")]
+print(len([n for n in sys.modules if n.startswith("quickvc_tpu_torch.")]), bad)
+sys.exit(1 if bad else 0)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 15
+
+
+def test_kernel_build_dir(tmp_path, monkeypatch):
+    """A checkout builds into its own build/; an installed copy into the user's cache."""
+    from quickvc_tpu_torch.ops import _cuda
+
+    assert _cuda.build_dir() == REPO / "build" / "quickvc_tpu_torch"
+    installed = tmp_path / "site-packages" / "quickvc_tpu_torch" / "ops" / "_cuda.py"
+    monkeypatch.setattr(_cuda, "__file__", str(installed))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert _cuda.build_dir() == tmp_path / "cache" / "quickvc_tpu_torch"
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel entry point never runs a plain version: a CPU tensor is an error."""
+    from quickvc_tpu_torch.ops import fused_attention, fused_istft, fused_mel
+
+    x = torch.zeros(1, 8, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_attention.attention_packed_kernel(x, x, x, 1, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mel.wave_to_mel_kernel(torch.zeros(1, 3200), 16000, 1280, 320, 1280, 80)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_istft.polar_inverse_stft_kernel(torch.zeros(1, 8, 9), torch.zeros(1, 8, 9))
