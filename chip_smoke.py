@@ -5,24 +5,38 @@
 
 1. Builds the hand-written kernels from ``quickvc_tpu_torch/csrc`` with nvcc.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and times kernel, plain version and one
-   PyTorch library call for the same function (CUDA events, after warm-up).
-3. Drives the main path, the conversion CLI ``quickvc_tpu_torch.convert``
-   with ``--device cuda --batch 8``, at the full width of
-   ``configs/quickvc.json`` plus the full HuBERT-soft, with seeded random
-   weights, on seeded synthetic wavs; checks the outputs and that every
-   kernel was launched, with the launch counters zeroed just before;
-   repeats the conversion for the throughput over all repeats; then
-   converts once more under torch.profiler for the device time by kernel
-   and the device's busy share of the conversion loop in that trace.
-4. Checks the whole path on the card against the CPU plain path on a
+   shapes its path gives it, and times kernel, plain version and one
+   PyTorch library call for the same function (CUDA events, after warm-up):
+   K1-K3 at the conversion's shapes, K4 at the full training batch
+   (32, 512*320+960), K5 (forward and dx) and K6 (dW) at DiscriminatorP's
+   fifth conv, x (128, 64, 1024).
+3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
+   ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
+   plus the full HuBERT-soft, with seeded random weights, on seeded
+   synthetic wavs; checks the outputs and that K1-K3 were launched, with the
+   launch counters zeroed just before; repeats the conversion for the
+   throughput; converts once more under torch.profiler for the device time
+   by kernel and the device's busy share of the conversion loop.
+4. Checks the conversion path on the card against the CPU plain path on a
    small input (noise 0).
+5. Drives the training path, the CLI ``quickvc_tpu_torch.train`` with
+   ``--device cuda``, for 7 steps at full width (batch 32, 512-frame crops,
+   compact transfer, float32) on a synthetic corpus; checks finite losses,
+   moved weights, K4 launched once per step and K3 never; times steps 3-7;
+   profiles one more (resumed) step; converts a pair with the trained
+   ``G_7.pth``.
+6. Drives the discriminator's opt-in K5/K6 path (``fused_conv5=True``, the
+   A/B of ``scripts/disc_pallas_ab.py``): one D-phase forward and backward
+   of the full-width MPD at the training batch, held against the default
+   cuDNN discriminator.
+7. Checks one training step on the card against the same step on the CPU
+   plain path at a small config (same weights, batch and draws).
 
-Prints one JSON line per kernel check, the card's name and power limit,
-the status of every TPU kernel of the JAX package, a ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
-non-zero. Without a CUDA card, or outside a checkout of the repo, it exits
-non-zero and prints no result. Imports nothing of JAX or ``quickvc_tpu``.
+Prints one JSON line per check, the card's name and power limit, the status
+of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
+Without a CUDA card, or outside a checkout of the repo, it exits non-zero
+and prints no result. Imports nothing of JAX or ``quickvc_tpu``.
 """
 
 from __future__ import annotations
@@ -58,9 +72,12 @@ TPU_KERNELS = [
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu"),
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
      "ported: quickvc_tpu_torch/csrc/fused_istft.cu"),
-    ("K4", "quickvc_tpu/ops/fused_mel.py:177", "wave_to_spec_halo_pallas", "to port: training slice"),
-    ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward", "to port: training slice"),
-    ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW", "to port: training slice"),
+    ("K4", "quickvc_tpu/ops/fused_mel.py:177", "wave_to_spec_halo_pallas",
+     "ported: quickvc_tpu_torch/csrc/fused_mel.cu"),
+    ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward (and dx)",
+     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
+    ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
+     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front", "to port"),
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer", "to port"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
@@ -69,6 +86,17 @@ TPU_KERNELS = [
      "to port: layout wrapper over K2"),
     ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm", "to port: int8 rate probe"),
 ]
+# training path: full width, batch 32, 512-frame crops (utterances of 12.5-13.5 s
+# fall in the (600, 700]-frame bucket, cropped to max_speclen 512)
+TRAIN_STEPS = 7
+TRAIN_WARMUP = 2
+TRAIN_UTTERANCES = 32
+TRAIN_BATCH = 32
+DISC_BATCH = 2 * TRAIN_BATCH        # the D phase runs real||fake paired
+SEGMENT = 10240
+# the port's __global__ functions, as the profiler names them
+DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kernel",
+                    "wave_to_spec_halo_kernel", "conv5_gemm_kernel")
 
 
 class CheckFailed(Exception):
@@ -216,9 +244,123 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         bound_ops_ms=rows * 4 * (f - 1) * 2 * 72 / F32_FLOPS * 1e3,
         bound_bytes_ms=4 * (2 * rows * f * 9 + rows * 4 * (f - 1)) / HBM_BYTES * 1e3))
 
+    results += check_training_kernels(dev, rng)
     for r in results:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
         r["bound_by"] = "operations" if r["bound_ops_ms"] >= r["bound_bytes_ms"] else "bytes"
+    return results
+
+
+def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
+    """K4 at the full compact training batch; K5 (forward, dx) and K6 (dW)
+    at DiscriminatorP(2)'s fifth conv of the paired D phase."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.dsp.stft import hann_window, wave_to_spec_halo as spec_plain
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+    from quickvc_tpu_torch.ops import fused_mel
+
+    results = []
+    # K4: (32, 512*320 + 960) s16 crops / 32768 -> (32, 512, 641)
+    frames, t_len = 512, 512 * 320 + 960
+    y = torch.from_numpy(np.stack([
+        np.round(synth_voice((t_len + 1) / SR, SR, rng)[:t_len] * 32767) / 32768.0
+        for _ in range(TRAIN_BATCH)]).astype(np.float32)).to(dev)
+    win = torch.as_tensor(hann_window(1280), device=dev)
+
+    def k4():
+        return fused_mel.wave_to_spec_halo_kernel(y, 1280, 320, 1280)
+
+    def k4_plain():
+        return spec_plain(y, 1280, 320, 1280)
+
+    def k4_library():
+        z = torch.stft(y, 1280, 320, 1280, win, center=False, return_complex=True)
+        return torch.sqrt(z.real ** 2 + z.imag ** 2 + 1e-6).transpose(1, 2)
+
+    # least work: a real FFT (2.5 N log2 N), the window and |z|^2 + sqrt per
+    # frame; bytes: the wave in, the spectrogram out
+    n_fr = TRAIN_BATCH * frames
+    results.append(dict(
+        name="wave_to_spec_halo", tpu_id="K4", source="quickvc_tpu_torch/csrc/fused_mel.cu",
+        replaces="quickvc_tpu/ops/fused_mel.py:177",
+        shape=[list(y.shape), [TRAIN_BATCH, frames, 641]], **compare(k4(), k4_plain(), 2e-4, 2e-4),
+        ms=cuda_ms(k4), plain_ms=cuda_ms(k4_plain), library_ms=cuda_ms(k4_library),
+        bound_ops_ms=(2.5 * 1280 * np.log2(1280) + 1280 + 4 * 641) * n_fr / F32_FLOPS * 1e3,
+        bound_bytes_ms=4 * (y.numel() + n_fr * 641) / HBM_BYTES * 1e3,
+        dense_dft_ops_ms=2 * 1280 * 1282 * n_fr / F32_FLOPS * 1e3))
+    del y
+
+    # K5/K6: x (N, R, C) = (64 paired items x period 2, 64 rows, 1024), filter
+    # (5, 1024, 1024); inputs scaled so that y, dx and dW are all O(1)
+    n, rows, c = DISC_BATCH * 2, 64, 1024
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn(n, rows, c, device=dev, generator=g)
+    k = torch.randn(5, c, c, device=dev, generator=g) / np.sqrt(5 * c)
+    b = 0.1 * torch.randn(c, device=dev, generator=g)
+    dy = torch.randn(n, rows, c, device=dev, generator=g) / np.sqrt(n * rows)
+    x_ncr = x.transpose(1, 2).contiguous()        # cuDNN's (N, C, R) layout
+    w_oik = k.permute(2, 1, 0).contiguous()       # (C_out, C_in, 5)
+
+    # forward against the plain version; the backward kernels against their
+    # plain versions on the same dym, the LReLU mask taken from the kernel's
+    # own output (where |y| is at rounding level the mask's sign is not
+    # determined, so autograd of the plain forward may mask other elements)
+    y_out = fdc.conv5_lrelu_kernel(x, k, b, 0.1)
+    dym = (dy * torch.where(y_out > 0, 1.0, 0.1)).contiguous()
+    dym_ncr = dym.transpose(1, 2).contiguous()
+    k_flip = k.flip(0).transpose(1, 2).contiguous()
+    xp = F.pad(x, (0, 0, 2, 2))
+
+    def k6_plain():
+        return torch.stack([torch.einsum("nrc,nro->co", xp[:, dr : dr + rows], dym)
+                            for dr in range(5)])
+
+    dx = fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
+    dw = fdc.conv5_dw_kernel(x, dym)
+    checks = {"y": compare(y_out, fdc.conv5_lrelu_reference(x, k, b, 0.1), 1e-4, 1e-3),
+              "dx": compare(dx, fdc.conv5_lrelu_reference(dym, k_flip, None, 1.0), 1e-4, 1e-3),
+              "dw": compare(dw, k6_plain(), 1e-4, 1e-3)}
+    # the autograd.Function launches exactly these kernels (db = sum of dym)
+    ins = [t.clone().requires_grad_() for t in (x, k, b)]
+    fdc.conv5_lrelu(*ins, 0.1).backward(dy)
+    function_ok = (torch.equal(ins[0].grad, dx) and torch.equal(ins[1].grad, dw)
+                   and torch.equal(ins[2].grad, dym.sum(dim=(0, 1))))
+    del ins
+
+    def k5():
+        return fdc.conv5_lrelu_kernel(x, k, b, 0.1)
+
+    def k5_dx():
+        return fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
+
+    def k6():
+        return fdc.conv5_dw_kernel(x, dym)
+
+    flops = 2 * n * rows * 5 * c * c
+    conv_bytes = 4 * (2 * n * rows * c + 5 * c * c)
+    results.append(dict(
+        name="conv5_lrelu", tpu_id="K5", source="quickvc_tpu_torch/csrc/fused_disc_conv.cu",
+        replaces="quickvc_tpu/ops/fused_disc_conv.py:117", shape=[[n, rows, c], [5, c, c]],
+        atol=1e-4, rtol=1e-3,
+        max_abs_err=max(checks[nm]["max_abs_err"] for nm in ("y", "dx")),
+        max_rel_err=max(checks[nm]["max_rel_err"] for nm in ("y", "dx")),
+        within_tol=checks["y"]["within_tol"] and checks["dx"]["within_tol"] and function_ok,
+        checks=checks, autograd_function_ok=function_ok,
+        ms=cuda_ms(k5), plain_ms=cuda_ms(lambda: fdc.conv5_lrelu_reference(x, k, b, 0.1)),
+        library_ms=cuda_ms(lambda: F.leaky_relu(F.conv1d(x_ncr, w_oik, b, padding=2), 0.1)),
+        dx_ms=cuda_ms(k5_dx),
+        dx_plain_ms=cuda_ms(lambda: fdc.conv5_lrelu_reference(dym, k_flip, None, 1.0)),
+        dx_library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+            x_ncr.shape, w_oik, dym_ncr, padding=2)),
+        bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=conv_bytes / HBM_BYTES * 1e3))
+    results.append(dict(
+        name="conv5_lrelu_dw", tpu_id="K6", source="quickvc_tpu_torch/csrc/fused_disc_conv.cu",
+        replaces="quickvc_tpu/ops/fused_disc_conv.py:156", shape=[[n, rows, c], [n, rows, c]],
+        **checks["dw"], ms=cuda_ms(k6), plain_ms=cuda_ms(k6_plain),
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+            x_ncr, w_oik.shape, dym_ncr, padding=2)),
+        bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=conv_bytes / HBM_BYTES * 1e3))
     return results
 
 
@@ -295,48 +437,44 @@ def union_us(intervals, lo: float, hi: float) -> float:
     return total + (0.0 if cur_e is None else cur_e - cur_s)
 
 
-def profile_convert(files, outdir: str) -> dict:
-    """One more conversion under torch.profiler: device time by kernel, and
-    the device's busy share of the CLI's conversion loop in the same trace
-    (the union of kernel intervals inside the loop's span, over the span;
-    the profiler's own host overhead lengthens the span)."""
+def profile_span(run, span: str) -> dict:
+    """Run ``run()`` under torch.profiler: device time by kernel, and the
+    device's busy share of the one ``span`` (a ``record_function`` of the
+    program) in the same trace: the union of kernel intervals inside the
+    span over the span. The profiler's own host overhead lengthens the span."""
     from torch.profiler import ProfilerActivity, profile
 
-    from quickvc_tpu_torch.convert import LOOP_SPAN
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_convert(files, outdir)
+        run()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     dev_events = [e for e in prof.key_averages()
-                  if e.device_type == cuda and e.self_device_time_total > 0
-                  and e.key != LOOP_SPAN]
+                  if e.device_type == cuda and e.self_device_time_total > 0 and e.key != span]
     kernels = [e for e in dev_events if not e.key.startswith(("Memcpy", "Memset"))]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    ours = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kernel")
 
     events = prof.events()
-    loops = [e for e in events if e.name == LOOP_SPAN and e.device_type != cuda]
-    require(len(loops) == 1, f"one {LOOP_SPAN} span in the trace, found {len(loops)}")
-    lo, hi = loops[0].time_range.start, loops[0].time_range.end
+    spans = [e for e in events if e.name == span and e.device_type != cuda]
+    require(len(spans) == 1, f"one {span} span in the trace, found {len(spans)}")
+    lo, hi = spans[0].time_range.start, spans[0].time_range.end
     kernel_iv = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == cuda and e.name != LOOP_SPAN
+                 if e.device_type == cuda and e.name != span
                  and not e.name.startswith(("Memcpy", "Memset"))]
     copy_iv = [(e.time_range.start, e.time_range.end) for e in events
                if e.device_type == cuda and e.name.startswith("Memcpy")]
     busy_us = union_us(kernel_iv, lo, hi)
-    require(hi > lo and busy_us > 0, "device kernels ran inside the conversion loop's span")
+    require(hi > lo and busy_us > 0, f"device kernels ran inside the {span} span")
     return {
         "device_kernel_ms": total_ms,
         "memcpy_ms": sum(e.self_device_time_total for e in dev_events
                          if e.key.startswith("Memcpy")) / 1e3,
-        "loop_span_ms": (hi - lo) / 1e3,
-        "kernel_busy_ms_in_loop": busy_us / 1e3,
-        "memcpy_busy_ms_in_loop": union_us(copy_iv, lo, hi) / 1e3,
-        "kernel_busy_share_of_loop": busy_us / (hi - lo),
+        "span_ms": (hi - lo) / 1e3,
+        "kernel_busy_ms_in_span": busy_us / 1e3,
+        "memcpy_busy_ms_in_span": union_us(copy_iv, lo, hi) / 1e3,
+        "kernel_busy_share_of_span": busy_us / (hi - lo),
         "port_kernels_ms": {o: sum(e.self_device_time_total for e in kernels if o in e.key) / 1e3
-                            for o in ours},
+                            for o in DEVICE_FUNCTIONS},
         "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
     }
 
@@ -377,12 +515,220 @@ def check_against_cpu(cfg, net_g, hubert, rng: np.random.Generator) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training CLI end to end
+
+
+def make_corpus(tmp: str, rng: np.random.Generator) -> str:
+    """Seeded s16 wavs of 12.5-13.5 s with (frames, 256) unit .npy siblings,
+    and a full-width float32 compact-transfer config for them; returns the
+    config's path."""
+    from scipy.io import wavfile
+
+    root = os.path.join(tmp, "corpus")
+    os.makedirs(root)
+    paths = []
+    for i in range(TRAIN_UTTERANCES):
+        wav = synth_voice(12.5 + i / TRAIN_UTTERANCES, SR, rng)
+        path = os.path.join(root, f"utt{i}.wav")
+        wavfile.write(path, SR, np.round(wav * 32767).astype(np.int16))
+        np.save(os.path.join(root, f"utt{i}.npy"),
+                (0.5 * rng.standard_normal((len(wav) // 320, 256))).astype(np.float32))
+        paths.append(path)
+    listing = os.path.join(tmp, "train.txt")
+    with open(listing, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    with open(os.path.join(ROOT, "configs", "quickvc.json")) as f:
+        cfg = json.load(f)
+    cfg["train"].update(precision="f32", batch_size=TRAIN_BATCH, max_speclen=512,
+                        transfer="compact", log_interval=1, eval_interval=1000,
+                        loader_workers=4, segment_size=SEGMENT)
+    cfg["data"]["training_files"] = listing
+    hpfile = os.path.join(tmp, "train_config.json")
+    with open(hpfile, "w") as f:
+        json.dump(cfg, f)
+    return hpfile
+
+
+def run_train(hpfile: str, root: str, max_steps: int) -> dict:
+    from quickvc_tpu_torch.train import loop
+
+    return loop.main(["-c", hpfile, "-m", "smoke", "-mr", root, "--max-steps", str(max_steps),
+                      "--device", "cuda"])
+
+
+def check_training(tmp: str, rng: np.random.Generator, files, n_frames) -> dict:
+    """7 steps of the trainer CLI, then one profiled resumed step, then a
+    conversion with the trained generator."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.train.state import build_models
+    from quickvc_tpu_torch.train.step import STEP_SPAN
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    hpfile = make_corpus(tmp, rng)
+    root = os.path.join(tmp, "logs")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    summary = run_train(hpfile, root, TRAIN_STEPS)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {name: 0 for name in launches} | {"wave_to_spec_halo": TRAIN_STEPS}
+
+    losses = summary["losses"]
+    require(summary["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+            f"{TRAIN_STEPS} training steps")
+    require(all(np.isfinite(v) for step in losses for v in step.values()), "finite losses")
+    require(not any(step["skipped"] for step in losses), "no update skipped by the guard")
+    require(launches == expected, f"training launches {launches} != {expected}")
+
+    # the weights moved from their seeded initialisation (create_train_state's seeds)
+    cfg = load_config(hpfile)
+    init_g, init_d = build_models(cfg)
+    init_random_(init_g, cfg.train.seed)
+    init_random_(init_d, cfg.train.seed + 1)
+    moved = {}
+    for kind, net in (("G", init_g), ("D", init_d)):
+        trained = torch.load(os.path.join(root, "smoke", f"{kind}_{TRAIN_STEPS}.pth"),
+                             weights_only=True)["model"]
+        diffs = [float((trained[k] - v).abs().max()) for k, v in net.state_dict().items()
+                 if k != "dec.updown_filter"]
+        moved[kind] = {"tensors": len(diffs), "moved": sum(d > 0 for d in diffs),
+                       "max_abs_change": max(diffs)}
+        require(moved[kind]["moved"] > 0.9 * len(diffs), f"{kind} weights moved")
+
+    timed = summary["step_seconds"][TRAIN_WARMUP:]
+    step_s = float(np.mean(timed))
+    out = {"steps": TRAIN_STEPS, "step_seconds": summary["step_seconds"],
+           "timed_steps": len(timed), "mean_step_seconds": step_s,
+           "segment_audio_s_per_wall_s": TRAIN_BATCH * SEGMENT / SR / step_s,
+           "crop_audio_s_per_wall_s": TRAIN_BATCH * 512 * 320 / SR / step_s,
+           "losses_first": losses[0], "losses_last": losses[-1], "weights": moved,
+           "peak_memory_gb": peak_gb, "launches": launches, "expected_launches": expected}
+    print("train " + json.dumps(out))
+    prof = profile_span(lambda: run_train(hpfile, root, TRAIN_STEPS + 1), STEP_SPAN)
+    print("train_profile " + json.dumps(prof))
+
+    # the trained generator converts (reference layout, strict load)
+    conv = run_convert([hpfile, os.path.join(root, "smoke", f"G_{TRAIN_STEPS}.pth"),
+                        files[2], files[3]], os.path.join(tmp, "trained_out"))
+    check_outputs(conv, n_frames)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the discriminator's opt-in K5/K6 path
+
+
+def check_disc_fused(dev: torch.device, rng: np.random.Generator) -> dict:
+    """One D phase (paired forward + parameter gradients) of the full-width
+    MPD at the training batch, with the fifth conv of each period
+    discriminator on K5/K6, against the default (cuDNN) discriminator."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.losses import discriminator_loss
+    from quickvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    base = init_random_(MultiPeriodDiscriminator(), SEED + 2).to(dev)
+    fused = MultiPeriodDiscriminator(fused_conv5=True).to(dev)
+    fused.load_state_dict(base.state_dict())
+    y, y_hat = (torch.from_numpy(np.stack([synth_voice(SEGMENT / SR + 1e-3, SR, rng)[:SEGMENT]
+                                           for _ in range(TRAIN_BATCH)])[:, None]).to(dev)
+                for _ in range(2))
+
+    def d_phase(net):
+        logits_r, logits_g, _, _ = net(y, y_hat, pair=True)
+        loss = discriminator_loss(logits_r, logits_g)[0]
+        return loss, torch.autograd.grad(loss, list(net.parameters()))
+
+    d_phase(fused)  # cuDNN set-up
+    d_phase(base)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    loss_f, grads_f = d_phase(fused)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    loss_b, grads_b = d_phase(base)
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
+                   for a, b in zip(grads_f, grads_b))
+    expected = {name: 0 for name in launches} | {"conv5_lrelu": 10, "conv5_lrelu_dw": 5}
+    out = {"batch": list(y.shape), "loss_fused": loss_f.item(), "loss_default": loss_b.item(),
+           "grad_max_rel_err": grad_err, "launches": launches, "expected_launches": expected,
+           "fused_d_phase_ms": cuda_ms(lambda: d_phase(fused), iters=5, warmup=1),
+           "default_d_phase_ms": cuda_ms(lambda: d_phase(base), iters=5, warmup=1)}
+    print("disc_fused_path " + json.dumps(out))
+    require(launches == expected, f"fused D launches {launches} != {expected}")
+    require(abs(out["loss_fused"] - out["loss_default"]) <= 2e-4 * abs(out["loss_default"]),
+            "fused D loss matches the default D")
+    require(grad_err < 2e-3, "fused D gradients match the default D")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: one training step on the card against the CPU plain path
+
+
+def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
+    """A small config, the same weights, compact batch and draws on both."""
+    import copy
+
+    from quickvc_tpu_torch.config import config_from_dict
+    from quickvc_tpu_torch.train.state import create_train_state
+    from quickvc_tpu_torch.train.step import mel_basis, train_step
+
+    cfg = config_from_dict({
+        "train": {"segment_size": 2560, "max_speclen": 32, "precision": "f32",
+                  "learning_rate": 1e-4, "disc_width": 0.25, "batch_size": 2},
+        "model": {"inter_channels": 16, "hidden_channels": 16, "upsample_initial_channel": 32,
+                  "gin_channels": 16, "resblock_kernel_sizes": [3],
+                  "resblock_dilation_sizes": [[1, 3, 5]], "enc_wn_layers": 2,
+                  "flow_wn_layers": 2, "n_flows": 2}})
+    frames = 16
+    wave = np.stack([synth_voice(1.0, SR, rng)[: frames * 320 + 960] for _ in range(2)])
+    batch = {"unit": torch.from_numpy(rng.standard_normal((2, frames, 256)).astype(np.float32)),
+             "wave_s16": torch.from_numpy(np.round(wave * 32767).astype(np.int16)),
+             "n_take": torch.tensor([frames, frames - 5], dtype=torch.int32)}
+    eps_q = torch.from_numpy(rng.standard_normal((2, 16, frames)).astype(np.float32))
+    ids = torch.tensor([3, 8])
+    cpu = create_train_state(cfg, torch.device("cpu"))
+    gpu = create_train_state(cfg, torch.device("cuda"), copy.deepcopy(cpu.net_g),
+                             copy.deepcopy(cpu.net_d))
+    results = []
+    for state in (cpu, gpu):
+        dev = next(state.net_g.parameters()).device
+        # the CPU side on torch's native convolutions: oneDNN's float32 weight
+        # gradients of the scale discriminator's first convolutions drift by
+        # up to 3e-3 of their max, depending on the thread count
+        with torch.backends.mkldnn.flags(enabled=False):
+            results.append(train_step(state, {k: v.to(dev) for k, v in batch.items()},
+                                      mel_basis(cfg, dev), eps_q=eps_q.to(dev), ids_slice=ids,
+                                      debug_grads=True))
+    ref, ours = results
+    loss_keys = ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl",
+                 "loss/g/total")
+    losses = {k: [float(ours[k]), float(ref[k])] for k in loss_keys}
+    grad_err = {}
+    for which in ("d", "g"):
+        grad_err[which] = max(
+            float((ours[f"debug/{which}_grads"][k].cpu() - v).abs().max()
+                  / v.abs().max().clamp(min=1e-6))
+            for k, v in ref[f"debug/{which}_grads"].items())
+    out = {"losses_card_cpu": losses, "grad_max_rel_err": grad_err}
+    print("train_cpu_reference_check " + json.dumps(out))
+    require(all(abs(a - b) <= 1e-5 + 2e-4 * abs(b) for a, b in losses.values()),
+            "training losses on the card match the CPU path")
+    require(max(grad_err.values()) < 2e-3, "training gradients on the card match the CPU path")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.convert import LOOP_SPAN
     from quickvc_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -413,11 +759,14 @@ def main() -> int:
                             for i in range(1, REPEATS)]
         for run in runs:
             check_outputs(run, n_frames)
-        print("profile " + json.dumps(profile_convert(files, os.path.join(tmp, "prof"))))
+        print("profile " + json.dumps(profile_span(
+            lambda: run_convert(files, os.path.join(tmp, "prof")), LOOP_SPAN)))
+        train = check_training(tmp, rng, files, n_frames)
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
-    expected = {"wave_to_mel": len(TARGET_SECONDS), "attention_packed": 12 * n_batches,
-                "polar_inverse_stft": n_batches}
+    expected = {name: 0 for name in launches} | {
+        "wave_to_mel": len(TARGET_SECONDS), "attention_packed": 12 * n_batches,
+        "polar_inverse_stft": n_batches}
     audio = sum(r["audio_seconds"] for r in runs)
     wall = sum(r["wall_seconds"] for r in runs)
     throughput = {"pairs": summary["pairs"], "batches": n_batches, "repeats": REPEATS,
@@ -428,15 +777,26 @@ def main() -> int:
                   "launches": launches, "expected_launches": expected}
     print("convert " + json.dumps(throughput))
     reference = check_against_cpu(cfg, net_g, hubert, rng)
+    disc = check_disc_fused(dev, rng)
+    check_train_step_against_cpu(rng)
 
+    # launches: each kernel's count in the path that runs it (the counters
+    # zeroed just before that path, read just after)
+    path_of = {"wave_to_mel": ("convert", launches), "attention_packed": ("convert", launches),
+               "polar_inverse_stft": ("convert", launches),
+               "wave_to_spec_halo": ("train", train["launches"]),
+               "conv5_lrelu": ("disc_fused_path", disc["launches"]),
+               "conv5_lrelu_dw": ("disc_fused_path", disc["launches"])}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["path"], counts = path_of[k["name"]]
+        k["launches"] = counts[k["name"]]
         detail = {x: k[x] for x in ("name", "tpu_id", "shape", "max_abs_err", "max_rel_err",
                                     "atol", "rtol", "within_tol", "ms", "plain_ms",
-                                    "library_ms", "bound_ms", "bound_by")}
-        if "dense_dft_ops_ms" in k:
-            detail["dense_dft_ops_ms"] = k["dense_dft_ops_ms"]
-        detail["launches_per_batch"] = k["launches"] / n_batches
+                                    "library_ms", "bound_ms", "bound_by", "path", "launches")}
+        for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "dx_ms",
+                      "dx_plain_ms", "dx_library_ms"):
+            if extra in k:
+                detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

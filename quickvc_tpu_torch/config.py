@@ -4,13 +4,14 @@ Reads the same JSON as the JAX package (``configs/quickvc.json``) and the
 reference's ``logs/quickvc/config.json``. Unknown and legacy keys (``ssl_dim``,
 ``use_sr``, ``n_layers_q`` ...) are accepted and ignored, like the
 reference's ``**kwargs`` shim (reference ``models.py:568-575``). Fields that
-only the JAX trainer reads are kept so that one file configures both.
+only the JAX package reads are kept so that one file configures both.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -42,7 +43,9 @@ class TrainConfig:
     hop_sizes: tuple[int, ...] = (30, 60, 10)
     win_lengths: tuple[int, ...] = (150, 300, 60)
     window: str = "hann_window"
-    # Fields read by the JAX trainer (quickvc_tpu/config.py documents them).
+    # Fields of the JAX trainer (quickvc_tpu/config.py documents them); the
+    # port's trainer refuses the values it has not ported
+    # (train/state.py:check_supported).
     precision: str = "bf16"
     num_hosts: int = 1
     data_axis: str = "data"
@@ -175,3 +178,15 @@ def load_config(path: str) -> QuickVCConfig:
     """Load a QuickVC JSON config (accepts both new and reference schemas)."""
     with open(path) as f:
         return config_from_dict(json.load(f))
+
+
+def get_config(config_path: str, model_name: str = "quickvc",
+               model_root: str = "./logs") -> QuickVCConfig:
+    """Load a config for a training run: ``model_dir = model_root/model_name``,
+    created, with the resolved config archived there as ``config.json``
+    (reference ``utils.get_hparams``)."""
+    cfg = load_config(config_path)
+    cfg.model_dir = os.path.join(model_root, model_name)
+    os.makedirs(cfg.model_dir, exist_ok=True)
+    cfg.save(os.path.join(cfg.model_dir, "config.json"))
+    return cfg

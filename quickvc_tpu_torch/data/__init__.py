@@ -1,1 +1,1 @@
-"""Host audio I/O (numpy/scipy)."""
+"""Host audio I/O and the training data pipeline (numpy/scipy)."""

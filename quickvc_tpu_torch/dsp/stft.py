@@ -1,4 +1,4 @@
-"""Forward STFT featurization, plain PyTorch (the oracle of kernel K1).
+"""Forward STFT featurization, plain PyTorch (the oracles of kernels K1 and K4).
 
 Same contract as ``quickvc_tpu/dsp/stft.py`` and reference
 ``mel_processing.py:15-98``: reflect-pad ``(n_fft - hop)/2`` both sides,
@@ -39,6 +39,20 @@ def wave_to_spec(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int) -> t
     z = torch.fft.rfft(frames * w, dim=-1)
     spec = torch.sqrt(z.real * z.real + z.imag * z.imag + 1e-6)
     return spec.reshape(*lead, *spec.shape[-2:])
+
+
+def wave_to_spec_halo(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int) -> torch.Tensor:
+    """:func:`wave_to_spec` of a wave that already carries the ``(n_fft-hop)/2``
+    halo on both ends, so nothing is padded: (B, T + 2*pad) -> (B, T//hop, Freq).
+
+    The compact-transfer training batch (``train.transfer='compact'``) ships
+    such a crop; the halo gives each frame the samples the full path's
+    reflect-padded utterance would have given it.
+    """
+    frames = y.float().unfold(-1, n_fft, hop_size)         # (B, Frame, n_fft)
+    w = torch.as_tensor(padded_window(n_fft, win_size), device=y.device)
+    z = torch.fft.rfft(frames * w, dim=-1)
+    return torch.sqrt(z.real * z.real + z.imag * z.imag + 1e-6)
 
 
 def spec_to_mel(spec: torch.Tensor, mel_basis: torch.Tensor) -> torch.Tensor:

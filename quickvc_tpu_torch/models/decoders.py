@@ -4,7 +4,8 @@ Port of ``quickvc_tpu/models/decoders.py:MultistreamISTFTGenerator``
 (reference ``models.py:304-415``): conv_pre(k=7) + speaker ``cond``, two
 ConvTranspose upsamplings with MRF ResBlocks, LReLU(0.01), left reflection
 pad, ``subband_conv_post`` to ``subbands * 2 * (n_fft/2+1)`` band-major
-channels, the polar iSTFT head per band (kernel K3 on the card), then
+channels, the polar iSTFT head per band (kernel K3 on the card at inference, the
+differentiable plain version in training), then
 zero-stuffing x subbands through the ``updown_filter`` transposed conv and
 the learned 63-tap ``multistream_conv_post``. Channels-first (B, C, T).
 """
@@ -17,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as polar_inverse_stft_plain
 from quickvc_tpu_torch.models.layers import (WNConv1d, WNConvTranspose1d,
                                              leaky_relu, reflection_pad_left)
 from quickvc_tpu_torch.models.modules import ResBlock1
@@ -55,7 +57,11 @@ class MultistreamISTFTGenerator(nn.Module):
         self.register_buffer("updown_filter", updown)
         self.multistream_conv_post = WNConv1d(subbands, 1, 63, padding=31, bias=False)
 
-    def forward(self, x: torch.Tensor, g: torch.Tensor):
+    def forward(self, x: torch.Tensor, g: torch.Tensor, *, differentiable: bool):
+        """``differentiable=True`` (training) runs the head as the plain
+        :func:`quickvc_tpu_torch.dsp.istft.polar_inverse_stft`, which autograd
+        differentiates, as the JAX training step runs its XLA head;
+        ``False`` (inference) dispatches the head to kernel K3 on the card."""
         x = self.conv_pre(x) + self.cond(g)
         for i, up in enumerate(self.ups):
             x = up(leaky_relu(x))
@@ -67,8 +73,8 @@ class MultistreamISTFTGenerator(nn.Module):
         # band-major channels (B, s, 2*n_freq, F); bands fold into the batch.
         # The head reads these strided views in place: (B*s, F, n_freq).
         spec = x.view(b * s, 2 * n_freq, f).transpose(1, 2)
-        wave = polar_inverse_stft(spec[..., :n_freq], spec[..., n_freq:],
-                                  self.n_fft, self.hop)
+        head = polar_inverse_stft_plain if differentiable else polar_inverse_stft
+        wave = head(spec[..., :n_freq], spec[..., n_freq:], self.n_fft, self.hop)
         y_mb = wave.view(b, s, -1)
         y_mb = F.conv_transpose1d(y_mb, self.updown_filter * s, stride=s)
         return self.multistream_conv_post(y_mb), y_mb

@@ -1,4 +1,4 @@
-"""Conv layers with the reference's ``state_dict`` keys, channels-first (B, C, T).
+"""Conv layers with the reference's ``state_dict`` keys, channels-first (B, C, T[, W]).
 
 Weight norm keeps explicit ``weight_g``/``weight_v`` parameters, the keys of
 the legacy ``torch.nn.utils.weight_norm`` that reference checkpoints carry
@@ -60,6 +60,20 @@ class WNConv1d(_WeightNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(x, self.weight(), self.bias, self.stride, self.padding,
                         self.dilation, self.groups)
+
+
+class WNConv2d(_WeightNorm):
+    """``weight_norm(nn.Conv2d(...))``: weight_v (out, in, kh, kw), weight_g (out, 1, 1, 1)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: tuple[int, int],
+                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0)):
+        super().__init__()
+        self._init_wn((out_ch, in_ch, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight(), self.bias, self.stride, self.padding)
 
 
 class WNConvTranspose1d(_WeightNorm):

@@ -131,10 +131,14 @@ class CondNormalWN(nn.Module):
         self.proj = nn.Conv1d(hidden_channels, 2 * out_channels, 1)
 
     def forward(self, x: torch.Tensor, g: torch.Tensor | None = None,
-                noise_scale: float = 1.0, generator: torch.Generator | None = None):
+                noise_scale: float = 1.0, generator: torch.Generator | None = None,
+                eps: torch.Tensor | None = None):
+        """``eps`` replaces the standard-normal draw (tests inject the JAX
+        package's noise through it)."""
         stats = self.proj(self.enc(self.pre(x), g))
         mu, logs = stats[:, : self.out_channels], stats[:, self.out_channels :]
         if noise_scale == 0.0:
             return mu, mu, logs
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
         return mu + eps * torch.exp(logs) * noise_scale, mu, logs

@@ -1,8 +1,11 @@
-"""QuickVC generator ``SynthesizerTrn``: inference path, reference state_dict layout.
+"""QuickVC generator ``SynthesizerTrn``, reference state_dict layout.
 
-Port of ``quickvc_tpu/models/synthesizer.py`` (reference ``models.py:549-642``).
-``enc_q`` is built (the training posterior) so that a reference ``G_*.pth``
-loads with ``strict=True``; ``infer`` does not run it.
+Port of ``quickvc_tpu/models/synthesizer.py`` (reference ``models.py:549-642``):
+the training ``forward`` (posterior ``enc_q`` on the linear spectrogram,
+forward flow, a random ``segment_size``-frame slice decoded with the
+differentiable head) and ``infer`` (prior sample, reverse flow, decoder with
+kernel K3). Tensors are channels-first: unit (B, 256, F), spec (B, 641, F),
+mel (B, 80, F), as the reference's ``forward(c, spec, mel)`` takes them.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from quickvc_tpu_torch.config import ModelConfig
 from quickvc_tpu_torch.models.decoders import MultistreamISTFTGenerator
 from quickvc_tpu_torch.models.encoders import SpeakerEncoder
 from quickvc_tpu_torch.models.modules import CondNormalWN, ResidualCouplingBlock
+from quickvc_tpu_torch.ops.slicing import rand_slice_segments, slice_segments
 
 
 class SynthesizerTrn(nn.Module):
@@ -38,13 +42,37 @@ class SynthesizerTrn(nn.Module):
             m.upsample_rates, m.upsample_initial_channel, m.upsample_kernel_sizes,
             m.gen_istft_n_fft, m.gen_istft_hop_size, m.subbands, m.gin_channels)
 
+    def forward(self, unit: torch.Tensor, spec: torch.Tensor, mel: torch.Tensor,
+                generator: torch.Generator | None = None,
+                eps_q: torch.Tensor | None = None,
+                ids_slice: torch.Tensor | None = None):
+        """Training forward. Returns (y_hat (B, 1, 320*seg), the streams before
+        the learned post filter (B, subbands, 320*seg), ids_slice (B,),
+        (z, z_p, m_p, logs_p, m_q, logs_q)).
+
+        ``generator`` draws the posterior noise and the slice starts;
+        ``eps_q`` (B, inter, F) and ``ids_slice`` (B,) replace those draws
+        (tests inject the JAX package's). The prior's own sample is unused
+        in training, so enc_p runs at noise 0.
+        """
+        g = self.enc_spk(mel.transpose(1, 2))[:, :, None]
+        _, m_p, logs_p = self.enc_p(unit, noise_scale=0.0)
+        z, m_q, logs_q = self.enc_q(spec, g, generator=generator, eps=eps_q)
+        z_p = self.flow(z, g)
+        if ids_slice is None:
+            z_slice, ids_slice = rand_slice_segments(z, self.segment_size, generator)
+        else:
+            z_slice = slice_segments(z, ids_slice, self.segment_size)
+        o, o_mb = self.dec(z_slice, g, differentiable=True)
+        return o, o_mb, ids_slice, (z, z_p, m_p, logs_p, m_q, logs_q)
+
     def infer(self, unit: torch.Tensor, g_vec: torch.Tensor, noise_scale: float = 1.0,
               generator: torch.Generator | None = None) -> torch.Tensor:
         """Units (B, unit_channels, F) + d-vectors (B, gin) -> wave (B, 1, 320*F)."""
         g = g_vec[:, :, None]
         z_p, _, _ = self.enc_p(unit, noise_scale=noise_scale, generator=generator)
         z = self.flow(z_p, g, reverse=True)
-        return self.dec(z, g)[0]
+        return self.dec(z, g, differentiable=False)[0]
 
     def embed_speaker(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, F, 80) mel windows -> (B, gin) d-vectors."""

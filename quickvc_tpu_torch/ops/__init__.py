@@ -1,12 +1,15 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch version.
 
 Each wrapper takes the plain version for a CPU tensor and launches its
-kernel for a CUDA tensor (or raises); it counts its launches in ``STATS``.
+kernel for a CUDA tensor (or raises); it counts its launches in a
+``KernelStats``.
 """
 
-from quickvc_tpu_torch.ops import fused_attention, fused_istft, fused_mel
+from quickvc_tpu_torch.ops import fused_attention, fused_disc_conv, fused_istft, fused_mel
 
-KERNELS = {m.STATS.name: m.STATS for m in (fused_mel, fused_attention, fused_istft)}
+KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_istft.STATS,
+                               fused_mel.SPEC_STATS, fused_disc_conv.STATS,
+                               fused_disc_conv.DW_STATS)}
 
 
 def reset_launch_counts() -> None:

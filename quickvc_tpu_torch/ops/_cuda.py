@@ -30,15 +30,18 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu")
+SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "qvc_wave_to_mel": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "qvc_wave_to_spec_halo": [_P, _P] + [_I] * 7 + [_P],
     "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _P],
     "qvc_attention_packed": [_P, _P, _P, _P, _I, _I, _I] + [_L] * 6 + [_F, _P],
+    "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
+    "qvc_conv5_dw": [_P, _P, _P] + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -136,6 +139,20 @@ def check(err: int, what: str) -> None:
 def stream_ptr(t: torch.Tensor) -> int:
     """Raw handle of the current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a gradient through a kernel that has none.
+
+    A ctypes kernel's output carries no ``grad_fn``: differentiating through
+    it would silently give every earlier layer no gradient. The dispatchers
+    call this on both devices, so the CPU tests see the card's contract.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            "tensors that do not require grad (training differentiates "
+            "through the plain version instead)")
 
 
 def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as polar_inverse_stft_plain
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library,
+from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library, refuse_grad,
                                          require_cuda_f32, stream_ptr)
 
 STATS = KernelStats("polar_inverse_stft")
@@ -42,7 +42,12 @@ def polar_inverse_stft_kernel(log_mag: torch.Tensor, phase: torch.Tensor,
 
 def polar_inverse_stft(log_mag: torch.Tensor, phase: torch.Tensor,
                        n_fft: int, hop: int) -> torch.Tensor:
-    """(rows, F, n_fft//2+1) x2 -> (rows, hop*(F-1)): plain on CPU, K3 on CUDA."""
+    """(rows, F, n_fft//2+1) x2 -> (rows, hop*(F-1)): plain on CPU, K3 on CUDA.
+
+    K3 has no backward, so inputs that require grad are refused on both
+    devices; training differentiates through the plain version directly.
+    """
+    refuse_grad("polar_inverse_stft", log_mag, phase)
     if log_mag.device.type == "cpu":
         return polar_inverse_stft_plain(log_mag, phase, n_fft, hop)
     return polar_inverse_stft_kernel(log_mag, phase, n_fft, hop)

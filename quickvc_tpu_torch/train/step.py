@@ -1,0 +1,158 @@
+"""One GAN training step: D update, then G against the updated D.
+
+Port of ``quickvc_tpu/train/step.py:134-357`` (reference ``train.py:117-162``):
+
+1. Decode the batch. Compact (``wave_s16``/``n_take``): the s16 crop / 32768,
+   its spectrogram by kernel K4 on the card, frames and samples past
+   ``n_take`` masked to zero; full: ``unit``/``spec``/``wave`` as given.
+2. mel from spec; the generator forward, once (posterior sample, random
+   segment slice, differentiable iSTFT head) -> y_hat; the target wave
+   sliced to the same segment.
+3. D phase: MPD(y, y_hat.detach()) paired; LSGAN loss; AdamW step of D.
+4. G phase against the updated D, real and fake apart: LSGAN + feature
+   matching + 45 * mel-L1 (``y_hat``'s mel by the differentiable
+   :func:`quickvc_tpu_torch.dsp.stft.wave_to_mel`) + KL; AdamW step of G.
+
+The guard: a non-finite gradient or loss, or ``|loss| >= guard_loss_max``,
+skips that network's optimizer step, so its params and moments stay as they
+were. The step returns the JAX step's metric names as tensors; reading them
+syncs with the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from quickvc_tpu_torch.dsp.mel import mel_filterbank
+from quickvc_tpu_torch.dsp.stft import spec_to_mel, wave_to_mel
+from quickvc_tpu_torch.losses import discriminator_loss, feature_loss, generator_loss, kl_loss
+from quickvc_tpu_torch.ops.fused_mel import wave_to_spec_halo
+from quickvc_tpu_torch.ops.slicing import slice_segments
+from quickvc_tpu_torch.train.state import TrainState
+
+STEP_SPAN = "quickvc_train_step"
+
+
+def mel_basis(cfg, device: torch.device) -> torch.Tensor:
+    d = cfg.data
+    return torch.as_tensor(mel_filterbank(d.sampling_rate, d.filter_length, d.n_mel_channels,
+                                          d.mel_fmin, d.mel_fmax), device=device)
+
+
+def decode_batch(batch: dict[str, torch.Tensor], cfg):
+    """Either wire format -> unit (B, F, Cu), spec (B, F, Freq), wave (B, F*hop)."""
+    if "wave_s16" not in batch:
+        return batch["unit"], batch["spec"], batch["wave"][..., 0]
+    d = cfg.data
+    hop, pad = d.hop_length, (d.filter_length - d.hop_length) // 2
+    unit = batch["unit"]
+    wf = batch["wave_s16"].float() / 32768.0
+    n_take = batch["n_take"].to(unit.device, torch.long)[:, None]
+    frames = unit.shape[1]
+    spec = wave_to_spec_halo(wf, d.filter_length, hop, d.win_length)
+    spec = spec * (torch.arange(frames, device=unit.device)[None, :] < n_take)[..., None]
+    wave = wf[:, pad:-pad] * (torch.arange(frames * hop, device=unit.device)[None, :]
+                              < n_take * hop)
+    return unit, spec, wave
+
+
+def _guard_ok(grads, loss: torch.Tensor, cfg) -> bool:
+    """True unless the update must be skipped (quickvc_tpu/train/step.py:45-78)."""
+    ok = torch.isfinite(loss)
+    if cfg.train.guard_loss_max > 0:
+        ok = ok & (loss.abs() < cfg.train.guard_loss_max)
+    if cfg.train.guard_nonfinite:
+        ok = ok & torch.isfinite(torch.stack([g.sum() for g in grads])).all()
+    return bool(ok)
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
+def _apply(optim: torch.optim.Optimizer, params, grads, ok: bool) -> None:
+    if ok:
+        for p, g in zip(params, grads):
+            p.grad = g
+        optim.step()
+    for p in params:
+        p.grad = None
+
+
+@contextlib.contextmanager
+def _frozen(module: torch.nn.Module):
+    """No parameter gradients for ``module`` inside (its input's still flow)."""
+    flags = [p.requires_grad for p in module.parameters()]
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, f in zip(module.parameters(), flags):
+            p.requires_grad_(f)
+
+
+def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.Tensor,
+               generator: torch.Generator | None = None,
+               eps_q: torch.Tensor | None = None, ids_slice: torch.Tensor | None = None,
+               debug_grads: bool = False) -> dict[str, torch.Tensor]:
+    """One step in place on ``state``. ``generator`` draws the posterior noise
+    and slice starts; ``eps_q`` (B, inter, F) and ``ids_slice`` (B,) replace
+    them. ``debug_grads`` adds ``debug/d_grads`` and ``debug/g_grads``
+    (name -> gradient)."""
+    cfg = state.cfg
+    net_g, net_d = state.net_g, state.net_d
+    hop, seg_frames = cfg.data.hop_length, cfg.segment_frames
+    guard = cfg.train.guard_nonfinite or cfg.train.guard_loss_max > 0
+    with torch.profiler.record_function(STEP_SPAN):
+        unit, spec, wave = decode_batch(batch, cfg)
+        mel = spec_to_mel(spec, basis)                                  # (B, F, 80)
+        y_hat, _, ids, (z, z_p, m_p, logs_p, m_q, logs_q) = net_g(
+            unit.transpose(1, 2), spec.transpose(1, 2), mel.transpose(1, 2),
+            generator, eps_q, ids_slice)
+        y_seg = slice_segments(wave[:, None], ids * hop, cfg.train.segment_size)
+
+        # ---- D phase ----
+        d_names, d_params = zip(*net_d.named_parameters())
+        logits_r, logits_g, _, _ = net_d(y_seg, y_hat.detach(), pair=True)
+        loss_disc, losses_d_r, losses_d_g = discriminator_loss(logits_r, logits_g)
+        d_grads = torch.autograd.grad(loss_disc, d_params)
+        d_ok = _guard_ok(d_grads, loss_disc, cfg) if guard else True
+        _apply(state.optim_d, d_params, d_grads, d_ok)
+
+        # ---- G phase, against the updated D ----
+        with _frozen(net_d):
+            logits_r, logits_g, fmap_r, fmap_g = net_d(y_seg, y_hat, pair=False)
+        d = cfg.data
+        y_hat_mel = wave_to_mel(y_hat[:, 0], basis, d.filter_length, hop, d.win_length)
+        y_mel = slice_segments(mel.transpose(1, 2), ids, seg_frames).transpose(1, 2)
+        loss_mel = cfg.train.c_mel * torch.mean(torch.abs(y_mel - y_hat_mel))
+        loss_kl = cfg.train.c_kl * kl_loss(z_p, logs_q, m_p, logs_p)
+        loss_fm = feature_loss(fmap_r, fmap_g)
+        loss_gen, gen_losses = generator_loss(logits_g)
+        loss_g_total = loss_gen + loss_fm + loss_mel + loss_kl
+        g_names, g_params = zip(*net_g.named_parameters())
+        g_grads = torch.autograd.grad(loss_g_total, g_params, allow_unused=True)
+        g_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(g_params, g_grads)]
+        g_ok = _guard_ok(g_grads, loss_g_total, cfg) if guard else True
+        _apply(state.optim_g, g_params, g_grads, g_ok)
+    state.step += 1
+
+    metrics = {
+        "loss/g/total": loss_g_total, "loss/g/gen": loss_gen, "loss/g/fm": loss_fm,
+        "loss/g/mel": loss_mel, "loss/g/kl": loss_kl,
+        "loss/g/subband": torch.zeros((), device=loss_mel.device),
+        "loss/g": gen_losses, "img/mel_gen": y_hat_mel[0], "img/mel_org": y_mel[0],
+        "loss/d/total": loss_disc, "loss/d/r": losses_d_r, "loss/d/g": losses_d_g,
+        "img/mel_all": mel[0],
+        "grad_norm/d": _global_norm(d_grads), "grad_norm/g": _global_norm(g_grads),
+    }
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if guard:
+        metrics["guard/d_skipped"] = torch.tensor(0.0 if d_ok else 1.0)
+        metrics["guard/g_skipped"] = torch.tensor(0.0 if g_ok else 1.0)
+    if debug_grads:
+        metrics["debug/d_grads"] = dict(zip(d_names, d_grads))
+        metrics["debug/g_grads"] = dict(zip(g_names, g_grads))
+    return metrics

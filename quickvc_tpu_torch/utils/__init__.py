@@ -1,1 +1,1 @@
-"""Weight carrying and checkpoint loading."""
+"""Weight carrying, checkpoint loading and training checkpoints."""

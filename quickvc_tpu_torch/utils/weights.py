@@ -1,11 +1,12 @@
 """Carrying weights into the port: JAX parameter trees, reference ``.pth``, bshall ``.pt``.
 
-- :func:`generator_state_dict_from_jax` is the port's own copy of the mapping
-  in ``quickvc_tpu/utils/torch_export.py:44-134`` (flax generator params ->
-  reference ``SynthesizerTrn`` state dict).
+- :func:`generator_state_dict_from_jax` and
+  :func:`discriminator_state_dict_from_jax` are the port's own copies of the
+  mappings in ``quickvc_tpu/utils/torch_export.py:44-152`` (flax params ->
+  reference ``SynthesizerTrn`` / ``MultiPeriodDiscriminator`` state dicts).
 - :func:`hubert_state_dict_from_jax` inverts ``quickvc_tpu/utils/hubert_port.py:port_hubert``.
-- :func:`load_generator` / :func:`load_hubert` read checkpoints and load
-  them with ``strict=True``.
+- :func:`load_generator` / :func:`load_discriminator` / :func:`load_hubert`
+  read checkpoints and load them with ``strict=True``.
 - :func:`init_random_` gives a module seeded random weights.
 
 Layouts: flax ``kernel``/``v`` (k, in, out) <-> torch Conv1d ``weight`` (out,
@@ -36,10 +37,11 @@ def _conv_w(v) -> np.ndarray:
     return _np(v).transpose(2, 1, 0)  # (k, in, out) -> (out, in, k)
 
 
-def _wn_conv(dst: dict, prefix: str, p: Mapping[str, Any], transpose=None) -> None:
+def _wn_conv(dst: dict, prefix: str, p: Mapping[str, Any], transpose=None,
+             g_rank: int = 3) -> None:
     v = _np(p["v"])
     dst[f"{prefix}.weight_v"] = v.transpose(*transpose) if transpose else _conv_w(v)
-    dst[f"{prefix}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1)
+    dst[f"{prefix}.weight_g"] = _np(p["g"]).reshape((-1,) + (1,) * (g_rank - 1))
     if "bias" in p:
         dst[f"{prefix}.bias"] = _np(p["bias"])
 
@@ -123,6 +125,27 @@ def generator_state_dict_from_jax(params: Mapping[str, Any], model_cfg) -> dict[
     _wn_conv(sd, "dec.subband_conv_post", dec["head"]["subband_conv_post"])
     _wn_conv(sd, "dec.multistream_conv_post", dec["multistream_conv_post"])
     sd["dec.updown_filter"] = _updown_filter(model_cfg.subbands)
+    return _tensors(sd)
+
+
+def discriminator_state_dict_from_jax(params: Mapping[str, Any],
+                                      periods=(2, 3, 5, 7, 11)) -> dict[str, torch.Tensor]:
+    """flax ``MultiPeriodDiscriminator`` params (numpy leaves) -> reference
+    ``MultiPeriodDiscriminator`` state dict (the port's own copy of
+    ``quickvc_tpu/utils/torch_export.py:export_discriminator``). Conv2d
+    ``v`` (kh, kw, in, out) -> ``weight_v`` (out, in, kh, kw)."""
+    sd: dict[str, np.ndarray] = {}
+    s = params["disc_s"]
+    for i in range(6):
+        _wn_conv(sd, f"discriminators.0.convs.{i}", s[f"WNConv1d_{i}"])
+    _wn_conv(sd, "discriminators.0.conv_post", s["WNConv1d_6"])
+    for d, period in enumerate(periods, start=1):
+        p = params[f"disc_p{period}"]
+        for i in range(5):
+            _wn_conv(sd, f"discriminators.{d}.convs.{i}", p[f"WNConv2d_{i}"],
+                     transpose=(3, 2, 0, 1), g_rank=4)
+        _wn_conv(sd, f"discriminators.{d}.conv_post", p["WNConv2d_5"],
+                 transpose=(3, 2, 0, 1), g_rank=4)
     return _tensors(sd)
 
 
@@ -252,6 +275,13 @@ def load_generator(path: str, model: nn.Module) -> None:
           if not (k.startswith("dec.") and k.endswith("stft.window"))}
     sd.setdefault("dec.updown_filter", torch.from_numpy(_updown_filter(model.dec.subbands)))
     model.load_state_dict(sd, strict=True, assign=True)
+
+
+def load_discriminator(path: str, model: nn.Module) -> None:
+    """Load a reference ``D_*.pth`` (``{"model": sd, ...}`` or a bare sd) strictly."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
+    model.load_state_dict(sd, strict=True)
 
 
 def load_hubert(path: str, model: nn.Module) -> None:

@@ -3,7 +3,9 @@ version on the same CUDA tensors. Marked ``cuda``; skips without a card.
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-Tolerances: log-mel atol/rtol 2e-3, attention and iSTFT atol 1e-4 / rtol 1e-3.
+Tolerances: log-mel atol/rtol 2e-3, attention and iSTFT atol 1e-4 / rtol 1e-3,
+the halo spectrogram atol/rtol 2e-4 (the JAX gate), the k=5 conv and its
+gradients atol 1e-4 / rtol 1e-3.
 """
 
 import pytest
@@ -22,6 +24,49 @@ def cuda():
 
 def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+def test_wave_to_spec_halo_kernel(cuda):
+    from quickvc_tpu_torch.dsp.stft import wave_to_spec_halo as plain
+    from quickvc_tpu_torch.ops import fused_mel
+
+    y = 0.3 * torch.randn(3, 37 * 320 + 960, device=cuda, generator=_gen(cuda, 2))
+    before = fused_mel.SPEC_STATS.launches
+    ours = fused_mel.wave_to_spec_halo(y, 1280, 320, 1280)
+    assert fused_mel.SPEC_STATS.launches == before + 1
+    assert ours.shape == (3, 37, 641)
+    torch.testing.assert_close(ours, plain(y, 1280, 320, 1280), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 24, 40), (6, 64, 256, 128)])
+def test_conv5_lrelu_kernels(cuda, shape):
+    """K5 forward against the plain version; through the autograd.Function,
+    K5's dx and K6's dW against the plain flipped conv and shifted products
+    on the same dym (the LReLU mask from the kernel's output), db = sum(dym)."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+
+    n, rows, c_in, c_out = shape
+    g = _gen(cuda, c_in)
+    x = torch.randn(n, rows, c_in, device=cuda, generator=g)
+    k = torch.randn(5, c_in, c_out, device=cuda, generator=g) / (5 * c_in) ** 0.5
+    b = 0.1 * torch.randn(c_out, device=cuda, generator=g)
+    dy = torch.randn(n, rows, c_out, device=cuda, generator=g)
+    ins = [t.clone().requires_grad_() for t in (x, k, b)]
+    before = (fdc.STATS.launches, fdc.DW_STATS.launches)
+    y = fdc.conv5_lrelu(*ins, 0.1)
+    y.backward(dy)
+    assert (fdc.STATS.launches, fdc.DW_STATS.launches) == (before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(y, fdc.conv5_lrelu_reference(x, k, b, 0.1), atol=1e-4, rtol=1e-3)
+    dym = dy * torch.where(y > 0, 1.0, 0.1)
+    xp = F.pad(x, (0, 0, 2, 2))
+    plain = [fdc.conv5_lrelu_reference(dym, k.flip(0).transpose(1, 2), None, 1.0),
+             torch.stack([torch.einsum("nrc,nro->co", xp[:, dr : dr + rows], dym)
+                          for dr in range(5)]),
+             dym.sum(dim=(0, 1))]
+    for ours, ref in zip(ins, plain):
+        torch.testing.assert_close(ours.grad, ref, atol=1e-4, rtol=1e-3)
 
 
 def test_wave_to_mel_kernel(cuda):

@@ -56,7 +56,7 @@ def test_kernel_build_dir(tmp_path, monkeypatch):
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel entry point never runs a plain version: a CPU tensor is an error."""
-    from quickvc_tpu_torch.ops import fused_attention, fused_istft, fused_mel
+    from quickvc_tpu_torch.ops import fused_attention, fused_disc_conv, fused_istft, fused_mel
 
     x = torch.zeros(1, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -65,3 +65,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         fused_mel.wave_to_mel_kernel(torch.zeros(1, 3200), 16000, 1280, 320, 1280, 80)
     with pytest.raises(ValueError, match="CUDA"):
         fused_istft.polar_inverse_stft_kernel(torch.zeros(1, 8, 9), torch.zeros(1, 8, 9))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mel.wave_to_spec_halo_kernel(torch.zeros(1, 3200), 1280, 320, 1280)
+    k = torch.zeros(5, 64, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_disc_conv.conv5_lrelu_kernel(x, k, None, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_disc_conv.conv5_dw_kernel(x, x)
