@@ -9,7 +9,9 @@
    PyTorch library call for the same function (CUDA events, after warm-up):
    K1-K3 at the conversion's shapes, K4 at the full training batch
    (32, 512*320+960), K5 (forward and dx) and K6 (dW) at DiscriminatorP's
-   fifth conv, x (128, 64, 1024).
+   fifth conv, x (128, 64, 1024), K7 (HuBERT's extractor front) at the
+   encoding batch's wave (16, 96080) and K8 (a whole HuBERT layer) at its
+   hidden state (16, 300, 768).
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
@@ -31,6 +33,15 @@
    cuDNN discriminator.
 7. Checks one training step on the card against the same step on the CPU
    plain path at a small config (same weights, batch and draws).
+8. Drives offline unit encoding, the CLI ``quickvc_tpu_torch.encode`` with
+   ``--batch 16``, at full width (the conversion's random HuBERT-soft) on 32
+   seeded synthetic wavs in two 1-s buckets, three times: the default
+   ``faststats`` front, the ``pallas`` front (K7) and the ``pallas`` front
+   with every layer fused (K8); checks each run's launches and holds its
+   units against the default run's; prints each run's audio seconds per
+   wall second and profiles each once more.
+9. Checks the encoding of one short file on the card (K7, K8) against the
+   CPU plain path.
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -78,8 +89,10 @@ TPU_KERNELS = [
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
     ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
-    ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front", "to port"),
-    ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer", "to port"),
+    ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
+     "ported: quickvc_tpu_torch/csrc/fused_extractor.cu"),
+    ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
+     "ported: quickvc_tpu_torch/csrc/fused_transformer.cu"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
      "to port: layout wrapper over K2"),
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
@@ -94,9 +107,15 @@ TRAIN_UTTERANCES = 32
 TRAIN_BATCH = 32
 DISC_BATCH = 2 * TRAIN_BATCH        # the D phase runs real||fake paired
 SEGMENT = 10240
+# offline encoding: 32 files, 16 in the 5-s bucket and 16 in the 6-s one, 16 to a batch
+ENCODE_SECONDS = [4.2 + 0.05 * i for i in range(16)] + [5.2 + 0.05 * i for i in range(16)]
+ENCODE_BATCH = 16
+ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
+               ("pallas_fused_layer", "pallas", True))   # (name, --hubert-front, fused_layer)
 # the port's __global__ functions, as the profiler names them
 DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kernel",
-                    "wave_to_spec_halo_kernel", "conv5_gemm_kernel")
+                    "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "extractor_front_kernel",
+                    "linear_kernel", "row_layer_norm_kernel")
 
 
 class CheckFailed(Exception):
@@ -245,6 +264,7 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         bound_bytes_ms=4 * (2 * rows * f * 9 + rows * 4 * (f - 1)) / HBM_BYTES * 1e3))
 
     results += check_training_kernels(dev, rng)
+    results += check_encoding_kernels(dev, rng)
     for r in results:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
         r["bound_by"] = "operations" if r["bound_ops_ms"] >= r["bound_bytes_ms"] else "bytes"
@@ -361,6 +381,83 @@ def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[
         library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
             x_ncr, w_oik.shape, dym_ncr, padding=2)),
         bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=conv_bytes / HBM_BYTES * 1e3))
+    return results
+
+
+def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
+    """K7 at the encoding batch's 6-s bucket, wave (16, 96000 + 80) -> (16, 9607,
+    512); K8 at the hidden state of that batch, (16, 300, 768)."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.models.hubert import TransformerLayer
+    from quickvc_tpu_torch.ops import fused_extractor as fe
+    from quickvc_tpu_torch.ops import fused_transformer as ft
+    from quickvc_tpu_torch.ops._cuda import library
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    results = []
+    b, t_len, c = ENCODE_BATCH, 6 * SR + 80, 512
+    wav = torch.from_numpy(np.stack([synth_voice(6.0 + 0.01, SR, rng)[:t_len]
+                                     for _ in range(b)])).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    w0 = 0.3 * torch.randn(c, 1, 10, device=dev, generator=g)
+    gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
+    beta = 0.1 * torch.randn(c, device=dev, generator=g)
+    w1 = torch.randn(c, c, 3, device=dev, generator=g) / np.sqrt(3 * c)
+    front = (wav, w0, gamma, beta, w1)
+
+    def k7_library():   # cuDNN's conv0 -> GroupNorm over its output -> GELU -> conv1 -> GELU
+        y = F.gelu(F.group_norm(F.conv1d(wav[:, None], w0, stride=5), c, gamma, beta, 1e-5))
+        return F.gelu(F.conv1d(y, w1, stride=2)).transpose(1, 2)
+
+    plain = fe.extractor_front_reference(*front)
+    n1, tc = fe.front_rows(t_len), (t_len - 10) // 5 + 1
+    results.append(dict(
+        name="extractor_front", tpu_id="K7", source="quickvc_tpu_torch/csrc/fused_extractor.cu",
+        replaces="quickvc_tpu/ops/fused_extractor.py:187", shape=[[b, t_len], [b, n1, c]],
+        **compare(fe.extractor_front_kernel(*front), plain, 5e-4, 1e-3),
+        library_max_abs_err=float((k7_library() - plain).abs().max()),
+        ms=cuda_ms(lambda: fe.extractor_front_kernel(*front)),
+        plain_ms=cuda_ms(lambda: fe.extractor_front_reference(*front)),
+        library_ms=cuda_ms(k7_library),
+        affine_ms=cuda_ms(lambda: fe.groupnorm_affine_closed_form(wav, w0, gamma, beta)),
+        bound_ops_ms=2 * b * c * (n1 * 3 * c + tc * 10) / F32_FLOPS * 1e3,
+        bound_bytes_ms=4 * (b * t_len + 12 * c + 3 * c * c + b * n1 * c) / HBM_BYTES * 1e3))
+    del wav, front, plain
+
+    # K8: a seeded layer with its biases and norm affines off their init constants
+    layer = init_random_(TransformerLayer(use_fused_layer=True), SEED + 8)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    with torch.no_grad():
+        for prm in layer.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+    layer = layer.to(dev).eval()
+    lib_layer = torch.nn.TransformerEncoderLayer(768, 12, 3072, dropout=0.0, activation="gelu",
+                                                 batch_first=True).to(dev).eval()
+    lib_layer.load_state_dict(layer.state_dict())
+    t_u, d, f = 300, 768, 3072
+    x = torch.randn(b, t_u, d, device=dev, generator=g)
+
+    def k8_library():
+        with torch.inference_mode():
+            return lib_layer(x)
+
+    plain = ft.transformer_layer_reference(x, layer)
+    m = b * t_u
+    results.append(dict(
+        name="transformer_layer", tpu_id="K8",
+        source="quickvc_tpu_torch/csrc/fused_transformer.cu",
+        replaces="quickvc_tpu/ops/fused_transformer.py:155", shape=[[b, t_u, d]],
+        **compare(ft.transformer_layer_kernel(x, layer), plain, 1e-4, 1e-3),
+        library_max_abs_err=float((k8_library() - plain).abs().max()),
+        launches_per_call=library().qvc_transformer_layer_launches(),
+        ms=cuda_ms(lambda: ft.transformer_layer_kernel(x, layer)),
+        plain_ms=cuda_ms(lambda: ft.transformer_layer_reference(x, layer)),
+        library_ms=cuda_ms(k8_library),
+        bound_ops_ms=(2 * m * d * (4 * d + 2 * f) + 4 * b * 12 * t_u * t_u * 64)
+        / F32_FLOPS * 1e3,
+        bound_bytes_ms=4 * (2 * m * d + 4 * d * d + 2 * d * f + 9 * d + f) / HBM_BYTES * 1e3))
     return results
 
 
@@ -722,6 +819,107 @@ def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: offline unit encoding, the encode CLI end to end
+
+
+def run_encode(root: str, out: str, hubert_pt: str, front: str, fused: bool,
+               device: str = "cuda", batch: int = ENCODE_BATCH) -> dict:
+    from quickvc_tpu_torch import encode
+
+    return encode.main(["soft", root, out, "--hubert", hubert_pt, "--batch", str(batch),
+                        "--hubert-front", front, "--device", device], fused_layer=fused)
+
+
+def load_units(summary: dict, root_out: str) -> dict[str, np.ndarray]:
+    return {os.path.relpath(str(path), root_out): np.load(path) for path in summary["outputs"]}
+
+
+def check_encoding(tmp: str, rng: np.random.Generator, hubert_pt: str) -> dict:
+    """The encode CLI over 32 synthetic wavs in each of ENCODE_RUNS, the
+    counters zeroed just before each run and read just after; each run's
+    units against the default front's; one profiled run of each."""
+    from quickvc_tpu_torch import encode, ops
+    from quickvc_tpu_torch.data.audio_io import write_wav
+
+    root = os.path.join(tmp, "encode_wavs")
+    os.makedirs(root)
+    n_frames = {}
+    for i, sec in enumerate(ENCODE_SECONDS):
+        wav = synth_voice(sec, SR, rng)
+        write_wav(os.path.join(root, f"utt{i:02d}.wav"), wav, SR)
+        n_frames[f"utt{i:02d}.npy"] = len(wav) // 320
+    n_batches = len({int(np.ceil(sec)) for sec in ENCODE_SECONDS})   # one full batch a bucket
+    zero = {name: 0 for name in ops.launch_counts()}
+    expected = {
+        "faststats": zero | {"attention_packed": 12 * n_batches},
+        "pallas": zero | {"extractor_front": n_batches, "attention_packed": 12 * n_batches},
+        "pallas_fused_layer": zero | {"extractor_front": n_batches,
+                                      "transformer_layer": 12 * n_batches}}
+    for name, front, fused in ENCODE_RUNS:   # cuDNN set-up, allocator
+        run_encode(root, os.path.join(tmp, f"enc_warmup_{name}"), hubert_pt, front, fused)
+    out, units = {}, {}
+    for name, front, fused in ENCODE_RUNS:
+        out_dir = os.path.join(tmp, f"enc_{name}")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        summary = run_encode(root, out_dir, hubert_pt, front, fused)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        units[name] = load_units(summary, out_dir)
+        for rel, u in units[name].items():
+            require(u.dtype == np.float32 and u.shape == (n_frames[rel], 256)
+                    and bool(np.isfinite(u).all()),
+                    f"encode {name}: {rel} is finite float32 (frames, 256)")
+        run = {"run": name, "front": front, "fused_layer": fused, "files": summary["files"],
+               "batches": summary["batches"], "audio_seconds": summary["audio_seconds"],
+               "wall_seconds": summary["wall_seconds"],
+               "audio_s_per_wall_s": summary["audio_seconds"] / summary["wall_seconds"],
+               "launches": launches, "expected_launches": expected[name]}
+        if name != "faststats":
+            cmp = [compare(torch.from_numpy(units[name][rel]),
+                           torch.from_numpy(units["faststats"][rel]), 1e-4, 1e-3)
+                   for rel in n_frames]
+            run["units_vs_faststats"] = {
+                "max_abs_err": max(c["max_abs_err"] for c in cmp), "atol": 1e-4, "rtol": 1e-3,
+                "within_tol": all(c["within_tol"] for c in cmp)}
+        print("encode_run " + json.dumps(run))
+        require(summary["files"] == len(ENCODE_SECONDS) and summary["batches"] == n_batches
+                and set(units[name]) == set(n_frames), f"encode {name}: every file, 2 batches")
+        require(launches == expected[name],
+                f"encode {name} launches {launches} != {expected[name]}")
+        require(name == "faststats" or run["units_vs_faststats"]["within_tol"],
+                f"encode {name}: units match the default front's")
+        out[name] = run
+    for name, front, fused in ENCODE_RUNS:
+        print("encode_profile " + json.dumps({"run": name} | profile_span(
+            lambda: run_encode(root, os.path.join(tmp, f"enc_prof_{name}"), hubert_pt, front,
+                               fused), encode.LOOP_SPAN)))
+    return out
+
+
+def check_encode_against_cpu(tmp: str, rng: np.random.Generator, hubert_pt: str) -> dict:
+    """One 1.3-s file through the encode CLI with the pallas front and the
+    fused layer: on the card (K7, K8) against the CPU's plain versions."""
+    from quickvc_tpu_torch.data.audio_io import write_wav
+
+    root = os.path.join(tmp, "encode_one")
+    os.makedirs(root)
+    write_wav(os.path.join(root, "one.wav"), synth_voice(1.3, SR, rng), SR)
+    units = {}
+    for device in ("cpu", "cuda"):
+        out_dir = os.path.join(tmp, f"encode_one_{device}")
+        units[device] = load_units(
+            run_encode(root, out_dir, hubert_pt, "pallas", True, device=device, batch=1),
+            out_dir)["one.npy"]
+    out = compare(torch.from_numpy(units["cuda"]), torch.from_numpy(units["cpu"]), 1e-4, 1e-3)
+    out["shape"] = list(units["cuda"].shape)
+    print("encode_cpu_reference_check " + json.dumps(out))
+    require(out["shape"] == [int(1.3 * SR) // 320, 256], "encoded one file's frames")
+    require(out["within_tol"], "units encoded on the card match the CPU path")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -762,6 +960,8 @@ def main() -> int:
         print("profile " + json.dumps(profile_span(
             lambda: run_convert(files, os.path.join(tmp, "prof")), LOOP_SPAN)))
         train = check_training(tmp, rng, files, n_frames)
+        encoding = check_encoding(tmp, rng, files[2])
+        check_encode_against_cpu(tmp, rng, files[2])
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
     expected = {name: 0 for name in launches} | {
@@ -786,7 +986,10 @@ def main() -> int:
                "polar_inverse_stft": ("convert", launches),
                "wave_to_spec_halo": ("train", train["launches"]),
                "conv5_lrelu": ("disc_fused_path", disc["launches"]),
-               "conv5_lrelu_dw": ("disc_fused_path", disc["launches"])}
+               "conv5_lrelu_dw": ("disc_fused_path", disc["launches"]),
+               "extractor_front": ("encode_pallas", encoding["pallas"]["launches"]),
+               "transformer_layer": ("encode_pallas_fused_layer",
+                                     encoding["pallas_fused_layer"]["launches"])}
     for k in kernels:
         k["path"], counts = path_of[k["name"]]
         k["launches"] = counts[k["name"]]
@@ -794,7 +997,8 @@ def main() -> int:
                                     "atol", "rtol", "within_tol", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by", "path", "launches")}
         for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "dx_ms",
-                      "dx_plain_ms", "dx_library_ms"):
+                      "dx_plain_ms", "dx_library_ms", "affine_ms", "library_max_abs_err",
+                      "launches_per_call"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

@@ -8,8 +8,9 @@ Reads ``convert.txt`` lines ``title|src|tgt`` and writes each src utterance
 in the tgt speaker's voice as a float32 wav (reference ``convert.py``). The
 pipeline is the JAX package's ``convert.py``: host read/resample/trim on a
 thread pool, 1-s length buckets, target log-mel (kernel K1) and one
-d-vector per unique target, HuBERT-soft units (kernel K2 in every layer)
-and ``SynthesizerTrn.infer`` (kernel K3 in the decoder head) over batches
+d-vector per unique target, HuBERT-soft units (kernel K2 in every layer;
+``--hubert-front pallas`` runs the extractor front as kernel K7) and
+``SynthesizerTrn.infer`` (kernel K3 in the decoder head) over batches
 of ``--batch`` same-bucket sources, outputs cropped to the source's
 ``n_frames * hop`` samples.
 

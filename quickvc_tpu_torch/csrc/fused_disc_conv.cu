@@ -24,19 +24,19 @@
 // K6: dym as (N*R, C_out)) and A is gathered from x with the row shift, so
 // no im2col copy is made. K5: A[(n, r), (dr, c)]; K6: A[(dr, c), (n, r)].
 // A block computes a 128 x 128 tile of the output with 256 threads, each
-// holding an 8 x 8 register tile (two 4-row by two 4-column groups, so the
-// float4 shared-memory reads of a warp are conflict-free); K is walked in
-// slices of 8 through a double-buffered shared-memory ring, the next slice
-// being fetched into registers while the current one is multiplied. The
-// epilogue adds the bias and applies the LeakyReLU.
+// holding an 8 x 8 register tile (the core in sgemm_tile.cuh); K is walked
+// in slices of 8 through a double-buffered shared-memory ring, the next
+// slice being fetched into registers while the current one is multiplied.
+// The epilogue adds the bias and applies the LeakyReLU.
 
 #include <cuda_runtime.h>
 
+#include "sgemm_tile.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8;
-constexpr int THREADS = 256;
-constexpr int APAD = 4;        // As row padding: conflict-free transposed stores
+constexpr int BM = TILE_M, BN = TILE_N, BK = 8;
+constexpr int THREADS = TILE_THREADS;
 constexpr int LOADS = BM * BK / THREADS;  // A (and B) elements per thread per slice
 
 enum AMode { A_CONV = 0, A_DW = 1 };
@@ -111,8 +111,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 conv5_gemm_kernel(const float* __restrict__ x, const float* __restrict__ bmat,
                   const float* __restrict__ bias, float* __restrict__ out,
                   int M, int Nc, int K, int R, int C, float slope) {
-  __shared__ __align__(16) float As[2][BK][BM + APAD];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+  __shared__ __align__(16) float As[2][BK][TILE_LD];
+  __shared__ __align__(16) float Bs[2][BK][TILE_LD];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -141,10 +141,7 @@ conv5_gemm_kernel(const float* __restrict__ x, const float* __restrict__ bmat,
   };
 
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  tile_zero(acc);
 
   const int n_slices = (K + BK - 1) / BK;
   fetch(0);
@@ -153,30 +150,18 @@ conv5_gemm_kernel(const float* __restrict__ x, const float* __restrict__ bmat,
   for (int t = 0; t < n_slices; ++t) {
     const int cur = t & 1;
     if (t + 1 < n_slices) fetch((t + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    tile_mma<BK>(As[cur], Bs[cur], acc, tx, ty);
     if (t + 1 < n_slices) stash(cur ^ 1);
     __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int row = m0 + tile_row(ty, i);
     if (row >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      const int col = n0 + tile_row(tx, j);
       if (col >= Nc) continue;
       float v = acc[i][j] + (bias != nullptr ? __ldg(bias + col) : 0.0f);
       out[(long long)row * Nc + col] = v > 0.0f ? v : slope * v;

@@ -4,7 +4,8 @@ Port of ``quickvc_tpu/models/hubert.py``: 7-conv 512-wide feature extractor
 (GroupNorm after conv0), LayerNorm + 768-d projection, grouped positional
 conv (k=128, 16 groups, weight norm over dim 2, trailing sample trimmed),
 LayerNorm, 12 post-norm transformer layers whose attention core is kernel
-K2 on the packed q/k/v, and the 256-d soft projection. Keys follow
+K2 on the packed q/k/v (or, with ``use_fused_layer``, each layer whole as
+kernel K8), and the 256-d soft projection. Keys follow
 ``quickvc_tpu/utils/hubert_port.py:expected_hubert_sd_shapes``, so a bshall
 ``hubert-soft.pt`` loads strictly (``utils/weights.py:load_hubert``).
 """
@@ -19,9 +20,10 @@ import torch.nn.functional as F
 
 from quickvc_tpu_torch.models.layers import WNConv1d
 from quickvc_tpu_torch.ops.fused_attention import attention_packed
-from quickvc_tpu_torch.ops.fused_extractor import groupnorm_affine_closed_form
+from quickvc_tpu_torch.ops.fused_extractor import extractor_front, groupnorm_affine_closed_form
+from quickvc_tpu_torch.ops.fused_transformer import transformer_layer
 
-FRONTS = ("faststats", "xla")
+FRONTS = ("faststats", "xla", "pallas")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -35,8 +37,9 @@ class FeatureExtractor(nn.Module):
     ``front`` picks how conv0's GroupNorm is taken: ``"xla"`` reduces over
     conv0's output like the reference; ``"faststats"`` (the serving default)
     gets the same affine in closed form from the wave
-    (``ops/fused_extractor.py``). The names follow the JAX package's
-    ``--hubert-front`` choices.
+    (``ops/fused_extractor.py``); ``"pallas"`` runs conv0, that affine, GELU,
+    conv1 and GELU as kernel K7 (its plain version on the CPU). The names
+    follow the JAX package's ``--hubert-front`` choices.
     """
 
     def __init__(self, channels: int = 512, front: str = "faststats"):
@@ -53,14 +56,20 @@ class FeatureExtractor(nn.Module):
             setattr(self, f"conv{i}", nn.Conv1d(c, c, 2, 2, bias=False))
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        y = self.conv0(wav[:, None])
-        if self.front == "faststats":
-            scale, shift = groupnorm_affine_closed_form(
-                wav, self.conv0.weight, self.norm0.weight, self.norm0.bias)
-            x = gelu(y * scale[:, :, None].to(y.dtype) + shift[:, :, None].to(y.dtype))
+        if self.front == "pallas":  # conv0 through conv1's GELU in one pass
+            x = extractor_front(wav, self.conv0.weight, self.norm0.weight, self.norm0.bias,
+                                self.conv1.weight).transpose(1, 2)
+            first = 2
         else:
-            x = gelu(self.norm0(y))
-        for i in range(1, 7):
+            y = self.conv0(wav[:, None])
+            if self.front == "faststats":
+                scale, shift = groupnorm_affine_closed_form(
+                    wav, self.conv0.weight, self.norm0.weight, self.norm0.bias)
+                x = gelu(y * scale[:, :, None].to(y.dtype) + shift[:, :, None].to(y.dtype))
+            else:
+                x = gelu(self.norm0(y))
+            first = 1
+        for i in range(first, 7):
             x = gelu(getattr(self, f"conv{i}")(x))
         return x
 
@@ -104,10 +113,18 @@ class SelfAttention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Post-norm encoder layer (torch ``TransformerEncoderLayer``, GELU)."""
+    """Post-norm encoder layer (torch ``TransformerEncoderLayer``, GELU).
 
-    def __init__(self, embed_dim: int = 768, num_heads: int = 12, ffn_dim: int = 3072):
+    ``use_fused_layer=True``, the counterpart of the JAX package's
+    ``use_pallas_layer``, runs the whole layer as kernel K8
+    (``ops/fused_transformer.py``; its plain version on the CPU) with the
+    same parameters; off by default, as in JAX.
+    """
+
+    def __init__(self, embed_dim: int = 768, num_heads: int = 12, ffn_dim: int = 3072,
+                 use_fused_layer: bool = False):
         super().__init__()
+        self.use_fused_layer = use_fused_layer
         self.self_attn = SelfAttention(embed_dim, num_heads)
         self.linear1 = nn.Linear(embed_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, embed_dim)
@@ -115,6 +132,8 @@ class TransformerLayer(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_fused_layer:
+            return transformer_layer(x, self)
         x = self.norm1(x + self.self_attn(x))
         return self.norm2(x + self.linear2(gelu(self.linear1(x))))
 
@@ -131,12 +150,16 @@ class Encoder(nn.Module):
 
 
 class HubertSoft(nn.Module):
-    """Wave (B, T) -> soft units (B, T//320, unit_dim) via :meth:`units`."""
+    """Wave (B, T) -> soft units (B, T//320, unit_dim) via :meth:`units`.
+
+    ``front`` is :class:`FeatureExtractor`'s and ``use_fused_layer``
+    :class:`TransformerLayer`'s; neither changes a state-dict key.
+    """
 
     def __init__(self, embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
                  ffn_dim: int = 3072, extractor_channels: int = 512, unit_dim: int = 256,
                  pos_kernel_size: int = 128, pos_groups: int = 16,
-                 front: str = "faststats"):
+                 front: str = "faststats", use_fused_layer: bool = False):
         super().__init__()
         self.feature_extractor = FeatureExtractor(extractor_channels, front)
         self.feature_projection = FeatureProjection(extractor_channels, embed_dim)
@@ -144,7 +167,7 @@ class HubertSoft(nn.Module):
                                                             pos_groups)
         self.norm = nn.LayerNorm(embed_dim)
         self.encoder = Encoder(num_layers, embed_dim=embed_dim, num_heads=num_heads,
-                               ffn_dim=ffn_dim)
+                               ffn_dim=ffn_dim, use_fused_layer=use_fused_layer)
         self.proj = nn.Linear(embed_dim, unit_dim)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:

@@ -5,11 +5,13 @@ kernel for a CUDA tensor (or raises); it counts its launches in a
 ``KernelStats``.
 """
 
-from quickvc_tpu_torch.ops import fused_attention, fused_disc_conv, fused_istft, fused_mel
+from quickvc_tpu_torch.ops import (fused_attention, fused_disc_conv, fused_extractor,
+                                  fused_istft, fused_mel, fused_transformer)
 
 KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_istft.STATS,
                                fused_mel.SPEC_STATS, fused_disc_conv.STATS,
-                               fused_disc_conv.DW_STATS)}
+                               fused_disc_conv.DW_STATS, fused_extractor.STATS,
+                               fused_transformer.STATS)}
 
 
 def reset_launch_counts() -> None:

@@ -6,9 +6,10 @@ PyTorch headers), so each compiles in seconds. At first use
 for ``sm_90a``), links them into ``libqvc_<hash>.so`` and loads it: in a
 checkout of the repo under ``build/quickvc_tpu_torch/``, for an installed
 package under the user's cache directory (``$XDG_CACHE_HOME`` or
-``~/.cache``, then ``quickvc_tpu_torch/``). The name carries a hash of the sources,
-so an edited source is rebuilt, and a file lock serialises builds from
-concurrent processes. Nothing is built when the package is imported.
+``~/.cache``, then ``quickvc_tpu_torch/``). The name carries a hash of the
+sources and the headers they share, so an edited file is rebuilt, and a file
+lock serialises builds from concurrent processes. Nothing is built when the
+package is imported.
 
 Every C entry point takes device pointers and a stream as ``void*``, launches
 on that stream and returns ``cudaGetLastError()``; :func:`check` raises on
@@ -30,7 +31,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu")
+SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
+           "fused_extractor.cu", "fused_transformer.cu")
+HEADERS = ("sgemm_tile.cuh", "fused_attention.cuh")  # included by several sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +45,9 @@ _SIGNATURES = {
     "qvc_attention_packed": [_P, _P, _P, _P, _I, _I, _I] + [_L] * 6 + [_F, _P],
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw": [_P, _P, _P] + [_I] * 4 + [_P],
+    "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
+    "qvc_transformer_layer": [_P] * 19 + [_I] * 5 + [_F, _P],
+    "qvc_transformer_layer_launches": [],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -78,7 +84,7 @@ def build_dir() -> Path:
 
 def _sources_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

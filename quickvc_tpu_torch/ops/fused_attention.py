@@ -4,14 +4,15 @@ Replaces the TPU kernel ``quickvc_tpu/ops/fused_attention.py:fused_attention_pac
 q, k and v are (B, T, H*D) as the in-projection produces them; the output
 is (B, T, H*D), ready for the out-projection. A CPU tensor takes the plain
 version, :func:`attention_packed_reference`; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. The kernel's body is shared with K8's layer
+(``csrc/fused_attention.cuh``); :data:`STATS` counts only launches made here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library,
+from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library, refuse_grad,
                                          require_cuda_f32, stream_ptr)
 
 STATS = KernelStats("attention_packed")
@@ -53,7 +54,8 @@ def attention_packed_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int, scale: float) -> torch.Tensor:
-    """Packed MHA core: plain on CPU, K2 on CUDA."""
+    """Packed MHA core: plain on CPU, K2 on CUDA. No backward."""
+    refuse_grad("attention_packed", q, k, v)
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, num_heads, scale)
     return attention_packed_kernel(q, k, v, num_heads, scale)

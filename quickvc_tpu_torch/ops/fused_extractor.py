@@ -1,19 +1,36 @@
-"""Closed-form GroupNorm affine of HuBERT's first conv (plain PyTorch, not a kernel).
+"""HuBERT's extractor front: the closed-form GroupNorm affine and kernel K7.
 
-The port of ``quickvc_tpu/ops/fused_extractor.py:groupnorm_affine_closed_form``,
-which drives the default ``faststats`` extractor front. conv0 (k=10,
-stride 5, no bias) is linear in the wave, so the per-(batch, channel) mean
-and variance of its output over time follow from the 10-vector S = sum_t F[t]
-and the 10x10 second moment C = F^T F of the (Tc, 10) frame matrix F:
+The port of ``quickvc_tpu/ops/fused_extractor.py``.
+
+:func:`groupnorm_affine_closed_form` (plain PyTorch, not a kernel) drives
+the default ``faststats`` front and feeds K7. conv0 (k=10, stride 5, no
+bias) is linear in the wave, so the per-(batch, channel) mean and variance
+of its output over time follow from the 10-vector S = sum_t F[t] and the
+10x10 second moment C = F^T F of the (Tc, 10) frame matrix F:
 
     mean = S @ W0 / Tc,   E[x^2]_c = W0[:, c]^T C W0[:, c] / Tc
 
 an O(T) pass over the wave instead of a reduction over conv0's output.
+
+Kernel K7 (``csrc/fused_extractor.cu``) replaces the TPU kernel
+``fused_extractor_front``: conv0 -> that affine -> GELU -> conv1 (k=3,
+stride 2, no bias) -> GELU in one pass, conv0's output never leaving the
+chip. :func:`extractor_front` takes the plain version,
+:func:`extractor_front_reference`, for a CPU tensor and launches the kernel
+for a CUDA tensor (or raises). Layouts are the JAX package's: wave (B, T) in,
+(B, n1, C) out with n1 = ((T - 10) // 5 + 1 - 3) // 2 + 1; the weights keep
+torch's layouts, conv0 (C, 1, 10) and conv1 (C, C, 3).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library, refuse_grad,
+                                         require_cuda_f32, stream_ptr)
+
+STATS = KernelStats("extractor_front")
 
 
 def groupnorm_affine_closed_form(wav: torch.Tensor, conv0_weight: torch.Tensor,
@@ -38,3 +55,53 @@ def groupnorm_affine_closed_form(wav: torch.Tensor, conv0_weight: torch.Tensor,
     scale = gamma.float() * torch.rsqrt(var + eps)
     shift = beta.float() - mean * scale
     return scale, shift
+
+
+def front_rows(t: int) -> int:
+    """n1, the rows conv1 gives for a wave of t samples."""
+    return ((t - 10) // 5 + 1 - 3) // 2 + 1
+
+
+def extractor_front_reference(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
+                              beta: torch.Tensor, w1: torch.Tensor,
+                              eps: float = 1e-5) -> torch.Tensor:
+    """conv0 -> closed-form affine -> exact GELU -> conv1 -> GELU, (B, n1, C)."""
+    scale, shift = groupnorm_affine_closed_form(wav, w0, gamma, beta, eps)
+    y = F.conv1d(wav[:, None], w0, stride=5)
+    x = F.gelu(y * scale[:, :, None] + shift[:, :, None])
+    return F.gelu(F.conv1d(x, w1, stride=2)).transpose(1, 2)
+
+
+def extractor_front_kernel(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
+                           beta: torch.Tensor, w1: torch.Tensor,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """Launch K7 on float32 CUDA tensors; the affine is computed first in PyTorch."""
+    require_cuda_f32("extractor_front", wav, w0, gamma, beta, w1)
+    b, t = wav.shape
+    c = w0.shape[0]
+    n1 = front_rows(t)
+    if (w0.shape != (c, 1, 10) or w1.shape != (c, c, 3) or gamma.shape != (c,)
+            or beta.shape != (c,) or c % 8 or n1 < 1):
+        raise ValueError(f"extractor_front: need wav (B, T >= 20), conv0 (C, 1, 10), conv1 "
+                         f"(C, C, 3), C % 8 == 0; got {tuple(wav.shape)} {tuple(w0.shape)} "
+                         f"{tuple(w1.shape)}")
+    scale, shift = groupnorm_affine_closed_form(wav, w0, gamma, beta, eps)
+    # einsum may give (B, C) in channel-major strides; the kernel reads row-major
+    scale, shift = scale.contiguous(), shift.contiguous()
+    wav, w0 = wav.contiguous(), w0.contiguous()
+    w1t = w1.permute(2, 1, 0).contiguous()          # [tap][in][out]
+    out = torch.empty((b, n1, c), device=wav.device, dtype=torch.float32)
+    check(library().qvc_extractor_front(
+        wav.data_ptr(), w0.data_ptr(), scale.data_ptr(), shift.data_ptr(), w1t.data_ptr(),
+        out.data_ptr(), b, t, c, n1, stream_ptr(wav)), "extractor_front kernel")
+    STATS.launches += 1
+    return out
+
+
+def extractor_front(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, w1: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The extractor front: plain on CPU, K7 on CUDA. No backward."""
+    refuse_grad("extractor_front", wav, w0, gamma, beta, w1)
+    if wav.device.type == "cpu":
+        return extractor_front_reference(wav, w0, gamma, beta, w1, eps)
+    return extractor_front_kernel(wav, w0, gamma, beta, w1, eps)

@@ -5,7 +5,8 @@ version on the same CUDA tensors. Marked ``cuda``; skips without a card.
 
 Tolerances: log-mel atol/rtol 2e-3, attention and iSTFT atol 1e-4 / rtol 1e-3,
 the halo spectrogram atol/rtol 2e-4 (the JAX gate), the k=5 conv and its
-gradients atol 1e-4 / rtol 1e-3.
+gradients atol 1e-4 / rtol 1e-3, the extractor front atol 5e-4 / rtol 1e-3
+(the JAX gate), the transformer layer atol 1e-4 / rtol 1e-3.
 """
 
 import pytest
@@ -19,6 +20,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -108,3 +110,44 @@ def test_polar_istft_kernel_on_strided_views(cuda):
     torch.testing.assert_close(ours, plain(lm, ph, 16, 4), atol=1e-4, rtol=1e-3)
     torch.testing.assert_close(
         ours, fused_istft.polar_inverse_stft(lm.contiguous(), ph.contiguous(), 16, 4))
+
+
+@pytest.mark.parametrize("shape", [(2, 16003, 128), (3, 32083, 512)])
+def test_extractor_front_kernel(cuda, shape):
+    from quickvc_tpu_torch.ops import fused_extractor as fe
+
+    b, t_len, c = shape
+    g = _gen(cuda, t_len)
+    wav = 0.3 * torch.randn(b, t_len, device=cuda, generator=g)
+    w0 = 0.3 * torch.randn(c, 1, 10, device=cuda, generator=g)
+    gamma = 1.0 + 0.1 * torch.randn(c, device=cuda, generator=g)
+    beta = 0.1 * torch.randn(c, device=cuda, generator=g)
+    w1 = torch.randn(c, c, 3, device=cuda, generator=g) / (3 * c) ** 0.5
+    before = fe.STATS.launches
+    ours = fe.extractor_front(wav, w0, gamma, beta, w1)
+    assert fe.STATS.launches == before + 1
+    assert ours.shape == (b, fe.front_rows(t_len), c)
+    torch.testing.assert_close(ours, fe.extractor_front_reference(wav, w0, gamma, beta, w1),
+                               atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("t_len", [37, 300])
+def test_transformer_layer_kernel(cuda, t_len):
+    from quickvc_tpu_torch.models.hubert import TransformerLayer
+    from quickvc_tpu_torch.ops import fused_attention, fused_transformer as ft
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    layer = init_random_(TransformerLayer(use_fused_layer=True), t_len)
+    g = torch.Generator().manual_seed(t_len)
+    with torch.no_grad():  # biases and norm affines off their init constants
+        for p in layer.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    layer = layer.to(cuda).eval()
+    x = torch.randn(3, t_len, 768, device=cuda, generator=_gen(cuda, t_len))
+    before = (ft.STATS.launches, fused_attention.STATS.launches)
+    with torch.inference_mode():
+        ours = layer(x)
+    assert (ft.STATS.launches, fused_attention.STATS.launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(ours, ft.transformer_layer_reference(x, layer),
+                               atol=1e-4, rtol=1e-3)

@@ -56,7 +56,9 @@ def test_kernel_build_dir(tmp_path, monkeypatch):
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel entry point never runs a plain version: a CPU tensor is an error."""
-    from quickvc_tpu_torch.ops import fused_attention, fused_disc_conv, fused_istft, fused_mel
+    from quickvc_tpu_torch.models.hubert import TransformerLayer
+    from quickvc_tpu_torch.ops import (fused_attention, fused_disc_conv, fused_extractor,
+                                       fused_istft, fused_mel, fused_transformer)
 
     x = torch.zeros(1, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -72,3 +74,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         fused_disc_conv.conv5_lrelu_kernel(x, k, None, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         fused_disc_conv.conv5_dw_kernel(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_extractor.extractor_front_kernel(torch.zeros(1, 3200), torch.zeros(8, 1, 10),
+                                               torch.ones(8), torch.zeros(8),
+                                               torch.zeros(8, 8, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_transformer.transformer_layer_kernel(x, TransformerLayer(64, 1, 128))

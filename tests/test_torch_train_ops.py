@@ -15,7 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_port_support import TINY_MODEL, t, tiny_generator
+from torch_port_support import TINY_HUBERT, TINY_MODEL, t, tiny_generator
 
 
 def _pallas_interpret(fn, *args):
@@ -112,9 +112,11 @@ def test_decoder_differentiable_head_matches_kernel_path(rng):
 
 
 def test_kernel_dispatchers_refuse_a_graph(rng):
-    """K1 and K3 have no backward: with grad mode on, an input that requires
-    grad raises on the CPU as it would on the card; under no_grad it runs."""
-    from quickvc_tpu_torch.ops import fused_istft, fused_mel
+    """K1, K2, K3, K7 and K8 have no backward: with grad mode on, an input
+    that requires grad raises on the CPU as it would on the card; under
+    no_grad it runs. A HuBERT forward with grad raises at its first kernel."""
+    from quickvc_tpu_torch.models.hubert import HubertSoft
+    from quickvc_tpu_torch.ops import fused_attention, fused_istft, fused_mel
 
     y = t(rng.standard_normal((1, 6400)).astype(np.float32)).requires_grad_()
     with pytest.raises(RuntimeError, match="wave_to_mel has no backward"):
@@ -123,6 +125,18 @@ def test_kernel_dispatchers_refuse_a_graph(rng):
     ph = t(rng.standard_normal((2, 11, 9)).astype(np.float32))
     with pytest.raises(RuntimeError, match="polar_inverse_stft has no backward"):
         fused_istft.polar_inverse_stft(lm, ph, 16, 4)
+    q = t(rng.standard_normal((1, 9, 64)).astype(np.float32)).requires_grad_()
+    with pytest.raises(RuntimeError, match="attention_packed has no backward"):
+        fused_attention.attention_packed(q, q, q, 4, 0.25)
+    wav = t(rng.standard_normal((1, 4000)).astype(np.float32))
+    for front, fused, name in (("faststats", False, "attention_packed"),
+                               ("pallas", False, "extractor_front"),
+                               ("faststats", True, "transformer_layer")):
+        hubert = HubertSoft(front=front, use_fused_layer=fused, **TINY_HUBERT)
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            hubert.units(wav)
     with torch.no_grad():
         assert fused_mel.wave_to_mel(y, 16000, 1280, 320, 1280, 80).shape == (1, 20, 80)
         assert fused_istft.polar_inverse_stft(lm, ph, 16, 4).shape == (2, 40)
+        assert fused_attention.attention_packed(q, q, q, 4, 0.25).shape == (1, 9, 64)
+        assert hubert.units(wav).shape == (1, 4000 // 320, TINY_HUBERT["unit_dim"])

@@ -60,15 +60,16 @@ def tiny_generator(seed: int = 0):
     return net, params, port.eval()
 
 
-def tiny_hubert(front: str, seed: int = 0):
-    """(JAX HubertSoft, numpy params, port HubertSoft) at TINY_HUBERT."""
+def tiny_hubert(front: str, seed: int = 0, fused_layer: bool = False):
+    """(JAX HubertSoft, numpy params, port HubertSoft) at TINY_HUBERT;
+    ``fused_layer`` sets the port's ``use_fused_layer`` and JAX's ``use_pallas_layer``."""
     from quickvc_tpu.models.hubert import HubertSoft as JaxHubert
     from quickvc_tpu_torch.models.hubert import HubertSoft
     from quickvc_tpu_torch.utils.weights import hubert_state_dict_from_jax
 
-    jnet = JaxHubert(front_mode=front, **TINY_HUBERT)
+    jnet = JaxHubert(front_mode=front, use_pallas_layer=fused_layer, **TINY_HUBERT)
     params = random_params(jnet, seed, jax.random.PRNGKey(0), jnp.zeros((1, 4000)))
-    port = HubertSoft(front=front, **TINY_HUBERT)
+    port = HubertSoft(front=front, use_fused_layer=fused_layer, **TINY_HUBERT)
     port.load_state_dict(hubert_state_dict_from_jax(params), strict=True)
     return jnet, params, port.eval()
 
