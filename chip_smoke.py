@@ -11,7 +11,11 @@
    (32, 512*320+960), K5 (forward and dx) and K6 (dW) at DiscriminatorP's
    fifth conv, x (128, 64, 1024), K7 (HuBERT's extractor front) at the
    encoding batch's wave (16, 96080) and K8 (a whole HuBERT layer) at its
-   hidden state (16, 300, 768).
+   hidden state (16, 300, 768). K2 and K3 are also held against their plain
+   versions at the streaming and live paths' shapes: K2 over the streaming
+   run's buckets (8, 650 / 800, 768) and the live wave windows (64, 80 / 68,
+   768), K3 over the streaming windows (32, 5761, 9), the live windows
+   (256, 1601 / 1361, 9) and the parity session's (8, 4161, 9).
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
@@ -42,6 +46,33 @@
    wall second and profiles each once more.
 9. Checks the encoding of one short file on the card (K7, K8) against the
    CPU plain path.
+10. Drives the attention ops API: K10 (``ops.fused_attention.attention``,
+    (B, H, T, D)) at the conversion's HuBERT shape (8, 12, 250, 64) and at
+    (2, 3, 50, 16), K9 (``attention_packed_aligned``) at (8, 250, 12*128),
+    through their public dispatchers; K9 and K10 are also held against their
+    plain versions and ``F.scaled_dot_product_attention`` in step 2.
+11. Runs the int8 GEMM probe, ``python -m
+    quickvc_tpu_torch.scripts.int8_matmul_probe`` (K11 in int8 and bf16 at
+    (16384 x 12288) @ (12288 x 3072), its whole int8 output exact, a tile
+    sweep, ``torch._int_mm`` and bf16 ``torch.matmul`` beside it); K11 is
+    also held against its plain version in step 2.
+12. Drives streaming conversion, the CLI with ``--streaming --chunk-frames 96
+    --context-frames 96 --batch 8 --noise-scale 0``, and the same without
+    ``--streaming``, on 16 synthetic sources of 12.1-15.5 s that fill two
+    batches of 8 (the 13-s and 16-s buckets): launch counts, interiors (200
+    frames trimmed at each edge) within 1e-3 x peak, audio s per wall s of
+    both; profiles the streaming run once more.
+13. Drives the live sessions through ``quickvc_tpu_torch.scripts.
+    realtime_bench.main`` (units and wave, N in {1, 8, 64} at chunk 16, left
+    48, right 16; N in {1, 64} at chunk 4, left 60, right 4): step time, rtf,
+    latency and launches per tick; profiles 5 unit ticks at N = 1 and 5
+    wave ticks at N = 64; then a full-width unit session (N = 2, chunk 16,
+    left and right 96, noise 0) over a 12-s unit stream and its flush
+    against batch ``infer`` of the same units.
+14. Checks one streaming batch (HuBERT units of two 4-s sources, then
+    ``streaming_infer``) and three ticks of a full-width wave session (N =
+    2, chunk 16, left 48, right 16) on the card against the CPU plain path
+    (noise 0, 1e-3 x peak).
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -72,8 +103,11 @@ TARGET_SECONDS = [3.0, 6.5, 9.0]
 TARGET_SR = 22050
 BATCH = 8
 REPEATS = 5  # measured conversions: the first counts launches, all give throughput
-# H100 SXM peaks (NVIDIA data sheet): float32 FMA rate and HBM rate
+# H100 SXM peaks (NVIDIA data sheet): float32 FMA rate, dense int8 and bf16
+# tensor-core rates, HBM rate
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12
+BF16_FLOPS = 989e12
 HBM_BYTES = 3.35e12
 
 TPU_KERNELS = [
@@ -94,10 +128,11 @@ TPU_KERNELS = [
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
      "ported: quickvc_tpu_torch/csrc/fused_transformer.cu"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
-     "to port: layout wrapper over K2"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu"),
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
-     "to port: layout wrapper over K2"),
-    ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm", "to port: int8 rate probe"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu"),
+    ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm",
+     "ported: quickvc_tpu_torch/csrc/int8_mm.cu"),
 ]
 # training path: full width, batch 32, 512-frame crops (utterances of 12.5-13.5 s
 # fall in the (600, 700]-frame bucket, cropped to max_speclen 512)
@@ -115,7 +150,17 @@ ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
 # the port's __global__ functions, as the profiler names them
 DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kernel",
                     "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "extractor_front_kernel",
-                    "linear_kernel", "row_layer_norm_kernel")
+                    "linear_kernel", "row_layer_norm_kernel", "mm_kernel")
+# streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
+# bucket and 8 in the 16-s one, so each batch of 8 is full
+STREAM_SECONDS = [12.1 + 0.1 * i for i in range(8)] + [15.05 + 0.06 * i for i in range(8)]
+STREAM_CHUNK, STREAM_CONTEXT = 96, 96
+EDGE_FRAMES = 200     # trimmed at each edge before streaming and batch output are compared
+# live sessions: the realtime benchmark up to 64 streams, then a parity session
+LIVE_STREAMS = 64
+LIVE_ARGS = ["--device", "cuda", "--iters", "10", "--max-streams", str(LIVE_STREAMS)]
+PARITY_FRAMES, PARITY_CHUNK, PARITY_CONTEXT = 600, 16, 96
+LIVE_SPAN = "quickvc_live_ticks"   # profiled span of a few live-session ticks
 
 
 class CheckFailed(Exception):
@@ -128,17 +173,10 @@ def require(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean milliseconds per call on the card (the port's CUDA-event timer)."""
+    from quickvc_tpu_torch.scripts import time_ms
+
+    return time_ms(fn, torch.device("cuda"), iters, warmup)
 
 
 def compare(ours: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> dict:
@@ -147,6 +185,29 @@ def compare(ours: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> 
             "max_rel_err": float((diff / ref.abs().clamp(min=1e-12)).max()),
             "within_tol": bool((diff <= atol + rtol * ref.abs()).all()),
             "atol": atol, "rtol": rtol}
+
+
+def merge_checks(checks: dict) -> dict:
+    """One row's error keys over several compared shapes (``compare`` dicts
+    of one tolerance): the largest errors, within tolerance only if all are."""
+    first = next(iter(checks.values()))
+    return {"checks": checks, "atol": first["atol"], "rtol": first["rtol"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "max_rel_err": max(c["max_rel_err"] for c in checks.values()),
+            "within_tol": all(c["within_tol"] for c in checks.values())}
+
+
+def path_shapes() -> dict:
+    """Shapes K2 and K3 take on the streaming and live paths: the streaming
+    run's HuBERT frames per bucket and window frames, the live benchmark's
+    window frames (at up to LIVE_STREAMS streams) and the parity session's."""
+    from quickvc_tpu_torch.scripts import realtime_bench
+
+    return {"stream_frames": sorted({int(np.ceil(s)) * SR // 320 for s in STREAM_SECONDS}),
+            "stream_window": STREAM_CHUNK + 2 * STREAM_CONTEXT,
+            "live_windows": sorted({c + left + right for _, n, c, left, right
+                                    in realtime_bench.POINTS if n <= LIVE_STREAMS}),
+            "parity_window": PARITY_CHUNK + 2 * PARITY_CONTEXT}
 
 
 def synth_voice(seconds: float, sr: int, rng: np.random.Generator) -> np.ndarray:
@@ -178,6 +239,7 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     from quickvc_tpu_torch.ops import fused_attention, fused_istft, fused_mel
 
     results = []
+    shapes = path_shapes()
 
     # K1 at the longest target's bucket: (1, 9 s) -> (1, 450, 80)
     t_len = int(np.ceil(max(TARGET_SECONDS))) * SR
@@ -212,11 +274,25 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=nbytes / HBM_BYTES * 1e3,
         dense_dft_ops_ms=(2 * 1280 * 1282 + 2 * nnz) * frames / F32_FLOPS * 1e3))
 
-    # K2 at one HuBERT layer of the 5-s source bucket: (8, 250, 768), views of qkv
+    # K2 at one HuBERT layer of the 5-s source bucket, (8, 250, 768), views of
+    # qkv; checked again at the streaming run's buckets and the live windows
+    def k2_inputs(b: int, t: int, seed: int):
+        qkv = torch.randn(b, t, 3 * 768, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed))
+        return qkv.chunk(3, dim=-1)
+
+    def k2_check(q, k, v) -> dict:
+        return compare(fused_attention.attention_packed_kernel(q, k, v, 12, 0.125),
+                       fused_attention.attention_packed_reference(q, k, v, 12, 0.125),
+                       1e-4, 1e-3)
+
     b, t_u, d = BATCH, 5 * SR // 320, 768
-    qkv = torch.randn(b, t_u, 3 * d, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
-    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = k2_inputs(b, t_u, SEED)
     qh, kh, vh = (z.reshape(b, t_u, 12, 64).transpose(1, 2).contiguous() for z in (q, k, v))
+    k2_shapes = ([(b, t_u), *((BATCH, t) for t in shapes["stream_frames"])]
+                 + [(LIVE_STREAMS, t) for t in shapes["live_windows"]])
+    k2_checks = {str((n, t, d)): k2_check(*k2_inputs(n, t, SEED + i))
+                 for i, (n, t) in enumerate(k2_shapes)}
 
     def k2():
         return fused_attention.attention_packed_kernel(q, k, v, 12, 0.125)
@@ -230,18 +306,31 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     results.append(dict(
         name="attention_packed", tpu_id="K2", source="quickvc_tpu_torch/csrc/fused_attention.cu",
         replaces="quickvc_tpu/ops/fused_attention.py:113",
-        shape=[[b, t_u, d]] * 3, **compare(k2(), k2_plain(), 1e-4, 1e-3),
+        shape=[[b, t_u, d]] * 3, **merge_checks(k2_checks),
         ms=cuda_ms(k2), plain_ms=cuda_ms(k2_plain), library_ms=cuda_ms(k2_library),
         bound_ops_ms=4 * b * t_u * t_u * d / F32_FLOPS * 1e3,
         bound_bytes_ms=4 * 4 * b * t_u * d / HBM_BYTES * 1e3))
 
     # K3 at the decoder head of the same batch: 4 bands x 8 rows, 20*250+1 frames,
-    # read as strided views of the subband conv output like the decoder does
+    # read as strided views of the subband conv output like the decoder does;
+    # checked again at the streaming, live and parity-session windows
+    def k3_inputs(rows: int, f: int, seed: int):
+        conv_out = 0.5 * torch.randn(rows, 18, f, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(seed))
+        spec = conv_out.transpose(1, 2)
+        return spec[..., :9], spec[..., 9:]
+
+    def k3_check(lm, ph) -> dict:
+        return compare(fused_istft.polar_inverse_stft_kernel(lm, ph),
+                       istft_plain(lm, ph, 16, 4), 1e-4, 1e-3)
+
     rows, f = 4 * BATCH, 20 * t_u + 1
-    conv_out = 0.5 * torch.randn(rows, 18, f, device=dev,
-                                 generator=torch.Generator(device=dev).manual_seed(SEED + 1))
-    spec = conv_out.transpose(1, 2)
-    lm, ph = spec[..., :9], spec[..., 9:]
+    lm, ph = k3_inputs(rows, f, SEED + 1)
+    k3_shapes = [(rows, t_u), (4 * BATCH, shapes["stream_window"]),
+                 *((4 * LIVE_STREAMS, w) for w in shapes["live_windows"]),
+                 (4 * 2, shapes["parity_window"])]
+    k3_checks = {str((n, 20 * w + 1, 9)): k3_check(*k3_inputs(n, 20 * w + 1, SEED + 1 + i))
+                 for i, (n, w) in enumerate(k3_shapes)}
 
     def k3():
         return fused_istft.polar_inverse_stft_kernel(lm, ph)
@@ -258,13 +347,15 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     results.append(dict(
         name="polar_inverse_stft", tpu_id="K3", source="quickvc_tpu_torch/csrc/fused_istft.cu",
         replaces="quickvc_tpu/ops/fused_istft.py:159",
-        shape=[[rows, f, 9]] * 2, **compare(k3(), k3_plain(), 1e-4, 1e-3),
+        shape=[[rows, f, 9]] * 2, **merge_checks(k3_checks),
         ms=cuda_ms(k3), plain_ms=cuda_ms(k3_plain), library_ms=cuda_ms(k3_library),
         bound_ops_ms=rows * 4 * (f - 1) * 2 * 72 / F32_FLOPS * 1e3,
         bound_bytes_ms=4 * (2 * rows * f * 9 + rows * 4 * (f - 1)) / HBM_BYTES * 1e3))
 
     results += check_training_kernels(dev, rng)
     results += check_encoding_kernels(dev, rng)
+    results += check_attention_layouts(dev)
+    results += check_gemm_kernels(dev)
     for r in results:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
         r["bound_by"] = "operations" if r["bound_ops_ms"] >= r["bound_bytes_ms"] else "bytes"
@@ -458,6 +549,106 @@ def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[
         bound_ops_ms=(2 * m * d * (4 * d + 2 * f) + 4 * b * 12 * t_u * t_u * 64)
         / F32_FLOPS * 1e3,
         bound_bytes_ms=4 * (2 * m * d + 4 * d * d + 2 * d * f + 9 * d + f) / HBM_BYTES * 1e3))
+    return results
+
+
+def attention_inputs(dev: torch.device) -> dict:
+    """Seeded q/k/v of K10 at (8, 12, 250, 64) and (2, 3, 50, 16), and of K9 at
+    (8, 250, 12*128) with each head's 64 values zero-padded to 128 lanes."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, t_u = BATCH, 5 * SR // 320
+    return {
+        "headed": [torch.randn(b, 12, t_u, 64, device=dev, generator=g) for _ in range(3)],
+        "headed_d16": [torch.randn(2, 3, 50, 16, device=dev, generator=g) for _ in range(3)],
+        "aligned": [F.pad(torch.randn(b, t_u, 12, 64, device=dev, generator=g), (0, 64))
+                    .reshape(b, t_u, 12 * 128) for _ in range(3)]}
+
+
+def check_attention_layouts(dev: torch.device) -> list[dict]:
+    """K10 on the headed layout at the conversion's HuBERT shape and at head
+    dim 16; K9 over 128-lane heads. Library call: F.scaled_dot_product_attention
+    on the same heads (for K9 the 128-lane views: the padded lanes are part
+    of the function)."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    x = attention_inputs(dev)
+    q, k, v = x["headed"]
+    b, h, t_u, d = q.shape
+    checks = {"(8, 12, 250, 64)": compare(fa.attention_kernel(q, k, v, 0.125),
+                                          fa.attention_reference(q, k, v, 0.125), 1e-4, 1e-3),
+              "(2, 3, 50, 16)": compare(fa.attention_kernel(*x["headed_d16"], 0.25),
+                                        fa.attention_reference(*x["headed_d16"], 0.25),
+                                        1e-4, 1e-3)}
+    results = [dict(
+        name="attention", tpu_id="K10", source="quickvc_tpu_torch/csrc/fused_attention.cu",
+        replaces="quickvc_tpu/ops/fused_attention.py:231", shape=[[b, h, t_u, d]] * 3,
+        **merge_checks(checks),
+        ms=cuda_ms(lambda: fa.attention_kernel(q, k, v, 0.125)),
+        plain_ms=cuda_ms(lambda: fa.attention_reference(q, k, v, 0.125)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
+        bound_ops_ms=4 * b * h * t_u * t_u * d / F32_FLOPS * 1e3,
+        bound_bytes_ms=4 * 4 * b * h * t_u * d / HBM_BYTES * 1e3)]
+
+    qa, ka, va = x["aligned"]
+    heads = [z.reshape(b, t_u, 12, 128).transpose(1, 2) for z in (qa, ka, va)]
+    out = fa.attention_packed_aligned_kernel(qa, ka, va, 12, 0.125)
+    cmp = compare(out, fa.attention_packed_aligned_reference(qa, ka, va, 12, 0.125), 1e-4, 1e-3)
+    pad_zero = not bool(out.reshape(b, t_u, 12, 128)[..., 64:].any())
+    results.append(dict(
+        name="attention_packed_aligned", tpu_id="K9",
+        source="quickvc_tpu_torch/csrc/fused_attention.cu",
+        replaces="quickvc_tpu/ops/fused_attention.py:194", shape=[[b, t_u, 12 * 128]] * 3,
+        **(cmp | {"within_tol": cmp["within_tol"] and pad_zero}), padded_lanes_zero=pad_zero,
+        ms=cuda_ms(lambda: fa.attention_packed_aligned_kernel(qa, ka, va, 12, 0.125)),
+        plain_ms=cuda_ms(lambda: fa.attention_packed_aligned_reference(qa, ka, va, 12, 0.125)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=0.125)),
+        bound_ops_ms=4 * b * 12 * t_u * t_u * 128 / F32_FLOPS * 1e3,
+        bound_bytes_ms=4 * 4 * b * t_u * 12 * 128 / HBM_BYTES * 1e3))
+    return results
+
+
+def check_gemm_kernels(dev: torch.device) -> list[dict]:
+    """K11 at the int8 probe's full shape, (16384 x 12288) @ (12288 x 3072):
+    int8 exact against the plain version (float64 product cast to int32), bf16
+    atol 2e-3 / rtol 1e-4. Library calls: torch._int_mm, bf16 torch.matmul."""
+    from quickvc_tpu_torch.ops import int8_mm
+    from quickvc_tpu_torch.scripts import int8_matmul_probe as probe
+
+    m, kk, n = probe.M, probe.K, probe.N
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    a8 = torch.randint(-127, 128, (m, kk), device=dev, dtype=torch.int8, generator=g)
+    b8 = torch.randint(-127, 128, (kk, n), device=dev, dtype=torch.int8, generator=g)
+    ours, ref = int8_mm.mm_kernel(a8, b8), int8_mm.mm_reference(a8, b8)
+    err = float((ours.double() - ref.double()).abs().max())
+    exact = bool(torch.equal(ours, ref))
+    del ours, ref
+    ops = 2 * m * kk * n
+    results = [dict(
+        name="mm_s8", tpu_id="K11", source="quickvc_tpu_torch/csrc/int8_mm.cu",
+        replaces="scripts/int8_matmul_probe.py:85", shape=[[m, kk], [kk, n]],
+        max_abs_err=err, max_rel_err=err, atol=0, rtol=0, within_tol=exact,
+        tile=int8_mm.DEFAULT_TILE,
+        ms=cuda_ms(lambda: int8_mm.mm_kernel(a8, b8), iters=10),
+        plain_ms=cuda_ms(lambda: int8_mm.mm_reference(a8, b8), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch._int_mm(a8, b8), iters=10),
+        bound_ops_ms=ops / INT8_OPS * 1e3,
+        bound_bytes_ms=(m * kk + kk * n + 4 * m * n) / HBM_BYTES * 1e3)]
+    abf, bbf = ((x.float() / 127.0).bfloat16() for x in (a8, b8))
+    del a8, b8
+    results.append(dict(
+        name="mm_bf16", tpu_id="K11", source="quickvc_tpu_torch/csrc/int8_mm.cu",
+        replaces="scripts/int8_matmul_probe.py:85", shape=[[m, kk], [kk, n]],
+        **compare(int8_mm.mm_kernel(abf, bbf), int8_mm.mm_reference(abf, bbf), 2e-3, 1e-4),
+        tile=int8_mm.DEFAULT_TILE,
+        ms=cuda_ms(lambda: int8_mm.mm_kernel(abf, bbf), iters=10),
+        plain_ms=cuda_ms(lambda: int8_mm.mm_reference(abf, bbf), iters=5, warmup=1),
+        library_ms=cuda_ms(lambda: torch.matmul(abf, bbf), iters=10),
+        bound_ops_ms=ops / BF16_FLOPS * 1e3,
+        bound_bytes_ms=(2 * (m * kk + kk * n) + 4 * m * n) / HBM_BYTES * 1e3))
     return results
 
 
@@ -920,6 +1111,246 @@ def check_encode_against_cpu(tmp: str, rng: np.random.Generator, hubert_pt: str)
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the attention ops API and the int8 probe
+
+
+def drive_attention_api(dev: torch.device) -> dict:
+    """K10 and K9 through their public dispatchers, ``attention`` and
+    ``attention_packed_aligned``, the counters zeroed just before and read
+    just after."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    x = attention_inputs(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        outs = {"headed": fa.attention(*x["headed"], 0.125),
+                "headed_d16": fa.attention(*x["headed_d16"], 0.25),
+                "aligned": fa.attention_packed_aligned(*x["aligned"], 12, 0.125)}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expected = {name: 0 for name in launches} | {"attention": 2, "attention_packed_aligned": 1}
+    out = {"shapes": {k: list(v.shape) for k, v in outs.items()}, "launches": launches,
+           "expected_launches": expected}
+    print("attention_api " + json.dumps(out))
+    require(all(bool(torch.isfinite(v).all()) for v in outs.values()),
+            "attention API outputs are finite")
+    require(launches == expected, f"attention API launches {launches} != {expected}")
+    return out
+
+
+def run_int8_probe() -> dict:
+    """The int8 GEMM probe CLI's entry point on the card, the counters zeroed
+    just before and read just after."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.scripts import int8_matmul_probe
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    result = int8_matmul_probe.main(["--device", "cuda", "--iters", "5"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    out = {"checks": result["checks"], "launches": launches}
+    print("int8_probe " + json.dumps(out))
+    require(all(v is not False for v in result["checks"].values()), "int8 probe checks")
+    require(launches["mm_s8"] > 0 and launches["mm_bf16"] > 0
+            and not any(v for k, v in launches.items() if k not in ("mm_s8", "mm_bf16")),
+            f"int8 probe launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: streaming conversion, the CLI with --streaming against the batch CLI
+
+
+def check_streaming(tmp: str, rng: np.random.Generator, files) -> dict:
+    """16 synthetic sources of 12.1-15.5 s (two full batches) through the
+    conversion CLI with and without ``--streaming`` (noise 0), the counters
+    zeroed just before each measured run and read just after; outputs
+    compared in the interior."""
+    from quickvc_tpu_torch import convert, ops
+    from quickvc_tpu_torch.data.audio_io import read_wav, write_wav
+
+    hpfile, ptfile, hubert_pt, _ = files
+    targets = [os.path.join(tmp, f"tgt{i}.wav") for i in range(len(TARGET_SECONDS))]
+    lines, n_frames = [], {}
+    for i, sec in enumerate(STREAM_SECONDS):
+        path = os.path.join(tmp, f"long{i}.wav")
+        wav = synth_voice(sec, SR, rng)
+        write_wav(path, wav, SR)
+        lines.append(f"long{i}|{path}|{targets[i % len(targets)]}")
+        n_frames[f"long{i}"] = len(wav) // 320
+    txt = os.path.join(tmp, "stream.txt")
+    with open(txt, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    flags = {"streaming": ["--streaming", "--chunk-frames", str(STREAM_CHUNK),
+                           "--context-frames", str(STREAM_CONTEXT)], "batch": []}
+
+    def run(name: str, outdir: str) -> dict:
+        return convert.main(["--hpfile", hpfile, "--ptfile", ptfile, "--hubert", hubert_pt,
+                             "--txtpath", txt, "--outdir", os.path.join(tmp, outdir),
+                             "--device", "cuda", "--batch", str(BATCH), "--noise-scale", "0",
+                             *flags[name]])
+
+    for name in flags:   # cuDNN set-up for the window and bucket shapes
+        run(name, f"{name}_warmup")
+    buckets = Counter(int(np.ceil(sec)) for sec in STREAM_SECONDS)
+    n_batches = sum(-(-n // BATCH) for n in buckets.values())
+    require(n_batches * BATCH == len(STREAM_SECONDS), "streaming sources fill whole batches")
+    windows = sum(-(-n // BATCH) * -(-(sec * SR // 320) // STREAM_CHUNK)
+                  for sec, n in buckets.items())
+    out = {}
+    for name in flags:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        summary = run(name, f"{name}_out")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        check_outputs(summary, n_frames)
+        expected = {k: 0 for k in launches} | {
+            "wave_to_mel": len(TARGET_SECONDS), "attention_packed": 12 * n_batches,
+            "polar_inverse_stft": windows if name == "streaming" else n_batches}
+        out[name] = {"pairs": summary["pairs"], "batches": n_batches,
+                     "row_occupancy": summary["pairs"] / (n_batches * BATCH),
+                     "audio_seconds": summary["audio_seconds"],
+                     "wall_seconds": summary["wall_seconds"],
+                     "audio_s_per_wall_s": summary["audio_seconds"] / summary["wall_seconds"],
+                     "launches": launches, "expected_launches": expected}
+        require(launches == expected, f"{name} conversion launches {launches} != {expected}")
+    edge = EDGE_FRAMES * 320
+    diffs = {}
+    for title in n_frames:
+        a, b = (read_wav(os.path.join(tmp, f"{name}_out", f"{title}.wav"))[0][edge:-edge]
+                for name in ("batch", "streaming"))
+        diffs[title] = float(np.abs(a - b).max() / np.abs(a).max())
+    out["interior_max_abs_over_peak"] = diffs
+    out["edge_frames"] = EDGE_FRAMES
+    print("streaming_convert " + json.dumps(out))
+    print("streaming_profile " + json.dumps(profile_span(
+        lambda: run("streaming", "streaming_prof"), convert.LOOP_SPAN)))
+    require(max(diffs.values()) <= 1e-3,
+            "streaming interiors match the batch path within 1e-3 x peak")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: live sessions
+
+
+def profile_ticks(session, window: torch.Tensor, ticks: int = 5) -> dict:
+    """``ticks`` steps of a live session under the profiler, in one span."""
+    def run():
+        with torch.profiler.record_function(LIVE_SPAN):
+            for _ in range(ticks):
+                session.step(window)
+            torch.cuda.synchronize()
+    return {"ticks": ticks} | profile_span(run, LIVE_SPAN)
+
+
+def check_live_sessions(dev: torch.device, net_g, hubert, rng: np.random.Generator) -> dict:
+    """The realtime benchmark's points up to 64 streams, each tick's launches
+    checked; a profile of unit ticks at N = 1 and wave ticks at N = 64; then a
+    full-width unit session against batch ``infer``."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.infer import RealtimeSession, RealtimeWaveSession
+    from quickvc_tpu_torch.scripts import realtime_bench
+
+    records = realtime_bench.main(LIVE_ARGS)
+    require(len(records) == 10, f"10 live points up to 64 streams, got {len(records)}")
+    for rec in records:
+        want = {"polar_inverse_stft": 1} | ({"attention_packed": 12}
+                                            if rec["domain"] == "wave" else {})
+        require(rec["launches_per_tick"] == want,
+                f"{rec['domain']} x {rec['streams']} tick launches "
+                f"{rec['launches_per_tick']} != {want}")
+
+    net, hubert = net_g.to(dev).eval(), hubert.to(dev).eval()
+    for domain, n in (("units", 1), ("wave", 64)):
+        g = rng.standard_normal((n, 256)).astype(np.float32)
+        kw = dict(chunk=16, left=48, right=16, device=dev)
+        if domain == "units":
+            session = RealtimeSession(net, g, **kw)
+            win = torch.randn(n, 80, 256, device=dev)
+        else:
+            session = RealtimeWaveSession(net, g, hubert, **kw)
+            win = 0.1 * torch.randn(n, 80 * 320, device=dev)
+        session.step(win)
+        print("live_profile " + json.dumps({"domain": domain, "streams": n}
+                                           | profile_ticks(session, win)))
+
+    hop, f, chunk, ctx = 320, PARITY_FRAMES, PARITY_CHUNK, PARITY_CONTEXT
+    g = rng.standard_normal((2, 256)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    units = (0.5 * rng.standard_normal((2, f, 256))).astype(np.float32)
+    n_push = -(-f // chunk)
+    pushed = np.pad(units, ((0, 0), (0, n_push * chunk - f), (0, 0)))
+    session = RealtimeSession(net, g, chunk=chunk, left=ctx, right=ctx, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    blocks = [session.push(pushed[:, i * chunk : (i + 1) * chunk]) for i in range(n_push)]
+    blocks.append(session.flush())
+    launches = ops.launch_counts()
+    live = np.concatenate(blocks, axis=1)[:, ctx * hop :]   # drop the lead-in
+    with torch.inference_mode():
+        batch = net.infer(torch.from_numpy(units).to(dev).transpose(1, 2),
+                          torch.from_numpy(g).to(dev), 0.0)[:, 0].cpu().numpy()
+    a, b = (x[:, EDGE_FRAMES * hop : (f - EDGE_FRAMES) * hop] for x in (batch, live))
+    ticks = n_push + -(-ctx // chunk)
+    out = {"streams": 2, "frames": f, "chunk": chunk, "left": ctx, "right": ctx,
+           "ticks": ticks, "live_samples": int(live.shape[1]), "edge_frames": EDGE_FRAMES,
+           "interior_max_abs_over_peak": float(np.abs(a - b).max() / np.abs(a).max()),
+           "launches": launches}
+    print("live_parity " + json.dumps(out))
+    require(live.shape[1] == n_push * chunk * hop, "live output covers every pushed frame")
+    require(launches["polar_inverse_stft"] == ticks and launches["attention_packed"] == 0,
+            f"unit session launches {launches}: K3 once a tick")
+    require(out["interior_max_abs_over_peak"] <= 1e-3,
+            "live session interior matches batch infer within 1e-3 x peak")
+    return {"points": records, "parity": out}
+
+
+def check_sessions_against_cpu(net_g, hubert, rng: np.random.Generator) -> dict:
+    """One streaming batch (HuBERT units of two 4-s sources, then
+    ``streaming_infer`` with the CLI's chunk and context) and three ticks of a
+    wave session at the live benchmark's first window, on the card (K2, K3)
+    against the CPU plain path, noise 0."""
+    from quickvc_tpu_torch.infer import RealtimeWaveSession, streaming_infer
+
+    hop, chunk = 320, 16
+    src = np.stack([synth_voice(4.0, SR, rng) for _ in range(2)])
+    live = np.stack([synth_voice(3 * chunk * hop / SR + 1e-3, SR, rng)[: 3 * chunk * hop]
+                     for _ in range(2)])
+    g = rng.standard_normal((2, 256)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+
+    def path(dev):
+        h, net = hubert.to(dev), net_g.to(dev)
+        with torch.inference_mode():
+            units = h.units(torch.from_numpy(src).to(dev)).transpose(1, 2)
+            stream = streaming_infer(net, units, torch.from_numpy(g).to(dev), hop,
+                                     STREAM_CHUNK, STREAM_CONTEXT, 0.0)
+        session = RealtimeWaveSession(net, g, h, chunk=chunk, left=48, right=16, device=dev)
+        ticks = [session.push(live[:, i * chunk * hop : (i + 1) * chunk * hop])
+                 for i in range(3)]
+        return stream.cpu().numpy(), np.concatenate(ticks, axis=1)
+
+    ref = path(torch.device("cpu"))
+    ours = path(torch.device("cuda"))
+    out = {"streaming_shape": list(ours[0].shape), "wave_ticks_shape": list(ours[1].shape)}
+    for name, a, b in (("streaming", ours[0], ref[0]), ("wave_ticks", ours[1], ref[1])):
+        out[f"{name}_max_abs_over_peak"] = float(np.abs(a - b).max() / np.abs(b).max())
+    print("sessions_cpu_reference_check " + json.dumps(out))
+    require(out["streaming_shape"] == [2, 4 * SR] and out["wave_ticks_shape"] == [2, live.shape[1]],
+            "streaming and wave-session output lengths")
+    require(out["streaming_max_abs_over_peak"] <= 1e-3,
+            "streaming on the card matches the CPU path (1e-3 x peak)")
+    require(out["wave_ticks_max_abs_over_peak"] <= 1e-3,
+            "wave-session ticks on the card match the CPU path (1e-3 x peak)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -944,6 +1375,8 @@ def main() -> int:
 
     kernels = check_kernels(dev, rng)
     bad = [k["name"] for k in kernels if not k["within_tol"]]
+    attention_api = drive_attention_api(dev)
+    probe = run_int8_probe()
 
     with tempfile.TemporaryDirectory(prefix="qvc_smoke_") as tmp:
         cfg, net_g, hubert, files, n_frames = make_inputs(
@@ -962,6 +1395,8 @@ def main() -> int:
         train = check_training(tmp, rng, files, n_frames)
         encoding = check_encoding(tmp, rng, files[2])
         check_encode_against_cpu(tmp, rng, files[2])
+        check_streaming(tmp, rng, files)
+        check_live_sessions(dev, net_g, hubert, rng)
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
     expected = {name: 0 for name in launches} | {
@@ -977,6 +1412,7 @@ def main() -> int:
                   "launches": launches, "expected_launches": expected}
     print("convert " + json.dumps(throughput))
     reference = check_against_cpu(cfg, net_g, hubert, rng)
+    check_sessions_against_cpu(net_g, hubert, rng)
     disc = check_disc_fused(dev, rng)
     check_train_step_against_cpu(rng)
 
@@ -989,7 +1425,11 @@ def main() -> int:
                "conv5_lrelu_dw": ("disc_fused_path", disc["launches"]),
                "extractor_front": ("encode_pallas", encoding["pallas"]["launches"]),
                "transformer_layer": ("encode_pallas_fused_layer",
-                                     encoding["pallas_fused_layer"]["launches"])}
+                                     encoding["pallas_fused_layer"]["launches"]),
+               "attention": ("attention_api", attention_api["launches"]),
+               "attention_packed_aligned": ("attention_api", attention_api["launches"]),
+               "mm_s8": ("int8_probe", probe["launches"]),
+               "mm_bf16": ("int8_probe", probe["launches"])}
     for k in kernels:
         k["path"], counts = path_of[k["name"]]
         k["launches"] = counts[k["name"]]
@@ -998,7 +1438,7 @@ def main() -> int:
                                     "library_ms", "bound_ms", "bound_by", "path", "launches")}
         for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "dx_ms",
                       "dx_plain_ms", "dx_library_ms", "affine_ms", "library_max_abs_err",
-                      "launches_per_call"):
+                      "launches_per_call", "padded_lanes_zero", "tile"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

@@ -3,6 +3,7 @@
     python -m quickvc_tpu_torch.convert [--hpfile cfg.json] [--ptfile G.pth]
         [--hubert hubert-soft.pt] [--txtpath convert.txt] [--outdir out]
         [--device cuda|cpu] [--batch 8] [--noise-scale 1.0]
+        [--streaming [--chunk-frames 96] [--context-frames 96]]
 
 Reads ``convert.txt`` lines ``title|src|tgt`` and writes each src utterance
 in the tgt speaker's voice as a float32 wav (reference ``convert.py``). The
@@ -12,7 +13,11 @@ d-vector per unique target, HuBERT-soft units (kernel K2 in every layer;
 ``--hubert-front pallas`` runs the extractor front as kernel K7) and
 ``SynthesizerTrn.infer`` (kernel K3 in the decoder head) over batches
 of ``--batch`` same-bucket sources, outputs cropped to the source's
-``n_frames * hop`` samples.
+``n_frames * hop`` samples. ``--streaming`` synthesizes each batch in
+windows of ``--chunk-frames`` unit frames with ``--context-frames`` of
+context on each side (``infer/streaming.py``: O(chunk) memory, one K3
+launch per window); the default context covers the full-width model's
+receptive field, so the output equals the batch path's away from the edges.
 
 Runs on the card unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``--ptfile`` is a reference-layout
@@ -31,22 +36,15 @@ import torch
 
 from quickvc_tpu_torch.config import load_config
 from quickvc_tpu_torch.data.audio_io import read_wav, resample, trim_silence, write_wav
+from quickvc_tpu_torch.infer.streaming import streaming_infer
 from quickvc_tpu_torch.models.encoders import embed_utterance
 from quickvc_tpu_torch.models.hubert import FRONTS, HubertSoft
 from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
 from quickvc_tpu_torch.ops.fused_mel import wave_to_mel
+from quickvc_tpu_torch.utils.device import resolve_device
 from quickvc_tpu_torch.utils.weights import load_generator, load_hubert
 
 LOOP_SPAN = "quickvc_convert_loop"
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device to run on; CUDA without a card raises instead of falling back."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {name!r} asked for, but no CUDA card is "
-                           "available (pass --device cpu to run on the CPU)")
-    return device
 
 
 def pad_to_bucket(wav: np.ndarray, bucket: int) -> np.ndarray:
@@ -82,6 +80,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--use_timestamp", default=False, action="store_true")
     p.add_argument("--noise-scale", type=float, default=1.0,
                    help="prior sampling noise (0 = deterministic)")
+    p.add_argument("--streaming", action="store_true",
+                   help="synthesize in fixed-size unit windows: O(chunk) memory for "
+                        "any utterance length")
+    p.add_argument("--chunk-frames", type=int, default=96,
+                   help="unit frames synthesized per window with --streaming")
+    p.add_argument("--context-frames", type=int, default=96,
+                   help="context frames on each side of a window; must cover the "
+                        "model's receptive field (~75 frames at full width: enc_p's "
+                        "16-layer WaveNet +-32, the 4x4 flow couplings +-32, the "
+                        "decoder ~+-10) for the output to match the batch path")
     p.add_argument("--bucket-seconds", type=float, default=1.0,
                    help="reflect-pad utterances up to this grain so same-length "
                         "sources batch together; 0 = exact lengths")
@@ -159,9 +167,13 @@ def main(argv=None) -> dict:
                 padded = chunk + [chunk[-1]] * (nb - len(chunk))
                 src = torch.from_numpy(np.stack([it["src_wav"] for it in padded])).to(device)
                 g = torch.cat([g_cache[it["tgt"]] for it in padded])
-                unit = hubert.units(src)                           # (B, F, 256)
-                audio = net_g.infer(unit.transpose(1, 2), g, args.noise_scale, gen)
-                audio = audio[:, 0].float().cpu().numpy()
+                unit = hubert.units(src).transpose(1, 2)          # (B, 256, F)
+                if args.streaming:
+                    audio = streaming_infer(net_g, unit, g, hop, args.chunk_frames,
+                                            args.context_frames, args.noise_scale, gen)
+                else:
+                    audio = net_g.infer(unit, g, args.noise_scale, gen)[:, 0]
+                audio = audio.float().cpu().numpy()
                 dt = time.time() - t0
                 for i, it in enumerate(chunk):
                     out = audio[i, : it["n_frames"] * hop] if bucket else audio[i]

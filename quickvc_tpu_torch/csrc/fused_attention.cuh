@@ -1,7 +1,11 @@
-// The body of kernel K2 (see fused_attention.cu), shared with K8's layer
-// (fused_transformer.cu), which runs it on the strided q/k/v column blocks
-// of its qkv projection. Included by several sources, so everything here
-// has internal linkage.
+// The body of kernels K2, K9 and K10 (see fused_attention.cu), shared with
+// K8's layer (fused_transformer.cu), which runs it on the strided q/k/v
+// column blocks of its qkv projection. Templated on the head dim D (16, 32,
+// 64 or 128); every operand is addressed through a (batch, head, row) stride
+// triple with unit stride along the head dim, so one body serves the packed
+// (B, T, H*D) layout, heads padded to 128 lanes and the headed (B, H, T, D)
+// layout. Included by several sources, so everything here has internal
+// linkage.
 
 #pragma once
 
@@ -11,22 +15,46 @@
 namespace {
 namespace attn {  // K2's tile sizes stay out of the including file's names
 
-constexpr int D = 64;        // head dim
 constexpr int BM = 64;       // query rows per block
 constexpr int BN = 32;       // keys per tile
 constexpr int THREADS = 256; // 4 threads per query row
 constexpr int SPT = BN / 4;  // scores per thread per key tile
-constexpr int OPT = D / 4;   // output columns per thread
 
-__global__ void __launch_bounds__(THREADS)
+// Strides in floats of one operand: batch item, head, row (time step).
+struct Strides {
+  long long b, h, t;
+};
+
+// Shared memory of one block: qs (BM, D+1), ks (BN, D+1), vs (BN, D), ps (BM, BN+1).
+// At D = 128 that is 74,368 bytes, above the 48 KB a block gets without asking,
+// so the tiles live in dynamic shared memory and launch() raises the limit.
+template <int D>
+constexpr int smem_bytes() {
+  return (BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1)) * (int)sizeof(float);
+}
+
+// Blocks an SM is asked to hold at once, which caps a thread's registers at
+// 65536 / (256 * blocks). Left unasked, ptxas keeps 256-thread blocks to 64
+// registers, as 4 blocks would ask: enough for D <= 64, but at D = 128 (32
+// accumulators a thread) it spilled 24 bytes. The D = 128 tiles leave room
+// for 3 blocks in shared memory, so that instantiation asks for 3 (up to 85
+// registers); the others ask for the 4 they were built for.
+template <int D>
+constexpr int min_blocks() {
+  return D == 128 ? 3 : 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int T,
-                 int H, long long q_bs, long long q_ts, long long k_bs,
-                 long long k_ts, long long v_bs, long long v_ts, float scale) {
-  __shared__ float qs[BM][D + 1];
-  __shared__ float ks[BN][D + 1];
-  __shared__ float vs[BN][D];
-  __shared__ float ps[BM][BN + 1];
+                 const float* __restrict__ v, float* __restrict__ o, int T, Strides sq,
+                 Strides sk, Strides sv, Strides so, float scale) {
+  constexpr int OPT = D / 4;  // output columns per thread
+  extern __shared__ float smem[];
+  float(*qs)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem);
+  float(*ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem + BM * (D + 1));
+  float(*vs)[D] = reinterpret_cast<float(*)[D]>(smem + (BM + BN) * (D + 1));
+  float(*ps)[BN + 1] = reinterpret_cast<float(*)[BN + 1]>(smem + (BM + BN) * (D + 1) + BN * D);
 
   const int q0 = blockIdx.x * BM;
   const int h = blockIdx.y;
@@ -34,14 +62,14 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid >> 2;
   const int c0 = tid & 3;
-  const float* qb = q + b * q_bs + h * D;
-  const float* kb = k + b * k_bs + h * D;
-  const float* vb = v + b * v_bs + h * D;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   for (int i = tid; i < BM * D; i += THREADS) {
     const int rr = i / D, d = i - rr * D;
     const int t = q0 + rr;
-    qs[rr][d] = t < T ? qb[t * q_ts + d] : 0.0f;
+    qs[rr][d] = t < T ? qb[t * sq.t + d] : 0.0f;
   }
 
   float m_i = -CUDART_INF_F, l_i = 0.0f;
@@ -54,8 +82,8 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BN * D; i += THREADS) {
       const int rr = i / D, d = i - rr * D;
       const int t = n0 + rr;
-      ks[rr][d] = t < T ? kb[t * k_ts + d] : 0.0f;
-      vs[rr][d] = t < T ? vb[t * v_ts + d] : 0.0f;
+      ks[rr][d] = t < T ? kb[t * sk.t + d] : 0.0f;
+      vs[rr][d] = t < T ? vb[t * sv.t + d] : 0.0f;
     }
     __syncthreads();
 
@@ -101,26 +129,44 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int t = q0 + r;
   if (t < T) {
-    float* ob = o + ((long long)b * T + t) * (H * D) + h * D;
+    float* ob = o + b * so.b + h * so.h + t * so.t;
     const float inv = 1.0f / l_i;
 #pragma unroll
     for (int i = 0; i < OPT; ++i) ob[c0 + 4 * i] = acc[i] * inv;
   }
 }
 
-// Launches attention_kernel on the strided q/k/v rows (row strides q_ts,
-// k_ts, v_ts; batch strides q_bs, k_bs, v_bs) into the packed (B, T, H*64)
-// output o; returns the launch's error.
-inline cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                          int batch, int T, int H, long long q_bs, long long q_ts,
-                          long long k_bs, long long k_ts, long long v_bs, long long v_ts,
+// Launches attention_kernel<D> over (query tiles, H, batch) on the caller's
+// stream, q/k/v read and o written through their stride triples; returns
+// the launch's error.
+template <int D>
+inline cudaError_t launch(const float* q, const float* k, const float* v, float* o, int batch,
+                          int T, int H, Strides sq, Strides sk, Strides sv, Strides so,
                           float scale, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D>();
+  if constexpr (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid((T + BM - 1) / BM, H, batch);
-  attention_kernel<<<grid, THREADS, 0, stream>>>(q, k, v, o, T, H, q_bs, q_ts, k_bs, k_ts,
-                                                 v_bs, v_ts, scale);
+  attention_kernel<D><<<grid, THREADS, bytes, stream>>>(q, k, v, o, T, sq, sk, sv, so, scale);
   return cudaGetLastError();
+}
+
+// launch<D> for a head dim known at run time; any D but 16, 32, 64 or 128
+// is refused with cudaErrorInvalidValue before anything is launched.
+inline cudaError_t launch_any(int D, const float* q, const float* k, const float* v, float* o,
+                              int batch, int T, int H, Strides sq, Strides sk, Strides sv,
+                              Strides so, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, batch, T, H, sq, sk, sv, so, scale, stream);
+    case 32: return launch<32>(q, k, v, o, batch, T, H, sq, sk, sv, so, scale, stream);
+    case 64: return launch<64>(q, k, v, o, batch, T, H, sq, sk, sv, so, scale, stream);
+    case 128: return launch<128>(q, k, v, o, batch, T, H, sq, sk, sv, so, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace attn
 }  // namespace
-

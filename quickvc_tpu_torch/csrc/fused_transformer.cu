@@ -195,9 +195,11 @@ extern "C" int qvc_transformer_layer(
   if ((err = linear<BIAS>(xf, (const float*)w_in, (const float*)b_in, nullptr, qkv_f, M, 3 * D,
                           D, s)))
     return (int)err;
-  const long long bs = (long long)T * 3 * D, ts = 3 * D;
-  if ((err = attn::launch(qkv_f, qkv_f + D, qkv_f + 2 * D, heads_f, batch, T, H, bs, ts, bs, ts,
-                          bs, ts, scale, s)))
+  constexpr int HD = 64;  // head dim
+  const attn::Strides qkv_s{(long long)T * 3 * D, HD, 3 * D};
+  const attn::Strides heads_s{(long long)T * D, HD, D};
+  if ((err = attn::launch<HD>(qkv_f, qkv_f + D, qkv_f + 2 * D, heads_f, batch, T, H, qkv_s,
+                              qkv_s, qkv_s, heads_s, scale, s)))
     return (int)err;
   if ((err = linear<BIAS_RESIDUAL>(heads_f, (const float*)w_out, (const float*)b_out, xf, sum_f,
                                    M, D, D, s)))

@@ -27,9 +27,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from quickvc_tpu_torch.convert import resolve_device
 from quickvc_tpu_torch.data.audio_io import read_wav, resample
 from quickvc_tpu_torch.models.hubert import FRONTS, HubertSoft
+from quickvc_tpu_torch.utils.device import resolve_device
 from quickvc_tpu_torch.utils.weights import load_hubert
 
 SR = 16000

@@ -6,12 +6,14 @@ kernel for a CUDA tensor (or raises); it counts its launches in a
 """
 
 from quickvc_tpu_torch.ops import (fused_attention, fused_disc_conv, fused_extractor,
-                                  fused_istft, fused_mel, fused_transformer)
+                                  fused_istft, fused_mel, fused_transformer, int8_mm)
 
 KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_istft.STATS,
                                fused_mel.SPEC_STATS, fused_disc_conv.STATS,
                                fused_disc_conv.DW_STATS, fused_extractor.STATS,
-                               fused_transformer.STATS)}
+                               fused_transformer.STATS, fused_attention.ALIGNED_STATS,
+                               fused_attention.HEADED_STATS, int8_mm.S8_STATS,
+                               int8_mm.BF16_STATS)}
 
 
 def reset_launch_counts() -> None:

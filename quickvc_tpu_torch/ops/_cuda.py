@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
-           "fused_extractor.cu", "fused_transformer.cu")
+           "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu")
 HEADERS = ("sgemm_tile.cuh", "fused_attention.cuh")  # included by several sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,12 +42,15 @@ _SIGNATURES = {
     "qvc_wave_to_mel": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "qvc_wave_to_spec_halo": [_P, _P] + [_I] * 7 + [_P],
     "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _P],
-    "qvc_attention_packed": [_P, _P, _P, _P, _I, _I, _I] + [_L] * 6 + [_F, _P],
+    "qvc_attention_packed": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    "qvc_attention_headed": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw": [_P, _P, _P] + [_I] * 4 + [_P],
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_transformer_layer": [_P] * 19 + [_I] * 5 + [_F, _P],
     "qvc_transformer_layer_launches": [],
+    "qvc_mm_s8": [_P] * 3 + [_I] * 4 + [_P],
+    "qvc_mm_bf16": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -34,6 +34,7 @@ from quickvc_tpu_torch.data.dataset import (BUCKET_BOUNDARIES, BucketSampler, Da
 from quickvc_tpu_torch.train.state import check_supported, create_train_state, set_epoch
 from quickvc_tpu_torch.train.step import mel_basis, train_step
 from quickvc_tpu_torch.utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from quickvc_tpu_torch.utils.device import resolve_device
 
 
 def _logger(model_dir: str) -> logging.Logger:
@@ -147,8 +148,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> dict:
-    from quickvc_tpu_torch.convert import resolve_device
-
     args = parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":

@@ -1,1 +1,1 @@
-"""Weight carrying, checkpoint loading and training checkpoints."""
+"""Weight carrying, checkpoint loading, training checkpoints and the run device."""

@@ -100,3 +100,28 @@ def test_cli_converts_on_cpu(tmp_path, rng):
     assert sr == 16000 and wav.dtype == np.float32
     assert len(wav) == (16100 // 320) * 320
     assert np.isfinite(wav).all() and np.abs(wav).max() > 0
+
+
+def test_cli_streaming_interior_matches_batch_cli(tmp_path, rng):
+    """``--streaming`` (default 96-frame chunks and context) writes the batch
+    CLI's audio away from the utterance edges, and the same length."""
+    from quickvc_tpu_torch import convert
+    from quickvc_tpu_torch.data.audio_io import read_wav, write_wav
+
+    hpfile, ptfile, hubert = _write_checkpoints(tmp_path)
+    src, tgt = tmp_path / "src.wav", tmp_path / "tgt.wav"
+    write_wav(str(src), (rng.standard_normal(30400 + 50) * 0.2).astype(np.float32), 16000)
+    write_wav(str(tgt), (rng.standard_normal(16000) * 0.2).astype(np.float32), 16000)
+    txt = tmp_path / "convert.txt"
+    txt.write_text(f"pair0|{src}|{tgt}\n")
+    waves = {}
+    for name, extra in (("batch", []), ("streaming", ["--streaming"])):
+        convert.main(["--device", "cpu", "--hpfile", hpfile, "--ptfile", ptfile,
+                      "--hubert", hubert, "--txtpath", str(txt), "--outdir",
+                      str(tmp_path / name), "--noise-scale", "0", "--host-workers", "1",
+                      *extra])
+        waves[name], _ = read_wav(str(tmp_path / name / "pair0.wav"))
+    assert len(waves["streaming"]) == len(waves["batch"]) == 95 * 320   # two 96-frame windows
+    edge = 32 * 320   # beyond the tiny model's ~20-frame receptive field
+    a, b = (w[edge:-edge] for w in (waves["batch"], waves["streaming"]))
+    assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max()

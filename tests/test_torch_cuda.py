@@ -6,7 +6,9 @@ version on the same CUDA tensors. Marked ``cuda``; skips without a card.
 Tolerances: log-mel atol/rtol 2e-3, attention and iSTFT atol 1e-4 / rtol 1e-3,
 the halo spectrogram atol/rtol 2e-4 (the JAX gate), the k=5 conv and its
 gradients atol 1e-4 / rtol 1e-3, the extractor front atol 5e-4 / rtol 1e-3
-(the JAX gate), the transformer layer atol 1e-4 / rtol 1e-3.
+(the JAX gate), the transformer layer and the K9/K10 attention layouts atol
+1e-4 / rtol 1e-3, the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
+1e-4, streaming and a live session on the card within 1e-3 x peak of the CPU.
 """
 
 import pytest
@@ -151,3 +153,128 @@ def test_transformer_layer_kernel(cuda, t_len):
     assert (ft.STATS.launches, fused_attention.STATS.launches) == (before[0] + 1, before[1])
     torch.testing.assert_close(ours, ft.transformer_layer_reference(x, layer),
                                atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_headed_attention_kernel(cuda, d):
+    """K10 at each compiled head dim, on (B, H, T, D) views of packed rows."""
+    from quickvc_tpu_torch.ops import fused_attention
+
+    b, h, t_len = 2, 3, 77
+    qkv = torch.randn(b, t_len, 3, h, d, device=cuda, generator=_gen(cuda, d))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = fused_attention.HEADED_STATS.launches
+    ours = fused_attention.attention(q, k, v, d ** -0.5)
+    assert fused_attention.HEADED_STATS.launches == before + 1
+    torch.testing.assert_close(ours, fused_attention.attention_reference(q, k, v, d ** -0.5),
+                               atol=1e-4, rtol=1e-3)
+
+
+def test_attention_kernels_refuse_other_head_dims(cuda):
+    """A head dim the body is not compiled for raises; nothing is launched."""
+    from quickvc_tpu_torch.ops import fused_attention
+
+    x = torch.zeros(1, 8, 2 * 48, device=cuda)
+    xh = x.reshape(1, 8, 2, 48).transpose(1, 2)
+    before = (fused_attention.STATS.launches, fused_attention.HEADED_STATS.launches)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_attention.attention_packed(x, x, x, 2, 0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_attention.attention(xh, xh, xh, 0.1)
+    assert (fused_attention.STATS.launches, fused_attention.HEADED_STATS.launches) == before
+
+
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_packed_attention_kernel_other_head_dims(cuda, d):
+    """K2 at the head dims beside HuBERT's 64, on views of a fused qkv."""
+    from quickvc_tpu_torch.ops import fused_attention
+
+    qkv = torch.randn(2, 61, 3 * 4 * d, device=cuda, generator=_gen(cuda, d))
+    q, k, v = qkv.chunk(3, dim=-1)
+    torch.testing.assert_close(
+        fused_attention.attention_packed(q, k, v, 4, d ** -0.5),
+        fused_attention.attention_packed_reference(q, k, v, 4, d ** -0.5), atol=1e-4, rtol=1e-3)
+
+
+def test_packed_aligned_attention_kernel(cuda):
+    """K9: heads of true width 40 zero-padded to 128 lanes; padded output lanes are 0."""
+    from quickvc_tpu_torch.ops import fused_attention
+
+    b, t_len, h, d = 2, 45, 3, 40
+    g = _gen(cuda, 9)
+    q, k, v = (torch.nn.functional.pad(torch.randn(b, t_len, h, d, device=cuda, generator=g),
+                                       (0, 128 - d)).reshape(b, t_len, h * 128)
+               for _ in range(3))
+    before = fused_attention.ALIGNED_STATS.launches
+    ours = fused_attention.attention_packed_aligned(q, k, v, h, d ** -0.5)
+    assert fused_attention.ALIGNED_STATS.launches == before + 1
+    torch.testing.assert_close(
+        ours, fused_attention.attention_packed_aligned_reference(q, k, v, h, d ** -0.5),
+        atol=1e-4, rtol=1e-3)
+    assert not ours.reshape(b, t_len, h, 128)[..., d:].any()
+
+
+@pytest.mark.parametrize("tile", ["128x128", "128x256", "256x128"])
+def test_int8_mm_kernel(cuda, tile):
+    """K11 at a mid shape with ragged M and N: int8 exact, bf16 atol 2e-3 / rtol 1e-4."""
+    from quickvc_tpu_torch.ops import int8_mm
+
+    g = _gen(cuda, 11)
+    a8 = torch.randint(-127, 128, (1000, 512), device=cuda, dtype=torch.int8, generator=g)
+    b8 = torch.randint(-127, 128, (512, 264), device=cuda, dtype=torch.int8, generator=g)
+    before = (int8_mm.S8_STATS.launches, int8_mm.BF16_STATS.launches)
+    got = int8_mm.mm_kernel(a8, b8, tile)
+    assert torch.equal(got, int8_mm.mm_reference(a8, b8))
+    abf, bbf = ((x.float() / 127).bfloat16() for x in (a8, b8))
+    torch.testing.assert_close(int8_mm.mm_kernel(abf, bbf, tile), int8_mm.mm_reference(abf, bbf),
+                               atol=2e-3, rtol=1e-4)
+    assert (int8_mm.S8_STATS.launches, int8_mm.BF16_STATS.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+
+
+def _tiny_generator():
+    """A seeded tiny SynthesizerTrn and d-vectors (the CPU tests' TINY_MODEL)."""
+    from quickvc_tpu_torch.config import ModelConfig
+    from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    mc = ModelConfig(inter_channels=16, hidden_channels=16, upsample_initial_channel=32,
+                     gin_channels=16, unit_channels=24, resblock_kernel_sizes=(3, 5),
+                     resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)), enc_wn_layers=3,
+                     flow_wn_layers=2, n_flows=2)
+    net = init_random_(SynthesizerTrn(33, 8, mc), 31).eval()
+    g = torch.randn(2, 16, generator=torch.Generator().manual_seed(32))
+    return net, g / g.norm(dim=1, keepdim=True)
+
+
+def test_streaming_and_session_on_card_match_cpu(cuda):
+    """streaming_infer and a unit session on the card (K3 per window and per
+    tick) against the CPU's plain path, within 1e-3 x peak (the conversion's
+    card-against-CPU gate)."""
+    import copy
+
+    import numpy as np
+
+    from quickvc_tpu_torch.infer import RealtimeSession, streaming_infer
+    from quickvc_tpu_torch.ops import fused_istft
+
+    net, g = _tiny_generator()
+    net_card = copy.deepcopy(net).to(cuda)
+    unit = torch.randn(2, 24, 150, generator=torch.Generator().manual_seed(33))
+    with torch.inference_mode():
+        cpu = streaming_infer(net, unit, g, chunk=40, context=32)
+        before = fused_istft.STATS.launches
+        card = streaming_infer(net_card, unit.to(cuda), g.to(cuda), chunk=40, context=32)
+        assert fused_istft.STATS.launches == before + 4
+    assert (card.cpu() - cpu).abs().max() <= 1e-3 * cpu.abs().max()
+
+    blocks = unit.transpose(1, 2).numpy()
+    outs = {}
+    for name, model, dev in (("cpu", net, "cpu"), ("card", net_card, "cuda")):
+        session = RealtimeSession(model, g.numpy(), chunk=16, left=32, right=16, device=dev)
+        before = fused_istft.STATS.launches
+        outs[name] = np.concatenate([session.push(blocks[:, i : i + 16])
+                                     for i in range(0, 144, 16)] + [session.flush()], axis=1)
+        ticks = fused_istft.STATS.launches - before
+        assert ticks == (10 if dev == "cuda" else 0)
+    assert np.abs(outs["card"] - outs["cpu"]).max() <= 1e-3 * np.abs(outs["cpu"]).max()

@@ -1,0 +1,84 @@
+"""PyTorch port, kernel K11: the plain version of the int8/bf16 GEMM against
+the JAX probe's ``pallas_mm`` (Pallas TPU interpret mode) and the port's
+probe CLI on the CPU, both at (64 x 256) @ (256 x 128) instead of the
+probe's full shape.
+
+Tolerances: int8 exact (both sum in int32 or exactly in float64); bf16 atol
+1e-5 (the same bf16 values summed in float32 in another order).
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from torch_port_support import t
+
+REPO = Path(__file__).resolve().parents[1]
+SMALL = {"M": 64, "K": 256, "N": 128}
+
+
+@pytest.fixture
+def jax_probe(monkeypatch):
+    """``scripts/int8_matmul_probe.py`` loaded as a module, its shape made small."""
+    spec = importlib.util.spec_from_file_location("jax_int8_matmul_probe",
+                                                  REPO / "scripts" / "int8_matmul_probe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for name, value in SMALL.items():
+        monkeypatch.setattr(mod, name, value)
+    return mod
+
+
+def test_plain_matches_pallas_mm(rng, jax_probe):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from quickvc_tpu_torch.ops import int8_mm, reset_launch_counts
+
+    a8 = rng.integers(-127, 128, (SMALL["M"], SMALL["K"]), dtype=np.int8)
+    b8 = rng.integers(-127, 128, (SMALL["K"], SMALL["N"]), dtype=np.int8)
+    abf, bbf = ((x.astype(np.float32) / 127.0).astype(jnp.bfloat16) for x in (a8, b8))
+    with pltpu.force_tpu_interpret_mode():
+        golden8 = np.asarray(jax_probe.pallas_mm(jnp.asarray(a8), jnp.asarray(b8),
+                                                 bm=32, bn=128, bk=128))
+        golden_bf = np.asarray(jax_probe.pallas_mm(jnp.asarray(abf), jnp.asarray(bbf),
+                                                   bm=32, bn=128, bk=128))
+    assert golden8.dtype == np.int32 and golden_bf.dtype == np.float32
+
+    reset_launch_counts()
+    ours8 = int8_mm.mm(t(a8), t(b8))
+    ours_bf = int8_mm.mm(*(t(x.astype(np.float32)).bfloat16() for x in (abf, bbf)))
+    assert int8_mm.S8_STATS.launches == int8_mm.BF16_STATS.launches == 0
+    assert ours8.dtype == torch.int32
+    np.testing.assert_array_equal(ours8.numpy(), golden8)
+    np.testing.assert_allclose(ours_bf.numpy(), golden_bf, atol=1e-5, rtol=0)
+
+
+def test_probe_cli_on_cpu(monkeypatch, capsys):
+    """The port's probe at the small shape: exact, every line on the CPU."""
+    from quickvc_tpu_torch.scripts import int8_matmul_probe as probe
+
+    for name, value in SMALL.items():
+        monkeypatch.setattr(probe, name, value)
+    out = probe.main(["--device", "cpu", "--iters", "1"])
+    assert out["device"] == "cpu"
+    assert out["checks"]["s8_exact"] and out["checks"]["bf16_within_tol"]
+    names = [line["name"] for line in out["lines"]]
+    assert names == ["mm_s8", "mm_bf16", "library_int_mm_s8", "library_int_mm_s8_b_col_major",
+                     "library_matmul_bf16"]
+    assert all(line["ms"] > 0 for line in out["lines"])
+    assert '"device": "cpu"' in capsys.readouterr().out
+
+
+def test_kernel_refuses_what_it_does_not_take():
+    from quickvc_tpu_torch.ops import int8_mm
+
+    a = torch.zeros(4, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_mm.mm_kernel(a, a.T.contiguous())
+    with pytest.raises(RuntimeError, match="mm has no backward"):
+        int8_mm.mm(a.float().requires_grad_(), a.float().T)

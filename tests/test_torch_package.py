@@ -33,6 +33,9 @@ for m in pkgutil.walk_packages(quickvc_tpu_torch.__path__, "quickvc_tpu_torch.")
     importlib.import_module(m.name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "quickvc_tpu")]
+new = ["quickvc_tpu_torch." + m for m in ("infer.streaming", "infer.realtime", "ops.int8_mm",
+                                         "scripts.int8_matmul_probe", "scripts.realtime_bench")]
+bad += [m + " not imported" for m in new if m not in sys.modules]
 print(len([n for n in sys.modules if n.startswith("quickvc_tpu_torch.")]), bad)
 sys.exit(1 if bad else 0)
 """
@@ -40,7 +43,7 @@ sys.exit(1 if bad else 0)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15
+    assert int(proc.stdout.split()[0]) >= 20
 
 
 def test_kernel_build_dir(tmp_path, monkeypatch):
@@ -58,7 +61,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel entry point never runs a plain version: a CPU tensor is an error."""
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import (fused_attention, fused_disc_conv, fused_extractor,
-                                       fused_istft, fused_mel, fused_transformer)
+                                       fused_istft, fused_mel, fused_transformer, int8_mm)
 
     x = torch.zeros(1, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -80,3 +83,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                                torch.zeros(8, 8, 3))
     with pytest.raises(ValueError, match="CUDA"):
         fused_transformer.transformer_layer_kernel(x, TransformerLayer(64, 1, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_attention.attention_kernel(x[None], x[None], x[None], 0.125)
+    xa = torch.zeros(1, 8, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_attention.attention_packed_aligned_kernel(xa, xa, xa, 1, 0.125)
+    a8 = torch.zeros(64, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_mm.mm_kernel(a8, a8)

@@ -112,7 +112,7 @@ def test_decoder_differentiable_head_matches_kernel_path(rng):
 
 
 def test_kernel_dispatchers_refuse_a_graph(rng):
-    """K1, K2, K3, K7 and K8 have no backward: with grad mode on, an input
+    """K1, K2, K3, K7, K8, K9 and K10 have no backward: with grad mode on, an input
     that requires grad raises on the CPU as it would on the card; under
     no_grad it runs. A HuBERT forward with grad raises at its first kernel."""
     from quickvc_tpu_torch.models.hubert import HubertSoft
@@ -128,6 +128,12 @@ def test_kernel_dispatchers_refuse_a_graph(rng):
     q = t(rng.standard_normal((1, 9, 64)).astype(np.float32)).requires_grad_()
     with pytest.raises(RuntimeError, match="attention_packed has no backward"):
         fused_attention.attention_packed(q, q, q, 4, 0.25)
+    qa = t(rng.standard_normal((1, 9, 256)).astype(np.float32)).requires_grad_()
+    with pytest.raises(RuntimeError, match="attention_packed_aligned has no backward"):
+        fused_attention.attention_packed_aligned(qa, qa, qa, 2, 0.25)
+    qh = q.detach().reshape(1, 9, 4, 16).transpose(1, 2).requires_grad_()
+    with pytest.raises(RuntimeError, match="attention has no backward"):
+        fused_attention.attention(qh, qh, qh, 0.25)
     wav = t(rng.standard_normal((1, 4000)).astype(np.float32))
     for front, fused, name in (("faststats", False, "attention_packed"),
                                ("pallas", False, "extractor_front"),
@@ -139,4 +145,6 @@ def test_kernel_dispatchers_refuse_a_graph(rng):
         assert fused_mel.wave_to_mel(y, 16000, 1280, 320, 1280, 80).shape == (1, 20, 80)
         assert fused_istft.polar_inverse_stft(lm, ph, 16, 4).shape == (2, 40)
         assert fused_attention.attention_packed(q, q, q, 4, 0.25).shape == (1, 9, 64)
+        assert fused_attention.attention_packed_aligned(qa, qa, qa, 2, 0.25).shape == (1, 9, 256)
+        assert fused_attention.attention(qh, qh, qh, 0.25).shape == (1, 4, 9, 16)
         assert hubert.units(wav).shape == (1, 4000 // 320, TINY_HUBERT["unit_dim"])
