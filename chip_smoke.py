@@ -8,10 +8,10 @@
    shapes its path gives it, and times kernel, plain version and one
    PyTorch library call for the same function (CUDA events, after warm-up):
    K1-K3 at the conversion's shapes, K4 at the full training batch
-   (32, 512*320+960), K5 (forward and dx) and K6 (dW) at DiscriminatorP's
-   fifth conv, x (128, 64, 1024), K7 (HuBERT's extractor front) at the
-   encoding batch's wave (16, 96080) and K8 (a whole HuBERT layer) at its
-   hidden state (16, 300, 768). K2 and K3 are also held against their plain
+   (32, 512*320+960) (also held at n_fft/hop 1024/256), K5 (forward and
+   dx) and K6 (dW) at DiscriminatorP's fifth conv, x (128, 64, 1024), K7
+   (HuBERT's extractor front) at the encoding batch's wave (16, 96080) and
+   K8 (a whole HuBERT layer) at its hidden state (16, 300, 768). K2 and K3 are also held against their plain
    versions at the streaming and live paths' shapes: K2 over the streaming
    run's buckets (8, 650 / 800, 768) and the live wave windows (64, 80 / 68,
    768), K3 over the streaming windows (32, 5761, 9), the live windows
@@ -118,7 +118,7 @@ TPU_KERNELS = [
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
      "ported: quickvc_tpu_torch/csrc/fused_istft.cu"),
     ("K4", "quickvc_tpu/ops/fused_mel.py:177", "wave_to_spec_halo_pallas",
-     "ported: quickvc_tpu_torch/csrc/fused_mel.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: real FFT"),
     ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward (and dx)",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
     ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
@@ -132,7 +132,7 @@ TPU_KERNELS = [
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu"),
     ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm",
-     "ported: quickvc_tpu_torch/csrc/int8_mm.cu"),
+     "ported: quickvc_tpu_torch/csrc/int8_mm.cu; redesigned: TMA + wgmma"),
 ]
 # training path: full width, batch 32, 512-frame crops (utterances of 12.5-13.5 s
 # fall in the (600, 700]-frame bucket, cropped to max_speclen 512)
@@ -150,7 +150,13 @@ ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
 # the port's __global__ functions, as the profiler names them
 DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kernel",
                     "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "extractor_front_kernel",
-                    "linear_kernel", "row_layer_norm_kernel", "mm_kernel")
+                    "linear_kernel", "row_layer_norm_kernel", "mm_wgmma_kernel",
+                    "transpose_kernel")
+# the entry functions whose ptxas registers and spills the build step prints
+# (K4's and K11's bodies); none may spill
+PTXAS_WATCH = ("wave_to_spec_halo_kernel", "mm_wgmma_kernel", "transpose_kernel")
+REDESIGNED = {"wave_to_spec_halo": "redesigned: real FFT", "mm_s8": "redesigned: TMA + wgmma",
+              "mm_bf16": "redesigned: TMA + wgmma"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
 # bucket and 8 in the 16-s one, so each batch of 8 is full
 STREAM_SECONDS = [12.1 + 0.1 * i for i in range(8)] + [15.05 + 0.06 * i for i in range(8)]
@@ -177,6 +183,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from quickvc_tpu_torch.scripts import time_ms
 
     return time_ms(fn, torch.device("cuda"), iters, warmup)
+
+
+def turns(kernel, library, iters: int = 20) -> dict:
+    """The kernel and its library call timed in turns (library, kernel,
+    kernel, library): ``ms`` and ``library_ms`` are the means of each pair,
+    ``ms_turns`` and ``library_ms_turns`` the four readings in order."""
+    lib0, k0, k1, lib1 = (cuda_ms(f, iters) for f in (library, kernel, kernel, library))
+    return {"ms": (k0 + k1) / 2, "library_ms": (lib0 + lib1) / 2,
+            "ms_turns": [k0, k1], "library_ms_turns": [lib0, lib1]}
+
+
+def ptxas_report(build_log: str) -> dict:
+    """Registers and spill bytes of each entry function in ``PTXAS_WATCH``
+    from nvcc's ``-Xptxas -v`` log (mangled names shortened to the match)."""
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            continue
+        if "Function properties for" in line:
+            entry = line.split("Function properties for")[1].strip()
+            continue
+        name = next((w for w in PTXAS_WATCH if entry and w in entry), None)
+        if name is None:
+            continue
+        rec = out.setdefault(entry, {"kernel": name})
+        if "spill stores" in line:
+            nums = [int(x) for x in line.replace(",", " ").split() if x.isdigit()]
+            rec["stack_bytes"], rec["spill_store_bytes"], rec["spill_load_bytes"] = nums[:3]
+        elif "Used" in line and "registers" in line:
+            rec["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def compare(ours: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> dict:
@@ -372,11 +410,23 @@ def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[
     from quickvc_tpu_torch.ops import fused_mel
 
     results = []
-    # K4: (32, 512*320 + 960) s16 crops / 32768 -> (32, 512, 641)
-    frames, t_len = 512, 512 * 320 + 960
-    y = torch.from_numpy(np.stack([
-        np.round(synth_voice((t_len + 1) / SR, SR, rng)[:t_len] * 32767) / 32768.0
-        for _ in range(TRAIN_BATCH)]).astype(np.float32)).to(dev)
+    # K4: (32, 512*320 + 960) s16 crops / 32768 -> (32, 512, 641); held
+    # against its plain version there and at n_fft/hop 1024/256
+    def k4_wave(frames: int, n_fft: int, hop: int, rng: np.random.Generator) -> torch.Tensor:
+        t_len = frames * hop + n_fft - hop
+        return torch.from_numpy(np.stack([
+            np.round(synth_voice((t_len + 1) / SR, SR, rng)[:t_len] * 32767) / 32768.0
+            for _ in range(TRAIN_BATCH)]).astype(np.float32)).to(dev)
+
+    frames = 512
+    y = k4_wave(frames, 1280, 320, rng)
+    y1024 = k4_wave(frames, 1024, 256, np.random.default_rng(SEED + 4))
+    k4_checks = {
+        "1280/320": compare(fused_mel.wave_to_spec_halo_kernel(y, 1280, 320, 1280),
+                            spec_plain(y, 1280, 320, 1280), 2e-4, 2e-4),
+        "1024/256": compare(fused_mel.wave_to_spec_halo_kernel(y1024, 1024, 256, 1024),
+                            spec_plain(y1024, 1024, 256, 1024), 2e-4, 2e-4)}
+    del y1024
     win = torch.as_tensor(hann_window(1280), device=dev)
 
     def k4():
@@ -395,11 +445,11 @@ def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[
     results.append(dict(
         name="wave_to_spec_halo", tpu_id="K4", source="quickvc_tpu_torch/csrc/fused_mel.cu",
         replaces="quickvc_tpu/ops/fused_mel.py:177",
-        shape=[list(y.shape), [TRAIN_BATCH, frames, 641]], **compare(k4(), k4_plain(), 2e-4, 2e-4),
-        ms=cuda_ms(k4), plain_ms=cuda_ms(k4_plain), library_ms=cuda_ms(k4_library),
+        shape=[list(y.shape), [TRAIN_BATCH, frames, 641]], **merge_checks(k4_checks),
+        # in turns: library, kernel, kernel, library
+        **turns(k4, k4_library), plain_ms=cuda_ms(k4_plain),
         bound_ops_ms=(2.5 * 1280 * np.log2(1280) + 1280 + 4 * 641) * n_fr / F32_FLOPS * 1e3,
-        bound_bytes_ms=4 * (y.numel() + n_fr * 641) / HBM_BYTES * 1e3,
-        dense_dft_ops_ms=2 * 1280 * 1282 * n_fr / F32_FLOPS * 1e3))
+        bound_bytes_ms=4 * (y.numel() + n_fr * 641) / HBM_BYTES * 1e3))
     del y
 
     # K5/K6: x (N, R, C) = (64 paired items x period 2, 64 rows, 1024), filter
@@ -622,6 +672,7 @@ def check_gemm_kernels(dev: torch.device) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     a8 = torch.randint(-127, 128, (m, kk), device=dev, dtype=torch.int8, generator=g)
     b8 = torch.randint(-127, 128, (kk, n), device=dev, dtype=torch.int8, generator=g)
+    b8_col = b8.t().contiguous().t()
     ours, ref = int8_mm.mm_kernel(a8, b8), int8_mm.mm_reference(a8, b8)
     err = float((ours.double() - ref.double()).abs().max())
     exact = bool(torch.equal(ours, ref))
@@ -632,21 +683,24 @@ def check_gemm_kernels(dev: torch.device) -> list[dict]:
         replaces="scripts/int8_matmul_probe.py:85", shape=[[m, kk], [kk, n]],
         max_abs_err=err, max_rel_err=err, atol=0, rtol=0, within_tol=exact,
         tile=int8_mm.DEFAULT_TILE,
-        ms=cuda_ms(lambda: int8_mm.mm_kernel(a8, b8), iters=10),
+        **turns(lambda: int8_mm.mm_kernel(a8, b8), lambda: torch._int_mm(a8, b8), iters=10),
+        transpose_ms=cuda_ms(lambda: int8_mm.transpose_b(b8), iters=10),
+        # cuBLASLt's int8 kernels want B column-major: the same call on such a
+        # copy, made before the timing
+        library_b_col_major_ms=cuda_ms(lambda: torch._int_mm(a8, b8_col), iters=10),
         plain_ms=cuda_ms(lambda: int8_mm.mm_reference(a8, b8), iters=3, warmup=1),
-        library_ms=cuda_ms(lambda: torch._int_mm(a8, b8), iters=10),
         bound_ops_ms=ops / INT8_OPS * 1e3,
         bound_bytes_ms=(m * kk + kk * n + 4 * m * n) / HBM_BYTES * 1e3)]
     abf, bbf = ((x.float() / 127.0).bfloat16() for x in (a8, b8))
-    del a8, b8
+    del a8, b8, b8_col
     results.append(dict(
         name="mm_bf16", tpu_id="K11", source="quickvc_tpu_torch/csrc/int8_mm.cu",
         replaces="scripts/int8_matmul_probe.py:85", shape=[[m, kk], [kk, n]],
         **compare(int8_mm.mm_kernel(abf, bbf), int8_mm.mm_reference(abf, bbf), 2e-3, 1e-4),
         tile=int8_mm.DEFAULT_TILE,
-        ms=cuda_ms(lambda: int8_mm.mm_kernel(abf, bbf), iters=10),
+        **turns(lambda: int8_mm.mm_kernel(abf, bbf), lambda: torch.matmul(abf, bbf), iters=10),
+        transpose_ms=cuda_ms(lambda: int8_mm.transpose_b(bbf), iters=10),
         plain_ms=cuda_ms(lambda: int8_mm.mm_reference(abf, bbf), iters=5, warmup=1),
-        library_ms=cuda_ms(lambda: torch.matmul(abf, bbf), iters=10),
         bound_ops_ms=ops / BF16_FLOPS * 1e3,
         bound_bytes_ms=(2 * (m * kk + kk * n) + 4 * m * n) / HBM_BYTES * 1e3))
     return results
@@ -1368,10 +1422,17 @@ def main() -> int:
     t0 = time.time()
     lib = _cuda.build()
     _cuda.library()
-    ptxas = [ln.strip() for ln in (lib.parent / "build.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    build_log = (lib.parent / "build.log").read_text()
+    ptxas = [ln.strip() for ln in build_log.splitlines() if "registers" in ln or "spill" in ln]
+    watched = ptxas_report(build_log)
     print("build " + json.dumps({"seconds": round(time.time() - t0, 2), "library": lib.name,
                                  "ptxas": ptxas}))
+    print("ptxas " + json.dumps(watched))
+    require({r["kernel"] for r in watched.values()} == set(PTXAS_WATCH),
+            f"ptxas report names {PTXAS_WATCH}")
+    spilled = [e for e, r in watched.items()
+               if r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0)]
+    require(not spilled, f"K4/K11 bodies spill: {spilled}")
 
     kernels = check_kernels(dev, rng)
     bad = [k["name"] for k in kernels if not k["within_tol"]]
@@ -1438,7 +1499,8 @@ def main() -> int:
                                     "library_ms", "bound_ms", "bound_by", "path", "launches")}
         for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "dx_ms",
                       "dx_plain_ms", "dx_library_ms", "affine_ms", "library_max_abs_err",
-                      "launches_per_call", "padded_lanes_zero", "tile"):
+                      "launches_per_call", "padded_lanes_zero", "tile", "ms_turns",
+                      "library_ms_turns", "transpose_ms", "library_b_col_major_ms"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))
@@ -1454,7 +1516,9 @@ def main() -> int:
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"]} for k in kernels]}))
+         "library_ms": k["library_ms"]} | ({"status": REDESIGNED[k["name"]]}
+                                          if k["name"] in REDESIGNED else {})
+        for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

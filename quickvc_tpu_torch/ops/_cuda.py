@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "qvc_wave_to_mel": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "qvc_wave_to_spec_halo": [_P, _P] + [_I] * 7 + [_P],
+    "qvc_wave_to_spec_halo": [_P, _P, _P] + [_I] * 6 + [_P],
     "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _P],
     "qvc_attention_packed": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     "qvc_attention_headed": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "qvc_transformer_layer_launches": [],
     "qvc_mm_s8": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    "qvc_mm_transpose": [_P, _P] + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

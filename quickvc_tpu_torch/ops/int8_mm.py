@@ -1,12 +1,15 @@
-"""Kernel K11: a tensor-core GEMM, s8 x s8 -> s32 and bf16 x bf16 -> f32 (``csrc/int8_mm.cu``).
+"""Kernel K11: a TMA + wgmma GEMM, s8 x s8 -> s32 and bf16 x bf16 -> f32 (``csrc/int8_mm.cu``).
 
 Replaces the TPU kernel ``scripts/int8_matmul_probe.py:pallas_mm``, which
 probes whether a hand-written kernel reaches the chip's int8 rate. A and B
 are row-major (M, K) and (K, N). :func:`mm` takes the plain version,
 :func:`mm_reference`, for CPU tensors and launches the kernel for CUDA
-tensors (or raises); :data:`S8_STATS` and :data:`BF16_STATS` count the
-launches of each type. The kernel is compiled for the output tiles in
-:data:`TILES`; :func:`mm_kernel` takes one by name, :func:`mm` the default.
+tensors (or raises); :data:`S8_STATS` and :data:`BF16_STATS` count one
+launch a call. A call is two CUDA launches: :func:`transpose_b` writes B^T
+(N, K) into scratch (wgmma reads 8-bit operands K-major only), then the
+GEMM kernel reads A and B^T through TMA. The GEMM is compiled for the
+output tiles in :data:`TILES`; :func:`mm_kernel` takes one by name,
+:func:`mm` the default.
 """
 
 from __future__ import annotations
@@ -17,10 +20,10 @@ from quickvc_tpu_torch.ops._cuda import KernelStats, check, library, refuse_grad
 
 S8_STATS = KernelStats("mm_s8")
 BF16_STATS = KernelStats("mm_bf16")
-TILES = ("128x128", "128x256", "256x128")  # BM x BN, by the C entry's tile index
+TILES = ("128x256", "128x128")  # BM x BN, by the C entry's tile index
 # the fastest of the sweep at the probe's shape on an H100, in both types
 # (python -m quickvc_tpu_torch.scripts.int8_matmul_probe; PERF.md)
-DEFAULT_TILE = "256x128"
+DEFAULT_TILE = "128x256"
 _KINDS = {torch.int8: ("qvc_mm_s8", torch.int32, 64, S8_STATS),
           torch.bfloat16: ("qvc_mm_bf16", torch.float32, 32, BF16_STATS)}
 
@@ -36,6 +39,18 @@ def mm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.int8 and b.dtype == torch.int8:
         return (a.double() @ b.double()).to(torch.int32)
     return a.float() @ b.float()
+
+
+def transpose_b(b: torch.Tensor) -> torch.Tensor:
+    """K11's pre-pass alone: contiguous CUDA (K, N) int8 or bf16 -> B^T (N, K)."""
+    if b.device.type != "cuda" or b.dtype not in _KINDS or b.dim() != 2 or not b.is_contiguous():
+        raise ValueError(f"mm: transpose takes a contiguous CUDA (K, N) int8 or bf16 matrix, "
+                         f"got {tuple(b.shape)} {b.dtype} on {b.device}")
+    k, n = b.shape
+    bt = torch.empty((n, k), device=b.device, dtype=b.dtype)
+    check(library().qvc_mm_transpose(b.data_ptr(), bt.data_ptr(), k, n, b.element_size(),
+                                     stream_ptr(b)), "mm transpose kernel")
+    return bt
 
 
 def mm_kernel(a: torch.Tensor, b: torch.Tensor, tile: str = DEFAULT_TILE) -> torch.Tensor:
@@ -59,8 +74,9 @@ def mm_kernel(a: torch.Tensor, b: torch.Tensor, tile: str = DEFAULT_TILE) -> tor
                          f"{tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
+    bt = transpose_b(b)
     out = torch.empty((m, n), device=a.device, dtype=out_dtype)
-    check(getattr(library(), fn)(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+    check(getattr(library(), fn)(a.data_ptr(), bt.data_ptr(), out.data_ptr(), m, n, k,
                                  TILES.index(tile), stream_ptr(a)), f"{fn} kernel")
     stats.launches += 1
     return out

@@ -4,7 +4,8 @@ version on the same CUDA tensors. Marked ``cuda``; skips without a card.
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Tolerances: log-mel atol/rtol 2e-3, attention and iSTFT atol 1e-4 / rtol 1e-3,
-the halo spectrogram atol/rtol 2e-4 (the JAX gate), the k=5 conv and its
+the halo spectrogram atol/rtol 2e-4 (the JAX gate) at n_fft/hop 1280/320 and
+1024/256, the k=5 conv and its
 gradients atol 1e-4 / rtol 1e-3, the extractor front atol 5e-4 / rtol 1e-3
 (the JAX gate), the transformer layer and the K9/K10 attention layouts atol
 1e-4 / rtol 1e-3, the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
@@ -30,16 +31,26 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-def test_wave_to_spec_halo_kernel(cuda):
+@pytest.mark.parametrize("n_fft,hop", [(1280, 320), (1024, 256)])
+def test_wave_to_spec_halo_kernel(cuda, n_fft, hop):
+    """37 frames: not a multiple of the kernel's 2-frame tile."""
     from quickvc_tpu_torch.dsp.stft import wave_to_spec_halo as plain
     from quickvc_tpu_torch.ops import fused_mel
 
-    y = 0.3 * torch.randn(3, 37 * 320 + 960, device=cuda, generator=_gen(cuda, 2))
+    y = 0.3 * torch.randn(3, 37 * hop + n_fft - hop, device=cuda, generator=_gen(cuda, 2))
     before = fused_mel.SPEC_STATS.launches
-    ours = fused_mel.wave_to_spec_halo(y, 1280, 320, 1280)
+    ours = fused_mel.wave_to_spec_halo(y, n_fft, hop, n_fft)
     assert fused_mel.SPEC_STATS.launches == before + 1
-    assert ours.shape == (3, 37, 641)
-    torch.testing.assert_close(ours, plain(y, 1280, 320, 1280), atol=2e-4, rtol=2e-4)
+    assert ours.shape == (3, 37, n_fft // 2 + 1)
+    torch.testing.assert_close(ours, plain(y, n_fft, hop, n_fft), atol=2e-4, rtol=2e-4)
+
+
+def test_wave_to_spec_halo_kernel_refuses_other_sizes(cuda):
+    from quickvc_tpu_torch.ops import fused_mel
+
+    y = torch.zeros(1, 4 * 1536, device=cuda)
+    with pytest.raises(ValueError, match="n_fft"):
+        fused_mel.wave_to_spec_halo(y, 1536, 384, 1536)
 
 
 @pytest.mark.parametrize("shape", [(3, 37, 24, 40), (6, 64, 256, 128)])
@@ -214,7 +225,7 @@ def test_packed_aligned_attention_kernel(cuda):
     assert not ours.reshape(b, t_len, h, 128)[..., d:].any()
 
 
-@pytest.mark.parametrize("tile", ["128x128", "128x256", "256x128"])
+@pytest.mark.parametrize("tile", ["128x256", "128x128"])
 def test_int8_mm_kernel(cuda, tile):
     """K11 at a mid shape with ragged M and N: int8 exact, bf16 atol 2e-3 / rtol 1e-4."""
     from quickvc_tpu_torch.ops import int8_mm
@@ -230,6 +241,24 @@ def test_int8_mm_kernel(cuda, tile):
                                atol=2e-3, rtol=1e-4)
     assert (int8_mm.S8_STATS.launches, int8_mm.BF16_STATS.launches) == (before[0] + 1,
                                                                         before[1] + 1)
+
+
+@pytest.mark.parametrize("tile", ["128x256", "128x128"])
+def test_int8_mm_kernel_partial_stage(cuda, tile):
+    """K whose bytes are not a multiple of the 128-byte stage (TMA fills the
+    rest with zeros), with M and N ragged against the tile; the B^T pre-pass."""
+    from quickvc_tpu_torch.ops import int8_mm
+
+    g = _gen(cuda, 12)
+    for m, k, n in ((200, 192, 72), (130, 64, 8)):
+        a8 = torch.randint(-127, 128, (m, k), device=cuda, dtype=torch.int8, generator=g)
+        b8 = torch.randint(-127, 128, (k, n), device=cuda, dtype=torch.int8, generator=g)
+        assert torch.equal(int8_mm.transpose_b(b8), b8.T.contiguous())
+        assert torch.equal(int8_mm.mm_kernel(a8, b8, tile), int8_mm.mm_reference(a8, b8))
+        abf, bbf = ((x[:, : k // 2].float() / 127).bfloat16() for x in (a8, b8.T))
+        bbf = bbf.T.contiguous()                       # K = 96 or 32: 192 or 64 bytes
+        torch.testing.assert_close(int8_mm.mm_kernel(abf, bbf, tile),
+                                   int8_mm.mm_reference(abf, bbf), atol=2e-3, rtol=1e-4)
 
 
 def _tiny_generator():
