@@ -6,16 +6,23 @@
 1. Builds the hand-written kernels from ``quickvc_tpu_torch/csrc`` with nvcc.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and times kernel, plain version and one
-   PyTorch library call for the same function (CUDA events, after warm-up):
-   K1-K3 at the conversion's shapes, K4 at the full training batch
-   (32, 512*320+960) (also held at n_fft/hop 1024/256), K5 (forward and
+   PyTorch library call for the same function (CUDA events, after warm-up;
+   K1-K4 and K9-K11 also in profiler device time, ``device_ms``):
+   K1-K3 at the conversion's shapes (K1 also held at n_fft/hop 2048/512, two
+   bin chunks; K3 also at 32/8, its table-driven body), K4 at the full
+   training batch (32, 512*320+960) (also held at n_fft/hop 1024/256 on its
+   real FFT and at 800/200 on its dense DFT, whose time it prints), K5 (forward and
    dx) and K6 (dW) at DiscriminatorP's fifth conv, x (128, 64, 1024), K7
    (HuBERT's extractor front) at the encoding batch's wave (16, 96080) and
    K8 (a whole HuBERT layer) at its hidden state (16, 300, 768). K2 and K3 are also held against their plain
    versions at the streaming and live paths' shapes: K2 over the streaming
    run's buckets (8, 650 / 800, 768) and the live wave windows (64, 80 / 68,
    768), K3 over the streaming windows (32, 5761, 9), the live windows
-   (256, 1601 / 1361, 9) and the parity session's (8, 4161, 9).
+   (256, 1601 / 1361, 9) and the parity session's (8, 4161, 9). K2, K9 and
+   K10 (the 3xTF32 tensor-core attention body) are timed in turns with
+   ``F.scaled_dot_product_attention`` on the same inputs, their bound the
+   3xTF32 one, with the float32-FMA bound beside it on their
+   ``kernel_check`` lines (``bound_f32_fma_ms``).
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
@@ -103,22 +110,24 @@ TARGET_SECONDS = [3.0, 6.5, 9.0]
 TARGET_SR = 22050
 BATCH = 8
 REPEATS = 5  # measured conversions: the first counts launches, all give throughput
-# H100 SXM peaks (NVIDIA data sheet): float32 FMA rate, dense int8 and bf16
-# tensor-core rates, HBM rate
+# H100 SXM peaks (NVIDIA data sheet): float32 FMA rate, dense TF32, int8 and
+# bf16 tensor-core rates, HBM rate
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12   # a float32-accurate product takes three TF32 products (3xTF32)
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 HBM_BYTES = 3.35e12
 
 TPU_KERNELS = [
     ("K1", "quickvc_tpu/ops/fused_mel.py:227", "wave_to_mel_pallas",
-     "ported: quickvc_tpu_torch/csrc/fused_mel.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_mel.cu; n_fft up to 4096"),
     ("K2", "quickvc_tpu/ops/fused_attention.py:113", "fused_attention_packed",
-     "ported: quickvc_tpu_torch/csrc/fused_attention.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
-     "ported: quickvc_tpu_torch/csrc/fused_istft.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_istft.cu; the JAX head's sizes, n_fft up to 2048"),
     ("K4", "quickvc_tpu/ops/fused_mel.py:177", "wave_to_spec_halo_pallas",
-     "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: real FFT"),
+     "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: real FFT (FFT_SIZES), "
+     "dense DFT up to n_fft 4096"),
     ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward (and dx)",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
     ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
@@ -126,11 +135,11 @@ TPU_KERNELS = [
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
      "ported: quickvc_tpu_torch/csrc/fused_extractor.cu"),
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
-     "ported: quickvc_tpu_torch/csrc/fused_transformer.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_transformer.cu; attention on the 3xTF32 body"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
-     "ported: quickvc_tpu_torch/csrc/fused_attention.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
-     "ported: quickvc_tpu_torch/csrc/fused_attention.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
     ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm",
      "ported: quickvc_tpu_torch/csrc/int8_mm.cu; redesigned: TMA + wgmma"),
 ]
@@ -153,10 +162,15 @@ DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kerne
                     "linear_kernel", "row_layer_norm_kernel", "mm_wgmma_kernel",
                     "transpose_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
-# (K4's and K11's bodies); none may spill
-PTXAS_WATCH = ("wave_to_spec_halo_kernel", "mm_wgmma_kernel", "transpose_kernel")
+# (K4's both routes, K11's bodies, the attention body of K2/K8/K9/K10); none
+# may spill
+PTXAS_WATCH = ("wave_to_spec_halo_kernel", "mm_wgmma_kernel", "transpose_kernel",
+               "attention_kernel")
 REDESIGNED = {"wave_to_spec_halo": "redesigned: real FFT", "mm_s8": "redesigned: TMA + wgmma",
-              "mm_bf16": "redesigned: TMA + wgmma"}
+              "mm_bf16": "redesigned: TMA + wgmma",
+              "attention_packed": "redesigned: 3xTF32 tensor cores",
+              "attention_packed_aligned": "redesigned: 3xTF32 tensor cores",
+              "attention": "redesigned: 3xTF32 tensor cores"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
 # bucket and 8 in the 16-s one, so each batch of 8 is full
 STREAM_SECONDS = [12.1 + 0.1 * i for i in range(8)] + [15.05 + 0.06 * i for i in range(8)]
@@ -185,13 +199,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return time_ms(fn, torch.device("cuda"), iters, warmup)
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call (profiler device time of the kernels
+    the calls launch, ``scripts/kernel_times.py:device_ms``). A kernel of
+    tens of microseconds needs it: CUDA events around its calls also read
+    how fast the host enqueues them."""
+    from quickvc_tpu_torch.scripts.kernel_times import device_ms as profiled_ms
+
+    return profiled_ms(fn, iters)
+
+
 def turns(kernel, library, iters: int = 20) -> dict:
     """The kernel and its library call timed in turns (library, kernel,
     kernel, library): ``ms`` and ``library_ms`` are the means of each pair,
-    ``ms_turns`` and ``library_ms_turns`` the four readings in order."""
+    ``ms_turns`` and ``library_ms_turns`` the four readings in order;
+    ``device_ms`` and ``library_device_ms`` the same turns in device time."""
     lib0, k0, k1, lib1 = (cuda_ms(f, iters) for f in (library, kernel, kernel, library))
+    dl0, dk0, dk1, dl1 = (device_ms(f, iters) for f in (library, kernel, kernel, library))
     return {"ms": (k0 + k1) / 2, "library_ms": (lib0 + lib1) / 2,
-            "ms_turns": [k0, k1], "library_ms_turns": [lib0, lib1]}
+            "ms_turns": [k0, k1], "library_ms_turns": [lib0, lib1],
+            "device_ms": (dk0 + dk1) / 2, "library_device_ms": (dl0 + dl1) / 2}
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -215,6 +242,14 @@ def ptxas_report(build_log: str) -> dict:
         elif "Used" in line and "registers" in line:
             rec["registers"] = int(line.split("Used")[1].split()[0])
     return out
+
+
+def attention_bounds(flops: float, nbytes: float) -> dict:
+    """Bounds of the 3xTF32 attention body: three TF32 products for each
+    float32-accurate one, or the bytes; the float32 FMA figure beside them."""
+    return {"bound_ops_ms": 3 * flops / TF32_FLOPS * 1e3,
+            "bound_bytes_ms": nbytes / HBM_BYTES * 1e3,
+            "bound_f32_fma_ms": flops / F32_FLOPS * 1e3}
 
 
 def compare(ours: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> dict:
@@ -288,6 +323,14 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     def k1():
         return fused_mel.wave_to_mel_kernel(y, SR, 1280, 320, 1280, 80)
 
+    def k1_2048():   # past the kernel's 768-bin chunk: 1025 bins in two
+        return fused_mel.wave_to_mel_kernel(y, SR, 2048, 512, 2048, 80)
+
+    fb2048 = torch.as_tensor(mel_filterbank(SR, 2048, 80), device=dev)
+    k1_checks = {"1280/320": compare(k1(), mel_plain(y, fb, 1280, 320, 1280), 2e-3, 2e-3),
+                 "2048/512": compare(k1_2048(), mel_plain(y, fb2048, 2048, 512, 2048),
+                                     2e-3, 2e-3)}
+
     def k1_plain():
         return mel_plain(y, fb, 1280, 320, 1280)
 
@@ -307,8 +350,9 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     results.append(dict(
         name="wave_to_mel", tpu_id="K1", source="quickvc_tpu_torch/csrc/fused_mel.cu",
         replaces="quickvc_tpu/ops/fused_mel.py:227",
-        shape=[list(y.shape), [1, frames, 80]], **compare(k1(), k1_plain(), 2e-3, 2e-3),
-        ms=cuda_ms(k1), plain_ms=cuda_ms(k1_plain), library_ms=cuda_ms(k1_library),
+        shape=[list(y.shape), [1, frames, 80]], **merge_checks(k1_checks),
+        ms=cuda_ms(k1), device_ms=device_ms(k1), plain_ms=cuda_ms(k1_plain),
+        library_ms=cuda_ms(k1_library), ms_2048=cuda_ms(k1_2048),
         bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=nbytes / HBM_BYTES * 1e3,
         dense_dft_ops_ms=(2 * 1280 * 1282 + 2 * nnz) * frames / F32_FLOPS * 1e3))
 
@@ -345,9 +389,8 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         name="attention_packed", tpu_id="K2", source="quickvc_tpu_torch/csrc/fused_attention.cu",
         replaces="quickvc_tpu/ops/fused_attention.py:113",
         shape=[[b, t_u, d]] * 3, **merge_checks(k2_checks),
-        ms=cuda_ms(k2), plain_ms=cuda_ms(k2_plain), library_ms=cuda_ms(k2_library),
-        bound_ops_ms=4 * b * t_u * t_u * d / F32_FLOPS * 1e3,
-        bound_bytes_ms=4 * 4 * b * t_u * d / HBM_BYTES * 1e3))
+        **turns(k2, k2_library), plain_ms=cuda_ms(k2_plain),
+        **attention_bounds(4 * b * t_u * t_u * d, 4 * 4 * b * t_u * d)))
 
     # K3 at the decoder head of the same batch: 4 bands x 8 rows, 20*250+1 frames,
     # read as strided views of the subband conv output like the decoder does;
@@ -358,9 +401,9 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         spec = conv_out.transpose(1, 2)
         return spec[..., :9], spec[..., 9:]
 
-    def k3_check(lm, ph) -> dict:
-        return compare(fused_istft.polar_inverse_stft_kernel(lm, ph),
-                       istft_plain(lm, ph, 16, 4), 1e-4, 1e-3)
+    def k3_check(lm, ph, n_fft: int = 16, hop: int = 4) -> dict:
+        return compare(fused_istft.polar_inverse_stft_kernel(lm, ph, n_fft, hop),
+                       istft_plain(lm, ph, n_fft, hop), 1e-4, 1e-3)
 
     rows, f = 4 * BATCH, 20 * t_u + 1
     lm, ph = k3_inputs(rows, f, SEED + 1)
@@ -369,9 +412,15 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
                  (4 * 2, shapes["parity_window"])]
     k3_checks = {str((n, 20 * w + 1, 9)): k3_check(*k3_inputs(n, 20 * w + 1, SEED + 1 + i))
                  for i, (n, w) in enumerate(k3_shapes)}
+    # the table-driven body at n_fft/hop 32/8: the same batch's samples in
+    # 10*250+1 frames of 17 bins
+    spec32 = 0.5 * torch.randn(rows, 34, 10 * t_u + 1, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+    lm32, ph32 = spec32.transpose(1, 2)[..., :17], spec32.transpose(1, 2)[..., 17:]
+    k3_checks[str((rows, 10 * t_u + 1, 17)) + " 32/8"] = k3_check(lm32, ph32, 32, 8)
 
     def k3():
-        return fused_istft.polar_inverse_stft_kernel(lm, ph)
+        return fused_istft.polar_inverse_stft_kernel(lm, ph, 16, 4)
 
     def k3_plain():
         return istft_plain(lm, ph, 16, 4)
@@ -386,7 +435,9 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         name="polar_inverse_stft", tpu_id="K3", source="quickvc_tpu_torch/csrc/fused_istft.cu",
         replaces="quickvc_tpu/ops/fused_istft.py:159",
         shape=[[rows, f, 9]] * 2, **merge_checks(k3_checks),
-        ms=cuda_ms(k3), plain_ms=cuda_ms(k3_plain), library_ms=cuda_ms(k3_library),
+        ms=cuda_ms(k3), device_ms=device_ms(k3), plain_ms=cuda_ms(k3_plain),
+        library_ms=cuda_ms(k3_library),
+        ms_32_8=cuda_ms(lambda: fused_istft.polar_inverse_stft_kernel(lm32, ph32, 32, 8)),
         bound_ops_ms=rows * 4 * (f - 1) * 2 * 72 / F32_FLOPS * 1e3,
         bound_bytes_ms=4 * (2 * rows * f * 9 + rows * 4 * (f - 1)) / HBM_BYTES * 1e3))
 
@@ -421,12 +472,23 @@ def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[
     frames = 512
     y = k4_wave(frames, 1280, 320, rng)
     y1024 = k4_wave(frames, 1024, 256, np.random.default_rng(SEED + 4))
+    y800 = k4_wave(frames, 800, 200, np.random.default_rng(SEED + 6))   # the dense route
+
+    def k4_800():
+        return fused_mel.wave_to_spec_halo_kernel(y800, 800, 200, 800)
+
     k4_checks = {
         "1280/320": compare(fused_mel.wave_to_spec_halo_kernel(y, 1280, 320, 1280),
                             spec_plain(y, 1280, 320, 1280), 2e-4, 2e-4),
         "1024/256": compare(fused_mel.wave_to_spec_halo_kernel(y1024, 1024, 256, 1024),
-                            spec_plain(y1024, 1024, 256, 1024), 2e-4, 2e-4)}
-    del y1024
+                            spec_plain(y1024, 1024, 256, 1024), 2e-4, 2e-4),
+        "800/200 (dense)": compare(k4_800(), spec_plain(y800, 800, 200, 800), 2e-4, 2e-4)}
+    dense = {"dense_800_ms": cuda_ms(k4_800),
+             "dense_800_plain_ms": cuda_ms(lambda: spec_plain(y800, 800, 200, 800)),
+             "dense_800_bound_ms": max(
+                 (2.5 * 800 * np.log2(800) + 800 + 4 * 401) * TRAIN_BATCH * frames / F32_FLOPS,
+                 4 * (y800.numel() + TRAIN_BATCH * frames * 401) / HBM_BYTES) * 1e3}
+    del y1024, y800
     win = torch.as_tensor(hann_window(1280), device=dev)
 
     def k4():
@@ -447,7 +509,7 @@ def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[
         replaces="quickvc_tpu/ops/fused_mel.py:177",
         shape=[list(y.shape), [TRAIN_BATCH, frames, 641]], **merge_checks(k4_checks),
         # in turns: library, kernel, kernel, library
-        **turns(k4, k4_library), plain_ms=cuda_ms(k4_plain),
+        **turns(k4, k4_library), plain_ms=cuda_ms(k4_plain), **dense,
         bound_ops_ms=(2.5 * 1280 * np.log2(1280) + 1280 + 4 * 641) * n_fr / F32_FLOPS * 1e3,
         bound_bytes_ms=4 * (y.numel() + n_fr * 641) / HBM_BYTES * 1e3))
     del y
@@ -596,8 +658,9 @@ def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[
         ms=cuda_ms(lambda: ft.transformer_layer_kernel(x, layer)),
         plain_ms=cuda_ms(lambda: ft.transformer_layer_reference(x, layer)),
         library_ms=cuda_ms(k8_library),
-        bound_ops_ms=(2 * m * d * (4 * d + 2 * f) + 4 * b * 12 * t_u * t_u * 64)
-        / F32_FLOPS * 1e3,
+        # the products at the float32 FMA rate, the attention in 3xTF32
+        bound_ops_ms=(2 * m * d * (4 * d + 2 * f) / F32_FLOPS
+                      + 3 * 4 * b * 12 * t_u * t_u * 64 / TF32_FLOPS) * 1e3,
         bound_bytes_ms=4 * (2 * m * d + 4 * d * d + 2 * d * f + 9 * d + f) / HBM_BYTES * 1e3))
     return results
 
@@ -612,6 +675,10 @@ def attention_inputs(dev: torch.device) -> dict:
     return {
         "headed": [torch.randn(b, 12, t_u, 64, device=dev, generator=g) for _ in range(3)],
         "headed_d16": [torch.randn(2, 3, 50, 16, device=dev, generator=g) for _ in range(3)],
+        # views at strides and offsets that are not multiples of 4 floats
+        # (the body's 4-byte copies)
+        "headed_d16_unaligned": [torch.randn(2, 3, 50, 17, device=dev, generator=g)[..., 1:]
+                                 for _ in range(3)],
         "aligned": [F.pad(torch.randn(b, t_u, 12, 64, device=dev, generator=g), (0, 64))
                     .reshape(b, t_u, 12 * 128) for _ in range(3)]}
 
@@ -632,16 +699,18 @@ def check_attention_layouts(dev: torch.device) -> list[dict]:
                                           fa.attention_reference(q, k, v, 0.125), 1e-4, 1e-3),
               "(2, 3, 50, 16)": compare(fa.attention_kernel(*x["headed_d16"], 0.25),
                                         fa.attention_reference(*x["headed_d16"], 0.25),
-                                        1e-4, 1e-3)}
+                                        1e-4, 1e-3),
+              "(2, 3, 50, 16) unaligned": compare(
+                  fa.attention_kernel(*x["headed_d16_unaligned"], 0.25),
+                  fa.attention_reference(*x["headed_d16_unaligned"], 0.25), 1e-4, 1e-3)}
     results = [dict(
         name="attention", tpu_id="K10", source="quickvc_tpu_torch/csrc/fused_attention.cu",
         replaces="quickvc_tpu/ops/fused_attention.py:231", shape=[[b, h, t_u, d]] * 3,
         **merge_checks(checks),
-        ms=cuda_ms(lambda: fa.attention_kernel(q, k, v, 0.125)),
+        **turns(lambda: fa.attention_kernel(q, k, v, 0.125),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
         plain_ms=cuda_ms(lambda: fa.attention_reference(q, k, v, 0.125)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
-        bound_ops_ms=4 * b * h * t_u * t_u * d / F32_FLOPS * 1e3,
-        bound_bytes_ms=4 * 4 * b * h * t_u * d / HBM_BYTES * 1e3)]
+        **attention_bounds(4 * b * h * t_u * t_u * d, 4 * 4 * b * h * t_u * d))]
 
     qa, ka, va = x["aligned"]
     heads = [z.reshape(b, t_u, 12, 128).transpose(1, 2) for z in (qa, ka, va)]
@@ -653,11 +722,10 @@ def check_attention_layouts(dev: torch.device) -> list[dict]:
         source="quickvc_tpu_torch/csrc/fused_attention.cu",
         replaces="quickvc_tpu/ops/fused_attention.py:194", shape=[[b, t_u, 12 * 128]] * 3,
         **(cmp | {"within_tol": cmp["within_tol"] and pad_zero}), padded_lanes_zero=pad_zero,
-        ms=cuda_ms(lambda: fa.attention_packed_aligned_kernel(qa, ka, va, 12, 0.125)),
+        **turns(lambda: fa.attention_packed_aligned_kernel(qa, ka, va, 12, 0.125),
+                lambda: F.scaled_dot_product_attention(*heads, scale=0.125)),
         plain_ms=cuda_ms(lambda: fa.attention_packed_aligned_reference(qa, ka, va, 12, 0.125)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=0.125)),
-        bound_ops_ms=4 * b * 12 * t_u * t_u * 128 / F32_FLOPS * 1e3,
-        bound_bytes_ms=4 * 4 * b * t_u * 12 * 128 / HBM_BYTES * 1e3))
+        **attention_bounds(4 * b * 12 * t_u * t_u * 128, 4 * 4 * b * t_u * 12 * 128)))
     return results
 
 
@@ -1432,7 +1500,7 @@ def main() -> int:
             f"ptxas report names {PTXAS_WATCH}")
     spilled = [e for e, r in watched.items()
                if r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0)]
-    require(not spilled, f"K4/K11 bodies spill: {spilled}")
+    require(not spilled, f"watched kernel bodies spill: {spilled}")
 
     kernels = check_kernels(dev, rng)
     bad = [k["name"] for k in kernels if not k["within_tol"]]
@@ -1500,7 +1568,10 @@ def main() -> int:
         for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "dx_ms",
                       "dx_plain_ms", "dx_library_ms", "affine_ms", "library_max_abs_err",
                       "launches_per_call", "padded_lanes_zero", "tile", "ms_turns",
-                      "library_ms_turns", "transpose_ms", "library_b_col_major_ms"):
+                      "library_ms_turns", "device_ms", "library_device_ms",
+                      "transpose_ms", "library_b_col_major_ms",
+                      "bound_f32_fma_ms", "ms_2048", "ms_32_8", "dense_800_ms",
+                      "dense_800_plain_ms", "dense_800_bound_ms"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))
@@ -1516,8 +1587,8 @@ def main() -> int:
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": k["launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"]} | ({"status": REDESIGNED[k["name"]]}
-                                          if k["name"] in REDESIGNED else {})
+         "library_ms": k["library_ms"]}
+        | ({"status": REDESIGNED[k["name"]]} if k["name"] in REDESIGNED else {})
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,24 +12,23 @@
 // with float32 scores.
 //
 // What bounds them on this card: operations, 4*T*T*D flops per (batch,
-// head) against 4*T*D floats moved. In float32 the ceiling is the 67 TFLOP/s
-// FMA rate; TF32 tensor cores would round q and k to 10 mantissa bits.
+// head) against 4*T*D floats moved. Float32-accurate products on the tensor
+// cores take three TF32 products (3xTF32), so the least time is 3 * flops
+// at the 495 TFLOP/s dense TF32 rate; single-pass TF32 would round q, k, p
+// and v to 10 mantissa bits and is not used.
 //
 // Design: the TPU kernels keep a head's whole (T, T) score tile in VMEM
 // (1 MB at T = 500); a block here has 227 KB of shared memory at most. So
 // one block per (query tile of 64 rows, head, batch item) walks the key
-// tiles of 32 with an online softmax (running max and sum in float32), the
-// flash-attention recurrence. q, k and v are read in place through their
-// (batch, head, row) strides (K2 gets views of the fused qkv projection: no
-// copy, no head transpose) and the output is written in the caller's layout.
-// Thread (r, c0) of the block owns query row r: scores of keys c0 + 4i and
-// output columns c0 + 4i; the four threads of a row reduce with warp
-// shuffles. Shared rows are padded by one float so row-parallel reads hit
-// distinct banks. Keys past T in the last tile are masked to -inf in the
-// kernel; nothing is padded in memory. K9 is the D = 128 body over the
-// padded lanes: zero q/k lanes add nothing to a score and zero v lanes give
-// exactly zero output lanes, so the padding needs no code of its own. The
-// body, templated on D, is in fused_attention.cuh, which K8's layer shares.
+// tiles with an online softmax (running max and sum in float32), the
+// flash-attention-2 recurrence, on mma.sync TF32 tensor cores in 3xTF32.
+// q, k and v are read in place through their (batch, head, row) strides (K2
+// gets views of the fused qkv projection: no copy, no head transpose) and
+// the output is written in the caller's layout. K9 is the D = 128 body over
+// the padded lanes: zero q/k lanes add nothing to a score and zero v lanes
+// give exactly zero output lanes, so the padding needs no code of its own.
+// The body, templated on D, and the notes on its tiles, fragments and
+// copies are in fused_attention.cuh, which K8's layer shares.
 
 #include "fused_attention.cuh"
 

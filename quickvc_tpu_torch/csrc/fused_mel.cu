@@ -21,9 +21,20 @@
 // One block per (tile of TILE_F frames, batch item) stages the tile's wave
 // window in shared memory (reflect pad by index reflection) and a one-period
 // cos/sin table indexed by (n*k mod n_fft); the window is folded into the
-// twiddle once per (n, bin) and shared by all TILE_F frames. The magnitudes
-// go through shared memory, and each (frame, mel) pair sums only its
-// filter's nonzero band of the filterbank, then takes the log.
+// twiddle once per (n, bin) and shared by all TILE_F frames. The bins are
+// taken in chunks of CHUNK = KPT*THREADS (768): a thread keeps KPT bins x
+// TILE_F frames in registers, so a larger KPT would spill. After each chunk
+// the magnitudes go through shared memory and each (frame, mel) pair adds
+// the chunk's part of its filter's nonzero band to its sum, kept in shared
+// memory between chunks; the last chunk takes the log and stores it. With
+// one chunk (n_fft <= 1534) the magnitudes reuse the wave's staging buffer
+// and no sum is kept, in an instantiation of its own (ONE): the chunk loop
+// compiled for every size ran 14% slower at 1280/320 on an H100. n_fft up
+// to 4096.
+//
+// K4, dense route (wave_to_spec_halo_kernel_dense): the same dft_tile,
+// chunk by chunk, each magnitude written straight to the output, for any
+// n_fft up to 4096 that the real FFT below is not compiled for.
 //
 // K4: a real FFT, so the bytes bound it (the wave in, the spectrogram out:
 // 63 MB at the training batch (32, 164800) -> (32, 512, 641), against ~0.6
@@ -47,7 +58,7 @@
 // table the host rounds once from float64 (ops/fused_mel.py:spec_fft_table):
 // per pass exp(-2 pi i k r / (Ns R)) as (Ns, R-1) complex, then the
 // recombination twiddles, then the window. n_fft is 2^a * 5^b, b <= 1, 256
-// to 2048; the host refuses any other.
+// to 2048 (FFT_SIZES); the host sends any other n_fft to the dense route.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -56,7 +67,9 @@ namespace {
 
 constexpr int TILE_F = 8;      // frames per block
 constexpr int THREADS = 256;   // bins are spread over the threads
-constexpr int KPT = 3;         // bins per thread: 3 * 256 >= 641
+constexpr int KPT = 3;         // bins per thread in one chunk
+constexpr int CHUNK = KPT * THREADS;  // bins per pass over the tile's frames
+constexpr int MAX_N_FFT = 4096;       // K1 and dense K4 (ops/fused_mel.py:MAX_N_FFT)
 
 // Twiddle table cos/sin(2 pi j / n_fft) and the Hann(win) window centred in
 // n_fft samples (periodic, rounded once to float32 like dsp/stft.py).
@@ -75,16 +88,17 @@ __device__ __forceinline__ void stage_tables(float* ct, float* st, float* wn,
 }
 
 // Real DFT of TILE_F frames (frame f starts at xs[f * hop]) at this thread's
-// KPT bins; bins >= n_freq compute bin 0 and must not be stored.
+// KPT bins of the chunk that starts at bin k0; bins >= n_freq compute bin 0
+// and must not be stored.
 __device__ __forceinline__ void dft_tile(const float* xs, const float* ct,
                                          const float* st, const float* wn,
-                                         int n_fft, int hop, int n_freq,
+                                         int n_fft, int hop, int n_freq, int k0,
                                          float (&re)[KPT][TILE_F],
                                          float (&im)[KPT][TILE_F]) {
   int kk[KPT], idx[KPT];
 #pragma unroll
   for (int u = 0; u < KPT; ++u) {
-    const int k = threadIdx.x + u * THREADS;
+    const int k = k0 + threadIdx.x + u * THREADS;
     kk[u] = k < n_freq ? k : 0;
     idx[u] = 0;
 #pragma unroll
@@ -110,6 +124,10 @@ __device__ __forceinline__ void dft_tile(const float* xs, const float* ct,
   }
 }
 
+// ONE: every bin in one chunk (n_fft <= 1534), a single pass with no
+// running sums and the magnitudes over the staging buffer, as the compiler
+// sees it; otherwise the chunk loop.
+template <bool ONE>
 __global__ void __launch_bounds__(THREADS)
 wave_to_mel_kernel(const float* __restrict__ y, const float* __restrict__ mel_fb,
                    const int* __restrict__ mel_range, float* __restrict__ out,
@@ -118,10 +136,15 @@ wave_to_mel_kernel(const float* __restrict__ y, const float* __restrict__ mel_fb
   extern __shared__ float smem[];
   const int pad = (n_fft - hop) / 2;
   const int span = (TILE_F - 1) * hop + n_fft;
+  const int ch = ONE ? n_freq : CHUNK;
   float* xs = smem;              // staged wave window
   float* ct = xs + span;         // cos(2 pi j / n_fft)
   float* st = ct + n_fft;        // sin(2 pi j / n_fft)
   float* wn = st + n_fft;        // window, centred in n_fft
+  // (TILE_F, ch): one chunk's magnitudes, over the staging buffer when the
+  // wave is read once; then (TILE_F, n_mels) running mel sums
+  float* spec = ONE ? smem : wn + n_fft;
+  float* macc = spec + TILE_F * ch;
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * TILE_F;
   const float* yb = y + (long long)b * t_len;
@@ -136,34 +159,80 @@ wave_to_mel_kernel(const float* __restrict__ y, const float* __restrict__ mel_fb
   stage_tables(ct, st, wn, n_fft, win);
   __syncthreads();
 
-  float re[KPT][TILE_F], im[KPT][TILE_F];
-  dft_tile(xs, ct, st, wn, n_fft, hop, n_freq, re, im);
-  __syncthreads();  // the staging buffer is reused for the magnitudes
-
-  float* spec = smem;  // (TILE_F, n_freq); host checks it fits in the buffer
+  for (int k0 = 0; ONE ? k0 == 0 : k0 < n_freq; k0 += CHUNK) {
+    float re[KPT][TILE_F], im[KPT][TILE_F];
+    dft_tile(xs, ct, st, wn, n_fft, hop, n_freq, k0, re, im);
+    if (ONE) __syncthreads();  // spec overwrites the staging buffer
 #pragma unroll
-  for (int u = 0; u < KPT; ++u) {
-    const int k = threadIdx.x + u * THREADS;
-    if (k < n_freq) {
+    for (int u = 0; u < KPT; ++u) {
+      const int k = threadIdx.x + u * THREADS;
+      if (k0 + k < n_freq) {
 #pragma unroll
-      for (int f = 0; f < TILE_F; ++f)
-        spec[f * n_freq + k] =
-            sqrtf(re[u][f] * re[u][f] + im[u][f] * im[u][f] + 1e-6f);
+        for (int f = 0; f < TILE_F; ++f)
+          spec[f * ch + k] = sqrtf(re[u][f] * re[u][f] + im[u][f] * im[u][f] + 1e-6f);
+      }
     }
+    __syncthreads();
+
+    // each (frame, mel) pair adds this chunk's bins of its filter's band;
+    // after the last chunk it takes the log and is stored
+    const int k1 = ONE ? n_freq : min(n_freq, k0 + CHUNK);
+    for (int i = threadIdx.x; i < TILE_F * n_mels; i += THREADS) {
+      const int f = i / n_mels;
+      const int m = i - f * n_mels;
+      const float* fb = mel_fb + (long long)m * n_freq;
+      const float* sp = spec + f * ch;
+      float acc = k0 == 0 ? 0.0f : macc[i];
+      for (int k = max(mel_range[2 * m], k0); k < min(mel_range[2 * m + 1], k1); ++k)
+        acc = fmaf(__ldg(fb + k), sp[k - k0], acc);
+      if (k1 < n_freq) {
+        macc[i] = acc;
+      } else if (p0 + f < n_frames) {
+        out[((long long)b * n_frames + p0 + f) * n_mels + m] = logf(fmaxf(acc, 1e-5f));
+      }
+    }
+    if (k1 < n_freq) __syncthreads();  // spec is rewritten by the next chunk
   }
+}
+
+// K4's dense route: dft_tile chunk by chunk over a halo'd wave (no pad, no
+// mel), each magnitude written straight to the (B, n_frames, n_freq) output.
+__global__ void __launch_bounds__(THREADS)
+wave_to_spec_halo_kernel_dense(const float* __restrict__ y, float* __restrict__ out,
+                               int t_len, int n_frames, int n_fft, int hop, int win,
+                               int n_freq) {
+  extern __shared__ float smem[];
+  const int span = (TILE_F - 1) * hop + n_fft;
+  float* xs = smem;
+  float* ct = xs + span;
+  float* st = ct + n_fft;
+  float* wn = st + n_fft;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * TILE_F;
+  const float* yb = y + (long long)b * t_len;
+
+  for (int i = threadIdx.x; i < span; i += THREADS) {
+    const long long s = (long long)p0 * hop + i;  // past the end only for frames not stored
+    xs[i] = s < t_len ? yb[s] : 0.0f;
+  }
+  stage_tables(ct, st, wn, n_fft, win);
   __syncthreads();
 
-  for (int i = threadIdx.x; i < TILE_F * n_mels; i += THREADS) {
-    const int f = i / n_mels;
-    const int m = i - f * n_mels;
-    const int p = p0 + f;
-    if (p >= n_frames) continue;
-    const float* fb = mel_fb + (long long)m * n_freq;
-    const float* sp = spec + f * n_freq;
-    float acc = 0.0f;
-    for (int k = mel_range[2 * m]; k < mel_range[2 * m + 1]; ++k)
-      acc = fmaf(__ldg(fb + k), sp[k], acc);
-    out[((long long)b * n_frames + p) * n_mels + m] = logf(fmaxf(acc, 1e-5f));
+  for (int k0 = 0; k0 < n_freq; k0 += CHUNK) {
+    float re[KPT][TILE_F], im[KPT][TILE_F];
+    dft_tile(xs, ct, st, wn, n_fft, hop, n_freq, k0, re, im);
+#pragma unroll
+    for (int u = 0; u < KPT; ++u) {
+      const int k = k0 + threadIdx.x + u * THREADS;
+      if (k >= n_freq) continue;
+#pragma unroll
+      for (int f = 0; f < TILE_F; ++f) {
+        const int p = p0 + f;
+        if (p < n_frames)
+          out[((long long)b * n_frames + p) * n_freq + k] =
+              sqrtf(re[u][f] * re[u][f] + im[u][f] * im[u][f] + 1e-6f);
+      }
+    }
   }
 }
 
@@ -450,9 +519,18 @@ wave_to_spec_halo_kernel(const float* __restrict__ y, const float* __restrict__ 
   }
 }
 
-// Dynamic shared memory of K1: the wave window plus three tables.
-size_t smem_bytes(int n_fft, int hop) {
+// Dynamic shared memory of the dense bodies: the wave window plus three
+// tables; past one chunk, K1 adds a chunk's magnitudes and the running mel
+// sums (in one chunk the magnitudes reuse the staging buffer).
+size_t dense_smem_bytes(int n_fft, int hop) {
   return sizeof(float) * (size_t)((TILE_F - 1) * hop + n_fft + 3 * n_fft);
+}
+
+size_t mel_smem_bytes(int n_fft, int hop, int n_freq, int n_mels) {
+  const size_t dense = dense_smem_bytes(n_fft, hop);
+  if (n_freq > CHUNK) return dense + sizeof(float) * (size_t)TILE_F * (CHUNK + n_mels);
+  const size_t spec = sizeof(float) * (size_t)TILE_F * n_freq;  // over the staging buffer
+  return dense > spec ? dense : spec;
 }
 
 template <typename Kernel>
@@ -464,20 +542,35 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 }  // namespace
 
+// K1: n_fft up to MAX_N_FFT, 0 < hop <= n_fft; the host raises first.
 extern "C" int qvc_wave_to_mel(const void* y, const void* mel_fb,
                                const void* mel_range, void* out, int batch,
                                int t_len, int n_frames, int n_fft, int hop,
                                int win, int n_freq, int n_mels, void* stream) {
-  const size_t smem = smem_bytes(n_fft, hop);
-  if (n_freq > KPT * THREADS ||
-      sizeof(float) * (size_t)TILE_F * n_freq > smem)
+  if (n_fft > MAX_N_FFT || hop < 1 || hop > n_fft || n_freq != n_fft / 2 + 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(wave_to_mel_kernel, smem);
+  const size_t smem = mel_smem_bytes(n_fft, hop, n_freq, n_mels);
+  const auto kernel = n_freq <= CHUNK ? wave_to_mel_kernel<true> : wave_to_mel_kernel<false>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((n_frames + TILE_F - 1) / TILE_F, batch);
-  wave_to_mel_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)y, (const float*)mel_fb, (const int*)mel_range,
       (float*)out, t_len, n_frames, n_fft, hop, win, n_freq, n_mels);
+  return (int)cudaGetLastError();
+}
+
+// K4's dense route: any n_fft up to MAX_N_FFT, 0 < hop <= n_fft.
+extern "C" int qvc_wave_to_spec_halo_dense(const void* y, void* out, int batch, int t_len,
+                                           int n_frames, int n_fft, int hop, int win,
+                                           void* stream) {
+  if (n_fft > MAX_N_FFT || hop < 1 || hop > n_fft) return (int)cudaErrorInvalidValue;
+  const size_t smem = dense_smem_bytes(n_fft, hop);
+  cudaError_t e = allow_smem(wave_to_spec_halo_kernel_dense, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((n_frames + TILE_F - 1) / TILE_F, batch);
+  wave_to_spec_halo_kernel_dense<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)y, (float*)out, t_len, n_frames, n_fft, hop, win, n_fft / 2 + 1);
   return (int)cudaGetLastError();
 }
 
@@ -494,7 +587,7 @@ cudaError_t launch_spec(const float* y, const float* table, float* out, int batc
   return cudaGetLastError();
 }
 
-// K4: n_fft = 2^a * 5^b (b <= 1), 256..2048, hop <= n_fft; plan = the host's
+// K4's FFT route: n_fft = 2^a * 5^b (b <= 1), 256..2048, hop <= n_fft; plan = the host's
 // radices of the n_fft/2-point FFT, eight bits a pass from the lowest, which
 // must be the compiled plan; table as above.
 extern "C" int qvc_wave_to_spec_halo(const void* y, const void* table, void* out,

@@ -3,9 +3,12 @@ both in ``csrc/fused_mel.cu``, and their dispatch.
 
 K1 replaces the TPU kernel ``quickvc_tpu/ops/fused_mel.py:wave_to_mel_pallas``,
 K4 replaces ``quickvc_tpu/ops/fused_mel.py:wave_to_spec_halo_pallas``.
-K4 is a real FFT: :func:`fft_plan` gives the radices of its half-length
-complex FFT and :func:`spec_fft_table` the twiddles and window it reads;
-both are built here, so the CPU tests check what the kernel is handed.
+K4 has two routes, both kernels, picked by :func:`spec_route`: a real FFT
+for the n_fft of :data:`FFT_SIZES` (:func:`fft_plan` gives the radices of
+its half-length complex FFT and :func:`spec_fft_table` the twiddles and
+window it reads; both are built here, so the CPU tests check what the
+kernel is handed), and K1's dense DFT body for any other n_fft up to
+:data:`MAX_N_FFT`. K1 takes any n_fft up to the same bound.
 A CPU tensor takes the plain version (:func:`quickvc_tpu_torch.dsp.stft.wave_to_mel`,
 :func:`quickvc_tpu_torch.dsp.stft.wave_to_spec_halo`); a CUDA tensor
 launches the kernel or raises. Neither kernel has a backward, so both
@@ -56,11 +59,24 @@ def _require_wave(name: str, y: torch.Tensor) -> None:
                          f"{tuple(y.shape)} strides {y.stride()}")
 
 
+MAX_N_FFT = 4096   # the largest n_fft of K1 and of K4's dense route (csrc/fused_mel.cu)
+
+
+def check_n_fft(name: str, n_fft: int, hop: int) -> None:
+    """Raise ``ValueError`` unless 0 < hop <= n_fft <= :data:`MAX_N_FFT`,
+    the sizes K1 and K4 take (the JAX kernels ask hop | n_fft as well)."""
+    if not 0 < hop <= n_fft <= MAX_N_FFT:
+        raise ValueError(f"{name}: the kernel takes 0 < hop <= n_fft <= {MAX_N_FFT}, "
+                         f"got n_fft={n_fft} hop={hop}")
+
+
 def wave_to_mel_kernel(y: torch.Tensor, sr: int, n_fft: int, hop: int, win: int,
                        n_mels: int, fmin: float = 0.0,
                        fmax: float | None = None) -> torch.Tensor:
-    """Launch K1: (B, T) float32 CUDA -> (B, T//hop, n_mels)."""
+    """Launch K1: (B, T) float32 CUDA -> (B, T//hop, n_mels); n_fft up to
+    :data:`MAX_N_FFT`, hop | n_fft."""
     _require_wave("wave_to_mel", y)
+    check_n_fft("wave_to_mel", n_fft, hop)
     b, t = y.shape
     if n_fft % hop or win > n_fft or t <= (n_fft - hop) // 2 or t < hop:
         raise ValueError(f"wave_to_mel: unsupported n_fft={n_fft} hop={hop} "
@@ -90,6 +106,15 @@ def wave_to_mel(y: torch.Tensor, sr: int, n_fft: int, hop: int, win: int,
 FFT_SIZES = (256, 320, 512, 640, 1024, 1280, 2048)   # n_fft = 2^a * 5^b, b <= 1
 
 
+def spec_route(n_fft: int, hop: int) -> str:
+    """K4's route for (n_fft, hop): ``"fft"`` (the real FFT) for n_fft in
+    :data:`FFT_SIZES`, ``"dense"`` (the dense DFT) for any other n_fft up to
+    :data:`MAX_N_FFT`; ``ValueError`` past that bound or for hop outside
+    (0, n_fft]."""
+    check_n_fft("wave_to_spec_halo", n_fft, hop)
+    return "fft" if n_fft in FFT_SIZES else "dense"
+
+
 def fft_plan(n_fft: int) -> tuple[int, ...]:
     """Radices of K4's complex FFT of n_fft/2 points, one Stockham pass each,
     in pass order: a 5 first where n_fft has one, then the power of two
@@ -97,8 +122,9 @@ def fft_plan(n_fft: int) -> tuple[int, ...]:
     16 are two radix-4/2 stages in registers).
 
     K4 packs even and odd samples of a real frame as the real and imaginary
-    parts of n_fft/2 complex points. It takes the n_fft of :data:`FFT_SIZES`;
-    any other raises ``ValueError``. The kernel is compiled with the same
+    parts of n_fft/2 complex points. Its FFT route takes the n_fft of
+    :data:`FFT_SIZES`; any other raises ``ValueError`` here (the wrapper
+    sends them to the dense route). The kernel is compiled with the same
     rule (``csrc/fused_mel.cu:make_plan``) and refuses another plan.
     """
     if n_fft not in FFT_SIZES:
@@ -143,22 +169,27 @@ def _device_spec_table(device: torch.device, n_fft: int, win: int) -> torch.Tens
 
 def wave_to_spec_halo_kernel(y: torch.Tensor, n_fft: int, hop: int,
                              win: int) -> torch.Tensor:
-    """Launch K4: (B, T + n_fft - hop) float32 CUDA -> (B, T//hop, n_fft//2+1).
-    n_fft in :data:`FFT_SIZES`, hop <= n_fft, win <= n_fft."""
+    """Launch K4: (B, T + n_fft - hop) float32 CUDA -> (B, T//hop, n_fft//2+1),
+    on the route :func:`spec_route` picks. hop <= n_fft <= :data:`MAX_N_FFT`,
+    win <= n_fft."""
     _require_wave("wave_to_spec_halo", y)
+    route = spec_route(n_fft, hop)
     b, t = y.shape
-    radices = fft_plan(n_fft)
-    if win > n_fft or not 0 < hop <= n_fft or t < n_fft:
+    if win > n_fft or t < n_fft:
         raise ValueError(f"wave_to_spec_halo: unsupported n_fft={n_fft} "
                          f"hop={hop} win={win} for T={t}")
     n_frames = 1 + (t - n_fft) // hop
-    n_freq = n_fft // 2 + 1
-    plan = sum(r << (8 * i) for i, r in enumerate(radices))
-    table = _device_spec_table(y.device, n_fft, win)
-    out = torch.empty((b, n_frames, n_freq), device=y.device, dtype=torch.float32)
-    check(library().qvc_wave_to_spec_halo(
-        y.data_ptr(), table.data_ptr(), out.data_ptr(), b, t, n_frames, n_fft, hop,
-        plan, stream_ptr(y)), "wave_to_spec_halo kernel")
+    out = torch.empty((b, n_frames, n_fft // 2 + 1), device=y.device, dtype=torch.float32)
+    if route == "fft":
+        plan = sum(r << (8 * i) for i, r in enumerate(fft_plan(n_fft)))
+        table = _device_spec_table(y.device, n_fft, win)
+        err = library().qvc_wave_to_spec_halo(
+            y.data_ptr(), table.data_ptr(), out.data_ptr(), b, t, n_frames, n_fft, hop,
+            plan, stream_ptr(y))
+    else:
+        err = library().qvc_wave_to_spec_halo_dense(
+            y.data_ptr(), out.data_ptr(), b, t, n_frames, n_fft, hop, win, stream_ptr(y))
+    check(err, f"wave_to_spec_halo kernel ({route})")
     SPEC_STATS.launches += 1
     return out
 

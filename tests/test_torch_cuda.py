@@ -3,9 +3,11 @@ version on the same CUDA tensors. Marked ``cuda``; skips without a card.
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-Tolerances: log-mel atol/rtol 2e-3, attention and iSTFT atol 1e-4 / rtol 1e-3,
-the halo spectrogram atol/rtol 2e-4 (the JAX gate) at n_fft/hop 1280/320 and
-1024/256, the k=5 conv and its
+Tolerances: log-mel atol/rtol 2e-3 (also at n_fft/hop 2048/512), attention
+and iSTFT atol 1e-4 / rtol 1e-3 (iSTFT also at 32/8 and 64/16, on its
+table-driven body), the halo spectrogram atol/rtol 2e-4 (the JAX gate) at
+n_fft/hop 1280/320 and 1024/256 (real FFT) and 800/200 and 1536/384 (dense
+DFT), the k=5 conv and its
 gradients atol 1e-4 / rtol 1e-3, the extractor front atol 5e-4 / rtol 1e-3
 (the JAX gate), the transformer layer and the K9/K10 attention layouts atol
 1e-4 / rtol 1e-3, the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
@@ -31,12 +33,14 @@ def _gen(dev, seed):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(1280, 320), (1024, 256)])
+@pytest.mark.parametrize("n_fft,hop", [(1280, 320), (1024, 256), (800, 200), (1536, 384)])
 def test_wave_to_spec_halo_kernel(cuda, n_fft, hop):
-    """37 frames: not a multiple of the kernel's 2-frame tile."""
+    """37 frames: not a multiple of either route's frame tile. 1280 and 1024
+    take the real FFT, 800 and 1536 the dense DFT."""
     from quickvc_tpu_torch.dsp.stft import wave_to_spec_halo as plain
     from quickvc_tpu_torch.ops import fused_mel
 
+    assert fused_mel.spec_route(n_fft, hop) == ("fft" if n_fft in (1280, 1024) else "dense")
     y = 0.3 * torch.randn(3, 37 * hop + n_fft - hop, device=cuda, generator=_gen(cuda, 2))
     before = fused_mel.SPEC_STATS.launches
     ours = fused_mel.wave_to_spec_halo(y, n_fft, hop, n_fft)
@@ -46,11 +50,12 @@ def test_wave_to_spec_halo_kernel(cuda, n_fft, hop):
 
 
 def test_wave_to_spec_halo_kernel_refuses_other_sizes(cuda):
+    """Past the bound of both routes (n_fft 4096)."""
     from quickvc_tpu_torch.ops import fused_mel
 
-    y = torch.zeros(1, 4 * 1536, device=cuda)
+    y = torch.zeros(1, 4 * 8192, device=cuda)
     with pytest.raises(ValueError, match="n_fft"):
-        fused_mel.wave_to_spec_halo(y, 1536, 384, 1536)
+        fused_mel.wave_to_spec_halo(y, 8192, 2048, 8192)
 
 
 @pytest.mark.parametrize("shape", [(3, 37, 24, 40), (6, 64, 256, 128)])
@@ -97,6 +102,20 @@ def test_wave_to_mel_kernel(cuda):
     torch.testing.assert_close(ours, plain(y, fb, 1280, 320, 1280), atol=2e-3, rtol=2e-3)
 
 
+def test_wave_to_mel_kernel_past_one_bin_chunk(cuda):
+    """n_fft 2048: 1025 bins, two chunks of the kernel's 768."""
+    from quickvc_tpu_torch.dsp.mel import mel_filterbank
+    from quickvc_tpu_torch.dsp.stft import wave_to_mel as plain
+    from quickvc_tpu_torch.ops import fused_mel
+
+    y = 0.3 * torch.randn(2, 48003, device=cuda, generator=_gen(cuda, 3))
+    fb = torch.as_tensor(mel_filterbank(16000, 2048, 80), device=cuda)
+    before = fused_mel.STATS.launches
+    ours = fused_mel.wave_to_mel(y, 16000, 2048, 512, 2048, 80)
+    assert fused_mel.STATS.launches == before + 1
+    torch.testing.assert_close(ours, plain(y, fb, 2048, 512, 2048), atol=2e-3, rtol=2e-3)
+
+
 @pytest.mark.parametrize("t_len", [37, 250])
 def test_attention_kernel_on_qkv_views(cuda, t_len):
     from quickvc_tpu_torch.ops import fused_attention
@@ -123,6 +142,23 @@ def test_polar_istft_kernel_on_strided_views(cuda):
     torch.testing.assert_close(ours, plain(lm, ph, 16, 4), atol=1e-4, rtol=1e-3)
     torch.testing.assert_close(
         ours, fused_istft.polar_inverse_stft(lm.contiguous(), ph.contiguous(), 16, 4))
+
+
+@pytest.mark.parametrize("n_fft,hop", [(32, 8), (64, 16)])
+def test_polar_istft_kernel_other_sizes(cuda, n_fft, hop):
+    """The table-driven body, on strided views as the decoder passes them."""
+    from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as plain
+    from quickvc_tpu_torch.ops import fused_istft
+
+    n_freq = n_fft // 2 + 1
+    spec = 0.5 * torch.randn(8, 2 * n_freq, 401, device=cuda,
+                             generator=_gen(cuda, n_fft)).transpose(1, 2)
+    lm, ph = spec[..., :n_freq], spec[..., n_freq:]
+    before = fused_istft.STATS.launches
+    ours = fused_istft.polar_inverse_stft(lm, ph, n_fft, hop)
+    assert fused_istft.STATS.launches == before + 1
+    assert ours.shape == (8, hop * 400)
+    torch.testing.assert_close(ours, plain(lm, ph, n_fft, hop), atol=1e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("shape", [(2, 16003, 128), (3, 32083, 512)])
@@ -177,6 +213,21 @@ def test_headed_attention_kernel(cuda, d):
     before = fused_attention.HEADED_STATS.launches
     ours = fused_attention.attention(q, k, v, d ** -0.5)
     assert fused_attention.HEADED_STATS.launches == before + 1
+    torch.testing.assert_close(ours, fused_attention.attention_reference(q, k, v, d ** -0.5),
+                               atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_headed_attention_kernel_unaligned_strides(cuda, d):
+    """K10 on views whose bases and strides are not multiples of 4 floats:
+    the body stages K and V with 4-byte copies instead of 16-byte ones."""
+    from quickvc_tpu_torch.ops import fused_attention
+
+    b, h, t_len = 2, 3, 77
+    qkv = torch.randn(b, t_len, 3, h, d + 1, device=cuda, generator=_gen(cuda, d + 1))
+    q, k, v = (qkv[:, :, i, :, 1:].transpose(1, 2) for i in range(3))
+    assert k.stride(2) % 4 and v.stride(2) % 4
+    ours = fused_attention.attention(q, k, v, d ** -0.5)
     torch.testing.assert_close(ours, fused_attention.attention_reference(q, k, v, d ** -0.5),
                                atol=1e-4, rtol=1e-3)
 

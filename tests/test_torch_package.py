@@ -3,6 +3,7 @@ the CPU quietly (a CUDA request without a card raises; a kernel entry point
 refuses CPU tensors instead of running the plain version).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -69,7 +70,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_mel.wave_to_mel_kernel(torch.zeros(1, 3200), 16000, 1280, 320, 1280, 80)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_istft.polar_inverse_stft_kernel(torch.zeros(1, 8, 9), torch.zeros(1, 8, 9))
+        fused_istft.polar_inverse_stft_kernel(torch.zeros(1, 8, 9), torch.zeros(1, 8, 9), 16, 4)
     with pytest.raises(ValueError, match="CUDA"):
         fused_mel.wave_to_spec_halo_kernel(torch.zeros(1, 3200), 1280, 320, 1280)
     k = torch.zeros(5, 64, 64)
@@ -91,3 +92,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     a8 = torch.zeros(64, 64, dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
         int8_mm.mm_kernel(a8, a8)
+
+
+def test_kernel_times_runs_on_the_cpu(capsys):
+    """scripts/kernel_times.py (the parent/change A/B timer) runs through the
+    dispatchers, so on the CPU it times their plain versions, with no
+    device time, and prints its one JSON line."""
+    from quickvc_tpu_torch.scripts import kernel_times
+
+    out = kernel_times.main(["--device", "cpu", "--iters", "1", "--warmup", "0"])
+    names = {"K1", "K2", "K10", "sdpa_64", "K9", "sdpa_128", "K3", "K8"}
+    assert set(out) == names | {"package"}
+    assert all(out[n] > 0 for n in names)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("kernel_times ") and json.loads(line.split(" ", 1)[1]) == out
