@@ -12,7 +12,9 @@
    bin chunks; K3 also at 32/8, its table-driven body), K4 at the full
    training batch (32, 512*320+960) (also held at n_fft/hop 1024/256 on its
    real FFT and at 800/200 on its dense DFT, whose time it prints), K5 (forward and
-   dx) and K6 (dW) at DiscriminatorP's fifth conv, x (128, 64, 1024), K7
+   dx) and K6 (dW) at the fifth conv of each period discriminator in the
+   paired D phase, x (64 p, R_p, 1024) for p in 2, 3, 5, 7, 11 (timed against
+   cuDNN at p = 2 and 11, the bound the 3xTF32 one; two launches bit-equal), K7
    (HuBERT's extractor front) at the encoding batch's wave (16, 96080) and
    K8 (a whole HuBERT layer) at its hidden state (16, 300, 768). K2 and K3 are also held against their plain
    versions at the streaming and live paths' shapes: K2 over the streaming
@@ -129,9 +131,10 @@ TPU_KERNELS = [
      "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: real FFT (FFT_SIZES), "
      "dense DFT up to n_fft 4096"),
     ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward (and dx)",
-     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores"),
     ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
-     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores, "
+     "deterministic split-K"),
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
      "ported: quickvc_tpu_torch/csrc/fused_extractor.cu"),
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
@@ -158,19 +161,21 @@ ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
                ("pallas_fused_layer", "pallas", True))   # (name, --hubert-front, fused_layer)
 # the port's __global__ functions, as the profiler names them
 DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kernel",
-                    "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "extractor_front_kernel",
-                    "linear_kernel", "row_layer_norm_kernel", "mm_wgmma_kernel",
-                    "transpose_kernel")
+                    "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
+                    "extractor_front_kernel", "linear_kernel", "row_layer_norm_kernel",
+                    "mm_wgmma_kernel", "transpose_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
-# (K4's both routes, K11's bodies, the attention body of K2/K8/K9/K10); none
-# may spill
+# (K4's both routes, K11's bodies, the attention body of K2/K8/K9/K10, K5/K6's
+# implicit GEMM and K6's split-K sum); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "mm_wgmma_kernel", "transpose_kernel",
-               "attention_kernel")
+               "attention_kernel", "conv5_gemm_kernel", "splitk_sum_kernel")
 REDESIGNED = {"wave_to_spec_halo": "redesigned: real FFT", "mm_s8": "redesigned: TMA + wgmma",
               "mm_bf16": "redesigned: TMA + wgmma",
               "attention_packed": "redesigned: 3xTF32 tensor cores",
               "attention_packed_aligned": "redesigned: 3xTF32 tensor cores",
-              "attention": "redesigned: 3xTF32 tensor cores"}
+              "attention": "redesigned: 3xTF32 tensor cores",
+              "conv5_lrelu": "redesigned: 3xTF32 tensor-core implicit GEMM",
+              "conv5_lrelu_dw": "redesigned: 3xTF32 tensor-core implicit GEMM, split-K"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
 # bucket and 8 in the 16-s one, so each batch of 8 is full
 STREAM_SECONDS = [12.1 + 0.1 * i for i in range(8)] + [15.05 + 0.06 * i for i in range(8)]
@@ -453,7 +458,7 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
 
 def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     """K4 at the full compact training batch; K5 (forward, dx) and K6 (dW)
-    at DiscriminatorP(2)'s fifth conv of the paired D phase."""
+    at every period discriminator's fifth conv of the paired D phase."""
     import torch.nn.functional as F
 
     from quickvc_tpu_torch.dsp.stft import hann_window, wave_to_spec_halo as spec_plain
@@ -514,76 +519,97 @@ def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[
         bound_bytes_ms=4 * (y.numel() + n_fr * 641) / HBM_BYTES * 1e3))
     del y
 
-    # K5/K6: x (N, R, C) = (64 paired items x period 2, 64 rows, 1024), filter
-    # (5, 1024, 1024); inputs scaled so that y, dx and dW are all O(1)
-    n, rows, c = DISC_BATCH * 2, 64, 1024
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    x = torch.randn(n, rows, c, device=dev, generator=g)
-    k = torch.randn(5, c, c, device=dev, generator=g) / np.sqrt(5 * c)
-    b = 0.1 * torch.randn(c, device=dev, generator=g)
-    dy = torch.randn(n, rows, c, device=dev, generator=g) / np.sqrt(n * rows)
-    x_ncr = x.transpose(1, 2).contiguous()        # cuDNN's (N, C, R) layout
-    w_oik = k.permute(2, 1, 0).contiguous()       # (C_out, C_in, 5)
+    # K5/K6 at each period discriminator's fifth conv of the paired D phase,
+    # x (64 p, R_p, 1024), filter (5, 1024, 1024); inputs scaled so that y,
+    # dx and dW are all O(1). Each is held against its plain version at all
+    # five periods; p = 2 (the longest rows) and p = 11 (R = 12, where the
+    # SAME padding and item edges are a third of the rows) are timed in turns
+    # with cuDNN (TF32 off).
+    checks, dw_checks, timings = {}, {}, {}
+    function_ok = deterministic = None
+    for p, (n, rows, c) in fdc.disc_conv5_shapes(DISC_BATCH, SEGMENT).items():
+        g = torch.Generator(device=dev).manual_seed(SEED + 5 + p)
+        x = torch.randn(n, rows, c, device=dev, generator=g)
+        k = torch.randn(5, c, c, device=dev, generator=g) / np.sqrt(5 * c)
+        b = 0.1 * torch.randn(c, device=dev, generator=g)
+        dy = torch.randn(n, rows, c, device=dev, generator=g) / np.sqrt(n * rows)
+        # the backward kernels against their plain versions on the same dym,
+        # the LReLU mask taken from the kernel's own output (where |y| is at
+        # rounding level the mask's sign is not determined, so autograd of
+        # the plain forward may mask other elements)
+        y_out = fdc.conv5_lrelu_kernel(x, k, b, 0.1)
+        dym = (dy * torch.where(y_out > 0, 1.0, 0.1)).contiguous()
+        k_flip = k.flip(0).transpose(1, 2).contiguous()
+        xp = F.pad(x, (0, 0, 2, 2))
 
-    # forward against the plain version; the backward kernels against their
-    # plain versions on the same dym, the LReLU mask taken from the kernel's
-    # own output (where |y| is at rounding level the mask's sign is not
-    # determined, so autograd of the plain forward may mask other elements)
-    y_out = fdc.conv5_lrelu_kernel(x, k, b, 0.1)
-    dym = (dy * torch.where(y_out > 0, 1.0, 0.1)).contiguous()
-    dym_ncr = dym.transpose(1, 2).contiguous()
-    k_flip = k.flip(0).transpose(1, 2).contiguous()
-    xp = F.pad(x, (0, 0, 2, 2))
+        def k6_plain(xp=xp, dym=dym, rows=rows):
+            return torch.stack([torch.einsum("nrc,nro->co", xp[:, dr : dr + rows], dym)
+                                for dr in range(5)])
 
-    def k6_plain():
-        return torch.stack([torch.einsum("nrc,nro->co", xp[:, dr : dr + rows], dym)
-                            for dr in range(5)])
+        dx = fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
+        dw = fdc.conv5_dw_kernel(x, dym)
+        checks[f"p{p} y"] = compare(y_out, fdc.conv5_lrelu_reference(x, k, b, 0.1), 1e-4, 1e-3)
+        checks[f"p{p} dx"] = compare(dx, fdc.conv5_lrelu_reference(dym, k_flip, None, 1.0),
+                                     1e-4, 1e-3)
+        dw_checks[f"p{p}"] = compare(dw, k6_plain(), 1e-4, 1e-3)
+        if p == 2:
+            # the autograd.Function launches exactly these kernels (db = sum
+            # of dym), and a second launch of each gives the same bits
+            ins = [t.clone().requires_grad_() for t in (x, k, b)]
+            fdc.conv5_lrelu(*ins, 0.1).backward(dy)
+            function_ok = (torch.equal(ins[0].grad, dx) and torch.equal(ins[1].grad, dw)
+                           and torch.equal(ins[2].grad, dym.sum(dim=(0, 1))))
+            deterministic = (torch.equal(fdc.conv5_dw_kernel(x, dym), dw)
+                             and torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y_out))
+            del ins
+        if p in (2, 11):
+            x_ncr = x.transpose(1, 2).contiguous()        # cuDNN's (N, C, R) layout
+            w_oik = k.permute(2, 1, 0).contiguous()       # (C_out, C_in, 5)
+            dym_ncr = dym.transpose(1, 2).contiguous()
+            flops = 2 * n * rows * 5 * c * c
+            timings[f"p{p}"] = {
+                "shape": [n, rows, c],
+                "forward": turns(lambda: fdc.conv5_lrelu_kernel(x, k, b, 0.1),
+                                 lambda: F.leaky_relu(F.conv1d(x_ncr, w_oik, b, padding=2), 0.1)),
+                "dx": turns(lambda: fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0),
+                            lambda: torch.nn.grad.conv1d_input(x_ncr.shape, w_oik, dym_ncr,
+                                                               padding=2)),
+                "dw": turns(lambda: fdc.conv5_dw_kernel(x, dym),
+                            lambda: torch.nn.grad.conv1d_weight(x_ncr, w_oik.shape, dym_ncr,
+                                                                padding=2)),
+                "plain_ms": cuda_ms(lambda: fdc.conv5_lrelu_reference(x, k, b, 0.1)),
+                "dx_plain_ms": cuda_ms(lambda: fdc.conv5_lrelu_reference(dym, k_flip, None, 1.0)),
+                "dw_plain_ms": cuda_ms(k6_plain),
+                "dw_plan": fdc.dw_plan(n, rows, c, c,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count
+                                       )._asdict(),
+                # 3xTF32: three TF32 products a float32-accurate one; bytes:
+                # x and the filter (or dym) in, the output out
+                "bound_ops_ms": 3 * flops / TF32_FLOPS * 1e3,
+                "bound_bytes_ms": 4 * (2 * n * rows * c + 5 * c * c) / HBM_BYTES * 1e3,
+                "bound_f32_fma_ms": flops / F32_FLOPS * 1e3}
+            del x_ncr, w_oik, dym_ncr
+        del x, k, b, dy, y_out, dym, k_flip, xp, dx, dw
 
-    dx = fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
-    dw = fdc.conv5_dw_kernel(x, dym)
-    checks = {"y": compare(y_out, fdc.conv5_lrelu_reference(x, k, b, 0.1), 1e-4, 1e-3),
-              "dx": compare(dx, fdc.conv5_lrelu_reference(dym, k_flip, None, 1.0), 1e-4, 1e-3),
-              "dw": compare(dw, k6_plain(), 1e-4, 1e-3)}
-    # the autograd.Function launches exactly these kernels (db = sum of dym)
-    ins = [t.clone().requires_grad_() for t in (x, k, b)]
-    fdc.conv5_lrelu(*ins, 0.1).backward(dy)
-    function_ok = (torch.equal(ins[0].grad, dx) and torch.equal(ins[1].grad, dw)
-                   and torch.equal(ins[2].grad, dym.sum(dim=(0, 1))))
-    del ins
-
-    def k5():
-        return fdc.conv5_lrelu_kernel(x, k, b, 0.1)
-
-    def k5_dx():
-        return fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
-
-    def k6():
-        return fdc.conv5_dw_kernel(x, dym)
-
-    flops = 2 * n * rows * 5 * c * c
-    conv_bytes = 4 * (2 * n * rows * c + 5 * c * c)
+    t2 = timings["p2"]
+    k5 = merge_checks(checks)
+    k5["within_tol"] = k5["within_tol"] and function_ok and deterministic
+    k6 = merge_checks(dw_checks)
+    k6["within_tol"] = k6["within_tol"] and deterministic
+    bounds = {key: t2[key] for key in ("bound_ops_ms", "bound_bytes_ms", "bound_f32_fma_ms")}
     results.append(dict(
         name="conv5_lrelu", tpu_id="K5", source="quickvc_tpu_torch/csrc/fused_disc_conv.cu",
-        replaces="quickvc_tpu/ops/fused_disc_conv.py:117", shape=[[n, rows, c], [5, c, c]],
-        atol=1e-4, rtol=1e-3,
-        max_abs_err=max(checks[nm]["max_abs_err"] for nm in ("y", "dx")),
-        max_rel_err=max(checks[nm]["max_rel_err"] for nm in ("y", "dx")),
-        within_tol=checks["y"]["within_tol"] and checks["dx"]["within_tol"] and function_ok,
-        checks=checks, autograd_function_ok=function_ok,
-        ms=cuda_ms(k5), plain_ms=cuda_ms(lambda: fdc.conv5_lrelu_reference(x, k, b, 0.1)),
-        library_ms=cuda_ms(lambda: F.leaky_relu(F.conv1d(x_ncr, w_oik, b, padding=2), 0.1)),
-        dx_ms=cuda_ms(k5_dx),
-        dx_plain_ms=cuda_ms(lambda: fdc.conv5_lrelu_reference(dym, k_flip, None, 1.0)),
-        dx_library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
-            x_ncr.shape, w_oik, dym_ncr, padding=2)),
-        bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=conv_bytes / HBM_BYTES * 1e3))
+        replaces="quickvc_tpu/ops/fused_disc_conv.py:117", shape=t2["shape"], **k5,
+        autograd_function_ok=function_ok, deterministic=deterministic,
+        **t2["forward"], plain_ms=t2["plain_ms"],
+        dx_ms=t2["dx"]["ms"], dx_device_ms=t2["dx"]["device_ms"],
+        dx_plain_ms=t2["dx_plain_ms"], dx_library_ms=t2["dx"]["library_ms"],
+        dx_library_device_ms=t2["dx"]["library_device_ms"], timings=timings, **bounds))
     results.append(dict(
         name="conv5_lrelu_dw", tpu_id="K6", source="quickvc_tpu_torch/csrc/fused_disc_conv.cu",
-        replaces="quickvc_tpu/ops/fused_disc_conv.py:156", shape=[[n, rows, c], [n, rows, c]],
-        **checks["dw"], ms=cuda_ms(k6), plain_ms=cuda_ms(k6_plain),
-        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
-            x_ncr, w_oik.shape, dym_ncr, padding=2)),
-        bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=conv_bytes / HBM_BYTES * 1e3))
+        replaces="quickvc_tpu/ops/fused_disc_conv.py:156", shape=t2["shape"], **k6,
+        deterministic=deterministic,
+        **t2["dw"], plain_ms=t2["dw_plain_ms"], dw_plan=t2["dw_plan"], **bounds))
     return results
 
 
@@ -1565,9 +1591,10 @@ def main() -> int:
         detail = {x: k[x] for x in ("name", "tpu_id", "shape", "max_abs_err", "max_rel_err",
                                     "atol", "rtol", "within_tol", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by", "path", "launches")}
-        for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "dx_ms",
-                      "dx_plain_ms", "dx_library_ms", "affine_ms", "library_max_abs_err",
-                      "launches_per_call", "padded_lanes_zero", "tile", "ms_turns",
+        for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "deterministic",
+                      "dx_ms", "dx_device_ms", "dx_plain_ms", "dx_library_ms",
+                      "dx_library_device_ms", "timings", "dw_plan", "affine_ms",
+                      "library_max_abs_err", "launches_per_call", "padded_lanes_zero", "tile", "ms_turns",
                       "library_ms_turns", "device_ms", "library_device_ms",
                       "transpose_ms", "library_b_col_major_ms",
                       "bound_f32_fma_ms", "ms_2048", "ms_32_8", "dense_800_ms",

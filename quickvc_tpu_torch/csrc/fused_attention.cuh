@@ -20,10 +20,11 @@
 // mantissa bits; that is not float32 attention.
 //
 // Design (the flash-attention-2 layout on mma.sync):
-// - 3xTF32: each float32 operand x is split into big, x rounded to TF32 as
-//   cvt.rna.tf32.f32 rounds (done as an integer add and mask: cvt.rna
-//   itself compiles to a compare-and-select sequence on sm_90a, which cost
-//   more than the tensor-core work here), and small = x - big, exact in
+// - 3xTF32 (the helpers in tf32x3.cuh): each float32 operand x is split
+//   into big, x rounded to TF32 as cvt.rna.tf32.f32 rounds (done as an
+//   integer add and mask: cvt.rna itself compiles to a compare-and-select
+//   sequence on sm_90a, which cost more than the tensor-core work here),
+//   and small = x - big, exact in
 //   float32, of which the tensor core reads the top 10 mantissa bits. A
 //   product is small*big + big*small, then big*big, on mma.sync.m16n8k8
 //   tf32 with float32 accumulation: about 2^-21 relative a product, against
@@ -53,6 +54,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 namespace attn {  // the body's tile sizes stay out of the including file's names
@@ -94,25 +97,6 @@ constexpr int smem_bytes() {
 // registers) spilled the D = 64 body and made it slower.
 constexpr int MIN_BLOCKS = 2;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Rows [n0, n0 + key_tile) of one operand (row stride ts) into a padded
 // shared tile; rows past T are zero-filled and read nothing.
 template <int D>
@@ -139,42 +123,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
       cp_async4(dst + r * LD + c, ok ? src + (n0 + r) * ts + c : src, ok);
     }
   }
-}
-
-// x = big + small: big is x rounded to TF32 (10 mantissa bits, to nearest,
-// ties away from zero: the bits cvt.rna.tf32.f32 gives, here one integer
-// add and mask), small the exact float32 remainder, of which the tensor
-// core reads the top 10 mantissa bits.
-__device__ __forceinline__ void split(float x, unsigned& big, unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// c += a b on one m16n8k8 TF32 tile, float32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment split once, reused across the B fragments it meets
-__device__ __forceinline__ void split_a(const float (&a)[4], unsigned (&big)[4],
-                                        unsigned (&small)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], big[i], small[i]);
-}
-
-// c += a b in 3xTF32: the small cross terms first, then big * big
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ab)[4],
-                                           const unsigned (&as)[4], float b0, float b1) {
-  unsigned bb0, bs0, bb1, bs1;
-  split(b0, bb0, bs0);
-  split(b1, bb1, bs1);
-  mma_tf32(c, as, bb0, bb1);
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
 }
 
 template <int D>

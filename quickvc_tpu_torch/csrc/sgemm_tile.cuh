@@ -1,6 +1,5 @@
-// The float32 register-tile core of the port's GEMM-shaped kernels: K5/K6
-// (fused_disc_conv.cu), K7 (fused_extractor.cu) and K8's linear layers
-// (fused_transformer.cu), for sm_90a.
+// The float32 register-tile core of K7 (fused_extractor.cu) and K8's linear
+// layers (fused_transformer.cu), for sm_90a.
 //
 // A block of TILE_THREADS = 256 threads owns a TILE_M x TILE_N = 128 x 128
 // output tile. Thread (tx, ty) = (tid % 16, tid / 16) holds an 8 x 8 register

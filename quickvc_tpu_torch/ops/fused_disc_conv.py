@@ -15,9 +15,17 @@ matmuls in PyTorch (autograd gives its backward). A CPU tensor takes it; a
 CUDA tensor launches the kernels or raises. As in the JAX package, the
 default discriminator does not route through it: ``DiscriminatorP`` takes
 it for its fifth conv only when built with ``fused_conv5=True``.
+
+Both kernels are one implicit GEMM on TF32 tensor cores in 3xTF32. K6 cuts
+its reduction over the N*R rows into splits (:func:`dw_plan`), each writing
+a float32 partial to a workspace that a second kernel sums in split order:
+the same inputs give the same bits on every launch.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +36,71 @@ from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library,
 K5 = 5
 STATS = KernelStats("conv5_lrelu")        # K5 launches: forward and dx
 DW_STATS = KernelStats("conv5_lrelu_dw")  # K6 launches
+
+# The kernels' tiling (csrc/fused_disc_conv.cu: BM, BN, BK, MIN_BLOCKS): a
+# block computes a TILE_M x TILE_N output tile, walks K in tiles of K_TILE
+# (the kernel refuses a split edge off them), one block an SM.
+TILE_M, TILE_N = 256, 128
+K_TILE = 32
+BLOCKS_PER_SM = 1
+MAX_SPLITS = 4          # workspace at most 4 x dW (80 MB at 1024 -> 1024)
+MIN_SPLIT_K_TILES = 8   # K tiles a split walks at least
+
+
+class DwPlan(NamedTuple):
+    """How K6 cuts its reduction over k in [0, N*R): split z takes
+    [z * k_chunk, min((z + 1) * k_chunk, N*R)); ``workspace`` floats hold the
+    partials (0 for one split, which writes dW directly)."""
+    splits: int
+    k_chunk: int
+    workspace: int
+
+
+def dw_plan(n: int, rows: int, c_in: int, c_out: int, sm_count: int = 132) -> DwPlan:
+    """The split count that fills the card's last wave of blocks best.
+
+    K6's grid is ceil(5 C_in / TILE_M) x ceil(C_out / TILE_N) tiles, each
+    walking all N*R rows; at the discriminator's 1024 -> 1024 that is 160
+    tiles on 132 block slots, 1.2 waves. Splitting the reduction s ways gives
+    160 s blocks; the plan takes the s in 1..MAX_SPLITS whose blocks fill
+    their waves best (ties to the smaller s), each split keeping at least
+    MIN_SPLIT_K_TILES K tiles, then evens the splits on K-tile edges so that
+    none is empty.
+    """
+    k = n * rows
+    k_tiles = -(-k // K_TILE)
+    tiles = -(-(K5 * c_in) // TILE_M) * -(-c_out // TILE_N)
+    slots = sm_count * BLOCKS_PER_SM
+
+    def fill(s: int) -> float:
+        blocks = tiles * s
+        return blocks / (-(-blocks // slots) * slots)
+
+    allowed = [s for s in range(1, MAX_SPLITS + 1) if s == 1 or k_tiles >= s * MIN_SPLIT_K_TILES]
+    splits = max(allowed, key=lambda s: (fill(s), -s))
+    per = -(-k_tiles // splits)
+    splits = -(-k_tiles // per)
+    return DwPlan(splits, per * K_TILE, splits * K5 * c_in * c_out if splits > 1 else 0)
+
+
+def disc_conv5_shapes(batch: int, segment: int, periods=(2, 3, 5, 7, 11),
+                      channels: int = 1024) -> dict[int, tuple[int, int, int]]:
+    """x (N, R, C) that K5 sees at each period discriminator's fifth conv
+    for a (batch, 1, segment) wave: the wave folded to (segment / p, p),
+    reflect-padded to whole periods, then four convs of stride 3 and
+    padding 2 (R = ceil(. / 3) four times), N = batch * p."""
+    out = {}
+    for p in periods:
+        rows = -(-segment // p)
+        for _ in range(4):
+            rows = -(-rows // 3)
+        out[p] = (batch * p, rows, channels)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv5_lrelu_reference(x: torch.Tensor, kernel: torch.Tensor,
@@ -75,9 +148,13 @@ def conv5_dw_kernel(x: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
     if dym.dim() != 3 or dym.shape[:2] != (n, rows):
         raise ValueError(f"conv5_lrelu dW: x {tuple(x.shape)}, dym {tuple(dym.shape)}")
     c_out = dym.shape[2]
+    plan = dw_plan(n, rows, c_in, c_out, _sm_count(x.device.index or 0))
     dw = torch.empty((K5, c_in, c_out), device=x.device, dtype=torch.float32)
+    ws = (torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
+          if plan.workspace else None)
     check(library().qvc_conv5_dw(x.data_ptr(), dym.data_ptr(), dw.data_ptr(),
-                                 n, rows, c_in, c_out, stream_ptr(x)),
+                                 None if ws is None else ws.data_ptr(), n, rows, c_in,
+                                 c_out, plan.splits, plan.k_chunk, stream_ptr(x)),
           "conv5_lrelu dW kernel")
     DW_STATS.launches += 1
     return dw

@@ -1,5 +1,6 @@
 """PyTorch port, the arithmetic of the attention body that K2, K8, K9 and K10
-share (``csrc/fused_attention.cuh``), emulated in numpy: each float32
+share (``csrc/fused_attention.cuh``), emulated in numpy
+(``torch_port_support.mma``, as ``csrc/tf32x3.cuh`` computes): each float32
 operand x split into big, x rounded to TF32 as ``cvt.rna`` rounds (add
 0x1000 to the bits, mask with 0xFFFFE000), and small = x - big, which the
 tensor core reads to its top 10 mantissa bits (mask only); every product
@@ -16,39 +17,9 @@ no card.
 
 import numpy as np
 import pytest
+from torch_port_support import mma
 
 LOG2E = np.float32(1.4426950408889634)
-
-
-def tf32(x: np.ndarray) -> np.ndarray:
-    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero."""
-    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def tf32_read(x: np.ndarray) -> np.ndarray:
-    """A float32 operand as the tensor core reads it: the top 10 mantissa bits."""
-    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    big = tf32(x)
-    return big, tf32_read(x.astype(np.float32) - big)
-
-
-def mma(c: np.ndarray, a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
-    """c + a @ b over 8-wide k chunks, float32 accumulation; 3xTF32 or one TF32 pass."""
-    for k0 in range(0, a.shape[-1], 8):
-        ac, bc = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
-        if passes == 3:
-            (ab, as_), (bb, bs) = split(ac), split(bc)
-            terms = (as_, bb), (ab, bs), (ab, bb)
-        else:
-            terms = ((tf32(ac), tf32(bc)),)
-        for x, y in terms:   # products of TF32 values are exact in float64
-            c = (c + (x.astype(np.float64) @ y.astype(np.float64)).astype(np.float32))
-    return c.astype(np.float32)
 
 
 def body(q, k, v, scale: float, passes: int = 3) -> np.ndarray:

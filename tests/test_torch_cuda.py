@@ -8,8 +8,9 @@ and iSTFT atol 1e-4 / rtol 1e-3 (iSTFT also at 32/8 and 64/16, on its
 table-driven body), the halo spectrogram atol/rtol 2e-4 (the JAX gate) at
 n_fft/hop 1280/320 and 1024/256 (real FFT) and 800/200 and 1536/384 (dense
 DFT), the k=5 conv and its
-gradients atol 1e-4 / rtol 1e-3, the extractor front atol 5e-4 / rtol 1e-3
-(the JAX gate), the transformer layer and the K9/K10 attention layouts atol
+gradients atol 1e-4 / rtol 1e-3 (also at the five period discriminators'
+full-width shapes, and bit-equal from one launch to the next), the
+extractor front atol 5e-4 / rtol 1e-3 (the JAX gate), the transformer layer and the K9/K10 attention layouts atol
 1e-4 / rtol 1e-3, the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
 1e-4, streaming and a live session on the card within 1e-3 x peak of the CPU.
 """
@@ -58,11 +59,21 @@ def test_wave_to_spec_halo_kernel_refuses_other_sizes(cuda):
         fused_mel.wave_to_spec_halo(y, 8192, 2048, 8192)
 
 
-@pytest.mark.parametrize("shape", [(3, 37, 24, 40), (6, 64, 256, 128)])
+# the fifth conv's input at each period of the paired D phase (batch 64,
+# segment 10240): x (64 p, R_p, 1024)
+PERIOD_SHAPES = [(128, 64, 1024, 1024), (192, 43, 1024, 1024), (320, 26, 1024, 1024),
+                 (448, 19, 1024, 1024), (704, 12, 1024, 1024)]
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 24, 40), (6, 64, 256, 128), (5, 13, 30, 42),
+                                   (4, 12, 33, 17)] + PERIOD_SHAPES)
 def test_conv5_lrelu_kernels(cuda, shape):
     """K5 forward against the plain version; through the autograd.Function,
     K5's dx and K6's dW against the plain flipped conv and shifted products
-    on the same dym (the LReLU mask from the kernel's output), db = sum(dym)."""
+    on the same dym (the LReLU mask from the kernel's output), db = sum(dym);
+    a second launch of K5 and of K6 gives the same bits. Channels that are
+    not multiples of 4 take the 4-byte copies; the period shapes (full
+    width, K6 split four ways) scale dy by 1/sqrt(N R) so that dW is O(1)."""
     import torch.nn.functional as F
 
     from quickvc_tpu_torch.ops import fused_disc_conv as fdc
@@ -73,6 +84,8 @@ def test_conv5_lrelu_kernels(cuda, shape):
     k = torch.randn(5, c_in, c_out, device=cuda, generator=g) / (5 * c_in) ** 0.5
     b = 0.1 * torch.randn(c_out, device=cuda, generator=g)
     dy = torch.randn(n, rows, c_out, device=cuda, generator=g)
+    if shape in PERIOD_SHAPES:
+        dy = dy / (n * rows) ** 0.5
     ins = [t.clone().requires_grad_() for t in (x, k, b)]
     before = (fdc.STATS.launches, fdc.DW_STATS.launches)
     y = fdc.conv5_lrelu(*ins, 0.1)
@@ -87,6 +100,8 @@ def test_conv5_lrelu_kernels(cuda, shape):
              dym.sum(dim=(0, 1))]
     for ours, ref in zip(ins, plain):
         torch.testing.assert_close(ours.grad, ref, atol=1e-4, rtol=1e-3)
+    assert torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y.detach())
+    assert torch.equal(fdc.conv5_dw_kernel(x, dym.contiguous()), ins[1].grad)
 
 
 def test_wave_to_mel_kernel(cuda):
