@@ -8,8 +8,10 @@
    shapes its path gives it, and times kernel, plain version and one
    PyTorch library call for the same function (CUDA events, after warm-up;
    K1-K4 and K9-K11 also in profiler device time, ``device_ms``):
-   K1-K3 at the conversion's shapes (K1 also held at n_fft/hop 2048/512, two
-   bin chunks; K3 also at 32/8, its table-driven body), K4 at the full
+   K1-K3 at the conversion's shapes (K1 on its real-FFT route, also held
+   at n_fft/hop 2048/512 on it and at 800/200 and 4096/1024 on its dense
+   DFT, one bin chunk and three, and timed in turns with the torch.stft
+   chain; K3 also at 32/8, its table-driven body), K4 at the full
    training batch (32, 512*320+960) (also held at n_fft/hop 1024/256 on its
    real FFT and at 800/200 on its dense DFT, whose time it prints), K5 (forward and
    dx) and K6 (dW) at the fifth conv of each period discriminator in the
@@ -28,8 +30,9 @@
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
-   synthetic wavs; checks the outputs and that K1-K3 were launched, with the
-   launch counters zeroed just before; repeats the conversion for the
+   synthetic wavs; checks the outputs and that K1-K3 were launched (K1 on
+   its FFT route), with the launch counters zeroed just before; repeats the
+   conversion for the
    throughput; converts once more under torch.profiler for the device time
    by kernel and the device's busy share of the conversion loop.
 4. Checks the conversion path on the card against the CPU plain path on a
@@ -64,7 +67,9 @@
     quickvc_tpu_torch.scripts.int8_matmul_probe`` (K11 in int8 and bf16 at
     (16384 x 12288) @ (12288 x 3072), its whole int8 output exact, a tile
     sweep, ``torch._int_mm`` and bf16 ``torch.matmul`` beside it); K11 is
-    also held against its plain version in step 2.
+    also held against its plain version in step 2, where a bf16 call must
+    launch no B^T pre-pass and ``torch.mm(..., out_dtype=torch.float32)``
+    is timed beside it where this torch has it.
 12. Drives streaming conversion, the CLI with ``--streaming --chunk-frames 96
     --context-frames 96 --batch 8 --noise-scale 0``, and the same without
     ``--streaming``, on 16 synthetic sources of 12.1-15.5 s that fill two
@@ -122,7 +127,8 @@ HBM_BYTES = 3.35e12
 
 TPU_KERNELS = [
     ("K1", "quickvc_tpu/ops/fused_mel.py:227", "wave_to_mel_pallas",
-     "ported: quickvc_tpu_torch/csrc/fused_mel.cu; n_fft up to 4096"),
+     "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: K4's real FFT (FFT_SIZES), "
+     "dense DFT up to n_fft 4096"),
     ("K2", "quickvc_tpu/ops/fused_attention.py:113", "fused_attention_packed",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
@@ -144,7 +150,8 @@ TPU_KERNELS = [
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
     ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm",
-     "ported: quickvc_tpu_torch/csrc/int8_mm.cu; redesigned: TMA + wgmma"),
+     "ported: quickvc_tpu_torch/csrc/int8_mm.cu; redesigned: persistent TMA + wgmma, bf16 "
+     "without a B^T pre-pass"),
 ]
 # training path: full width, batch 32, 512-frame crops (utterances of 12.5-13.5 s
 # fall in the (600, 700]-frame bucket, cropped to max_speclen 512)
@@ -160,17 +167,20 @@ ENCODE_BATCH = 16
 ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
                ("pallas_fused_layer", "pallas", True))   # (name, --hubert-front, fused_layer)
 # the port's __global__ functions, as the profiler names them
-DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "attention_kernel", "polar_istft_kernel",
+DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_kernel",
+                    "polar_istft_kernel",
                     "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
                     "extractor_front_kernel", "linear_kernel", "row_layer_norm_kernel",
                     "mm_wgmma_kernel", "transpose_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
-# (K4's both routes, K11's bodies, the attention body of K2/K8/K9/K10, K5/K6's
-# implicit GEMM and K6's split-K sum); none may spill
-PTXAS_WATCH = ("wave_to_spec_halo_kernel", "mm_wgmma_kernel", "transpose_kernel",
-               "attention_kernel", "conv5_gemm_kernel", "splitk_sum_kernel")
-REDESIGNED = {"wave_to_spec_halo": "redesigned: real FFT", "mm_s8": "redesigned: TMA + wgmma",
-              "mm_bf16": "redesigned: TMA + wgmma",
+# (K4's both routes, K1's FFT route, K11's bodies, the attention body of
+# K2/K8/K9/K10, K5/K6's implicit GEMM and K6's split-K sum); none may spill
+PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
+               "transpose_kernel", "attention_kernel", "conv5_gemm_kernel", "splitk_sum_kernel")
+REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
+              "wave_to_spec_halo": "redesigned: real FFT",
+              "mm_s8": "redesigned: persistent TMA + wgmma",
+              "mm_bf16": "redesigned: persistent TMA + wgmma, B read MN-major (no pre-pass)",
               "attention_packed": "redesigned: 3xTF32 tensor cores",
               "attention_packed_aligned": "redesigned: 3xTF32 tensor cores",
               "attention": "redesigned: 3xTF32 tensor cores",
@@ -319,22 +329,27 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     results = []
     shapes = path_shapes()
 
-    # K1 at the longest target's bucket: (1, 9 s) -> (1, 450, 80)
+    # K1 at the longest target's bucket: (1, 9 s) -> (1, 450, 80), on its FFT
+    # route; held against the plain version there and at 2048/512 (FFT),
+    # 800/200 (dense, one bin chunk) and 4096/1024 (dense, three chunks)
     t_len = int(np.ceil(max(TARGET_SECONDS))) * SR
     y = torch.from_numpy(synth_voice(t_len / SR, SR, rng)[None]).to(dev)
-    fb = torch.as_tensor(mel_filterbank(SR, 1280, 80), device=dev)
     win = torch.as_tensor(hann_window(1280), device=dev)
 
+    def k1_at(n_fft: int, hop: int):
+        return fused_mel.wave_to_mel_kernel(y, SR, n_fft, hop, n_fft, 80)
+
+    k1_checks = {}
+    for n_fft, hop in ((1280, 320), (2048, 512), (800, 200), (4096, 1024)):
+        route = fused_mel.mel_route(n_fft, hop)
+        fb_n = torch.as_tensor(mel_filterbank(SR, n_fft, 80), device=dev)
+        k1_checks[f"{n_fft}/{hop}"] = compare(k1_at(n_fft, hop),
+                                              mel_plain(y, fb_n, n_fft, hop, n_fft),
+                                              2e-3, 2e-3) | {"route": route}
+    fb = torch.as_tensor(mel_filterbank(SR, 1280, 80), device=dev)
+
     def k1():
-        return fused_mel.wave_to_mel_kernel(y, SR, 1280, 320, 1280, 80)
-
-    def k1_2048():   # past the kernel's 768-bin chunk: 1025 bins in two
-        return fused_mel.wave_to_mel_kernel(y, SR, 2048, 512, 2048, 80)
-
-    fb2048 = torch.as_tensor(mel_filterbank(SR, 2048, 80), device=dev)
-    k1_checks = {"1280/320": compare(k1(), mel_plain(y, fb, 1280, 320, 1280), 2e-3, 2e-3),
-                 "2048/512": compare(k1_2048(), mel_plain(y, fb2048, 2048, 512, 2048),
-                                     2e-3, 2e-3)}
+        return k1_at(1280, 320)
 
     def k1_plain():
         return mel_plain(y, fb, 1280, 320, 1280)
@@ -347,19 +362,19 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     # The least work a log-mel needs: per frame a real FFT (2.5 N log2 N flops),
     # the window, |z|^2 over 641 bins and the mel product over the filters'
     # nonzero bands; bytes are the wave, the nonzero filter taps and the output.
-    # The kernel's own dense DFT (2·1280·1282 flops per frame) is printed apart.
     frames = t_len // 320
     nnz = int((fb != 0).sum())
     flops = (2.5 * 1280 * np.log2(1280) + 1280 + 3 * 641 + 2 * nnz) * frames
     nbytes = 4 * (t_len + nnz + frames * 80)
     results.append(dict(
         name="wave_to_mel", tpu_id="K1", source="quickvc_tpu_torch/csrc/fused_mel.cu",
-        replaces="quickvc_tpu/ops/fused_mel.py:227",
+        replaces="quickvc_tpu/ops/fused_mel.py:227", mel_route=fused_mel.mel_route(1280, 320),
         shape=[list(y.shape), [1, frames, 80]], **merge_checks(k1_checks),
-        ms=cuda_ms(k1), device_ms=device_ms(k1), plain_ms=cuda_ms(k1_plain),
-        library_ms=cuda_ms(k1_library), ms_2048=cuda_ms(k1_2048),
-        bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=nbytes / HBM_BYTES * 1e3,
-        dense_dft_ops_ms=(2 * 1280 * 1282 + 2 * nnz) * frames / F32_FLOPS * 1e3))
+        # in turns: library, kernel, kernel, library
+        **turns(k1, k1_library), plain_ms=cuda_ms(k1_plain),
+        ms_2048=cuda_ms(lambda: k1_at(2048, 512)), ms_800_dense=cuda_ms(lambda: k1_at(800, 200)),
+        ms_4096_dense=cuda_ms(lambda: k1_at(4096, 1024)),
+        bound_ops_ms=flops / F32_FLOPS * 1e3, bound_bytes_ms=nbytes / HBM_BYTES * 1e3))
 
     # K2 at one HuBERT layer of the 5-s source bucket, (8, 250, 768), views of
     # qkv; checked again at the streaming run's buckets and the live windows
@@ -758,9 +773,12 @@ def check_attention_layouts(dev: torch.device) -> list[dict]:
 def check_gemm_kernels(dev: torch.device) -> list[dict]:
     """K11 at the int8 probe's full shape, (16384 x 12288) @ (12288 x 3072):
     int8 exact against the plain version (float64 product cast to int32), bf16
-    atol 2e-3 / rtol 1e-4. Library calls: torch._int_mm, bf16 torch.matmul."""
+    atol 2e-3 / rtol 1e-4, a bf16 call's kernels as the profiler sees them
+    (no B^T pre-pass). Library calls: torch._int_mm, bf16 torch.matmul, and
+    torch.mm(..., out_dtype=torch.float32) where this torch has it."""
     from quickvc_tpu_torch.ops import int8_mm
     from quickvc_tpu_torch.scripts import int8_matmul_probe as probe
+    from quickvc_tpu_torch.scripts.kernel_times import device_kernels
 
     m, kk, n = probe.M, probe.K, probe.N
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -787,13 +805,24 @@ def check_gemm_kernels(dev: torch.device) -> list[dict]:
         bound_bytes_ms=(m * kk + kk * n + 4 * m * n) / HBM_BYTES * 1e3)]
     abf, bbf = ((x.float() / 127.0).bfloat16() for x in (a8, b8))
     del a8, b8, b8_col
+
+    def f32_out():   # K11's own function in one PyTorch call, where this torch has it
+        return torch.mm(abf, bbf, out_dtype=torch.float32)
+
+    try:
+        f32_out()
+        f32_out_ms, f32_out_note = cuda_ms(f32_out, iters=10), None
+    except (TypeError, RuntimeError) as e:
+        f32_out_ms, f32_out_note = None, f"not timed: {type(e).__name__}: {str(e)[:160]}"
+    bf16_kernels = device_kernels(lambda: int8_mm.mm_kernel(abf, bbf))
     results.append(dict(
         name="mm_bf16", tpu_id="K11", source="quickvc_tpu_torch/csrc/int8_mm.cu",
         replaces="scripts/int8_matmul_probe.py:85", shape=[[m, kk], [kk, n]],
         **compare(int8_mm.mm_kernel(abf, bbf), int8_mm.mm_reference(abf, bbf), 2e-3, 1e-4),
-        tile=int8_mm.DEFAULT_TILE,
+        tile=int8_mm.DEFAULT_TILE, device_kernels=bf16_kernels,
+        pre_pass_launched=any("transpose_kernel" in k for k in bf16_kernels),
         **turns(lambda: int8_mm.mm_kernel(abf, bbf), lambda: torch.matmul(abf, bbf), iters=10),
-        transpose_ms=cuda_ms(lambda: int8_mm.transpose_b(bbf), iters=10),
+        library_f32_out_ms=f32_out_ms, library_f32_out_note=f32_out_note,
         plain_ms=cuda_ms(lambda: int8_mm.mm_reference(abf, bbf), iters=5, warmup=1),
         bound_ops_ms=ops / BF16_FLOPS * 1e3,
         bound_bytes_ms=(2 * (m * kk + kk * n) + 4 * m * n) / HBM_BYTES * 1e3))
@@ -1506,7 +1535,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from quickvc_tpu_torch import ops
     from quickvc_tpu_torch.convert import LOOP_SPAN
-    from quickvc_tpu_torch.ops import _cuda
+    from quickvc_tpu_torch.ops import _cuda, fused_mel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1521,7 +1550,13 @@ def main() -> int:
     watched = ptxas_report(build_log)
     print("build " + json.dumps({"seconds": round(time.time() - t0, 2), "library": lib.name,
                                  "ptxas": ptxas}))
-    print("ptxas " + json.dumps(watched))
+    # the compiler version beside the ptxas report: K11's accumulator fences
+    # (csrc/int8_mm.cu) answer what one version of it did
+    nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True, text=True)
+    print("ptxas " + json.dumps({
+        "nvcc": nvcc.stdout.strip().splitlines()[-1] if nvcc.stdout.strip() else None,
+        "warnings": [ln.strip() for ln in build_log.splitlines() if "warning" in ln.lower()],
+        "kernels": watched}))
     require({r["kernel"] for r in watched.values()} == set(PTXAS_WATCH),
             f"ptxas report names {PTXAS_WATCH}")
     spilled = [e for e, r in watched.items()
@@ -1541,6 +1576,7 @@ def main() -> int:
         ops.reset_launch_counts()
         summary = run_convert(files, os.path.join(tmp, "out"))
         launches = ops.launch_counts()
+        mel_routes = dict(fused_mel.STATS.routes)
         runs = [summary] + [run_convert(files, os.path.join(tmp, f"out{i}"))
                             for i in range(1, REPEATS)]
         for run in runs:
@@ -1564,7 +1600,8 @@ def main() -> int:
                   "audio_s_per_wall_s": audio / wall,
                   "per_run_audio_s_per_wall_s": [r["audio_seconds"] / r["wall_seconds"]
                                                  for r in runs],
-                  "launches": launches, "expected_launches": expected}
+                  "launches": launches, "expected_launches": expected,
+                  "wave_to_mel_routes": mel_routes}
     print("convert " + json.dumps(throughput))
     reference = check_against_cpu(cfg, net_g, hubert, rng)
     check_sessions_against_cpu(net_g, hubert, rng)
@@ -1591,13 +1628,15 @@ def main() -> int:
         detail = {x: k[x] for x in ("name", "tpu_id", "shape", "max_abs_err", "max_rel_err",
                                     "atol", "rtol", "within_tol", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by", "path", "launches")}
-        for extra in ("dense_dft_ops_ms", "checks", "autograd_function_ok", "deterministic",
+        for extra in ("mel_route", "checks", "autograd_function_ok", "deterministic",
                       "dx_ms", "dx_device_ms", "dx_plain_ms", "dx_library_ms",
                       "dx_library_device_ms", "timings", "dw_plan", "affine_ms",
                       "library_max_abs_err", "launches_per_call", "padded_lanes_zero", "tile", "ms_turns",
                       "library_ms_turns", "device_ms", "library_device_ms",
                       "transpose_ms", "library_b_col_major_ms",
-                      "bound_f32_fma_ms", "ms_2048", "ms_32_8", "dense_800_ms",
+                      "bound_f32_fma_ms", "ms_2048", "ms_800_dense", "ms_4096_dense",
+                      "device_kernels", "pre_pass_launched", "library_f32_out_ms",
+                      "library_f32_out_note", "ms_32_8", "dense_800_ms",
                       "dense_800_plain_ms", "dense_800_bound_ms"):
             if extra in k:
                 detail[extra] = k[extra]
@@ -1609,6 +1648,10 @@ def main() -> int:
                                        "status": st} for i, at, fn, st in TPU_KERNELS]}))
     require(not bad, f"kernels outside tolerance: {bad}")
     require(launches == expected, f"launch counts {launches} != expected {expected}")
+    require(mel_routes == {"fft": len(TARGET_SECONDS)},
+            f"the conversion's log-mels took routes {mel_routes}, not the FFT")
+    require(not any(k.get("pre_pass_launched") for k in kernels),
+            "a bf16 K11 call launched the B^T pre-pass")
     require(reference["wave_shape"][-1] == SR, "CPU-reference wave length")
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],

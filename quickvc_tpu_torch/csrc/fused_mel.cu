@@ -13,11 +13,22 @@
 // magnitude on a wave that already carries its (n_fft-hop)/2 halo, so no
 // pad and no mel. (B, T + 2*pad) -> (B, T//hop, n_fft/2+1).
 //
-// K1: a dense DFT. A frame costs 2*n_fft*(n_fft+2) flops (plus
-// 2*n_freq*n_mels of mel projection), about 3.3 MFLOP at n_fft 1280, against
-// ~5 KB of wave read, so the 67 TFLOP/s float32 FMA rate bounds it (the DFT
-// must be full float32: TF32 or bf16 multiplicands cost ~1% of spectrogram
-// accuracy, the fault the round-5 TPU gate found at fused_mel.py:110-116).
+// K1 has two routes (ops/fused_mel.py:mel_route). For n_fft in FFT_SIZES it
+// runs K4's real FFT below (wave_to_mel_fft_kernel): the tile's span is
+// staged with the reflect-pad index mapping, the same passes and
+// recombination (spec_fft, spec_magnitude) leave the tile's magnitudes in
+// shared memory, and each (frame, mel) pair sums its filter's nonzero band
+// and takes the log. A frame then costs ~2.5 n_fft log2 n_fft flops plus
+// its filters' ~1,250 nonzero taps (n_fft 1280, 80 mels); a conversion's
+// target gives a few hundred frames, too little work to fill the card, so
+// launch latency bounds it rather than the card's rates.
+//
+// K1, dense route (any other n_fft up to 4096): a dense DFT. A frame costs
+// 2*n_fft*(n_fft+2) flops (plus 2*n_freq*n_mels of mel projection), about
+// 3.3 MFLOP at n_fft 1280, against ~5 KB of wave read, so the 67 TFLOP/s
+// float32 FMA rate bounds it (the DFT must be full float32: TF32 or bf16
+// multiplicands cost ~1% of spectrogram accuracy, the fault the round-5 TPU
+// gate found at fused_mel.py:110-116).
 // One block per (tile of TILE_F frames, batch item) stages the tile's wave
 // window in shared memory (reflect pad by index reflection) and a one-period
 // cos/sin table indexed by (n*k mod n_fft); the window is folded into the
@@ -62,6 +73,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -458,6 +471,43 @@ __device__ __forceinline__ const float* spec_passes(const float* xs, float* b0, 
   }
 }
 
+// The FFT core of K4 and of K1's FFT route: the staged span xs of
+// SPEC_TILE_F frames (frame f at xs[f * hop]) -> each windowed frame's
+// half-length complex FFT Z. table: per pass (ns, R-1) complex twiddles (M-1
+// in all), then M+1 recombination twiddles, then the window (2M floats).
+// Returns the last pass's buffer (re, then im SPEC_TILE_F * LDF later).
+template <int M>
+__device__ __forceinline__ const float* spec_fft(const float* xs, float* b0, float* b1,
+                                                 const float* table, int hop) {
+  return spec_passes<M, 0>(xs, b0, b1, reinterpret_cast<const float2*>(table),
+                           table + 2 * (M - 1) + 2 * (M + 1), hop);
+}
+
+// sqrt(|X[k]|^2 + 1e-6) of frame f from its half-length FFT Z:
+// X[k] = (Z[k] + conj Z[M-k]) / 2 - i/2 e^{-2 pi i k/(2M)} (Z[k] - conj Z[M-k]),
+// bins 0 and M apart, exactly. rc: the recombination twiddles.
+template <int M>
+__device__ __forceinline__ float spec_magnitude(const float* zre, const float* zim,
+                                                const float2* rc, int f, int k) {
+  const int base = f * Spec<M>::LDF;
+  float re, im;
+  if (k == 0 || k == M) {
+    const float a = zre[base], c = zim[base];
+    re = k == 0 ? a + c : a - c;
+    im = 0.0f;
+  } else {
+    const int i = base + spad(k), ic = base + spad(M - k);
+    const float2 zk = make_float2(zre[i], zim[i]);
+    const float2 zc = make_float2(zre[ic], -zim[ic]);
+    const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
+    const float2 o = make_float2(0.5f * (zk.y - zc.y), -0.5f * (zk.x - zc.x));
+    const float2 t = cmul(__ldg(rc + k), o);
+    re = e.x + t.x;
+    im = e.y + t.y;
+  }
+  return sqrtf(re * re + im * im + 1e-6f);
+}
+
 template <int M>
 size_t spec_smem_bytes(int hop) {  // xs / b1 shared, then b0
   const size_t span = (size_t)(SPEC_TILE_F - 1) * hop + 2 * M;
@@ -486,36 +536,70 @@ wave_to_spec_halo_kernel(const float* __restrict__ y, const float* __restrict__ 
     xs[i] = i < left ? yb[i] : 0.0f;  // past the end only for frames not stored
   __syncthreads();
 
-  // table: per pass (ns, R-1) complex twiddles (M-1 in all), then N_FREQ
-  // recombination twiddles, then the window (2M floats)
-  const float2* tw = reinterpret_cast<const float2*>(table);
-  const float* zre = spec_passes<M, 0>(xs, b0, b1, tw, table + 2 * (M - 1) + 2 * N_FREQ, hop);
+  const float* zre = spec_fft<M>(xs, b0, b1, table, hop);
   const float* zim = zre + SPEC_TILE_F * LDF;
-  const float2* rc = tw + (M - 1);
-
-  // X[k] = (Z[k] + conj Z[M-k]) / 2 - i/2 e^{-2 pi i k/(2M)} (Z[k] - conj Z[M-k])
+  const float2* rc = reinterpret_cast<const float2*>(table) + (M - 1);
   const int valid = min(SPEC_TILE_F, n_frames - p0) * N_FREQ;
   float* ob = out + ((long long)b * n_frames + p0) * N_FREQ;
   for (int g = threadIdx.x; g < valid; g += SPEC_THREADS) {
     const int f = g / N_FREQ;
-    const int k = g - f * N_FREQ;
-    const int base = f * LDF;
-    float re, im;
-    if (k == 0 || k == M) {
-      const float a = zre[base], c = zim[base];
-      re = k == 0 ? a + c : a - c;
-      im = 0.0f;
-    } else {
-      const int i = base + spad(k), ic = base + spad(M - k);
-      const float2 zk = make_float2(zre[i], zim[i]);
-      const float2 zc = make_float2(zre[ic], -zim[ic]);
-      const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
-      const float2 o = make_float2(0.5f * (zk.y - zc.y), -0.5f * (zk.x - zc.x));
-      const float2 t = cmul(__ldg(rc + k), o);
-      re = e.x + t.x;
-      im = e.y + t.y;
-    }
-    ob[g] = sqrtf(re * re + im * im + 1e-6f);
+    ob[g] = spec_magnitude<M>(zre, zim, rc, f, g - f * N_FREQ);
+  }
+}
+
+// K1's FFT route: K4's tile and FFT on a span staged with K1's reflect pad;
+// the magnitudes stay in shared memory (over the buffer the last pass did
+// not write), then each (frame, mel) pair sums its filter's nonzero band
+// [mel_range[2m], mel_range[2m+1]) and stores log(max(sum, 1e-5)).
+template <int M>
+__global__ void __launch_bounds__(SPEC_THREADS)
+wave_to_mel_fft_kernel(const float* __restrict__ y, const float* __restrict__ table,
+                       const float* __restrict__ mel_fb, const int* __restrict__ mel_range,
+                       float* __restrict__ out, int t_len, int n_frames, int hop, int n_mels) {
+  constexpr int N_FREQ = M + 1;
+  constexpr int LDF = Spec<M>::LDF;
+  extern __shared__ float smem[];
+  const int span = (SPEC_TILE_F - 1) * hop + 2 * M;
+  const int frames = 2 * SPEC_TILE_F * LDF;
+  float* xs = smem;                                  // the tile's wave span
+  float* b1 = smem;                                  // later: frame buffer, re | im
+  float* b0 = smem + (span > frames ? span : frames);
+  const int pad = (2 * M - hop) / 2;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * SPEC_TILE_F;
+  const float* yb = y + (long long)b * t_len;
+
+  for (int i = threadIdx.x; i < span; i += SPEC_THREADS) {
+    // padded index -> original index with reflection at both ends (past the
+    // end only for frames not stored)
+    int s = p0 * hop + i - pad;
+    if (s < 0) s = -s;
+    if (s >= t_len) s = 2 * (t_len - 1) - s;
+    xs[i] = (s >= 0 && s < t_len) ? yb[s] : 0.0f;
+  }
+  __syncthreads();
+
+  const float* zre = spec_fft<M>(xs, b0, b1, table, hop);
+  const float* zim = zre + SPEC_TILE_F * LDF;
+  const float2* rc = reinterpret_cast<const float2*>(table) + (M - 1);
+  float* mag = zre == b0 ? b1 : b0;                  // (SPEC_TILE_F, N_FREQ)
+  for (int g = threadIdx.x; g < SPEC_TILE_F * N_FREQ; g += SPEC_THREADS) {
+    const int f = g / N_FREQ;
+    mag[g] = spec_magnitude<M>(zre, zim, rc, f, g - f * N_FREQ);
+  }
+  __syncthreads();
+
+  const int valid = min(SPEC_TILE_F, n_frames - p0) * n_mels;
+  float* ob = out + ((long long)b * n_frames + p0) * n_mels;
+  for (int i = threadIdx.x; i < valid; i += SPEC_THREADS) {
+    const int f = i / n_mels;
+    const int m = i - f * n_mels;
+    const float* fb = mel_fb + (long long)m * N_FREQ;
+    const float* sp = mag + f * N_FREQ;
+    float acc = 0.0f;
+    for (int k = mel_range[2 * m]; k < mel_range[2 * m + 1]; ++k)
+      acc = fmaf(__ldg(fb + k), sp[k], acc);
+    ob[i] = logf(fmaxf(acc, 1e-5f));
   }
 }
 
@@ -542,7 +626,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 }  // namespace
 
-// K1: n_fft up to MAX_N_FFT, 0 < hop <= n_fft; the host raises first.
+// K1's dense route: n_fft up to MAX_N_FFT, 0 < hop <= n_fft; the host raises first.
 extern "C" int qvc_wave_to_mel(const void* y, const void* mel_fb,
                                const void* mel_range, void* out, int batch,
                                int t_len, int n_frames, int n_fft, int hop,
@@ -574,38 +658,60 @@ extern "C" int qvc_wave_to_spec_halo_dense(const void* y, void* out, int batch, 
   return (int)cudaGetLastError();
 }
 
-template <int M>
-cudaError_t launch_spec(const float* y, const float* table, float* out, int batch, int t_len,
-                        int n_frames, int hop, int plan, cudaStream_t stream) {
-  if (plan != plan_word(Spec<M>::plan)) return cudaErrorInvalidValue;
-  const size_t smem = spec_smem_bytes<M>(hop);
-  cudaError_t e = allow_smem(wave_to_spec_halo_kernel<M>, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((n_frames + SPEC_TILE_F - 1) / SPEC_TILE_F, batch);
-  wave_to_spec_halo_kernel<M><<<grid, SPEC_THREADS, smem, stream>>>(y, table, out, t_len,
-                                                                     n_frames, hop);
-  return cudaGetLastError();
+// The FFT routes' compiled sizes: f(std::integral_constant<int, n_fft / 2>)
+// for n_fft in FFT_SIZES, cudaErrorInvalidValue otherwise.
+template <typename F>
+cudaError_t with_fft_size(int n_fft, F&& f) {
+  switch (n_fft) {
+    case 256: return f(std::integral_constant<int, 128>{});
+    case 320: return f(std::integral_constant<int, 160>{});
+    case 512: return f(std::integral_constant<int, 256>{});
+    case 640: return f(std::integral_constant<int, 320>{});
+    case 1024: return f(std::integral_constant<int, 512>{});
+    case 1280: return f(std::integral_constant<int, 640>{});
+    case 2048: return f(std::integral_constant<int, 1024>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // K4's FFT route: n_fft = 2^a * 5^b (b <= 1), 256..2048, hop <= n_fft; plan = the host's
 // radices of the n_fft/2-point FFT, eight bits a pass from the lowest, which
-// must be the compiled plan; table as above.
+// must be the compiled plan; table as in spec_fft.
 extern "C" int qvc_wave_to_spec_halo(const void* y, const void* table, void* out,
                                      int batch, int t_len, int n_frames, int n_fft,
                                      int hop, int plan, void* stream) {
   if (hop < 1 || hop > n_fft) return (int)cudaErrorInvalidValue;
-  const float* yf = (const float*)y;
-  const float* tf = (const float*)table;
-  float* of = (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (n_fft) {
-    case 256: return (int)launch_spec<128>(yf, tf, of, batch, t_len, n_frames, hop, plan, st);
-    case 320: return (int)launch_spec<160>(yf, tf, of, batch, t_len, n_frames, hop, plan, st);
-    case 512: return (int)launch_spec<256>(yf, tf, of, batch, t_len, n_frames, hop, plan, st);
-    case 640: return (int)launch_spec<320>(yf, tf, of, batch, t_len, n_frames, hop, plan, st);
-    case 1024: return (int)launch_spec<512>(yf, tf, of, batch, t_len, n_frames, hop, plan, st);
-    case 1280: return (int)launch_spec<640>(yf, tf, of, batch, t_len, n_frames, hop, plan, st);
-    case 2048: return (int)launch_spec<1024>(yf, tf, of, batch, t_len, n_frames, hop, plan, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)with_fft_size(n_fft, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    if (plan != plan_word(Spec<M>::plan)) return cudaErrorInvalidValue;
+    const size_t smem = spec_smem_bytes<M>(hop);
+    cudaError_t e = allow_smem(wave_to_spec_halo_kernel<M>, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((n_frames + SPEC_TILE_F - 1) / SPEC_TILE_F, batch);
+    wave_to_spec_halo_kernel<M><<<grid, SPEC_THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)y, (const float*)table, (float*)out, t_len, n_frames, hop);
+    return cudaGetLastError();
+  });
+}
+
+// K1's FFT route: n_fft in FFT_SIZES, 0 < hop <= n_fft, plan and table as K4's
+// (for the same n_fft and win); mel_fb (n_mels, n_fft/2+1) and mel_range
+// (n_mels, 2) as the dense route takes them.
+extern "C" int qvc_wave_to_mel_fft(const void* y, const void* table, const void* mel_fb,
+                                   const void* mel_range, void* out, int batch, int t_len,
+                                   int n_frames, int n_fft, int hop, int plan, int n_mels,
+                                   void* stream) {
+  if (hop < 1 || hop > n_fft) return (int)cudaErrorInvalidValue;
+  return (int)with_fft_size(n_fft, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    if (plan != plan_word(Spec<M>::plan)) return cudaErrorInvalidValue;
+    const size_t smem = spec_smem_bytes<M>(hop);   // the magnitudes fit in a frame buffer
+    cudaError_t e = allow_smem(wave_to_mel_fft_kernel<M>, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((n_frames + SPEC_TILE_F - 1) / SPEC_TILE_F, batch);
+    wave_to_mel_fft_kernel<M><<<grid, SPEC_THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)y, (const float*)table, (const float*)mel_fb, (const int*)mel_range,
+        (float*)out, t_len, n_frames, hop, n_mels);
+    return cudaGetLastError();
+  });
 }

@@ -18,7 +18,7 @@ KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_ist
 
 def reset_launch_counts() -> None:
     for stats in KERNELS.values():
-        stats.launches = 0
+        stats.reset()
 
 
 def launch_counts() -> dict[str, int]:

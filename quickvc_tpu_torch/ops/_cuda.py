@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import sys
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -41,6 +42,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "qvc_wave_to_mel": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "qvc_wave_to_mel_fft": [_P] * 5 + [_I] * 7 + [_P],
     "qvc_wave_to_spec_halo": [_P, _P, _P] + [_I] * 6 + [_P],
     "qvc_wave_to_spec_halo_dense": [_P, _P] + [_I] * 6 + [_P],
     "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _I, _I, _P, _P],
@@ -53,7 +55,8 @@ _SIGNATURES = {
     "qvc_transformer_layer_launches": [],
     "qvc_mm_s8": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_bf16": [_P] * 3 + [_I] * 4 + [_P],
-    "qvc_mm_transpose": [_P, _P] + [_I] * 3 + [_P],
+    "qvc_mm_probe": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
+    "qvc_mm_transpose": [_P, _P] + [_I] * 2 + [_P],
     "qvc_mma_tf32_rate": [_P, _I, _I, _P],
 }
 
@@ -62,11 +65,22 @@ _lib_lock = threading.Lock()
 
 
 class KernelStats:
-    """Launch count of one kernel; a wrapper adds one per kernel launch."""
+    """Launch count of one kernel, in all and by route (for a kernel with
+    several); a wrapper adds one per kernel launch."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.routes: Counter[str] = Counter()
+
+    def count(self, route: str | None = None) -> None:
+        self.launches += 1
+        if route is not None:
+            self.routes[route] += 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.routes.clear()
 
 
 def _nvcc() -> str:

@@ -92,7 +92,7 @@ def attention_packed_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, num_heads, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), float(scale), stream_ptr(q)), "attention_packed kernel")
-    STATS.launches += 1
+    STATS.count()
     return out
 
 
@@ -113,7 +113,7 @@ def attention_packed_aligned_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.T
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, num_heads, HEAD_PAD,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
         v.stride(1), float(scale), stream_ptr(q)), "attention_packed_aligned kernel")
-    ALIGNED_STATS.launches += 1
+    ALIGNED_STATS.count()
     return out
 
 
@@ -132,7 +132,7 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale), stream_ptr(q)),
         "attention kernel")
-    HEADED_STATS.launches += 1
+    HEADED_STATS.count()
     return out
 
 

@@ -137,7 +137,7 @@ def conv5_lrelu_kernel(x: torch.Tensor, kernel: torch.Tensor,
         x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
         y.data_ptr(), n, rows, c_in, c_out, float(slope), stream_ptr(x)),
         "conv5_lrelu kernel")
-    STATS.launches += 1
+    STATS.count()
     return y
 
 
@@ -156,7 +156,7 @@ def conv5_dw_kernel(x: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
                                  None if ws is None else ws.data_ptr(), n, rows, c_in,
                                  c_out, plan.splits, plan.k_chunk, stream_ptr(x)),
           "conv5_lrelu dW kernel")
-    DW_STATS.launches += 1
+    DW_STATS.count()
     return dw
 
 

@@ -94,7 +94,7 @@ def extractor_front_kernel(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Ten
     check(library().qvc_extractor_front(
         wav.data_ptr(), w0.data_ptr(), scale.data_ptr(), shift.data_ptr(), w1t.data_ptr(),
         out.data_ptr(), b, t, c, n1, stream_ptr(wav)), "extractor_front kernel")
-    STATS.launches += 1
+    STATS.count()
     return out
 
 

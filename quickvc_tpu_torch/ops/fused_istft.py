@@ -76,7 +76,7 @@ def polar_inverse_stft_kernel(log_mag: torch.Tensor, phase: torch.Tensor,
         log_mag.data_ptr(), phase.data_ptr(), *log_mag.stride(), *phase.stride(),
         out.data_ptr(), rows, f, n_fft, hop, table, stream_ptr(log_mag)),
         f"polar_inverse_stft kernel ({route})")
-    STATS.launches += 1
+    STATS.count()
     return out
 
 

@@ -3,13 +3,15 @@ both in ``csrc/fused_mel.cu``, and their dispatch.
 
 K1 replaces the TPU kernel ``quickvc_tpu/ops/fused_mel.py:wave_to_mel_pallas``,
 K4 replaces ``quickvc_tpu/ops/fused_mel.py:wave_to_spec_halo_pallas``.
-K4 has two routes, both kernels, picked by :func:`spec_route`: a real FFT
-for the n_fft of :data:`FFT_SIZES` (:func:`fft_plan` gives the radices of
-its half-length complex FFT and :func:`spec_fft_table` the twiddles and
-window it reads; both are built here, so the CPU tests check what the
-kernel is handed), and K1's dense DFT body for any other n_fft up to
-:data:`MAX_N_FFT`. K1 takes any n_fft up to the same bound.
-A CPU tensor takes the plain version (:func:`quickvc_tpu_torch.dsp.stft.wave_to_mel`,
+Each has two routes, both kernels, picked by :func:`mel_route` and
+:func:`spec_route`: a real FFT for the n_fft of :data:`FFT_SIZES`
+(:func:`fft_plan` gives the radices of its half-length complex FFT and
+:func:`spec_fft_table` the twiddles and window it reads; both are built
+here, so the CPU tests check what the kernel is handed; K1's FFT route runs
+K4's FFT body, then its mel sums), and a dense DFT for any other n_fft up to
+:data:`MAX_N_FFT`. :data:`STATS` and :data:`SPEC_STATS` count launches by
+route as well. A CPU tensor takes the plain version
+(:func:`quickvc_tpu_torch.dsp.stft.wave_to_mel`,
 :func:`quickvc_tpu_torch.dsp.stft.wave_to_spec_halo`); a CUDA tensor
 launches the kernel or raises. Neither kernel has a backward, so both
 dispatchers refuse inputs that require grad.
@@ -59,7 +61,9 @@ def _require_wave(name: str, y: torch.Tensor) -> None:
                          f"{tuple(y.shape)} strides {y.stride()}")
 
 
-MAX_N_FFT = 4096   # the largest n_fft of K1 and of K4's dense route (csrc/fused_mel.cu)
+MAX_N_FFT = 4096   # the largest n_fft of K1's and K4's dense routes (csrc/fused_mel.cu)
+FFT_SIZES = (256, 320, 512, 640, 1024, 1280, 2048)   # n_fft = 2^a * 5^b, b <= 1
+FFT_TILE_F = 2     # frames a block on the FFT routes (csrc/fused_mel.cu:SPEC_TILE_F)
 
 
 def check_n_fft(name: str, n_fft: int, hop: int) -> None:
@@ -70,13 +74,26 @@ def check_n_fft(name: str, n_fft: int, hop: int) -> None:
                          f"got n_fft={n_fft} hop={hop}")
 
 
+def _route(name: str, n_fft: int, hop: int) -> str:
+    check_n_fft(name, n_fft, hop)
+    return "fft" if n_fft in FFT_SIZES else "dense"
+
+
+def mel_route(n_fft: int, hop: int) -> str:
+    """K1's route for (n_fft, hop): ``"fft"`` (K4's real FFT, then the mel
+    sums) for n_fft in :data:`FFT_SIZES`, ``"dense"`` (the dense DFT) for any
+    other n_fft up to :data:`MAX_N_FFT`; ``ValueError`` past that bound or
+    for hop outside (0, n_fft]."""
+    return _route("wave_to_mel", n_fft, hop)
+
+
 def wave_to_mel_kernel(y: torch.Tensor, sr: int, n_fft: int, hop: int, win: int,
                        n_mels: int, fmin: float = 0.0,
                        fmax: float | None = None) -> torch.Tensor:
-    """Launch K1: (B, T) float32 CUDA -> (B, T//hop, n_mels); n_fft up to
-    :data:`MAX_N_FFT`, hop | n_fft."""
+    """Launch K1: (B, T) float32 CUDA -> (B, T//hop, n_mels), on the route
+    :func:`mel_route` picks; n_fft up to :data:`MAX_N_FFT`, hop | n_fft."""
     _require_wave("wave_to_mel", y)
-    check_n_fft("wave_to_mel", n_fft, hop)
+    route = mel_route(n_fft, hop)
     b, t = y.shape
     if n_fft % hop or win > n_fft or t <= (n_fft - hop) // 2 or t < hop:
         raise ValueError(f"wave_to_mel: unsupported n_fft={n_fft} hop={hop} "
@@ -84,11 +101,17 @@ def wave_to_mel_kernel(y: torch.Tensor, sr: int, n_fft: int, hop: int, win: int,
     n_frames = t // hop
     fb, rng = _device_tables(y.device, sr, n_fft, n_mels, fmin, fmax)
     out = torch.empty((b, n_frames, n_mels), device=y.device, dtype=torch.float32)
-    check(library().qvc_wave_to_mel(
-        y.data_ptr(), fb.data_ptr(), rng.data_ptr(), out.data_ptr(), b, t,
-        n_frames, n_fft, hop, win, n_fft // 2 + 1, n_mels, stream_ptr(y)),
-        "wave_to_mel kernel")
-    STATS.launches += 1
+    if route == "fft":
+        table = _device_spec_table(y.device, n_fft, win)
+        err = library().qvc_wave_to_mel_fft(
+            y.data_ptr(), table.data_ptr(), fb.data_ptr(), rng.data_ptr(), out.data_ptr(), b,
+            t, n_frames, n_fft, hop, plan_word(n_fft), n_mels, stream_ptr(y))
+    else:
+        err = library().qvc_wave_to_mel(
+            y.data_ptr(), fb.data_ptr(), rng.data_ptr(), out.data_ptr(), b, t, n_frames,
+            n_fft, hop, win, n_fft // 2 + 1, n_mels, stream_ptr(y))
+    check(err, f"wave_to_mel kernel ({route})")
+    STATS.count(route)
     return out
 
 
@@ -103,16 +126,12 @@ def wave_to_mel(y: torch.Tensor, sr: int, n_fft: int, hop: int, win: int,
     return wave_to_mel_kernel(y, sr, n_fft, hop, win, n_mels, fmin, fmax)
 
 
-FFT_SIZES = (256, 320, 512, 640, 1024, 1280, 2048)   # n_fft = 2^a * 5^b, b <= 1
-
-
 def spec_route(n_fft: int, hop: int) -> str:
     """K4's route for (n_fft, hop): ``"fft"`` (the real FFT) for n_fft in
     :data:`FFT_SIZES`, ``"dense"`` (the dense DFT) for any other n_fft up to
     :data:`MAX_N_FFT`; ``ValueError`` past that bound or for hop outside
     (0, n_fft]."""
-    check_n_fft("wave_to_spec_halo", n_fft, hop)
-    return "fft" if n_fft in FFT_SIZES else "dense"
+    return _route("wave_to_spec_halo", n_fft, hop)
 
 
 def fft_plan(n_fft: int) -> tuple[int, ...]:
@@ -122,10 +141,11 @@ def fft_plan(n_fft: int) -> tuple[int, ...]:
     16 are two radix-4/2 stages in registers).
 
     K4 packs even and odd samples of a real frame as the real and imaginary
-    parts of n_fft/2 complex points. Its FFT route takes the n_fft of
-    :data:`FFT_SIZES`; any other raises ``ValueError`` here (the wrapper
-    sends them to the dense route). The kernel is compiled with the same
-    rule (``csrc/fused_mel.cu:make_plan``) and refuses another plan.
+    parts of n_fft/2 complex points (K1's FFT route runs the same body). The
+    FFT routes take the n_fft of :data:`FFT_SIZES`; any other raises
+    ``ValueError`` here (the wrappers send them to the dense routes). The
+    kernel is compiled with the same rule (``csrc/fused_mel.cu:make_plan``)
+    and refuses another plan.
     """
     if n_fft not in FFT_SIZES:
         raise ValueError(f"wave_to_spec_halo: the kernel takes n_fft in {FFT_SIZES} "
@@ -140,10 +160,15 @@ def fft_plan(n_fft: int) -> tuple[int, ...]:
     return tuple(radices)
 
 
+def plan_word(n_fft: int) -> int:
+    """:func:`fft_plan` as the kernel takes it: eight bits a pass, the first lowest."""
+    return sum(r << (8 * i) for i, r in enumerate(fft_plan(n_fft)))
+
+
 @functools.lru_cache(maxsize=None)
 def spec_fft_table(n_fft: int, win: int) -> np.ndarray:
-    """Everything K4 reads besides the wave, float32, each value rounded once
-    from float64, in this order:
+    """Everything K4 and K1's FFT route read besides the wave and the mel
+    filters, float32, each value rounded once from float64, in this order:
 
     - per stage of :func:`fft_plan` (radix R after stages whose radices
       multiply to Ns): (Ns, R-1) complex twiddles exp(-2 pi i k r / (Ns R)),
@@ -181,16 +206,15 @@ def wave_to_spec_halo_kernel(y: torch.Tensor, n_fft: int, hop: int,
     n_frames = 1 + (t - n_fft) // hop
     out = torch.empty((b, n_frames, n_fft // 2 + 1), device=y.device, dtype=torch.float32)
     if route == "fft":
-        plan = sum(r << (8 * i) for i, r in enumerate(fft_plan(n_fft)))
         table = _device_spec_table(y.device, n_fft, win)
         err = library().qvc_wave_to_spec_halo(
             y.data_ptr(), table.data_ptr(), out.data_ptr(), b, t, n_frames, n_fft, hop,
-            plan, stream_ptr(y))
+            plan_word(n_fft), stream_ptr(y))
     else:
         err = library().qvc_wave_to_spec_halo_dense(
             y.data_ptr(), out.data_ptr(), b, t, n_frames, n_fft, hop, win, stream_ptr(y))
     check(err, f"wave_to_spec_halo kernel ({route})")
-    SPEC_STATS.launches += 1
+    SPEC_STATS.count(route)
     return out
 
 

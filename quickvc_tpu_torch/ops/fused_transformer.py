@@ -80,7 +80,7 @@ def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
         x.data_ptr(), *[w.data_ptr() for w in weights], qkv.data_ptr(), heads.data_ptr(),
         total.data_ptr(), x1.data_ptr(), mid.data_ptr(), out.data_ptr(), b, t, d, h, f,
         1.0 / math.sqrt(HEAD_DIM), stream_ptr(x)), "transformer_layer kernel")
-    STATS.launches += 1
+    STATS.count()
     return out
 
 

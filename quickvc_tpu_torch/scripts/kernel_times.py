@@ -2,7 +2,10 @@
 
     python quickvc_tpu_torch/scripts/kernel_times.py [--root CHECKOUT] [--iters N]
 
-K1 (log-mel, (1, 144000) at n_fft/hop 1280/320), K2 (packed attention,
+K1 (log-mel, (1, 144000) at n_fft/hop 1280/320, beside the ``torch.stft``
+chain that computes the same log-mel, ``K1_library``; also at 2048/512, its
+other FFT-route size ``chip_smoke.py`` checks, and at 800/200 and 4096/1024,
+its dense route in one bin chunk and in three), K2 (packed attention,
 (8, 250, 768)), K3 (the decoder head at n_fft/hop 16/4, (32, 5001, 9) x2),
 K9 ((8, 250, 12*128), 64 true lanes a head), K10 ((8, 12, 250, 64)) and K8
 (one HuBERT layer, (16, 300, 768)) at the shapes ``chip_smoke.py`` checks,
@@ -14,6 +17,17 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
   1024) and (704, 12, 1024), through their kernel wrappers, with cuDNN's
   ``F.conv1d``, ``conv1d_input`` and ``conv1d_weight`` on the same inputs
   beside them (TF32 off for both cuBLAS and cuDNN);
+- K11 at the int8 probe's shape (16384 x 12288) @ (12288 x 3072), s8 and
+  bf16, with ``torch._int_mm``, bf16 ``torch.matmul`` and, where this torch
+  has it, ``torch.mm(..., out_dtype=torch.float32)`` (K11's own function)
+  beside them; where the package has K11's bring-up probes
+  (``int8_mm._mm_probe``), the split too: the mainloop alone
+  (``_no_store``), the tensor cores alone on stale shared memory
+  (``_no_load``, nothing loaded or stored) and a grid of one block a tile
+  (``_tile_a_block``), with and without the store; and for bf16 the largest
+  error against ``mm_reference`` (``K11_bf16_probe_err``) at (200, 96) @
+  (96, 72) and at the probe shape of the product and of the body without
+  its accumulator fences (``no_operand_fence``);
 - the rate ``mma.sync`` TF32 reaches on register operands
   (``csrc/mma_rate.cu``, ``mma_sync_tf32_tflops``), the ceiling of the
   kernels built on it;
@@ -47,6 +61,16 @@ import subprocess
 import sys
 
 import torch
+
+
+def device_kernels(fn) -> list[str]:
+    """Names of the kernels one call of ``fn`` runs on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.key for e in prof.key_averages() if e.self_device_time_total > 0)
 
 
 def device_ms(fn, iters: int) -> float:
@@ -116,6 +140,69 @@ def disc_phase_times(out: dict, dev: torch.device) -> None:
         out[name] = time_ms(lambda: d_phase(net), dev, 5, 1)
 
 
+def mel_times(ms, dev: torch.device, y: torch.Tensor) -> None:
+    """K1 at 1280/320 beside its library chain (reflect pad, ``torch.stft``,
+    magnitude, mel product, log clamp), and at the other sizes K1's checks
+    take."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.dsp.mel import mel_filterbank
+    from quickvc_tpu_torch.dsp.stft import hann_window
+    from quickvc_tpu_torch.ops import fused_mel
+
+    fb = torch.as_tensor(mel_filterbank(16000, 1280, 80), device=dev)
+    win = torch.as_tensor(hann_window(1280), device=dev)
+
+    def library():
+        yp = F.pad(y[:, None], (480, 480), mode="reflect")[:, 0]
+        z = torch.stft(yp, 1280, 320, 1280, win, center=False, return_complex=True)
+        return torch.log(torch.clamp(fb @ torch.sqrt(z.abs() ** 2 + 1e-6), min=1e-5))
+
+    ms("K1", lambda: fused_mel.wave_to_mel(y, 16000, 1280, 320, 1280, 80))
+    ms("K1_library", library)
+    for n_fft, hop in ((2048, 512), (800, 200), (4096, 1024)):
+        ms(f"K1_{n_fft}", lambda n_fft=n_fft, hop=hop: fused_mel.wave_to_mel(
+            y, 16000, n_fft, hop, n_fft, 80))
+
+
+def gemm_times(ms, dev: torch.device, g: torch.Generator) -> dict:
+    """K11 at the int8 probe's shape beside its library calls, and the
+    bring-up probes where the package has them; returns notes on what this
+    torch lacks and the probes' errors."""
+    from quickvc_tpu_torch.ops import int8_mm
+
+    m, k, n = 16384, 12288, 3072
+    a8 = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8, generator=g)
+    b8 = torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8, generator=g)
+    abf, bbf = ((x.float() / 127.0).bfloat16() for x in (a8, b8))
+    ms("K11_s8", lambda: int8_mm.mm_kernel(a8, b8))
+    ms("int_mm_s8", lambda: torch._int_mm(a8, b8))
+    ms("K11_bf16", lambda: int8_mm.mm_kernel(abf, bbf))
+    ms("matmul_bf16", lambda: torch.matmul(abf, bbf))
+    notes = {}
+    try:
+        torch.mm(abf[:64, :64], bbf[:64, :64], out_dtype=torch.float32)
+        ms("mm_out_f32_bf16", lambda: torch.mm(abf, bbf, out_dtype=torch.float32))
+    except (TypeError, RuntimeError) as e:
+        notes["mm_out_f32_bf16"] = f"not timed: {type(e).__name__}: {str(e)[:120]}"
+    probe = getattr(int8_mm, "_mm_probe", None)
+    if probe is None:
+        return notes
+    tiles = -(-m // 128) * -(-n // 256)
+    for name, a, b in (("s8", a8, b8), ("bf16", abf, bbf)):
+        ms(f"K11_{name}_no_store", lambda a=a, b=b: probe(a, b, "no_store"))
+        ms(f"K11_{name}_no_load", lambda a=a, b=b: probe(a, b, "no_load"))
+        ms(f"K11_{name}_tile_a_block", lambda a=a, b=b: probe(a, b, "product", tiles))
+        ms(f"K11_{name}_tile_a_block_no_store",
+           lambda a=a, b=b: probe(a, b, "no_store", tiles))
+    small = (abf[:200, :96].contiguous(), bbf[:96, :72].contiguous())
+    notes["K11_bf16_probe_err"] = {
+        variant: [float((probe(a, b, variant) - int8_mm.mm_reference(a, b)).abs().max())
+                  for a, b in (small, (abf, bbf))]
+        for variant in ("product", "no_operand_fence")}
+    return notes
+
+
 def mma_tf32_tflops(dev: torch.device, iters: int) -> dict | None:
     """TFLOP/s of mma.sync.m16n8k8 TF32 over four blocks of 8 warps an SM,
     from CUDA events and from profiler device time; None where the package
@@ -152,7 +239,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import fused_attention as fa
-    from quickvc_tpu_torch.ops import fused_istft, fused_mel
+    from quickvc_tpu_torch.ops import fused_istft
     from quickvc_tpu_torch.ops import fused_transformer as ft
     from quickvc_tpu_torch.scripts import time_ms
     from quickvc_tpu_torch.utils.device import resolve_device
@@ -171,8 +258,7 @@ def main(argv: list[str] | None = None) -> dict:
         if dev.type == "cuda":
             out["device_ms"][name] = device_ms(fn, args.iters)
 
-    y = 0.3 * torch.randn(1, 144000, device=dev, generator=g)
-    ms("K1", lambda: fused_mel.wave_to_mel(y, 16000, 1280, 320, 1280, 80))
+    mel_times(ms, dev, 0.3 * torch.randn(1, 144000, device=dev, generator=g))
     q, k, v = torch.randn(8, 250, 3 * 768, device=dev, generator=g).chunk(3, -1)
     heads = [z.reshape(8, 250, 12, 64).transpose(1, 2).contiguous() for z in (q, k, v)]
     ms("K2", lambda: fa.attention_packed(q, k, v, 12, 0.125))
@@ -190,6 +276,7 @@ def main(argv: list[str] | None = None) -> dict:
     x = torch.randn(16, 300, 768, device=dev, generator=g)
     ms("K8", lambda: ft.transformer_layer(x, layer))
     if dev.type == "cuda":
+        out["notes"] = gemm_times(ms, dev, g)
         conv5_times(ms, dev, g)
         out["mma_sync_tf32_tflops"] = mma_tf32_tflops(dev, args.iters)
         disc_phase_times(out, dev)

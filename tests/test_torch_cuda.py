@@ -3,7 +3,8 @@ version on the same CUDA tensors. Marked ``cuda``; skips without a card.
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-Tolerances: log-mel atol/rtol 2e-3 (also at n_fft/hop 2048/512), attention
+Tolerances: log-mel atol/rtol 2e-3 (n_fft/hop 1280/320 and 2048/512 on its
+FFT route, 800/200 and 4096/1024 on its dense DFT), attention
 and iSTFT atol 1e-4 / rtol 1e-3 (iSTFT also at 32/8 and 64/16, on its
 table-driven body), the halo spectrogram atol/rtol 2e-4 (the JAX gate) at
 n_fft/hop 1280/320 and 1024/256 (real FFT) and 800/200 and 1536/384 (dense
@@ -104,31 +105,39 @@ def test_conv5_lrelu_kernels(cuda, shape):
     assert torch.equal(fdc.conv5_dw_kernel(x, dym.contiguous()), ins[1].grad)
 
 
-def test_wave_to_mel_kernel(cuda):
+@pytest.mark.parametrize("n_fft,hop", [(1280, 320), (2048, 512), (800, 200)])
+def test_wave_to_mel_kernel(cuda, n_fft, hop):
+    """1280 and 2048 take the FFT route (K4's real FFT, then the mel sums),
+    800 the dense DFT in one bin chunk; 149 frames fill the last FFT tile
+    (2 frames) only partly."""
     from quickvc_tpu_torch.dsp.mel import mel_filterbank
     from quickvc_tpu_torch.dsp.stft import wave_to_mel as plain
     from quickvc_tpu_torch.ops import fused_mel
 
-    y = 0.3 * torch.randn(2, 48003, device=cuda, generator=_gen(cuda, 0))
-    fb = torch.as_tensor(mel_filterbank(16000, 1280, 80), device=cuda)
-    before = fused_mel.STATS.launches
-    ours = fused_mel.wave_to_mel(y, 16000, 1280, 320, 1280, 80)
-    assert fused_mel.STATS.launches == before + 1
-    torch.testing.assert_close(ours, plain(y, fb, 1280, 320, 1280), atol=2e-3, rtol=2e-3)
+    route = fused_mel.mel_route(n_fft, hop)
+    assert route == ("dense" if n_fft == 800 else "fft")
+    y = 0.3 * torch.randn(2, 149 * hop + 3, device=cuda, generator=_gen(cuda, 0))
+    fb = torch.as_tensor(mel_filterbank(16000, n_fft, 80), device=cuda)
+    before = fused_mel.STATS.launches, fused_mel.STATS.routes[route]
+    ours = fused_mel.wave_to_mel(y, 16000, n_fft, hop, n_fft, 80)
+    assert (fused_mel.STATS.launches, fused_mel.STATS.routes[route]) == (before[0] + 1,
+                                                                         before[1] + 1)
+    torch.testing.assert_close(ours, plain(y, fb, n_fft, hop, n_fft), atol=2e-3, rtol=2e-3)
 
 
 def test_wave_to_mel_kernel_past_one_bin_chunk(cuda):
-    """n_fft 2048: 1025 bins, two chunks of the kernel's 768."""
+    """n_fft 4096 on the dense route: 2049 bins, three chunks of the kernel's 768."""
     from quickvc_tpu_torch.dsp.mel import mel_filterbank
     from quickvc_tpu_torch.dsp.stft import wave_to_mel as plain
     from quickvc_tpu_torch.ops import fused_mel
 
+    assert fused_mel.mel_route(4096, 1024) == "dense"
     y = 0.3 * torch.randn(2, 48003, device=cuda, generator=_gen(cuda, 3))
-    fb = torch.as_tensor(mel_filterbank(16000, 2048, 80), device=cuda)
+    fb = torch.as_tensor(mel_filterbank(16000, 4096, 80), device=cuda)
     before = fused_mel.STATS.launches
-    ours = fused_mel.wave_to_mel(y, 16000, 2048, 512, 2048, 80)
+    ours = fused_mel.wave_to_mel(y, 16000, 4096, 1024, 4096, 80)
     assert fused_mel.STATS.launches == before + 1
-    torch.testing.assert_close(ours, plain(y, fb, 2048, 512, 2048), atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(ours, plain(y, fb, 4096, 1024, 4096), atol=2e-3, rtol=2e-3)
 
 
 @pytest.mark.parametrize("t_len", [37, 250])
@@ -293,27 +302,36 @@ def test_packed_aligned_attention_kernel(cuda):
 
 @pytest.mark.parametrize("tile", ["128x256", "128x128"])
 def test_int8_mm_kernel(cuda, tile):
-    """K11 at a mid shape with ragged M and N: int8 exact, bf16 atol 2e-3 / rtol 1e-4."""
+    """K11 with ragged M and N: int8 exact, bf16 atol 2e-3 / rtol 1e-4 with
+    no B^T pre-pass. (1000, 264) is fewer tiles than the card has SMs (one
+    block a tile); (2200, 2056) is 18 x 9 or 18 x 17 tiles, more than the
+    SMs (several tiles a block, the last raster group of 2 tile rows)."""
     from quickvc_tpu_torch.ops import int8_mm
+    from quickvc_tpu_torch.scripts.kernel_times import device_kernels
 
     g = _gen(cuda, 11)
-    a8 = torch.randint(-127, 128, (1000, 512), device=cuda, dtype=torch.int8, generator=g)
-    b8 = torch.randint(-127, 128, (512, 264), device=cuda, dtype=torch.int8, generator=g)
-    before = (int8_mm.S8_STATS.launches, int8_mm.BF16_STATS.launches)
-    got = int8_mm.mm_kernel(a8, b8, tile)
-    assert torch.equal(got, int8_mm.mm_reference(a8, b8))
-    abf, bbf = ((x.float() / 127).bfloat16() for x in (a8, b8))
-    torch.testing.assert_close(int8_mm.mm_kernel(abf, bbf, tile), int8_mm.mm_reference(abf, bbf),
-                               atol=2e-3, rtol=1e-4)
-    assert (int8_mm.S8_STATS.launches, int8_mm.BF16_STATS.launches) == (before[0] + 1,
-                                                                        before[1] + 1)
+    for m, n in ((1000, 264), (2200, 2056)):
+        a8 = torch.randint(-127, 128, (m, 512), device=cuda, dtype=torch.int8, generator=g)
+        b8 = torch.randint(-127, 128, (512, n), device=cuda, dtype=torch.int8, generator=g)
+        before = (int8_mm.S8_STATS.launches, int8_mm.BF16_STATS.launches)
+        assert torch.equal(int8_mm.mm_kernel(a8, b8, tile), int8_mm.mm_reference(a8, b8))
+        abf, bbf = ((x.float() / 127).bfloat16() for x in (a8, b8))
+        torch.testing.assert_close(int8_mm.mm_kernel(abf, bbf, tile),
+                                   int8_mm.mm_reference(abf, bbf), atol=2e-3, rtol=1e-4)
+        assert (int8_mm.S8_STATS.launches, int8_mm.BF16_STATS.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    names = device_kernels(lambda: int8_mm.mm_kernel(abf, bbf, tile))
+    assert any("mm_wgmma_kernel" in k for k in names)
+    assert not any("transpose_kernel" in k for k in names), names
 
 
 @pytest.mark.parametrize("tile", ["128x256", "128x128"])
 def test_int8_mm_kernel_partial_stage(cuda, tile):
     """K whose bytes are not a multiple of the 128-byte stage (TMA fills the
-    rest with zeros), with M and N ragged against the tile; the B^T pre-pass."""
+    rest with zeros), with M and N ragged against the tile; the s8 B^T
+    pre-pass, and bf16 reading B as it lies (no pre-pass launched)."""
     from quickvc_tpu_torch.ops import int8_mm
+    from quickvc_tpu_torch.scripts.kernel_times import device_kernels
 
     g = _gen(cuda, 12)
     for m, k, n in ((200, 192, 72), (130, 64, 8)):
@@ -325,6 +343,8 @@ def test_int8_mm_kernel_partial_stage(cuda, tile):
         bbf = bbf.T.contiguous()                       # K = 96 or 32: 192 or 64 bytes
         torch.testing.assert_close(int8_mm.mm_kernel(abf, bbf, tile),
                                    int8_mm.mm_reference(abf, bbf), atol=2e-3, rtol=1e-4)
+        names = device_kernels(lambda: int8_mm.mm_kernel(abf, bbf, tile))
+        assert not any("transpose_kernel" in k for k in names), names
 
 
 def _tiny_generator():

@@ -2,7 +2,8 @@
 radix plan and the twiddle/window table that ``ops.fused_mel`` hands the
 CUDA kernel, with the kernel's own index arithmetic (even/odd packing of the
 windowed frame, one pass per radix, the real-from-half-complex
-recombination), against ``np.fft.rfft`` of the windowed frames.
+recombination; ``torch_port_support.kernel_spec``, which K1's FFT route
+shares), against ``np.fft.rfft`` of the windowed frames.
 
 Tolerance: atol 1e-5 x the frame's norm (a float32 FFT of up to 1,024
 complex points: ~log2(n) roundings of each value).
@@ -13,43 +14,7 @@ import pytest
 
 from quickvc_tpu_torch.dsp.stft import padded_window
 from quickvc_tpu_torch.ops import fused_mel
-
-
-def _dft(v):
-    """Radix-len(v) butterfly: the length-R DFT of R complex rows."""
-    r = len(v)
-    w = np.exp(-2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r).astype(np.complex64)
-    return [sum(w[q, s] * v[s] for s in range(r)) for q in range(r)]
-
-
-def kernel_spec(frames: np.ndarray, n_fft: int, win: int) -> np.ndarray:
-    """(F, n_fft) float32 frames -> (F, n_fft/2+1) magnitudes, as K4 computes them."""
-    radices = fused_mel.fft_plan(n_fft)
-    table = fused_mel.spec_fft_table(n_fft, win)
-    m = n_fft // 2
-    window = table[table.size - n_fft:]
-    z = (frames[:, 0::2] * window[0::2]) + 1j * (frames[:, 1::2] * window[1::2])
-    off, ns = 0, 1
-    for r in radices:                       # Stockham pass: z -> out
-        nb = m // r
-        j = np.arange(nb)
-        k = j % ns
-        v = [z[:, j + q * nb] for q in range(r)]
-        for q in range(1, r):
-            at = off + 2 * (k * (r - 1) + q - 1)
-            v[q] = v[q] * (table[at] + 1j * table[at + 1]).astype(np.complex64)
-        out = np.empty_like(z)
-        for q, vq in enumerate(_dft(v)):
-            out[:, (j - k) * r + k + q * ns] = vq
-        z, off, ns = out, off + 2 * ns * (r - 1), ns * r
-    assert ns == m
-    k = np.arange(m + 1)
-    tw = table[off + 2 * k] + 1j * table[off + 2 * k + 1]
-    zk, zc = z[:, k % m], np.conj(z[:, (m - k) % m])
-    x = 0.5 * (zk + zc) - 0.5j * tw * (zk - zc)
-    x[:, 0] = z[:, 0].real + z[:, 0].imag     # bins 0 and n_fft/2 apart, exactly
-    x[:, m] = z[:, 0].real - z[:, 0].imag
-    return np.sqrt(x.real ** 2 + x.imag ** 2 + 1e-6).astype(np.float32)
+from torch_port_support import kernel_spec
 
 
 @pytest.mark.parametrize("n_fft", [256, 640, 1024, 1280, 2048])

@@ -1,7 +1,9 @@
 """PyTorch port, kernel K11: the plain version of the int8/bf16 GEMM against
 the JAX probe's ``pallas_mm`` (Pallas TPU interpret mode) and the port's
 probe CLI on the CPU, both at (64 x 256) @ (256 x 128) instead of the
-probe's full shape.
+probe's full shape; the persistent kernel's tile schedule
+(``ops.int8_mm.tile_schedule``, the twin of the kernel's) at the probe's
+shape and at ragged ones, no JAX.
 
 Tolerances: int8 exact (both sum in int32 or exactly in float64); bf16 atol
 1e-5 (the same bf16 values summed in float32 in another order).
@@ -82,3 +84,24 @@ def test_kernel_refuses_what_it_does_not_take():
         int8_mm.mm_kernel(a, a.T.contiguous())
     with pytest.raises(RuntimeError, match="mm has no backward"):
         int8_mm.mm(a.float().requires_grad_(), a.float().T)
+
+
+@pytest.mark.parametrize("m,n,tile,blocks", [
+    (16384, 3072, "128x256", 132), (16384, 3072, "128x128", 132),   # the probe's shape
+    (1000, 264, "128x256", 132), (1000, 264, "128x128", 5),         # ragged M and N
+    (200, 72, "128x256", 132), (130, 8, "128x128", 3),              # N under one tile
+    (40000, 3072, "128x256", 132),                                  # a last group of 9 rows
+])
+def test_tile_schedule_covers_every_tile_once(m, n, tile, blocks):
+    from quickvc_tpu_torch.ops import int8_mm
+
+    bm, bn = (int(x) for x in tile.split("x"))
+    sched = int8_mm.tile_schedule(m, n, tile, blocks)
+    tiles = [o for block in sched for o in block]
+    want = {(r, c) for r in range(0, m, bm) for c in range(0, n, bn)}
+    assert len(tiles) == len(want) and set(tiles) == want
+    assert len(sched) == min(blocks, len(want))
+    # the tiles of one wave (the i-th of every block) lie in at most two
+    # groups of GROUP_M tile rows: they share B's columns
+    wave = {o[0] // (bm * int8_mm.GROUP_M) for block in sched for o in block[:1]}
+    assert len(wave) <= 2

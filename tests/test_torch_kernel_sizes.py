@@ -12,7 +12,8 @@
   (``istft_table``) with the kernel's own per-sample arithmetic, against the
   plain version (atol 1e-5: float32 sums of a few hundred terms).
 
-The asserts are restated here as arithmetic, so no JAX is imported.
+The asserts are restated as arithmetic (the log-mel rule in
+``torch_port_support``), so no JAX is imported.
 """
 
 import numpy as np
@@ -21,18 +22,13 @@ import torch
 
 from quickvc_tpu_torch.dsp.istft import polar_inverse_stft
 from quickvc_tpu_torch.ops import fused_istft, fused_mel
-
-
-def jax_mel_accepts(n_fft: int, hop: int) -> bool:
-    return n_fft % hop == 0 and (2 * ((n_fft - hop) // 2)) % hop == 0
+from torch_port_support import GRID_MEL, divisors, jax_mel_accepts
 
 
 def jax_istft_accepts(n_fft: int, hop: int) -> bool:
     return n_fft % hop == 0 and (n_fft // hop) % 2 == 0 and n_fft // hop - 1 <= 128
 
 
-GRID_MEL = [(400, 100), (800, 200), (1000, 250), (1200, 300), (1536, 384), (2048, 512),
-            (1280, 320), (1024, 256), (4096, 1024), (4096, 4096), (9, 3)]
 GRID_ISTFT = [(16, 4), (32, 8), (64, 16), (256, 64), (48, 4), (2048, 16), (2048, 1024)]
 
 
@@ -42,11 +38,6 @@ def test_mel_and_spec_take_the_jax_sizes(n_fft, hop):
     fused_mel.check_n_fft("wave_to_mel", n_fft, hop)
     assert fused_mel.spec_route(n_fft, hop) == ("fft" if n_fft in fused_mel.FFT_SIZES
                                                 else "dense")
-
-
-def divisors(n: int) -> list[int]:
-    hops = np.arange(1, n + 1)
-    return hops[n % hops == 0].tolist()
 
 
 def test_every_jax_mel_size_has_a_route():

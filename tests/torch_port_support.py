@@ -1,5 +1,7 @@
 """Shared set-up of the PyTorch-port tests: tiny JAX models, their weights in
-the port, and a numpy emulation of the kernels' 3xTF32 tensor-core arithmetic.
+the port, a numpy emulation of the kernels' 3xTF32 tensor-core arithmetic,
+a numpy model of the real FFT that K1 and K4 share, and the JAX log-mel
+kernels' size rule.
 
 Inputs and weights come from numpy seeds; weights cross from
 the flax parameter trees through ``quickvc_tpu_torch.utils.weights``. JAX is
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from quickvc_tpu_torch.config import ModelConfig
+from quickvc_tpu_torch.ops import fused_mel
 
 TINY_MODEL = dict(inter_channels=16, hidden_channels=16, upsample_initial_channel=32,
                   gin_channels=16, unit_channels=24, resblock_kernel_sizes=(3, 5),
@@ -142,3 +145,63 @@ def mma(c: np.ndarray, a: np.ndarray, b: np.ndarray, passes: int, promote: bool 
             t = add_rz(t, prod) if rz else (t + prod.astype(np.float32)).astype(np.float32)
         c = (c + t).astype(np.float32) if promote else t
     return c.astype(np.float32)
+
+
+# The real FFT of K4 and of K1's FFT route, in numpy, from the plan and
+# table the wrappers hand the kernel.
+
+
+def _dft(v):
+    """Radix-len(v) butterfly: the length-R DFT of R complex rows."""
+    r = len(v)
+    w = np.exp(-2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r).astype(np.complex64)
+    return [sum(w[q, s] * v[s] for s in range(r)) for q in range(r)]
+
+
+def kernel_spec(frames: np.ndarray, n_fft: int, win: int) -> np.ndarray:
+    """(F, n_fft) float32 frames -> (F, n_fft/2+1) magnitudes, as the FFT
+    routes of K4 and K1 compute them (``csrc/fused_mel.cu:spec_fft`` and
+    ``spec_magnitude``) from the plan and table the wrappers hand them."""
+    radices = fused_mel.fft_plan(n_fft)
+    table = fused_mel.spec_fft_table(n_fft, win)
+    m = n_fft // 2
+    window = table[table.size - n_fft:]
+    z = (frames[:, 0::2] * window[0::2]) + 1j * (frames[:, 1::2] * window[1::2])
+    off, ns = 0, 1
+    for r in radices:                       # Stockham pass: z -> out
+        nb = m // r
+        j = np.arange(nb)
+        k = j % ns
+        v = [z[:, j + q * nb] for q in range(r)]
+        for q in range(1, r):
+            at = off + 2 * (k * (r - 1) + q - 1)
+            v[q] = v[q] * (table[at] + 1j * table[at + 1]).astype(np.complex64)
+        out = np.empty_like(z)
+        for q, vq in enumerate(_dft(v)):
+            out[:, (j - k) * r + k + q * ns] = vq
+        z, off, ns = out, off + 2 * ns * (r - 1), ns * r
+    assert ns == m
+    k = np.arange(m + 1)
+    tw = table[off + 2 * k] + 1j * table[off + 2 * k + 1]
+    zk, zc = z[:, k % m], np.conj(z[:, (m - k) % m])
+    x = 0.5 * (zk + zc) - 0.5j * tw * (zk - zc)
+    x[:, 0] = z[:, 0].real + z[:, 0].imag     # bins 0 and n_fft/2 apart, exactly
+    x[:, m] = z[:, 0].real - z[:, 0].imag
+    return np.sqrt(x.real ** 2 + x.imag ** 2 + 1e-6).astype(np.float32)
+
+
+# The JAX log-mel kernels' size rule (quickvc_tpu/ops/fused_mel.py asserts
+# hop | n_fft and hop | 2*((n_fft-hop)//2)), restated as arithmetic.
+
+
+def jax_mel_accepts(n_fft: int, hop: int) -> bool:
+    return n_fft % hop == 0 and (2 * ((n_fft - hop) // 2)) % hop == 0
+
+
+def divisors(n: int) -> list[int]:
+    hops = np.arange(1, n + 1)
+    return hops[n % hops == 0].tolist()
+
+
+GRID_MEL = [(400, 100), (800, 200), (1000, 250), (1200, 300), (1536, 384), (2048, 512),
+            (1280, 320), (1024, 256), (4096, 1024), (4096, 4096), (9, 3)]
