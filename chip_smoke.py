@@ -18,7 +18,9 @@
    paired D phase, x (64 p, R_p, 1024) for p in 2, 3, 5, 7, 11 (timed against
    cuDNN at p = 2 and 11, the bound the 3xTF32 one; two launches bit-equal), K7
    (HuBERT's extractor front) at the encoding batch's wave (16, 96080) and
-   K8 (a whole HuBERT layer) at its hidden state (16, 300, 768). K2 and K3 are also held against their plain
+   K8 (a whole HuBERT layer) at its hidden state (16, 300, 768) and, split-K,
+   at (1, 300, 768) (each timed in turns with its cuDNN chain or the library
+   layer, the bound the 3xTF32 one; two launches bit-equal). K2 and K3 are also held against their plain
    versions at the streaming and live paths' shapes: K2 over the streaming
    run's buckets (8, 650 / 800, 768) and the live wave windows (64, 80 / 68,
    768), K3 over the streaming windows (32, 5761, 9), the live windows
@@ -142,9 +144,11 @@ TPU_KERNELS = [
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores, "
      "deterministic split-K"),
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
-     "ported: quickvc_tpu_torch/csrc/fused_extractor.cu"),
+     "ported: quickvc_tpu_torch/csrc/fused_extractor.cu; redesigned: 3xTF32 tensor-core "
+     "implicit GEMM, conv0 produced on chip"),
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
-     "ported: quickvc_tpu_torch/csrc/fused_transformer.cu; attention on the 3xTF32 body"),
+     "ported: quickvc_tpu_torch/csrc/fused_transformer.cu; redesigned: GEMMs and attention "
+     "on 3xTF32 tensor cores"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
@@ -170,13 +174,16 @@ ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
 DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_kernel",
                     "polar_istft_kernel",
                     "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
-                    "extractor_front_kernel", "linear_kernel", "row_layer_norm_kernel",
+                    "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
+                    "row_layer_norm_kernel",
                     "mm_wgmma_kernel", "transpose_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
-# K2/K8/K9/K10, K5/K6's implicit GEMM and K6's split-K sum); none may spill
+# K2/K8/K9/K10, K5/K6's implicit GEMM and K6's split-K sum, K7, K8's GEMMs
+# and their split-K sum); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
-               "transpose_kernel", "attention_kernel", "conv5_gemm_kernel", "splitk_sum_kernel")
+               "transpose_kernel", "attention_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
+               "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "wave_to_spec_halo": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
@@ -185,7 +192,10 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "attention_packed_aligned": "redesigned: 3xTF32 tensor cores",
               "attention": "redesigned: 3xTF32 tensor cores",
               "conv5_lrelu": "redesigned: 3xTF32 tensor-core implicit GEMM",
-              "conv5_lrelu_dw": "redesigned: 3xTF32 tensor-core implicit GEMM, split-K"}
+              "conv5_lrelu_dw": "redesigned: 3xTF32 tensor-core implicit GEMM, split-K",
+              "extractor_front": "redesigned: 3xTF32 tensor-core implicit GEMM, conv0 "
+                                 "produced on chip",
+              "transformer_layer": "redesigned: GEMMs on 3xTF32 tensor cores, planned split-K"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
 # bucket and 8 in the 16-s one, so each batch of 8 is full
 STREAM_SECONDS = [12.1 + 0.1 * i for i in range(8)] + [15.05 + 0.06 * i for i in range(8)]
@@ -630,7 +640,9 @@ def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[
 
 def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     """K7 at the encoding batch's 6-s bucket, wave (16, 96000 + 80) -> (16, 9607,
-    512); K8 at the hidden state of that batch, (16, 300, 768)."""
+    512); K8 at the hidden state of that batch, (16, 300, 768), and at one
+    item, (1, 300, 768), whose GEMMs the plan splits. Each timed in turns with
+    its library chain; bounds 3xTF32, the float32 FMA figure beside them."""
     import torch.nn.functional as F
 
     from quickvc_tpu_torch.models.hubert import TransformerLayer
@@ -650,24 +662,34 @@ def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[
     w1 = torch.randn(c, c, 3, device=dev, generator=g) / np.sqrt(3 * c)
     front = (wav, w0, gamma, beta, w1)
 
+    def k7():
+        return fe.extractor_front_kernel(*front)
+
     def k7_library():   # cuDNN's conv0 -> GroupNorm over its output -> GELU -> conv1 -> GELU
         y = F.gelu(F.group_norm(F.conv1d(wav[:, None], w0, stride=5), c, gamma, beta, 1e-5))
         return F.gelu(F.conv1d(y, w1, stride=2)).transpose(1, 2)
 
     plain = fe.extractor_front_reference(*front)
+    ours = k7()
+    deterministic = bool(torch.equal(k7(), ours))
+    cmp = compare(ours, plain, 5e-4, 1e-3)
     n1, tc = fe.front_rows(t_len), (t_len - 10) // 5 + 1
+    conv1_flops, conv0_flops = 2 * b * n1 * c * 3 * c, 2 * b * tc * c * 10
     results.append(dict(
         name="extractor_front", tpu_id="K7", source="quickvc_tpu_torch/csrc/fused_extractor.cu",
         replaces="quickvc_tpu/ops/fused_extractor.py:187", shape=[[b, t_len], [b, n1, c]],
-        **compare(fe.extractor_front_kernel(*front), plain, 5e-4, 1e-3),
+        **(cmp | {"within_tol": cmp["within_tol"] and deterministic}),
+        deterministic=deterministic,
         library_max_abs_err=float((k7_library() - plain).abs().max()),
-        ms=cuda_ms(lambda: fe.extractor_front_kernel(*front)),
-        plain_ms=cuda_ms(lambda: fe.extractor_front_reference(*front)),
-        library_ms=cuda_ms(k7_library),
+        **turns(k7, k7_library, iters=10),
+        plain_ms=cuda_ms(lambda: fe.extractor_front_reference(*front), iters=10),
         affine_ms=cuda_ms(lambda: fe.groupnorm_affine_closed_form(wav, w0, gamma, beta)),
-        bound_ops_ms=2 * b * c * (n1 * 3 * c + tc * 10) / F32_FLOPS * 1e3,
-        bound_bytes_ms=4 * (b * t_len + 12 * c + 3 * c * c + b * n1 * c) / HBM_BYTES * 1e3))
-    del wav, front, plain
+        # conv1 in 3xTF32 (three TF32 products a float32-accurate one), conv0
+        # on the FMA units; bytes: the wave, the weights and the output
+        bound_ops_ms=(3 * conv1_flops / TF32_FLOPS + conv0_flops / F32_FLOPS) * 1e3,
+        bound_bytes_ms=4 * (b * t_len + 12 * c + 3 * c * c + b * n1 * c) / HBM_BYTES * 1e3,
+        bound_f32_fma_ms=(conv1_flops + conv0_flops) / F32_FLOPS * 1e3))
+    del wav, front, plain, ours
 
     # K8: a seeded layer with its biases and norm affines off their init constants
     layer = init_random_(TransformerLayer(use_fused_layer=True), SEED + 8)
@@ -682,27 +704,43 @@ def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[
     lib_layer.load_state_dict(layer.state_dict())
     t_u, d, f = 300, 768, 3072
     x = torch.randn(b, t_u, d, device=dev, generator=g)
+    x_one = torch.randn(1, t_u, d, device=dev, generator=g)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k8(z=x):
+        return ft.transformer_layer_kernel(z, layer)
 
     def k8_library():
         with torch.inference_mode():
             return lib_layer(x)
 
     plain = ft.transformer_layer_reference(x, layer)
+    ours, ours_one = k8(), k8(x_one)
+    deterministic = bool(torch.equal(k8(), ours) and torch.equal(k8(x_one), ours_one))
+    checks = {str([b, t_u, d]): compare(ours, plain, 1e-4, 1e-3),
+              str([1, t_u, d]) + " split-K": compare(
+                  ours_one, ft.transformer_layer_reference(x_one, layer), 1e-4, 1e-3)}
+    merged = merge_checks(checks)
+    plans = ft.layer_plans(b * t_u, d, f, sms)
     m = b * t_u
+    flops = 2 * m * d * (4 * d + 2 * f) + 4 * b * 12 * t_u * t_u * 64
     results.append(dict(
         name="transformer_layer", tpu_id="K8",
         source="quickvc_tpu_torch/csrc/fused_transformer.cu",
         replaces="quickvc_tpu/ops/fused_transformer.py:155", shape=[[b, t_u, d]],
-        **compare(ft.transformer_layer_kernel(x, layer), plain, 1e-4, 1e-3),
+        **(merged | {"within_tol": merged["within_tol"] and deterministic}),
+        deterministic=deterministic,
         library_max_abs_err=float((k8_library() - plain).abs().max()),
-        launches_per_call=library().qvc_transformer_layer_launches(),
-        ms=cuda_ms(lambda: ft.transformer_layer_kernel(x, layer)),
+        launches_per_call=library().qvc_transformer_layer_launches(*[p.splits for p in plans]),
+        plans={str([b, t_u, d]): [p._asdict() for p in plans],
+               str([1, t_u, d]): [p._asdict() for p in ft.layer_plans(t_u, d, f, sms)]},
+        **turns(k8, k8_library),
+        ms_split_k=cuda_ms(lambda: k8(x_one)),
         plain_ms=cuda_ms(lambda: ft.transformer_layer_reference(x, layer)),
-        library_ms=cuda_ms(k8_library),
-        # the products at the float32 FMA rate, the attention in 3xTF32
-        bound_ops_ms=(2 * m * d * (4 * d + 2 * f) / F32_FLOPS
-                      + 3 * 4 * b * 12 * t_u * t_u * 64 / TF32_FLOPS) * 1e3,
-        bound_bytes_ms=4 * (2 * m * d + 4 * d * d + 2 * d * f + 9 * d + f) / HBM_BYTES * 1e3))
+        # products and attention in 3xTF32; bytes: x, the weights, the output
+        bound_ops_ms=3 * flops / TF32_FLOPS * 1e3,
+        bound_bytes_ms=4 * (2 * m * d + 4 * d * d + 2 * d * f + 9 * d + f) / HBM_BYTES * 1e3,
+        bound_f32_fma_ms=flops / F32_FLOPS * 1e3))
     return results
 
 
@@ -1631,7 +1669,8 @@ def main() -> int:
         for extra in ("mel_route", "checks", "autograd_function_ok", "deterministic",
                       "dx_ms", "dx_device_ms", "dx_plain_ms", "dx_library_ms",
                       "dx_library_device_ms", "timings", "dw_plan", "affine_ms",
-                      "library_max_abs_err", "launches_per_call", "padded_lanes_zero", "tile", "ms_turns",
+                      "library_max_abs_err", "launches_per_call", "plans", "ms_split_k",
+                      "padded_lanes_zero", "tile", "ms_turns",
                       "library_ms_turns", "device_ms", "library_device_ms",
                       "transpose_ms", "library_b_col_major_ms",
                       "bound_f32_fma_ms", "ms_2048", "ms_800_dense", "ms_4096_dense",

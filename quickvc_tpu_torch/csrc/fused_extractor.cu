@@ -12,112 +12,277 @@
 //   out[b, u, o] = gelu(sum_{j < 3, c < C} h[2u + j, c] * w1[j, c, o])
 //
 // What bounds it on this card: operations. At the encoding batch (16, 96080)
-// conv1 alone is 2 * 16 * 9607 * 512 * 1536 = 242 GFLOP against ~320 MB moved
-// (the (16, 9607, 512) output dominates); in float32 the ceiling is the
-// 67 TFLOP/s FMA rate.
+// conv1 is 2 * 16 * 9607 * 512 * 1536 = 242 GFLOP against ~320 MB moved
+// (the (16, 9607, 512) output dominates). conv1 is float32-accurate on the
+// TF32 tensor cores in 3xTF32 (three TF32 products each, tf32x3.cuh), so its
+// least time is 3 * 242e9 / 495e12 = 1.47 ms at the dense TF32 rate; conv0
+// (3.1 GFLOP, on the FMA units) adds 0.05 ms.
 //
-// Design: conv1 is an implicit GEMM, M = output rows u of one batch item,
-// N = C output channels, K = 3 taps x C in-channels, on the 128 x 128 tile
-// core of sgemm_tile.cuh. Its A operand is never read from memory: for each
-// K slice of KC in-channels the block computes the 2 * 128 + 1 conv0 rows
-// its 128 output rows need, straight from the wave segment it staged in
-// shared memory once (10 FMAs each), applies the affine and the exact erf
-// GELU, and stores each value where the three taps read it (row 2m to tap 0
-// of output row m and tap 2 of row m - 1, row 2m + 1 to tap 1 of row m), so
-// conv0's (B, T/5, C) output never reaches device memory, which is what the
-// TPU kernel bought. The TPU kernel's phase packing of the wave into a
-// 128-lane array (for Mosaic's alignment) and its A&S erf polynomial (Mosaic
-// has no erf) have no counterpart here. Each of the C / 128 column blocks of
-// a row tile recomputes its conv0 rows: ~5% of the GEMM's operations at
-// C = 512.
+// Design: conv1 is an implicit GEMM on mma.sync.m16n8k8 TF32 in 3xTF32 over
+// K = 3 taps x C in-channels, whose h operand never comes from memory, so
+// conv0's (B, T/5, C) output (630 MB at the encoding batch) never reaches
+// device memory, which is what the TPU kernel bought.
+// - The mma computes out^T: its A operand is conv1's weight (M = output
+//   channels), its B operand h (N = output rows u). A B fragment is one
+//   row's two k slots, so a lane loads it with one float2 straight into the
+//   register pair the mma reads. With h as the A operand, each A fragment
+//   came from two loads in the wrong register order and ptxas rebuilt it
+//   with moves before every mma.
+// - A block of 8 warps computes 64 output rows x 512 channels, 64 x 64 a
+//   warp (4 x 8 m16n8k8 tiles, 128 accumulators a lane), one block an SM.
+//   Covering all 512 channels means each conv0 value is computed once (a
+//   128-channel tile would compute it four times).
+// - The block stages its wave segment once. K walks in slices of KC = 8
+//   in-channels, all three taps: for each slice the block computes the 129
+//   conv0 rows its 64 output rows need (10 FMAs from the staged wave, the
+//   affine, the exact erf GELU) and stores each value once, already split
+//   into its TF32 big and small parts (tf32x3.cuh:split), in H[row][c]:
+//   the mainloop never splits h. Tap j of output row u reads row 2u + j:
+//   row 2u feeds tap 0 of row u and tap 2 of row u - 1, row 2u + 1 tap 1 of
+//   row u. The k8 step of tap j is (j, the slice's 8 channels); the k order
+//   is slice, tap, channel.
+// - conv1's weight, w1t [tap][in][out], comes by 16-byte cp.async copies,
+//   the slice's 3 x 8 rows of 512 channels staged k-major (W[k][o], padded
+//   to 516 floats) through a ring of 3 stages, with the next slice's conv0
+//   weights, scale and shift, so that production reads them from shared
+//   memory. An A fragment is two float2 loads (output channels 16 i + 2 g
+//   and + 1 as the tile's rows g and g + 8, so that a lane's two rows are
+//   adjacent), split once for the eight B fragments it meets. Each B
+//   fragment meets the tap's four A fragments in turn, the three passes of
+//   those four products issued pass by pass (summed as mma_3xtf32_promoted
+//   sums them): 52 registers of fragments and partial sums live, not the
+//   72 of one A fragment meeting eight B fragments, which spilled.
+// - Overlap: H is double-buffered, one barrier a slice: each warp produces
+//   its share of slice t + 1 into the other buffer, then runs its mmas of
+//   slice t, so that a warp's conv0 (FMA and SFU pipes) can fill the issue
+//   slots the other warps' mma chains leave. On the H100 it hides little of
+//   the production; placing it between the m-tiles of a tap, or by half the
+//   warps after their mmas, spilled and ran slower.
+// - Each k8 step's three products are summed from zero and added to the
+//   float32 accumulators (mma_3xtf32_promoted), as in K5/K6. The epilogue
+//   applies the exact erf GELU to the accumulators and stores a lane's two
+//   adjacent channels as float2.
 
 #include <cuda_runtime.h>
 
-#include "sgemm_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int KC = 8;                  // in-channels per K slice
-constexpr int BK = 3 * KC;             // K slice: 3 taps x KC channels
-constexpr int HROWS = 2 * TILE_M + 1;  // conv0 rows one row tile needs
-constexpr int WAVE = 5 * HROWS + 5;    // wave samples those rows read
-constexpr int ROWS_PER_PASS = TILE_THREADS / KC;  // conv0 rows computed per pass
+constexpr int KC = 8;               // in-channels a K slice
+constexpr int BK = 3 * KC;          // K slice: 3 taps x KC channels, one k8 step a tap
+constexpr int BM = 64, BN = 512;    // output rows x output channels a block
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+constexpr int WN = BN / WARPS;            // a warp's channels, of all BM rows
+constexpr int MT = WN / 16, NT = BM / 8;  // its m16n8k8 tiles
+constexpr int STAGES = 3;           // ring of conv1 weight slices
+constexpr int HROWS = 2 * BM + 1;   // conv0 rows a row tile needs
+// Padded rows for the float2 fragment loads of a half-warp (g = 0..3, t4 =
+// 0..3): H reads word 12 (2 g) + 2 t4 (banks 24 g + 2 t4 mod 32), W word
+// 516 (2 t4) + 2 g (banks 8 t4 + 2 g); the producers' stores of four
+// consecutive row pairs x 8 channels hit 32 distinct banks.
+constexpr int LDH = KC + 4, LDW = BN + 4;
+static_assert((2 * LDH) % 32 == 24 && LDW % 16 == 4, "bank spread");
+constexpr int H_FLOATS = HROWS * LDH;  // one part (big or small) of one buffer
+// A stage of the ring: conv1's BK x LDW weight rows of slice t, then the
+// conv0 weights (KC x 10), scale and shift (KC each) of slice t + 1
+constexpr int V_FLOATS = KC * 10 + 2 * KC;
+constexpr int STAGE = BK * LDW + V_FLOATS;
+// wave samples a row tile reads: rows 0..128 read [5r, 5r + 10); the
+// producers read 16 from each even row
+constexpr int WAVE = 5 * (HROWS - 1) + 16;
+constexpr int SMEM_BYTES = (4 * H_FLOATS + STAGES * STAGE + WAVE) * (int)sizeof(float);
+constexpr int PAIRS_PASS = THREADS / KC;  // row pairs a pass of the producers: 32
+constexpr int PAIR_PASSES = (HROWS - 1) / (2 * PAIRS_PASS);
+static_assert(2 * PAIRS_PASS * PAIR_PASSES == HROWS - 1, "whole passes of row pairs, then one row");
+constexpr int W_COPIES_ROW = BN / 4;  // 16-byte copies a weight row
+constexpr int W_ROWS_PASS = THREADS / W_COPIES_ROW;
+constexpr int W_PASSES = BK / W_ROWS_PASS;
+static_assert(W_PASSES * W_ROWS_PASS == BK && KC % W_ROWS_PASS == 0,
+              "whole passes, each within one tap");
 
-// Two blocks per SM: at most 128 registers a thread.
-__global__ void __launch_bounds__(TILE_THREADS, 2)
+// conv0 row r (of the tile) in channel cc -> affine -> GELU, stored split
+// into big (Hb) and small (Hs); s holds wave[5 r .. 5 r + 9]
+__device__ __forceinline__ void store_row(const float* s, const float (&w)[10], float sc,
+                                          float sh, float* Hb, float* Hs, int r, int cc) {
+  float x = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) x = fmaf(s[k], w[k], x);
+  unsigned big, small;
+  split(gelu_erf(fmaf(x, sc, sh)), big, small);
+  Hb[r * LDH + cc] = __uint_as_float(big);
+  Hs[r * LDH + cc] = __uint_as_float(small);
+}
+
+// This thread's share of one slice of H: channel cc of the row pairs
+// (2P, 2P + 1), P = p + 32 q, and the last row where p == 0, from the
+// channel's conv0 weights w, scale sc and shift sh.
+__device__ __forceinline__ void produce(const float* __restrict__ ws, float* Hb, float* Hs,
+                                        const float (&w)[10], float sc, float sh, int cc,
+                                        int p) {
+#pragma unroll
+  for (int q = 0; q < PAIR_PASSES; ++q) {
+    const int P = p + PAIRS_PASS * q;
+    float s[16];  // wave[10 P .. 10 P + 15]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 v = *reinterpret_cast<const float2*>(ws + 10 * P + 2 * i);
+      s[2 * i] = v.x;
+      s[2 * i + 1] = v.y;
+    }
+    store_row(s, w, sc, sh, Hb, Hs, 2 * P, cc);
+    store_row(s + 5, w, sc, sh, Hb, Hs, 2 * P + 1, cc);
+  }
+  if (p == 0) store_row(ws + 5 * (HROWS - 1), w, sc, sh, Hb, Hs, HROWS - 1, cc);
+}
+
+// acc += the k8 step of tap j: A from the slice's weight rows j KC .. j KC
+// + 7 (channels wc0 + 16 i + 2 g and + 1 as rows g and g + 8), B from H
+// (rows 2 u + j of the tile's output rows u = 8 jn + g, split at
+// production). The MT A fragments are split once; each B fragment then
+// meets them in turn, its products issued pass by pass over the MT tiles.
+__device__ __forceinline__ void mma_tap(const float* Hb, const float* Hs, const float* W, int j,
+                                        float (&acc)[MT][NT][4], int wc0, int g, int t4) {
+  unsigned ab[MT][4], as[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float* wp = W + (j * KC + 2 * t4) * LDW + wc0 + 16 * i + 2 * g;
+    const float2 w0 = *reinterpret_cast<const float2*>(wp);
+    const float2 w1 = *reinterpret_cast<const float2*>(wp + LDW);
+    // a0 (row g, slot t4), a1 (row g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4)
+    const float a[4] = {w0.x, w0.y, w1.x, w1.y};
+    split_a(a, ab[i], as[i]);
+  }
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn) {  // b0 (slot t4) = channel 2 t4, b1 (slot t4 + 4) = 2 t4 + 1
+    const int r = 2 * (8 * jn + g) + j;
+    const uint2 bb = *reinterpret_cast<const uint2*>(Hb + r * LDH + 2 * t4);
+    const uint2 bs = *reinterpret_cast<const uint2*>(Hs + r * LDH + 2 * t4);
+    float t[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) mma_tf32_zero(t[i], as[i], bb.x, bb.y);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) mma_tf32(t[i], ab[i], bs.x, bs.y);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) mma_tf32(t[i], ab[i], bb.x, bb.y);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][jn][e] += t[i][e];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 extractor_front_kernel(const float* __restrict__ wav, const float* __restrict__ w0,
                        const float* __restrict__ scale, const float* __restrict__ shift,
                        const float* __restrict__ w1t, float* __restrict__ out, int T, int C,
                        int n1) {
-  __shared__ float ws[WAVE];
-  __shared__ __align__(16) float As[BK][TILE_LD];
-  __shared__ __align__(16) float Bs[BK][TILE_LD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * TILE_N;
-  const int u0 = blockIdx.y * TILE_M;
+  extern __shared__ __align__(16) float front_smem[];
+  float* H = front_smem;                  // [buffer][big, small][HROWS][LDH]
+  float* Ring = front_smem + 4 * H_FLOATS;  // [stage][BK x LDW weights, V_FLOATS]
+  float* ws = Ring + STAGES * STAGE;      // [WAVE]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wc0 = warp * WN;
+  const int c0 = blockIdx.x * BN;
+  const int u0 = blockIdx.y * BM;
   const int b = blockIdx.z;
+  const int n_slices = C / KC;
+  scale += (long long)b * C;
+  shift += (long long)b * C;
 
-  // conv0 row r of this tile is t = 2 * u0 + r and reads wav[5t .. 5t + 9]
+  // conv0 row r of this tile is t = 2 u0 + r and reads wav[5t .. 5t + 9];
+  // samples past the wave's end read as zeros and feed only rows u >= n1
   const float* wb = wav + (long long)b * T;
   const long long base = 10LL * u0;
-  for (int i = tid; i < WAVE; i += TILE_THREADS)
-    ws[i] = base + i < T ? wb[base + i] : 0.0f;
+  for (int i = tid; i < WAVE; i += THREADS) ws[i] = base + i < T ? wb[base + i] : 0.0f;
 
-  // this thread's conv0 channel within each K slice never changes
-  const int c = tid % KC;
-  const int r_first = tid / KC;
-
-  float acc[8][8];
-  tile_zero(acc);
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    __syncthreads();  // previous slice consumed (first pass: ws staged)
-    const int ch = c0 + c;
-    float w[10];
+  // stage s: weight row kk = j KC + cc of slice t is w1t[j, KC t + cc, c0 ..
+  // c0 + BN - 1]; then w0, scale and shift of slice t + 1's channels. Pass i
+  // copies row w_row0 + 2 i: tap 2 i / KC, channel w_row0 + 2 i % KC, so one
+  // pointer a slice and offsets known at compile time address them all.
+  const int w_row0 = tid / W_COPIES_ROW, w_col = 4 * (tid % W_COPIES_ROW);
+  const bool w_ok = c0 + w_col < C;  // C % 4 == 0: a copy is all in or all out
+  const float* w_src = w1t + (long long)w_row0 * C + c0 + w_col;
+  // this thread's copy of the next slice's w0 (threads 0-19), scale (20, 21)
+  // or shift (22, 23)
+  const float* v_src = tid < 5 * KC / 2 ? w0 + 4 * tid
+                       : tid < 5 * KC / 2 + KC / 4 ? scale + 4 * (tid - 5 * KC / 2)
+                                                   : shift + 4 * (tid - 5 * KC / 2 - KC / 4);
+  const int v_stride = tid < 5 * KC / 2 ? 10 : 1;  // floats a channel
+  auto load_stage = [&](int t, int s) {
+    float* st = Ring + s * STAGE;
+    const float* src_t = w_src + (long long)KC * t * C;
 #pragma unroll
-    for (int k = 0; k < 10; ++k) w[k] = __ldg(w0 + ch * 10 + k);
-    const float sc = __ldg(scale + (long long)b * C + ch);
-    const float sh = __ldg(shift + (long long)b * C + ch);
-    // rows past the wave's end read zeros and feed only output rows >= n1
-    for (int r = r_first; r < HROWS; r += ROWS_PER_PASS) {
-      float x = 0.0f;
+    for (int i = 0; i < W_PASSES; ++i) {
+      const int j = i * W_ROWS_PASS / KC, c = i * W_ROWS_PASS % KC;
+      cp_async16(st + (w_row0 + i * W_ROWS_PASS) * LDW + w_col,
+                 w_ok ? src_t + (j * C + c) * C : w1t, w_ok);
+    }
+    if (tid < V_FLOATS / 4 && t + 1 < n_slices)
+      cp_async16(st + BK * LDW + 4 * tid, v_src + KC * (t + 1) * v_stride, true);
+  };
 #pragma unroll
-      for (int k = 0; k < 10; ++k) x = fmaf(ws[5 * r + k], w[k], x);
-      const float h = gelu_erf(fmaf(x, sc, sh));
-      const int m = r >> 1;
-      if (r & 1) {
-        As[KC + c][m] = h;
-      } else {
-        if (m < TILE_M) As[c][m] = h;
-        if (m > 0) As[2 * KC + c][m - 1] = h;
-      }
-    }
-    // B slice: row kk = j * KC + cc holds w1t[j, c0 + cc, n0 .. n0 + 127]
-    for (int e = tid; e < BK * TILE_N / 4; e += TILE_THREADS) {
-      const int kk = e / (TILE_N / 4), n = (e % (TILE_N / 4)) * 4;
-      const int j = kk / KC, cc = kk - j * KC;
-      const int col = n0 + n;  // C % 4 == 0: a float4 is all in or all out
-      const float4 v = col < C
-          ? __ldg(reinterpret_cast<const float4*>(w1t + ((long long)j * C + c0 + cc) * C + col))
-          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      *reinterpret_cast<float4*>(&Bs[kk][n]) = v;
-    }
-    __syncthreads();
-    tile_mma<BK>(As, Bs, acc, tx, ty);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_slices) load_stage(s, s);
+    cp_async_commit();
   }
 
+  // this thread produces channel cc of row pairs p + 32 q of every slice
+  const int cc = tid % KC, p = tid / KC;
+  {
+    float w[10];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int u = u0 + tile_row(ty, i);
-    if (u >= n1) continue;
-    float* orow = out + ((long long)b * n1 + u) * C;
+    for (int k = 0; k < 10; ++k) w[k] = __ldg(w0 + cc * 10 + k);
+    __syncthreads();  // the wave is staged
+    produce(ws, H, H + H_FLOATS, w, __ldg(scale + cc), __ldg(shift + cc), cc, p);
+  }
+
+  float acc[MT][NT][4];
 #pragma unroll
-    for (int jg = 0; jg < 8; jg += 4) {
-      const int col = n0 + tile_row(tx, jg);
-      if (col >= C) continue;
-      *reinterpret_cast<float4*>(orow + col) =
-          make_float4(gelu_erf(acc[i][jg]), gelu_erf(acc[i][jg + 1]),
-                      gelu_erf(acc[i][jg + 2]), gelu_erf(acc[i][jg + 3]));
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  for (int t = 0; t < n_slices; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice t's H is produced and its stage has landed for
+                      // every thread; every warp is done with slice t - 1's
+    const int nxt = t + STAGES - 1;
+    if (nxt < n_slices) load_stage(nxt, nxt % STAGES);
+    cp_async_commit();
+    const float* hb = H + (t & 1) * 2 * H_FLOATS;
+    const float* st = Ring + (t % STAGES) * STAGE;
+    if (t + 1 < n_slices) {  // slice t + 1 into the other buffer
+      const float* v = st + BK * LDW;  // its w0, scale and shift
+      float* nb = H + ((t + 1) & 1) * 2 * H_FLOATS;
+      float w[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) w[k] = v[cc * 10 + k];
+      produce(ws, nb, nb + H_FLOATS, w, v[10 * KC + cc], v[11 * KC + cc], cc, p);
+    }
+#pragma unroll 1  // the three taps in a loop: unrolled, ptxas spilled
+    for (int j = 0; j < 3; ++j) mma_tap(hb, hb + H_FLOATS, st, j, acc, wc0, g, t4);
+  }
+  cp_async_wait<0>();
+
+  // acc[i][jn]: channels c (row g) and c + 1 (row g + 8), c = 16 i + 2 g, of
+  // output rows u = 8 jn + 2 t4 (e 0, 2) and u + 1 (e 1, 3)
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int c = c0 + wc0 + 16 * i + 2 * g;
+    if (c >= C) continue;  // C % 2 == 0: a pair is all in or all out
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int u = u0 + 8 * jn + 2 * t4 + h;
+        if (u >= n1) continue;
+        *reinterpret_cast<float2*>(out + ((long long)b * n1 + u) * C + c) =
+            make_float2(gelu_erf(acc[i][jn][h]), gelu_erf(acc[i][jn][2 + h]));
+      }
     }
   }
 }
@@ -125,13 +290,21 @@ extractor_front_kernel(const float* __restrict__ wav, const float* __restrict__ 
 }  // namespace
 
 // out (B, n1, C) from wav (B, T), w0 (C, 10), scale/shift (B, C) and
-// w1t (3, C, C) = conv1's weight as [tap][in][out]. Needs C % 8 == 0 and
-// n1 = ((T - 10) / 5 + 1 - 3) / 2 + 1 >= 1.
+// w1t (3, C, C) = conv1's weight as [tap][in][out]. Needs C % 8 == 0,
+// n1 = ((T - 10) / 5 + 1 - 3) / 2 + 1 >= 1, and w0, scale, shift and w1t
+// 16-byte aligned.
 extern "C" int qvc_extractor_front(const void* wav, const void* w0, const void* scale,
                                    const void* shift, const void* w1t, void* out, int batch,
                                    int T, int C, int n1, void* stream) {
-  dim3 grid((C + TILE_N - 1) / TILE_N, (n1 + TILE_M - 1) / TILE_M, batch);
-  extractor_front_kernel<<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      extractor_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(extractor_front_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((C + BN - 1) / BN, (n1 + BM - 1) / BM, batch);
+  extractor_front_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const float*)wav, (const float*)w0, (const float*)scale, (const float*)shift,
       (const float*)w1t, (float*)out, T, C, n1);
   return (int)cudaGetLastError();

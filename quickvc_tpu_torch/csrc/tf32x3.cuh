@@ -1,7 +1,9 @@
 // Float32-accurate products on Hopper's TF32 tensor cores (3xTF32) and the
 // cp.async copies that feed them, for sm_90a. Shared by the attention body
-// of K2/K8/K9/K10 (fused_attention.cuh) and the implicit GEMM of K5/K6
-// (fused_disc_conv.cu).
+// of K2/K8/K9/K10 (fused_attention.cuh), the implicit GEMM of K5/K6
+// (fused_disc_conv.cu), K7's conv1 (fused_extractor.cu) and K8's linear
+// layers (fused_transformer.cu); the last two also take the exact GELU of
+// their epilogues from here.
 //
 // 3xTF32: each float32 operand x is split into big, x rounded to TF32 as
 // cvt.rna.tf32.f32 rounds (done as an integer add and mask: cvt.rna itself
@@ -103,6 +105,11 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ab)[4
   mma_tf32(c, as, bb0, bb1);
   mma_tf32(c, ab, bs0, bs1);
   mma_tf32(c, ab, bb0, bb1);
+}
+
+// Exact GELU, x * Phi(x), as torch.nn.functional.gelu(approximate="none").
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
 }  // namespace

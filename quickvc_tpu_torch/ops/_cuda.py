@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -34,8 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
            "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu", "mma_rate.cu")
-HEADERS = ("sgemm_tile.cuh", "fused_attention.cuh",  # included by several sources
-           "tf32x3.cuh")
+HEADERS = ("fused_attention.cuh", "tf32x3.cuh")  # included by several sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,8 +51,8 @@ _SIGNATURES = {
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw": [_P] * 4 + [_I] * 6 + [_P],
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
-    "qvc_transformer_layer": [_P] * 19 + [_I] * 5 + [_F, _P],
-    "qvc_transformer_layer_launches": [],
+    "qvc_transformer_layer": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
+    "qvc_transformer_layer_launches": [_I] * 4,
     "qvc_mm_s8": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_probe": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
@@ -156,6 +156,13 @@ def library() -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the host plans fill
+    their waves of blocks from it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

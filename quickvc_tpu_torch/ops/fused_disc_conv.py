@@ -24,13 +24,12 @@ the same inputs give the same bits on every launch.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library,
+from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library,
                                          require_cuda_f32, stream_ptr)
 
 K5 = 5
@@ -98,11 +97,6 @@ def disc_conv5_shapes(batch: int, segment: int, periods=(2, 3, 5, 7, 11),
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def conv5_lrelu_reference(x: torch.Tensor, kernel: torch.Tensor,
                           bias: torch.Tensor | None, slope: float = 0.1) -> torch.Tensor:
     """lrelu(conv1d(x, kernel, 'SAME', stride 1) + bias) as five shifted matmuls."""
@@ -148,7 +142,7 @@ def conv5_dw_kernel(x: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
     if dym.dim() != 3 or dym.shape[:2] != (n, rows):
         raise ValueError(f"conv5_lrelu dW: x {tuple(x.shape)}, dym {tuple(dym.shape)}")
     c_out = dym.shape[2]
-    plan = dw_plan(n, rows, c_in, c_out, _sm_count(x.device.index or 0))
+    plan = dw_plan(n, rows, c_in, c_out, device_sms(x.device.index or 0))
     dw = torch.empty((K5, c_in, c_out), device=x.device, dtype=torch.float32)
     ws = (torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
           if plan.workspace else None)

@@ -15,7 +15,9 @@ an O(T) pass over the wave instead of a reduction over conv0's output.
 Kernel K7 (``csrc/fused_extractor.cu``) replaces the TPU kernel
 ``fused_extractor_front``: conv0 -> that affine -> GELU -> conv1 (k=3,
 stride 2, no bias) -> GELU in one pass, conv0's output never leaving the
-chip. :func:`extractor_front` takes the plain version,
+chip, conv1 an implicit GEMM on TF32 tensor cores in 3xTF32 fed by conv0's
+output as the kernel produces it from the wave. :func:`extractor_front`
+takes the plain version,
 :func:`extractor_front_reference`, for a CPU tensor and launches the kernel
 for a CUDA tensor (or raises). Layouts are the JAX package's: wave (B, T) in,
 (B, n1, C) out with n1 = ((T - 10) // 5 + 1 - 3) // 2 + 1; the weights keep
@@ -91,6 +93,8 @@ def extractor_front_kernel(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Ten
     wav, w0 = wav.contiguous(), w0.contiguous()
     w1t = w1.permute(2, 1, 0).contiguous()          # [tap][in][out]
     out = torch.empty((b, n1, c), device=wav.device, dtype=torch.float32)
+    if any(z.data_ptr() % 16 for z in (w0, scale, shift, w1t)):
+        raise ValueError("extractor_front: conv0's weight must start on a 16-byte boundary")
     check(library().qvc_extractor_front(
         wav.data_ptr(), w0.data_ptr(), scale.data_ptr(), shift.data_ptr(), w1t.data_ptr(),
         out.data_ptr(), b, t, c, n1, stream_ptr(wav)), "extractor_front kernel")

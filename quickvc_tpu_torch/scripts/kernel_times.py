@@ -12,6 +12,13 @@ K9 ((8, 250, 12*128), 64 true lanes a head), K10 ((8, 12, 250, 64)) and K8
 with ``F.scaled_dot_product_attention`` on the same heads beside K2/K9/K10;
 inputs from a fixed seed, through the ops' dispatchers. On the card also:
 
+- K4 (the halo'd spectrogram) at the training batch, (32, 512*320 + 960)
+  -> (32, 512, 641);
+- K7 (HuBERT's extractor front) at the encoding batch's wave (16, 96080)
+  -> (16, 9607, 512), beside its cuDNN chain (conv0, GroupNorm over its
+  output, GELU, conv1, GELU: ``K7_library``), and K8's library layer,
+  ``nn.TransformerEncoderLayer`` with the same weights (``K8_library``);
+
 - K5 (k=5 conv + LeakyReLU), K5's dx and K6 (dW) at the fifth conv of the
   period discriminators p = 2 and 11 in the paired D phase, x (128, 64,
   1024) and (704, 12, 1024), through their kernel wrappers, with cuDNN's
@@ -138,6 +145,38 @@ def disc_phase_times(out: dict, dev: torch.device) -> None:
 
     for name, net in (("D_phase_fused", fused), ("D_phase_default", base)):
         out[name] = time_ms(lambda: d_phase(net), dev, 5, 1)
+
+
+def encoding_times(ms, dev: torch.device, g: torch.Generator, layer, x) -> None:
+    """K7 beside its cuDNN chain at the encoding batch's wave, and the
+    library layer beside K8 (timed by the caller) on the same x."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_extractor as fe
+
+    c = 512
+    wav = 0.3 * torch.randn(16, 96080, device=dev, generator=g)
+    w0 = 0.3 * torch.randn(c, 1, 10, device=dev, generator=g)
+    gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
+    beta = 0.1 * torch.randn(c, device=dev, generator=g)
+    w1 = torch.randn(c, c, 3, device=dev, generator=g) / (3 * c) ** 0.5
+
+    def k7_library():
+        y = F.gelu(F.group_norm(F.conv1d(wav[:, None], w0, stride=5), c, gamma, beta, 1e-5))
+        return F.gelu(F.conv1d(y, w1, stride=2)).transpose(1, 2)
+
+    ms("K7", lambda: fe.extractor_front(wav, w0, gamma, beta, w1))
+    ms("K7_library", k7_library)
+    lib_layer = torch.nn.TransformerEncoderLayer(768, 12, 3072, dropout=0.0, activation="gelu",
+                                                 batch_first=True).to(dev).eval()
+    lib_layer.load_state_dict(layer.state_dict())
+    lib_layer.requires_grad_(False)
+
+    def k8_library():
+        with torch.inference_mode():
+            return lib_layer(x)
+
+    ms("K8_library", k8_library)
 
 
 def mel_times(ms, dev: torch.device, y: torch.Tensor) -> None:
@@ -276,6 +315,12 @@ def main(argv: list[str] | None = None) -> dict:
     x = torch.randn(16, 300, 768, device=dev, generator=g)
     ms("K8", lambda: ft.transformer_layer(x, layer))
     if dev.type == "cuda":
+        from quickvc_tpu_torch.ops import fused_mel
+
+        y4 = 0.3 * torch.randn(32, 512 * 320 + 960, device=dev, generator=g)
+        ms("K4", lambda: fused_mel.wave_to_spec_halo(y4, 1280, 320, 1280))
+        del y4
+        encoding_times(ms, dev, g, layer, x)
         out["notes"] = gemm_times(ms, dev, g)
         conv5_times(ms, dev, g)
         out["mma_sync_tf32_tflops"] = mma_tf32_tflops(dev, args.iters)

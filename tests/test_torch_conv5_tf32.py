@@ -201,7 +201,7 @@ def test_dw_wrapper_allocates_the_planned_workspace(monkeypatch):
     monkeypatch.setattr(fdc, "_require", lambda *a: None)
     monkeypatch.setattr(fdc, "library", lambda: FakeLib())
     monkeypatch.setattr(fdc, "stream_ptr", lambda t: 0)
-    monkeypatch.setattr(fdc, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(fdc, "device_sms", lambda index: 132)
     monkeypatch.setattr(torch, "empty", spy_empty)
     for n, rows, c_in, c_out in [(64, 37, 24, 40), (3, 37, 24, 40)]:
         calls.clear()

@@ -12,7 +12,8 @@ DFT), the k=5 conv and its
 gradients atol 1e-4 / rtol 1e-3 (also at the five period discriminators'
 full-width shapes, and bit-equal from one launch to the next), the
 extractor front atol 5e-4 / rtol 1e-3 (the JAX gate), the transformer layer and the K9/K10 attention layouts atol
-1e-4 / rtol 1e-3, the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
+1e-4 / rtol 1e-3 (the extractor front and the layer also bit-equal from one
+launch to the next), the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
 1e-4, streaming and a live session on the card within 1e-3 x peak of the CPU.
 """
 
@@ -185,38 +186,59 @@ def test_polar_istft_kernel_other_sizes(cuda, n_fft, hop):
     torch.testing.assert_close(ours, plain(lm, ph, n_fft, hop), atol=1e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("shape", [(2, 16003, 128), (3, 32083, 512)])
+def _front_inputs(dev, b, t_len, c):
+    g = _gen(dev, t_len)
+    wav = 0.3 * torch.randn(b, t_len, device=dev, generator=g)
+    w0 = 0.3 * torch.randn(c, 1, 10, device=dev, generator=g)
+    gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
+    beta = 0.1 * torch.randn(c, device=dev, generator=g)
+    w1 = torch.randn(c, c, 3, device=dev, generator=g) / (3 * c) ** 0.5
+    return wav, w0, gamma, beta, w1
+
+
+@pytest.mark.parametrize("shape", [(2, 16003, 128), (3, 32083, 512), (2, 3013, 64),
+                                   (1, 1333, 512)])
 def test_extractor_front_kernel(cuda, shape):
+    """Also C = 64 (a 512-channel tile mostly past C) and n1 = 300 and 132,
+    ragged against the 64-row tiles."""
     from quickvc_tpu_torch.ops import fused_extractor as fe
 
     b, t_len, c = shape
-    g = _gen(cuda, t_len)
-    wav = 0.3 * torch.randn(b, t_len, device=cuda, generator=g)
-    w0 = 0.3 * torch.randn(c, 1, 10, device=cuda, generator=g)
-    gamma = 1.0 + 0.1 * torch.randn(c, device=cuda, generator=g)
-    beta = 0.1 * torch.randn(c, device=cuda, generator=g)
-    w1 = torch.randn(c, c, 3, device=cuda, generator=g) / (3 * c) ** 0.5
+    front = _front_inputs(cuda, b, t_len, c)
     before = fe.STATS.launches
-    ours = fe.extractor_front(wav, w0, gamma, beta, w1)
+    ours = fe.extractor_front(*front)
     assert fe.STATS.launches == before + 1
     assert ours.shape == (b, fe.front_rows(t_len), c)
-    torch.testing.assert_close(ours, fe.extractor_front_reference(wav, w0, gamma, beta, w1),
-                               atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(ours, fe.extractor_front_reference(*front), atol=5e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("t_len", [37, 300])
-def test_transformer_layer_kernel(cuda, t_len):
+def test_extractor_front_kernel_is_deterministic(cuda):
+    from quickvc_tpu_torch.ops import fused_extractor as fe
+
+    front = _front_inputs(cuda, 2, 16003, 512)
+    assert torch.equal(fe.extractor_front(*front), fe.extractor_front(*front))
+
+
+def _fused_layer(dev, seed):
     from quickvc_tpu_torch.models.hubert import TransformerLayer
-    from quickvc_tpu_torch.ops import fused_attention, fused_transformer as ft
     from quickvc_tpu_torch.utils.weights import init_random_
 
-    layer = init_random_(TransformerLayer(use_fused_layer=True), t_len)
-    g = torch.Generator().manual_seed(t_len)
+    layer = init_random_(TransformerLayer(use_fused_layer=True), seed)
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():  # biases and norm affines off their init constants
         for p in layer.parameters():
             if p.dim() == 1:
                 p.add_(0.1 * torch.randn(p.shape, generator=g))
-    layer = layer.to(cuda).eval()
+    return layer.to(dev).eval()
+
+
+@pytest.mark.parametrize("t_len", [37, 300, 250])
+def test_transformer_layer_kernel(cuda, t_len):
+    """M = 3 T = 111 (every GEMM split four ways), 900 (split and not) and
+    750: none a multiple of the 256-row tile."""
+    from quickvc_tpu_torch.ops import fused_attention, fused_transformer as ft
+
+    layer = _fused_layer(cuda, t_len)
     x = torch.randn(3, t_len, 768, device=cuda, generator=_gen(cuda, t_len))
     before = (ft.STATS.launches, fused_attention.STATS.launches)
     with torch.inference_mode():
@@ -224,6 +246,20 @@ def test_transformer_layer_kernel(cuda, t_len):
     assert (ft.STATS.launches, fused_attention.STATS.launches) == (before[0] + 1, before[1])
     torch.testing.assert_close(ours, ft.transformer_layer_reference(x, layer),
                                atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_transformer_layer_kernel_is_deterministic(cuda, batch):
+    """Split-K (batch 1: M = 300) and not (batch 16: M = 4,800, the encoding
+    batch): the same bits from two launches."""
+    from quickvc_tpu_torch.ops import fused_transformer as ft
+
+    layer = _fused_layer(cuda, 5)
+    x = torch.randn(batch, 300, 768, device=cuda, generator=_gen(cuda, 5))
+    plans = ft.layer_plans(batch * 300, 768, 3072)
+    assert any(p.splits > 1 for p in plans) == (batch == 1)
+    with torch.inference_mode():
+        assert torch.equal(ft.transformer_layer(x, layer), ft.transformer_layer(x, layer))
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])

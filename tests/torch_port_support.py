@@ -124,21 +124,26 @@ def add_rz(c: np.ndarray, p: np.ndarray) -> np.ndarray:
     return out
 
 
-def mma(c: np.ndarray, a: np.ndarray, b: np.ndarray, passes: int, promote: bool = False,
-        rz: bool = False) -> np.ndarray:
+def mma(c: np.ndarray, a: np.ndarray, b: np.ndarray | None, passes: int,
+        promote: bool = False, rz: bool = False,
+        b_parts: tuple[np.ndarray, np.ndarray] | None = None) -> np.ndarray:
     """c + a @ b over 8-wide k chunks, float32 accumulation; 3xTF32 or one TF32 pass.
 
     ``promote``: each chunk's products are summed from zero and then added
-    to c by a float32 add (K5/K6); otherwise they go into c itself (the
+    to c by a float32 add (K5-K8); otherwise they go into c itself (the
     attention body). ``rz``: the sums inside an mma truncate (:func:`add_rz`).
+    ``b_parts``: B given already split, (big, small) as :func:`split` gives
+    them (K7 stores its B so), in place of ``b``; 3xTF32 only.
     """
     for k0 in range(0, a.shape[-1], 8):
-        ac, bc = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+        ac = a[..., k0:k0 + 8]
         if passes == 3:
-            (ab, as_), (bb, bs) = split(ac), split(bc)
+            ab, as_ = split(ac)
+            bb, bs = ([p[..., k0:k0 + 8, :] for p in b_parts] if b_parts is not None
+                      else split(b[..., k0:k0 + 8, :]))
             terms = (as_, bb), (ab, bs), (ab, bb)
         else:
-            terms = ((tf32(ac), tf32(bc)),)
+            terms = ((tf32(ac), tf32(b[..., k0:k0 + 8, :])),)
         t = np.zeros_like(c) if promote else c
         for x, y in terms:   # products of TF32 values are exact in float64
             prod = x.astype(np.float64) @ y.astype(np.float64)
