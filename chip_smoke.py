@@ -11,7 +11,10 @@
    K1-K3 at the conversion's shapes (K1 on its real-FFT route, also held
    at n_fft/hop 2048/512 on it and at 800/200 and 4096/1024 on its dense
    DFT, one bin chunk and three, and timed in turns with the torch.stft
-   chain; K3 also at 32/8, its table-driven body), K4 at the full
+   chain; K3 also at 32/8, its table-driven body, timed in turns with its
+   ``torch.istft`` chain, in device time also at the streaming and live
+   windows and with the L2 flushed between launches, two launches
+   bit-equal), K4 at the full
    training batch (32, 512*320+960) (also held at n_fft/hop 1024/256 on its
    real FFT and at 800/200 on its dense DFT, whose time it prints), K5 (forward and
    dx) and K6 (dW) at the fifth conv of each period discriminator in the
@@ -24,7 +27,8 @@
    versions at the streaming and live paths' shapes: K2 over the streaming
    run's buckets (8, 650 / 800, 768) and the live wave windows (64, 80 / 68,
    768), K3 over the streaming windows (32, 5761, 9), the live windows
-   (256, 1601 / 1361, 9) and the parity session's (8, 4161, 9). K2, K9 and
+   of 64 streams (256, 1601 / 1361, 9) and of one (4, 1361, 9) and the
+   parity session's (8, 4161, 9). K2, K9 and
    K10 (the 3xTF32 tensor-core attention body) are timed in turns with
    ``F.scaled_dot_product_attention`` on the same inputs, their bound the
    3xTF32 one, with the float32-FMA bound beside it on their
@@ -134,7 +138,8 @@ TPU_KERNELS = [
     ("K2", "quickvc_tpu/ops/fused_attention.py:113", "fused_attention_packed",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
-     "ported: quickvc_tpu_torch/csrc/fused_istft.cu; the JAX head's sizes, n_fft up to 2048"),
+     "ported: quickvc_tpu_torch/csrc/fused_istft.cu; the JAX head's sizes, n_fft up to 2048; "
+     "redesigned: persistent planned grid, host-built tables, loads one step ahead"),
     ("K4", "quickvc_tpu/ops/fused_mel.py:177", "wave_to_spec_halo_pallas",
      "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: real FFT (FFT_SIZES), "
      "dense DFT up to n_fft 4096"),
@@ -180,10 +185,11 @@ DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_k
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
 # K2/K8/K9/K10, K5/K6's implicit GEMM and K6's split-K sum, K7, K8's GEMMs
-# and their split-K sum); none may spill
+# and their split-K sum, K3's both bodies); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
                "transpose_kernel", "attention_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
-               "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel")
+               "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
+               "polar_istft_kernel", "polar_istft_kernel_rt")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "wave_to_spec_halo": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
@@ -195,7 +201,9 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "conv5_lrelu_dw": "redesigned: 3xTF32 tensor-core implicit GEMM, split-K",
               "extractor_front": "redesigned: 3xTF32 tensor-core implicit GEMM, conv0 "
                                  "produced on chip",
-              "transformer_layer": "redesigned: GEMMs on 3xTF32 tensor cores, planned split-K"}
+              "transformer_layer": "redesigned: GEMMs on 3xTF32 tensor cores, planned split-K",
+              "polar_inverse_stft": "redesigned: persistent planned grid, host-built tables, "
+                                    "loads one step ahead"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
 # bucket and 8 in the 16-s one, so each batch of 8 is full
 STREAM_SECONDS = [12.1 + 0.1 * i for i in range(8)] + [15.05 + 0.06 * i for i in range(8)]
@@ -224,14 +232,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return time_ms(fn, torch.device("cuda"), iters, warmup)
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, between=None, only: str | None = None) -> float:
     """Mean device milliseconds per call (profiler device time of the kernels
-    the calls launch, ``scripts/kernel_times.py:device_ms``). A kernel of
-    tens of microseconds needs it: CUDA events around its calls also read
-    how fast the host enqueues them."""
+    the calls launch, ``scripts/kernel_times.py:device_ms``; ``between`` runs
+    before each call, ``only`` keeps the kernels whose names hold it). A
+    kernel of tens of microseconds needs it: CUDA events around its calls
+    also read how fast the host enqueues them."""
     from quickvc_tpu_torch.scripts.kernel_times import device_ms as profiled_ms
 
-    return profiled_ms(fn, iters)
+    return profiled_ms(fn, iters, between, only)
 
 
 def turns(kernel, library, iters: int = 20) -> dict:
@@ -257,7 +266,7 @@ def ptxas_report(build_log: str) -> dict:
         if "Function properties for" in line:
             entry = line.split("Function properties for")[1].strip()
             continue
-        name = next((w for w in PTXAS_WATCH if entry and w in entry), None)
+        name = max((w for w in PTXAS_WATCH if entry and w in entry), key=len, default=None)
         if name is None:
             continue
         rec = out.setdefault(entry, {"kernel": name})
@@ -335,6 +344,7 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     from quickvc_tpu_torch.dsp.mel import mel_filterbank
     from quickvc_tpu_torch.dsp.stft import hann_window, wave_to_mel as mel_plain
     from quickvc_tpu_torch.ops import fused_attention, fused_istft, fused_mel
+    from quickvc_tpu_torch.scripts.kernel_times import l2_flush
 
     results = []
     shapes = path_shapes()
@@ -439,7 +449,7 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     lm, ph = k3_inputs(rows, f, SEED + 1)
     k3_shapes = [(rows, t_u), (4 * BATCH, shapes["stream_window"]),
                  *((4 * LIVE_STREAMS, w) for w in shapes["live_windows"]),
-                 (4 * 2, shapes["parity_window"])]
+                 (4, min(shapes["live_windows"])), (4 * 2, shapes["parity_window"])]
     k3_checks = {str((n, 20 * w + 1, 9)): k3_check(*k3_inputs(n, 20 * w + 1, SEED + 1 + i))
                  for i, (n, w) in enumerate(k3_shapes)}
     # the table-driven body at n_fft/hop 32/8: the same batch's samples in
@@ -461,15 +471,31 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         z = torch.polar(torch.exp(lm), torch.pi * torch.sin(ph)).transpose(1, 2)
         return torch.istft(z, 16, 4, 16, hann16, center=True)
 
+    # device time at the streaming window and the live windows of 64 streams
+    # and of one beside the conversion's; and at the conversion's with the L2
+    # flushed before each launch (the decoder's conv writes K3's input just
+    # before it, so warm is the caller's case)
+    k3_device = {}
+    for i, (n, w) in enumerate([(4 * BATCH, shapes["stream_window"]),
+                                *((4 * LIVE_STREAMS, w) for w in shapes["live_windows"]),
+                                (4, min(shapes["live_windows"]))]):
+        lm_w, ph_w = k3_inputs(n, 20 * w + 1, SEED + 20 + i)
+        k3_device[str((n, 20 * w + 1, 9))] = device_ms(
+            lambda lm_w=lm_w, ph_w=ph_w: fused_istft.polar_inverse_stft_kernel(lm_w, ph_w, 16, 4))
+
     results.append(dict(
         name="polar_inverse_stft", tpu_id="K3", source="quickvc_tpu_torch/csrc/fused_istft.cu",
         replaces="quickvc_tpu/ops/fused_istft.py:159",
         shape=[[rows, f, 9]] * 2, **merge_checks(k3_checks),
-        ms=cuda_ms(k3), device_ms=device_ms(k3), plain_ms=cuda_ms(k3_plain),
-        library_ms=cuda_ms(k3_library),
+        deterministic=bool(torch.equal(k3(), k3())),
+        # in turns: library, kernel, kernel, library
+        **turns(k3, k3_library), plain_ms=cuda_ms(k3_plain),
+        device_ms_shapes=k3_device,
+        l2_cold_device_ms=device_ms(k3, between=l2_flush(dev), only="polar_istft"),
         ms_32_8=cuda_ms(lambda: fused_istft.polar_inverse_stft_kernel(lm32, ph32, 32, 8)),
         bound_ops_ms=rows * 4 * (f - 1) * 2 * 72 / F32_FLOPS * 1e3,
         bound_bytes_ms=4 * (2 * rows * f * 9 + rows * 4 * (f - 1)) / HBM_BYTES * 1e3))
+    results[-1]["within_tol"] = results[-1]["within_tol"] and results[-1]["deterministic"]
 
     results += check_training_kernels(dev, rng)
     results += check_encoding_kernels(dev, rng)
@@ -1676,7 +1702,8 @@ def main() -> int:
                       "bound_f32_fma_ms", "ms_2048", "ms_800_dense", "ms_4096_dense",
                       "device_kernels", "pre_pass_launched", "library_f32_out_ms",
                       "library_f32_out_note", "ms_32_8", "dense_800_ms",
-                      "dense_800_plain_ms", "dense_800_bound_ms"):
+                      "dense_800_plain_ms", "dense_800_bound_ms", "device_ms_shapes",
+                      "l2_cold_device_ms"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

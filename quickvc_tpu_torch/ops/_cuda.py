@@ -45,7 +45,7 @@ _SIGNATURES = {
     "qvc_wave_to_mel_fft": [_P] * 5 + [_I] * 7 + [_P],
     "qvc_wave_to_spec_halo": [_P, _P, _P] + [_I] * 6 + [_P],
     "qvc_wave_to_spec_halo_dense": [_P, _P] + [_I] * 6 + [_P],
-    "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _I, _I, _P, _P],
+    "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _I, _I, _P, _P, _I, _P],
     "qvc_attention_packed": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     "qvc_attention_headed": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],

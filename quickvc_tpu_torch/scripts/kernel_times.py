@@ -6,7 +6,13 @@ K1 (log-mel, (1, 144000) at n_fft/hop 1280/320, beside the ``torch.stft``
 chain that computes the same log-mel, ``K1_library``; also at 2048/512, its
 other FFT-route size ``chip_smoke.py`` checks, and at 800/200 and 4096/1024,
 its dense route in one bin chunk and in three), K2 (packed attention,
-(8, 250, 768)), K3 (the decoder head at n_fft/hop 16/4, (32, 5001, 9) x2),
+(8, 250, 768)), K3 (the decoder head at n_fft/hop 16/4 on the decoder's
+strided views: the conversion batch (32, 5001, 9) x2, the streaming window
+(32, 5761), the live windows at 64 streams (256, 1601 / 1361) and at one
+(4, 1361); on the card also, at the conversion shape, its ``torch.istft``
+chain, its device time with the L2 flushed before each launch and its
+bring-up probes, and the wrapper's host µs a call at one stream's live
+window: :func:`istft_times`),
 K9 ((8, 250, 12*128), 64 true lanes a head), K10 ((8, 12, 250, 64)) and K8
 (one HuBERT layer, (16, 300, 768)) at the shapes ``chip_smoke.py`` checks,
 with ``F.scaled_dot_product_attention`` on the same heads beside K2/K9/K10;
@@ -66,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -80,17 +87,90 @@ def device_kernels(fn) -> list[str]:
     return sorted(e.key for e in prof.key_averages() if e.self_device_time_total > 0)
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, between=None, only: str | None = None) -> float:
     """Mean device milliseconds per call of ``fn`` on the card: the self
     device time of every kernel that ``iters`` calls launch
-    (torch.profiler), without the host's time to enqueue them."""
+    (torch.profiler), without the host's time to enqueue them. ``between``
+    runs before each call (e.g. an L2 flush); ``only`` then keeps the
+    kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / iters / 1e3
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if only is None or only in e.key) / iters / 1e3
+
+
+def l2_flush(dev: torch.device):
+    """A call that writes 128 MB, more than the H100's 50 MB L2, so that the
+    next kernel reads its inputs from device memory."""
+    buf = torch.empty(32 * 2 ** 20, device=dev)
+    return buf.zero_
+
+
+def host_us(fns: dict, iters: int, repeats: int = 7) -> dict:
+    """Host microseconds a call of each of ``fns`` takes to enqueue its
+    work: the host clock over ``iters`` calls that nothing waits for (then a
+    synchronize, outside the reading), the least of ``repeats`` readings,
+    the functions read in turn within each repeat (the host's clock moves
+    with its other load, so only readings taken together compare)."""
+    readings = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            readings[name].append((t1 - t0) / iters * 1e6)
+    return {name: min(r) for name, r in readings.items()}
+
+
+# K3's shapes (rows = 4 bands x batch, 20 frames a unit frame + 1): the
+# conversion batch, the streaming window, the live windows at 64 streams
+# and the smaller one at 1 stream
+ISTFT_SHAPES = {"K3": (32, 5001), "K3_stream": (32, 5761), "K3_live64_1601": (256, 1601),
+                "K3_live64_1361": (256, 1361), "K3_live1": (4, 1361)}
+
+
+def istft_times(ms, out: dict, dev: torch.device, g: torch.Generator, iters: int) -> None:
+    """K3 (on the decoder's strided views) at ISTFT_SHAPES; beside it at the
+    conversion shape the ``torch.istft`` chain (``K3_library``), the L2-cold
+    device time (``K3_l2_cold``), and at the live window of one stream the
+    wrapper's host µs a call (``K3_host_us_live1``) in turns with that of
+    allocating its output, ``empty_host_us``, the yardstick of the host's
+    speed at the time."""
+    from quickvc_tpu_torch.ops import fused_istft
+
+    views = {}
+    for name, (rows, f) in ISTFT_SHAPES.items():
+        spec = 0.5 * torch.randn(rows, 18, f, device=dev, generator=g).transpose(1, 2)
+        views[name] = spec[..., :9], spec[..., 9:]
+        ms(name, lambda v=views[name]: fused_istft.polar_inverse_stft(*v, 16, 4))
+    if dev.type != "cuda":
+        return
+    lm, ph = views["K3"]
+    hann = torch.hann_window(16, device=dev)
+
+    def library():
+        z = torch.polar(torch.exp(lm), torch.pi * torch.sin(ph)).transpose(1, 2)
+        return torch.istft(z, 16, 4, 16, hann, center=True)
+
+    ms("K3_library", library)
+    out["device_ms"]["K3_l2_cold"] = device_ms(
+        lambda: fused_istft.polar_inverse_stft(lm, ph, 16, 4), iters,
+        between=l2_flush(dev), only="polar_istft")
+    lm1, ph1 = views["K3_live1"]
+    host = host_us({"K3": lambda: fused_istft.polar_inverse_stft_kernel(lm1, ph1, 16, 4),
+                    "empty": lambda: torch.empty(lm1.shape[0], 4 * 1360, device=dev)},
+                   5 * iters)
+    out["K3_host_us_live1"], out["empty_host_us"] = host["K3"], host["empty"]
 
 
 # x (N, R, C) at the fifth conv of the period discriminators p = 2 and 11
@@ -278,7 +358,6 @@ def main(argv: list[str] | None = None) -> dict:
 
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import fused_attention as fa
-    from quickvc_tpu_torch.ops import fused_istft
     from quickvc_tpu_torch.ops import fused_transformer as ft
     from quickvc_tpu_torch.scripts import time_ms
     from quickvc_tpu_torch.utils.device import resolve_device
@@ -307,9 +386,7 @@ def main(argv: list[str] | None = None) -> dict:
     padded = [z.reshape(8, 250, 12, 128).transpose(1, 2) for z in xs]
     ms("K9", lambda: fa.attention_packed_aligned(*xs, 12, 0.125))
     ms("sdpa_128", lambda: F.scaled_dot_product_attention(*padded, scale=0.125))
-    spec = 0.5 * torch.randn(32, 18, 5001, device=dev, generator=g).transpose(1, 2)
-    lm, ph = spec[..., :9], spec[..., 9:]
-    ms("K3", lambda: fused_istft.polar_inverse_stft(lm, ph, 16, 4))
+    istft_times(ms, out, dev, g, args.iters)
     layer = init_random_(TransformerLayer(use_fused_layer=True), 8).to(dev).eval()
     layer.requires_grad_(False)
     x = torch.randn(16, 300, 768, device=dev, generator=g)

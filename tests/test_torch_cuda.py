@@ -6,7 +6,9 @@ version on the same CUDA tensors. Marked ``cuda``; skips without a card.
 Tolerances: log-mel atol/rtol 2e-3 (n_fft/hop 1280/320 and 2048/512 on its
 FFT route, 800/200 and 4096/1024 on its dense DFT), attention
 and iSTFT atol 1e-4 / rtol 1e-3 (iSTFT also at 32/8 and 64/16, on its
-table-driven body), the halo spectrogram atol/rtol 2e-4 (the JAX gate) at
+table-driven body, and at F = 2, F = 3, a ragged F and a live tick on the
+compiled one, bit-equal from one launch to the next and strided to
+contiguous), the halo spectrogram atol/rtol 2e-4 (the JAX gate) at
 n_fft/hop 1280/320 and 1024/256 (real FFT) and 800/200 and 1536/384 (dense
 DFT), the k=5 conv and its
 gradients atol 1e-4 / rtol 1e-3 (also at the five period discriminators'
@@ -167,6 +169,29 @@ def test_polar_istft_kernel_on_strided_views(cuda):
     torch.testing.assert_close(ours, plain(lm, ph, 16, 4), atol=1e-4, rtol=1e-3)
     torch.testing.assert_close(
         ours, fused_istft.polar_inverse_stft(lm.contiguous(), ph.contiguous(), 16, 4))
+
+
+@pytest.mark.parametrize("rows,n_frames", [(3, 2), (2, 3), (5, 1000), (4, 1361)])
+def test_polar_istft_compiled_body(cuda, rows, n_frames):
+    """The compiled 16/4 body at F = 2 and 3, a ragged F and a live tick of
+    one stream (4 x 1361 frames, istft_plan's grid of small spans), against
+    the plain version; two launches, and the strided and contiguous views,
+    give the same bits."""
+    from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as plain
+    from quickvc_tpu_torch.ops import fused_istft
+
+    spec = 0.5 * torch.randn(rows, 18, n_frames, device=cuda,
+                             generator=_gen(cuda, n_frames)).transpose(1, 2)
+    lm, ph = spec[..., :9], spec[..., 9:]
+    before = fused_istft.STATS.launches
+    ours = fused_istft.polar_inverse_stft(lm, ph, 16, 4)
+    assert fused_istft.STATS.launches == before + 1
+    assert ours.shape == (rows, 4 * (n_frames - 1))
+    ref = plain(lm, ph, 16, 4)
+    torch.testing.assert_close(ours, ref, atol=1e-4, rtol=1e-3)
+    assert torch.equal(ours, fused_istft.polar_inverse_stft(lm, ph, 16, 4))
+    assert torch.equal(ours, fused_istft.polar_inverse_stft(lm.contiguous(), ph.contiguous(),
+                                                            16, 4))
 
 
 @pytest.mark.parametrize("n_fft,hop", [(32, 8), (64, 16)])

@@ -102,7 +102,8 @@ def test_kernel_times_runs_on_the_cpu(capsys):
 
     out = kernel_times.main(["--device", "cpu", "--iters", "1", "--warmup", "0"])
     names = {"K1", "K1_library", "K1_2048", "K1_800", "K1_4096", "K2", "K10", "sdpa_64", "K9",
-             "sdpa_128", "K3", "K8"}
+             "sdpa_128", "K3", "K3_stream", "K3_live64_1601", "K3_live64_1361", "K3_live1",
+             "K8"}
     assert set(out) == names | {"package"}
     assert all(out[n] > 0 for n in names)
     line = capsys.readouterr().out.strip().splitlines()[-1]
