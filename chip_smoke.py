@@ -45,9 +45,15 @@
    small input (noise 0).
 5. Drives the training path, the CLI ``quickvc_tpu_torch.train`` with
    ``--device cuda``, for 7 steps at full width (batch 32, 512-frame crops,
-   compact transfer, float32) on a synthetic corpus; checks finite losses,
-   moved weights, K4 launched once per step and K3 never; times steps 3-7;
-   profiles one more (resumed) step; converts a pair with the trained
+   compact transfer, float32) on a synthetic corpus, with eval after
+   updates 1 and 5 on 3 held-out utterances; checks finite losses and eval
+   metrics, moved weights, K4 launched once per step and K1 (FFT route) and
+   K3 twice a held-out item an eval, nothing else; times steps 3-7 and each
+   eval; reads back the TensorBoard event files (every record's CRC-32Cs,
+   the loss, step-wall, RSS, eval, image and audio tags); profiles one more
+   (resumed) step; holds the eval with the trained ``G_7.pth`` on the card
+   against the CPU plain path; compares the batches of the first 2 epochs
+   (one each) from thread and process loader workers; converts a pair with
    ``G_7.pth``.
 6. Drives the discriminator's opt-in K5/K6 path (``fused_conv5=True``, the
    A/B of ``scripts/disc_pallas_ab.py``): one D-phase forward and backward
@@ -166,6 +172,12 @@ TPU_KERNELS = [
 # fall in the (600, 700]-frame bucket, cropped to max_speclen 512)
 TRAIN_STEPS = 7
 TRAIN_WARMUP = 2
+# eval after updates 1 and 5 (the JAX loop's points at eval_interval 4) on three
+# held-out utterances that are not whole seconds, so the 1-s buckets reflect-pad
+EVAL_INTERVAL = 4
+EVAL_SECONDS = [3.3, 4.6, 5.2]
+EVALS = len(range(0, TRAIN_STEPS, EVAL_INTERVAL))
+LOADER_CHECK_EPOCHS = (1, 2)   # one full-width batch each: thread against process workers
 TRAIN_UTTERANCES = 32
 TRAIN_BATCH = 32
 DISC_BATCH = 2 * TRAIN_BATCH        # the D phase runs real||fake paired
@@ -1049,30 +1061,35 @@ def check_against_cpu(cfg, net_g, hubert, rng: np.random.Generator) -> dict:
 
 
 def make_corpus(tmp: str, rng: np.random.Generator) -> str:
-    """Seeded s16 wavs of 12.5-13.5 s with (frames, 256) unit .npy siblings,
-    and a full-width float32 compact-transfer config for them; returns the
-    config's path."""
+    """Seeded s16 wavs of 12.5-13.5 s and three held-out ones of EVAL_SECONDS,
+    each with a (frames, 256) unit .npy sibling, and a full-width float32
+    compact-transfer config for them; returns the config's path."""
     from scipy.io import wavfile
 
     root = os.path.join(tmp, "corpus")
     os.makedirs(root)
-    paths = []
-    for i in range(TRAIN_UTTERANCES):
-        wav = synth_voice(12.5 + i / TRAIN_UTTERANCES, SR, rng)
-        path = os.path.join(root, f"utt{i}.wav")
+
+    def write(name: str, seconds: float) -> str:
+        wav = synth_voice(seconds, SR, rng)
+        path = os.path.join(root, f"{name}.wav")
         wavfile.write(path, SR, np.round(wav * 32767).astype(np.int16))
-        np.save(os.path.join(root, f"utt{i}.npy"),
+        np.save(os.path.join(root, f"{name}.npy"),
                 (0.5 * rng.standard_normal((len(wav) // 320, 256))).astype(np.float32))
-        paths.append(path)
-    listing = os.path.join(tmp, "train.txt")
-    with open(listing, "w") as f:
-        f.write("\n".join(paths) + "\n")
+        return path
+
+    lists = {"train": [write(f"utt{i}", 12.5 + i / TRAIN_UTTERANCES)
+                       for i in range(TRAIN_UTTERANCES)],
+             "eval": [write(f"eval{i}", sec) for i, sec in enumerate(EVAL_SECONDS)]}
+    for name, paths in lists.items():
+        with open(os.path.join(tmp, f"{name}.txt"), "w") as f:
+            f.write("\n".join(paths) + "\n")
     with open(os.path.join(ROOT, "configs", "quickvc.json")) as f:
         cfg = json.load(f)
     cfg["train"].update(precision="f32", batch_size=TRAIN_BATCH, max_speclen=512,
-                        transfer="compact", log_interval=1, eval_interval=1000,
+                        transfer="compact", log_interval=1, eval_interval=EVAL_INTERVAL,
                         loader_workers=4, segment_size=SEGMENT)
-    cfg["data"]["training_files"] = listing
+    cfg["data"]["training_files"] = os.path.join(tmp, "train.txt")
+    cfg["data"]["validation_files"] = os.path.join(tmp, "eval.txt")
     hpfile = os.path.join(tmp, "train_config.json")
     with open(hpfile, "w") as f:
         json.dump(cfg, f)
@@ -1086,11 +1103,222 @@ def run_train(hpfile: str, root: str, max_steps: int) -> dict:
                       "--device", "cuda"])
 
 
+def _crc32c_table() -> list[int]:
+    table = []
+    for byte in range(256):
+        c = byte
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 * (c & 1))
+        table.append(c)
+    return table
+
+
+CRC32C_TABLE = _crc32c_table()
+
+
+def masked_crc32c(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = CRC32C_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _fields(buf: bytes):
+    """(field number, wire type, value) of one protobuf message."""
+    i = 0
+
+    def varint():
+        nonlocal i
+        n = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            n |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return n
+    while i < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            yield field, wire, varint()
+        elif wire == 1:
+            yield field, wire, buf[i : i + 8]
+            i += 8
+        elif wire == 5:
+            yield field, wire, buf[i : i + 4]
+            i += 4
+        elif wire == 2:
+            n = varint()
+            yield field, wire, buf[i : i + n]
+            i += n
+        else:
+            raise CheckFailed(f"protobuf wire type {wire} in an event")
+
+
+def read_events(log_dir: str) -> dict:
+    """Every event file in ``log_dir``: each TFRecord's two masked CRC-32Cs
+    checked; returns {"records", "file_version", "tags": {tag: [kind, sorted
+    steps]}} (kind: scalar, image, audio, histogram)."""
+    import struct
+
+    files = sorted(n for n in os.listdir(log_dir) if n.startswith("events.out.tfevents."))
+    require(bool(files), f"event files in {log_dir}")
+    kinds = {2: "scalar", 4: "image", 5: "histogram", 6: "audio"}
+    out = {"files": len(files), "records": 0, "file_version": [], "tags": {}}
+    for name in files:
+        with open(os.path.join(log_dir, name), "rb") as f:
+            raw = f.read()
+        i = 0
+        while i < len(raw):
+            head = raw[i : i + 8]
+            n = struct.unpack("<Q", head)[0]
+            crc_head, = struct.unpack("<I", raw[i + 8 : i + 12])
+            data = raw[i + 12 : i + 12 + n]
+            crc_data, = struct.unpack("<I", raw[i + 12 + n : i + 16 + n])
+            require(crc_head == masked_crc32c(head) and crc_data == masked_crc32c(data),
+                    f"{name}: record at byte {i} fails its CRC-32C")
+            i += 16 + n
+            out["records"] += 1
+            step = 0
+            for field, _, value in _fields(data):
+                if field == 2:
+                    step = value
+                elif field == 3:
+                    out["file_version"].append(value.decode())
+                elif field == 5:
+                    for _, _, v in _fields(value):            # Summary.value
+                        parts = {f: x for f, _, x in _fields(v)}
+                        tag = parts[1].decode()
+                        kind = next(kinds[f] for f in kinds if f in parts)
+                        rec = out["tags"].setdefault(tag, [kind, []])
+                        rec[1].append(step)
+        require(i == len(raw), f"{name}: ends on a record boundary")
+    for rec in out["tags"].values():
+        rec[1] = sorted(set(rec[1]))
+    return out
+
+
+class RecordingWriter:
+    """The trainer's Summarizer interface, keeping what ``evaluate`` writes."""
+
+    def __init__(self):
+        self.scalar, self.audio = {}, {}
+
+    def scalars(self, step, values):
+        self.scalar.update({k: float(v) for k, v in values.items()})
+
+    def images(self, step, values):
+        pass
+
+    def audios(self, step, values, sr):
+        self.audio.update({k: np.asarray(v, np.float32).reshape(-1) for k, v in values.items()})
+
+    def flush(self):
+        pass
+
+
+def check_eval_against_cpu(hpfile: str, g_path: str) -> dict:
+    """The trainer's ``evaluate`` with the trained generator on the card (K1,
+    K3) and on the CPU (their plain versions): the four eval/* scalars
+    (mel_l1 within 2e-3, the similarities and margin within 1e-4) and the
+    generated waves (1e-3 x peak)."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.data.dataset import UnitAudioSpecDataset
+    from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
+    from quickvc_tpu_torch.train.loop import evaluate
+    from quickvc_tpu_torch.train.step import mel_basis
+    from quickvc_tpu_torch.utils.weights import load_generator
+
+    cfg = load_config(hpfile)
+    eval_ds = UnitAudioSpecDataset("eval", cfg)
+    writers, seconds = {}, {}
+    for name in ("cpu", "cuda"):
+        dev = torch.device(name)
+        with torch.device("meta"):
+            net = SynthesizerTrn(cfg.spec_channels, cfg.segment_frames, cfg.model)
+        load_generator(g_path, net)
+        net = net.to(dev).train()
+        writers[name] = RecordingWriter()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        evaluate(TRAIN_STEPS, cfg, net, eval_ds, mel_basis(cfg, dev), writers[name])
+        seconds[name] = time.perf_counter() - t0
+        if name == "cuda":
+            launches = ops.launch_counts()
+    ref, ours = writers["cpu"], writers["cuda"]
+    tol = {"eval/mel_l1": 2e-3, "eval/spk_sim": 1e-4, "eval/vc_spk_sim": 1e-4,
+           "eval/vc_spk_margin": 1e-4}
+    scalars = {k: {"card": ours.scalar[k], "cpu": ref.scalar[k],
+                   "abs_err": abs(ours.scalar[k] - ref.scalar[k]), "atol": tol[k]}
+               for k in tol}
+    waves = {k: float(np.abs(ours.audio[k] - v).max() / np.abs(v).max())
+             for k, v in ref.audio.items() if not k.startswith("gt/")}
+    n = len(EVAL_SECONDS)
+    expected = {k: 0 for k in launches} | {"wave_to_mel": 2 * n, "polar_inverse_stft": 2 * n}
+    out = {"items": n, "scalars": scalars, "waves_max_abs_over_peak": waves,
+           "wave_names": sorted(waves), "seconds_cpu": seconds["cpu"],
+           "seconds_card": seconds["cuda"], "launches": launches,
+           "expected_launches": expected}
+    print("eval_cpu_reference_check " + json.dumps(out))
+    require(set(ours.scalar) == set(ref.scalar) == set(tol), "eval writes the four eval/* scalars")
+    require(all(v["abs_err"] <= v["atol"] for v in scalars.values()),
+            "eval scalars on the card match the CPU path")
+    require(sorted(waves) == sorted([f"gen/audio_{i}" for i in range(n)] + ["vc/audio_0"]),
+            "eval writes gen/audio_* and vc/audio_0")
+    require(max(waves.values()) <= 1e-3, "eval waves on the card match the CPU path (1e-3 x peak)")
+    require(launches == expected, f"eval launches {launches} != {expected}")
+    return out
+
+
+def check_process_loader(hpfile: str) -> dict:
+    """The first batches of the full-width corpus (one an epoch, epochs
+    LOADER_CHECK_EPOCHS) from thread and from process workers (spawned,
+    shared memory): equal arrays."""
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.data.dataset import (BUCKET_BOUNDARIES, BucketSampler, DataLoader,
+                                                UnitAudioSpecDataset)
+
+    cfg = load_config(hpfile)
+    ds = UnitAudioSpecDataset("train", cfg, with_spec=False)
+    sampler = BucketSampler(ds.lengths, cfg.train.batch_size, BUCKET_BOUNDARIES)
+    got, seconds = {}, {}
+    for mode in ("thread", "process"):
+        loader = DataLoader(ds, sampler, cfg, num_workers=cfg.train.loader_workers,
+                            seed=cfg.train.seed, mode=mode)
+        got[mode] = []
+        try:
+            t0 = time.perf_counter()
+            for epoch in LOADER_CHECK_EPOCHS:
+                sampler.set_epoch(epoch)
+                # a copy: a yielded process-mode batch lives in shared memory
+                got[mode] += [{k: v.copy() for k, v in b.items()} for b in loader]
+            seconds[mode] = time.perf_counter() - t0
+        finally:
+            loader.close()
+    equal = len(got["thread"]) == len(got["process"]) and all(
+        a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(got["thread"], got["process"]))
+    out = {"epochs": list(LOADER_CHECK_EPOCHS), "batches": len(got["process"]),
+           "shapes": {k: list(v.shape) for k, v in got["process"][0].items()},
+           "equal": equal, "seconds": seconds}
+    print("process_loader " + json.dumps(out))
+    require(len(got["process"]) >= len(LOADER_CHECK_EPOCHS) and equal,
+            "process-mode batches equal the thread loader's")
+    return out
+
+
 def check_training(tmp: str, rng: np.random.Generator, files, n_frames) -> dict:
-    """7 steps of the trainer CLI, then one profiled resumed step, then a
+    """7 steps of the trainer CLI with eval after updates 1 and 5, the event
+    files read back; then one profiled resumed step, the eval on the card
+    against the CPU, process-mode batches against thread ones, and a
     conversion with the trained generator."""
     from quickvc_tpu_torch import ops
     from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.ops import fused_mel
     from quickvc_tpu_torch.train.state import build_models
     from quickvc_tpu_torch.train.step import STEP_SPAN
     from quickvc_tpu_torch.utils.weights import init_random_
@@ -1102,15 +1330,25 @@ def check_training(tmp: str, rng: np.random.Generator, files, n_frames) -> dict:
     ops.reset_launch_counts()
     summary = run_train(hpfile, root, TRAIN_STEPS)
     launches = ops.launch_counts()
+    mel_routes = dict(fused_mel.STATS.routes)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    expected = {name: 0 for name in launches} | {"wave_to_spec_halo": TRAIN_STEPS}
+    per_eval = 2 * len(EVAL_SECONDS)   # reconstruction and conversion of each item
+    expected = {name: 0 for name in launches} | {"wave_to_spec_halo": TRAIN_STEPS,
+                                                 "wave_to_mel": per_eval * EVALS,
+                                                 "polar_inverse_stft": per_eval * EVALS}
 
     losses = summary["losses"]
     require(summary["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
             f"{TRAIN_STEPS} training steps")
     require(all(np.isfinite(v) for step in losses for v in step.values()), "finite losses")
     require(not any(step["skipped"] for step in losses), "no update skipped by the guard")
+    require([e["step"] for e in summary["evals"]] == list(range(0, TRAIN_STEPS, EVAL_INTERVAL)),
+            f"eval after updates {[g + 1 for g in range(0, TRAIN_STEPS, EVAL_INTERVAL)]}")
+    require(all(np.isfinite(v) for e in summary["evals"] for v in e.values()),
+            "finite eval metrics")
     require(launches == expected, f"training launches {launches} != {expected}")
+    require(mel_routes == {"fft": per_eval * EVALS},
+            f"the eval's log-mels took routes {mel_routes}, not the FFT")
 
     # the weights moved from their seeded initialisation (create_train_state's seeds)
     cfg = load_config(hpfile)
@@ -1129,19 +1367,52 @@ def check_training(tmp: str, rng: np.random.Generator, files, n_frames) -> dict:
 
     timed = summary["step_seconds"][TRAIN_WARMUP:]
     step_s = float(np.mean(timed))
+    eval_s = [e["seconds"] for e in summary["evals"]]
     out = {"steps": TRAIN_STEPS, "step_seconds": summary["step_seconds"],
            "timed_steps": len(timed), "mean_step_seconds": step_s,
            "segment_audio_s_per_wall_s": TRAIN_BATCH * SEGMENT / SR / step_s,
            "crop_audio_s_per_wall_s": TRAIN_BATCH * 512 * 320 / SR / step_s,
+           "eval_steps": [e["step"] for e in summary["evals"]], "eval_seconds": eval_s,
+           "log_seconds": summary["log_seconds"],
+           "evals": summary["evals"],
            "losses_first": losses[0], "losses_last": losses[-1], "weights": moved,
-           "peak_memory_gb": peak_gb, "launches": launches, "expected_launches": expected}
+           "peak_memory_gb": peak_gb, "launches": launches, "expected_launches": expected,
+           "eval_launches": {"wave_to_mel": launches["wave_to_mel"],
+                             "polar_inverse_stft": launches["polar_inverse_stft"]},
+           "wave_to_mel_routes": mel_routes}
     print("train " + json.dumps(out))
+
+    run_dir = os.path.join(root, "smoke")
+    events = {"train": read_events(run_dir), "eval": read_events(os.path.join(run_dir, "eval"))}
+    n = len(EVAL_SECONDS)
+    want = {"train": {"scalar": ["loss/g/total", "loss/d/total", "loss/g/mel", "loss/g/kl",
+                                 "loss/g/fm", "loss/g/gen", "time/step_p50", "time/step_p95",
+                                 "time/step_max", "host/rss_gb"],
+                      "image": ["slice/mel_org", "slice/mel_gen", "all/mel"]},
+            "eval": {"scalar": ["eval/mel_l1", "eval/spk_sim", "eval/vc_spk_sim",
+                                "eval/vc_spk_margin"],
+                     "image": [f"{k}/mel_{i}" for k in ("gen", "gt") for i in range(n)],
+                     "audio": [f"{k}/audio_{i}" for k in ("gen", "gt") for i in range(n)]
+                     + ["vc/audio_0"]}}
+    missing = [(run, tag, kind) for run, kinds in want.items() for kind, tags in kinds.items()
+               for tag in tags if events[run]["tags"].get(tag, [None])[0] != kind]
+    print("event_files " + json.dumps({run: {"files": e["files"], "records": e["records"],
+                                             "file_version": e["file_version"],
+                                             "tags": e["tags"]} for run, e in events.items()}))
+    require(not missing, f"event files lack {missing}")
+    require(events["eval"]["tags"]["eval/mel_l1"][1] == out["eval_steps"],
+            "eval events at the eval steps")
+    require(events["train"]["tags"]["loss/g/total"][1][:TRAIN_STEPS] == list(range(TRAIN_STEPS)),
+            "a loss event at every logged step")
+
     prof = profile_span(lambda: run_train(hpfile, root, TRAIN_STEPS + 1), STEP_SPAN)
     print("train_profile " + json.dumps(prof))
+    g_path = os.path.join(run_dir, f"G_{TRAIN_STEPS}.pth")
+    out["eval_check"] = check_eval_against_cpu(hpfile, g_path)
+    out["process_loader"] = check_process_loader(hpfile)
 
     # the trained generator converts (reference layout, strict load)
-    conv = run_convert([hpfile, os.path.join(root, "smoke", f"G_{TRAIN_STEPS}.pth"),
-                        files[2], files[3]], os.path.join(tmp, "trained_out"))
+    conv = run_convert([hpfile, g_path, files[2], files[3]], os.path.join(tmp, "trained_out"))
     check_outputs(conv, n_frames)
     return out
 

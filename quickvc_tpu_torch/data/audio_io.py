@@ -13,7 +13,6 @@ import math
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -41,6 +40,8 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resample to target_sr."""
     if orig_sr == target_sr:
         return x
+    from scipy.signal import resample_poly  # 3 s to import: only where resampling runs
+
     g = math.gcd(orig_sr, target_sr)
     return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 

@@ -1,7 +1,7 @@
 """Training data: file lists, the unit/audio dataset, the length-bucketing
-sampler, fixed-shape collate and a prefetching thread loader.
+sampler, fixed-shape collate and a prefetching loader on threads or processes.
 
-The port's own copy of ``quickvc_tpu/data/dataset.py:38-375`` (reference
+The port's own copy of ``quickvc_tpu/data/dataset.py:38-624`` (reference
 ``data_utils_new_new.py``). Each utterance is a 16 kHz s16 wav
 with its HuBERT-soft units in a sibling ``.npy`` of shape (frames, 256).
 ``collate_batch`` makes the same crop draws in both wire formats:
@@ -13,17 +13,19 @@ with its HuBERT-soft units in a sibling ``.npy`` of shape (frames, 256).
   STFT halo ``wave_s16`` (B, L*hop + n_fft - hop) and the valid-frame counts
   ``n_take`` (B,); the training step computes the spectrogram on the card
   (kernel K4) and masks past ``n_take``.
-
-Only the thread loader is ported (the trainer refuses ``loader_mode='process'``).
 """
 
 from __future__ import annotations
 
 import glob
+import multiprocessing as mp
 import os
 import threading
+import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from multiprocessing import resource_tracker, shared_memory
+from queue import Empty
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -179,16 +181,20 @@ def collate_shapes(batch: int, bucket_lo: int, cfg: QuickVCConfig) -> dict[str, 
 
 
 def collate_batch(items: list[dict[str, np.ndarray]], bucket_lo: int,
-                  cfg: QuickVCConfig, rng: np.random.Generator) -> dict[str, np.ndarray]:
+                  cfg: QuickVCConfig, rng: np.random.Generator,
+                  out: dict[str, np.ndarray] | None = None) -> dict[str, np.ndarray]:
     """Sort by length, zero-pad and crop every item to the bucket's fixed
     length L = min(bucket_lo, max_speclen) frames; one ``rng.integers`` draw
-    per item, in the same order in both formats."""
+    per item, in the same order in both formats. ``out`` (buffers as
+    :func:`collate_shapes` gives them) lets process workers assemble straight
+    into shared memory."""
     hop = cfg.data.hop_length
     order = np.argsort([-it["unit"].shape[0] for it in items])
     items = [items[i] for i in order]
     seg = min(bucket_lo + 1, cfg.train.max_speclen + 1)
-    out = {k: np.empty(shape, dtype)
-           for k, (shape, dtype) in collate_shapes(len(items), bucket_lo, cfg).items()}
+    if out is None:
+        out = {k: np.empty(shape, dtype)
+               for k, (shape, dtype) in collate_shapes(len(items), bucket_lo, cfg).items()}
 
     if cfg.train.transfer == "compact":
         pad = (cfg.data.filter_length - hop) // 2
@@ -206,7 +212,7 @@ def collate_batch(items: list[dict[str, np.ndarray]], bucket_lo: int,
             out_w16[i, :halo_len] = w16[start * hop : start * hop + halo_len]
             out_w16[i, halo_len:] = 0
             out_take[i] = take
-        return {"unit": out_unit[:, :-1], "wave_s16": out_w16, "n_take": out_take}
+        return _crop_trailing(out, cfg)
 
     out_unit, out_spec, out_wave = out["unit"], out["spec"], out["wave"]
     for i, it in enumerate(items):
@@ -219,24 +225,50 @@ def collate_batch(items: list[dict[str, np.ndarray]], bucket_lo: int,
         out_unit[i, take:] = 0.0
         out_spec[i, take:] = 0.0
         out_wave[i, take * hop:] = 0.0
-    # drop the trailing frame (reference data_utils_new_new.py:210-213)
-    return {"unit": out_unit[:, :-1], "spec": out_spec[:, :-1], "wave": out_wave[:, :-hop]}
+    return _crop_trailing(out, cfg)
+
+
+def _crop_trailing(full: dict[str, np.ndarray], cfg: QuickVCConfig) -> dict[str, np.ndarray]:
+    """Drop the trailing frame (reference data_utils_new_new.py:210-213); the
+    compact wave buffer is already sized without it."""
+    if cfg.train.transfer == "compact":
+        return {"unit": full["unit"][:, :-1], "wave_s16": full["wave_s16"],
+                "n_take": full["n_take"]}
+    return {"unit": full["unit"][:, :-1], "spec": full["spec"][:, :-1],
+            "wave": full["wave"][:, : -cfg.data.hop_length]}
 
 
 class DataLoader:
-    """Whole batches assemble in a thread pool, ``num_workers + prefetch`` in
-    flight, yielded in sampler order. numpy I/O and copies release the GIL.
-    Crops depend only on (seed, epoch, batch index), never on thread timing.
+    """Whole batches assemble in parallel workers, ``num_workers + prefetch``
+    in flight, yielded in sampler order. Crops depend only on (seed, epoch,
+    batch index), never on worker timing, so both modes yield bit-identical
+    batches:
+
+    - ``mode="thread"``: a thread pool in this process; numpy I/O and copies
+      release the GIL.
+    - ``mode="process"``: persistent spawn-started worker processes assemble
+      each batch into a fresh shared-memory segment; the parent maps it and
+      yields numpy views (no pickled array data). A worker imports torch for
+      the CPU spectrogram of ``transfer='full'`` but never touches CUDA. A
+      yielded batch's arrays stay valid until ``num_workers + 2 * prefetch +
+      2`` further batches have been drawn: copy what must live longer.
+      :meth:`close` stops the workers.
     """
 
     def __init__(self, dataset: UnitAudioSpecDataset, sampler: BucketSampler,
                  cfg: QuickVCConfig, num_workers: int = 8, seed: int = 1234,
-                 prefetch: int = 2):
+                 prefetch: int = 2, mode: str = "thread"):
+        self._procs: list = []
+        if mode not in ("thread", "process"):
+            raise ValueError(f"mode must be 'thread' or 'process', got {mode!r}")
         self.dataset, self.sampler, self.cfg = dataset, sampler, cfg
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch = prefetch
+        self.mode = mode
         self._skip_next = 0
+        self._serial = 0   # the process-mode iteration that tasks and results belong to
+        self._task_q = self._result_q = None
 
     def __len__(self) -> int:
         return len(self.sampler)
@@ -252,6 +284,9 @@ class DataLoader:
                              self.sampler.bucket_lo[bucket], self.cfg, rng)
 
     def __iter__(self):
+        if self.mode == "process":
+            yield from self._iter_process()
+            return
         batches = list(self.sampler)
         in_flight = self.num_workers + self.prefetch
         with ThreadPoolExecutor(self.num_workers) as pool:
@@ -263,3 +298,148 @@ class DataLoader:
                     pending.append(pool.submit(self._assemble, nxt, k, idxs))
                     nxt += 1
                 yield pending.popleft().result()
+
+    def _start_workers(self) -> None:
+        if self._procs:
+            return
+        ctx = mp.get_context("spawn")
+        self._task_q, self._result_q = ctx.Queue(), ctx.Queue()
+        for _ in range(self.num_workers):
+            p = ctx.Process(target=_process_worker_main, daemon=True,
+                            args=(self._task_q, self._result_q, self.dataset, self.cfg,
+                                  self.seed))
+            p.start()
+            self._procs.append(p)
+
+    def _drain(self, timeout: float) -> int:
+        """Unlink the segments of results waiting in the queue (a stopped
+        iteration's); returns how many results it took."""
+        n = 0
+        while True:
+            try:
+                status, _, _, payload = self._result_q.get(timeout=timeout)
+            except Empty:
+                return n
+            n += 1
+            if status == "ok":
+                _unlink(payload[0])
+
+    def close(self) -> None:
+        """Stop the process workers (nothing to do in thread mode), unlinking
+        the batches they assembled that were never yielded."""
+        if not self._procs:
+            return
+        for _ in self._procs:
+            self._task_q.put(None)
+        for _ in range(300):   # about 30 s for the queued batches
+            if not any(p.is_alive() for p in self._procs):
+                break
+            self._drain(timeout=0.1)
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=5)
+        self._drain(timeout=0.1)
+        self._procs = []
+
+    def __del__(self):
+        self.close()
+
+    def _iter_process(self):
+        self._start_workers()
+        self._serial += 1
+        serial = self._serial
+        batches = list(self.sampler)
+        epoch = self.sampler.epoch
+        in_flight = self.num_workers + self.prefetch
+        keep = self.num_workers + 2 * self.prefetch + 2   # yielded segments still mapped
+        window: deque = deque()
+        pending: dict[int, tuple] = {}
+        nxt_submit = nxt_yield = self._skip_next
+        self._skip_next = 0
+        try:
+            while nxt_yield < len(batches):
+                while nxt_submit < len(batches) and nxt_submit - nxt_yield < in_flight:
+                    k, idxs = batches[nxt_submit]
+                    self._task_q.put((serial, nxt_submit, epoch, idxs,
+                                      self.sampler.bucket_lo[k]))
+                    nxt_submit += 1
+                while nxt_yield not in pending:
+                    try:
+                        status, got, bidx, payload = self._result_q.get(timeout=60)
+                    except Empty:
+                        if not any(p.is_alive() for p in self._procs):
+                            raise RuntimeError("all loader worker processes died "
+                                               "(killed?) with batches outstanding") from None
+                        continue
+                    if got != serial:   # left over from a stopped iteration
+                        if status == "ok":
+                            _unlink(payload[0])
+                        continue
+                    if status == "err":
+                        raise RuntimeError(f"loader worker failed on batch {bidx}:\n{payload}")
+                    pending[bidx] = payload
+                name, metas = pending.pop(nxt_yield)
+                shm = shared_memory.SharedMemory(name=name)
+                window.append(shm)
+                full = _views(shm, metas)
+                while len(window) > keep:
+                    _release(window.popleft())
+                yield _crop_trailing(full, self.cfg)
+                nxt_yield += 1
+        finally:
+            while window:
+                _release(window.popleft())
+            for name, _ in pending.values():
+                _unlink(name)
+
+
+def _release(shm: shared_memory.SharedMemory) -> None:
+    """Unlink a yielded segment; unmap it unless the caller still holds
+    views of it (then they keep the mapping alive)."""
+    shm.unlink()
+    try:
+        shm.close()
+    except BufferError:
+        pass
+
+
+def _unlink(name: str) -> None:
+    _release(shared_memory.SharedMemory(name=name))
+
+
+def _views(shm: shared_memory.SharedMemory, metas) -> dict[str, np.ndarray]:
+    """numpy arrays laid end to end in a segment: metas = [(key, shape, dtype name)]."""
+    out, off = {}, 0
+    for key, shape, dname in metas:
+        dt = np.dtype(dname)
+        out[key] = np.ndarray(shape, dt, buffer=shm.buf, offset=off)
+        off += int(np.prod(shape)) * dt.itemsize
+    return out
+
+
+def _process_worker_main(task_q, result_q, dataset, cfg, seed) -> None:
+    """A process worker: each task (iteration, batch index, epoch, item
+    indices, bucket floor) becomes a fresh shared-memory segment, handed to
+    the parent by name, or the traceback of what failed."""
+    while True:
+        task = task_q.get()
+        if task is None:
+            return
+        serial, batch_index, epoch, idxs, bucket_lo = task
+        try:
+            items = [dataset[i] for i in idxs]
+            metas = [(k, shape, dtype.name)
+                     for k, (shape, dtype) in collate_shapes(len(idxs), bucket_lo, cfg).items()]
+            size = sum(int(np.prod(shape)) * np.dtype(d).itemsize for _, shape, d in metas)
+            shm = shared_memory.SharedMemory(create=True, size=size)
+            out = _views(shm, metas)
+            collate_batch(items, bucket_lo, cfg,
+                          np.random.default_rng((seed, epoch, batch_index)), out=out)
+            del out
+            shm.close()
+            # the parent unlinks it: keep this process's tracker from doing so too
+            resource_tracker.unregister(shm._name, "shared_memory")
+            result_q.put(("ok", serial, batch_index, (shm.name, metas)))
+        except Exception:
+            result_q.put(("err", serial, batch_index, traceback.format_exc()))

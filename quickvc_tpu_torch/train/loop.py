@@ -1,17 +1,24 @@
 """Training loop and CLI of the PyTorch/CUDA port.
 
     python -m quickvc_tpu_torch.train -c configs/quickvc.json -m NAME -mr ./logs
-        [--max-steps N] [--device cuda|cpu]
+        [--max-steps N] [--device cuda|cpu] [--init-from-torch G.pth [D.pth]]
+        [--export-torch-every N]
 
-Port of the core of ``quickvc_tpu/train/loop.py`` (reference ``train.py``):
-epochs over the length-bucketed loader, one :func:`train_step` per batch,
-the learning rate decayed once per epoch, losses logged every
-``log_interval`` steps to stdout and ``model_dir/train.log``, and
-reference-format ``G_{step}.pth``/``D_{step}.pth`` written every
-``eval_interval`` steps and at the end. A run resumes from the newest pair
-in ``model_dir``, mid-epoch included (the loader skips the batches already
-trained on). Eval, TensorBoard, telemetry, the supervisor's exit-75 restart
-contract and process-mode loaders are not ported yet.
+Port of ``quickvc_tpu/train/loop.py`` and ``train.py`` (reference
+``train.py``): epochs over the length-bucketed loader (thread or process
+workers), one :func:`train_step` per batch, the learning rate decayed once
+per epoch; losses to stdout and ``model_dir/train.log``; TensorBoard event
+files in ``model_dir`` (losses, step-wall percentiles, host RSS, mel images)
+and ``model_dir/eval`` (the eval's metrics, mel images and audio), written
+by :class:`quickvc_tpu_torch.utils.logging.Summarizer`; a stall warning and
+a watchdog on the step walls; reconstruction and conversion eval on
+``data.validation_files``; reference-format ``G_{n}.pth``/``D_{n}.pth``
+checkpoints, the newest ``train.ckpt_max_to_keep`` of them kept. A run
+resumes from the newest pair in ``model_dir``, mid-epoch included (the
+loader skips the batches already trained on), and a resumed run takes the
+same updates as an uninterrupted one. Past ``train.max_host_rss_gb`` the
+run checkpoints and exits with code 75, which ``scripts/supervise_train.py
+-- python -m quickvc_tpu_torch.train ...`` answers with a relaunch.
 
 Runs on the card unless ``--device cpu`` is given; CUDA without a card raises.
 """
@@ -19,10 +26,8 @@ Runs on the card unless ``--device cpu`` is given; CUDA without a card raises.
 from __future__ import annotations
 
 import argparse
-import logging
 import math
 import os
-import sys
 import time
 
 import numpy as np
@@ -31,109 +36,319 @@ import torch
 from quickvc_tpu_torch.config import QuickVCConfig, get_config
 from quickvc_tpu_torch.data.dataset import (BUCKET_BOUNDARIES, BucketSampler, DataLoader,
                                             UnitAudioSpecDataset)
-from quickvc_tpu_torch.train.state import check_supported, create_train_state, set_epoch
+from quickvc_tpu_torch.dsp.stft import spec_to_mel
+from quickvc_tpu_torch.models.encoders import embed_utterance
+from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
+from quickvc_tpu_torch.ops.fused_mel import wave_to_mel
+from quickvc_tpu_torch.train.state import (build_models, check_supported, create_train_state,
+                                           set_epoch)
 from quickvc_tpu_torch.train.step import mel_basis, train_step
-from quickvc_tpu_torch.utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from quickvc_tpu_torch.train.telemetry import (RESTART_EXIT_CODE, HostMemoryRestart,
+                                               StepWallTracker, host_rss_gb)
+from quickvc_tpu_torch.utils.checkpoint import (latest_step, load_checkpoint, prune_checkpoints,
+                                                save_checkpoint)
 from quickvc_tpu_torch.utils.device import resolve_device
+from quickvc_tpu_torch.utils.logging import Summarizer, get_logger, plot_spectrogram
+from quickvc_tpu_torch.utils.weights import init_random_, load_discriminator, load_generator
 
 
-def _logger(model_dir: str) -> logging.Logger:
-    log = logging.getLogger("quickvc_tpu_torch.train")
-    for h in list(log.handlers):
-        log.removeHandler(h)
-        h.close()
-    log.setLevel(logging.INFO)
-    fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    for h in (logging.StreamHandler(sys.stdout),
-              logging.FileHandler(os.path.join(model_dir, "train.log"))):
-        h.setFormatter(fmt)
-        log.addHandler(h)
-    log.propagate = False
-    return log
+def _pad_frames(x: np.ndarray, target: int) -> np.ndarray:
+    """Reflect-pad the leading (frame) axis up to ``target`` rows."""
+    out = x
+    while out.shape[0] < target:
+        take = min(target - out.shape[0], max(out.shape[0] - 1, 1))
+        out = np.pad(out, [(0, take)] + [(0, 0)] * (out.ndim - 1),
+                     mode="reflect" if out.shape[0] > 1 else "edge")
+    return out
 
 
-def _save(state, lr: float, epoch: int) -> tuple[str, str]:
-    paths = tuple(os.path.join(state.cfg.model_dir, f"{k}_{state.step}.pth") for k in "GD")
-    save_checkpoint(paths[0], state.net_g, state.optim_g, lr, epoch)
-    save_checkpoint(paths[1], state.net_d, state.optim_d, lr, epoch)
-    return paths
+def evaluate(global_step: int, cfg: QuickVCConfig, net_g: SynthesizerTrn,
+             eval_ds: UnitAudioSpecDataset, basis: torch.Tensor, writer: Summarizer,
+             max_items: int = 7) -> dict:
+    """Reconstruction and conversion eval on the first ``max_items`` items
+    (reference train.py:196-222; ``quickvc_tpu/train/loop.py:evaluate``).
+
+    Each item's units and spectrogram are reflect-padded to whole 1-s frame
+    buckets, as the JAX eval pads them for its compiled shapes; its source
+    mel is ``spec_to_mel`` of the spectrogram, its d-vector the mean over
+    128-frame windows, and ``infer`` at noise 0 (kernel K3 on the card)
+    resynthesises it, whose log-mel K1 takes on the card. Metrics and images
+    are cropped back to the true frame count. ``eval/mel_l1`` is the log-mel
+    L1 of the resynthesis, ``eval/spk_sim`` the cosine of its d-vector with
+    the conditioning one. Then each item is converted to the most distinct
+    other voice (argmin d-vector cosine): ``eval/vc_spk_sim`` scores the
+    output against the target voice and ``eval/vc_spk_margin`` its margin
+    over the source voice. Draws no random numbers; runs with ``net_g`` in
+    eval mode under ``torch.inference_mode()`` and restores its mode.
+
+    Returns ``{"scalars": the eval/* metrics, "vc_targets": the target of
+    each item}``; empty when ``eval_ds`` is empty.
+    """
+    d = cfg.data
+    hop = d.hop_length
+    bucket = max(1, d.sampling_rate // hop)  # 1 s of frames
+    device = basis.device
+
+    def synth(unit, g_vec):
+        y_hat = net_g.infer(unit.transpose(1, 2), g_vec, noise_scale=0.0)   # (1, 1, T)
+        y_hat_mel = wave_to_mel(y_hat[:, 0], d.sampling_rate, d.filter_length, hop,
+                                d.win_length, d.n_mel_channels, d.mel_fmin, d.mel_fmax)
+        return y_hat[0, 0], y_hat_mel
+
+    def unit_vector(g: torch.Tensor) -> np.ndarray:
+        g = g.reshape(-1).cpu().numpy()
+        return g / (np.linalg.norm(g) + 1e-8)
+
+    was_training = net_g.training
+    net_g.eval()
+    mel_l1s, spk_sims, stash = [], [], []   # stash: (n, padded unit, d-vector) per item
+    try:
+        with torch.inference_mode():
+            for i in range(min(max_items, len(eval_ds))):
+                item = eval_ds[i]
+                n = min(item["unit"].shape[0], item["spec"].shape[0])
+                padded = int(np.ceil(n / bucket)) * bucket
+                unit = torch.from_numpy(_pad_frames(item["unit"][:n], padded)[None]).to(device)
+                spec = torch.from_numpy(_pad_frames(item["spec"][:n], padded)[None]).to(device)
+                mel = spec_to_mel(spec, basis)                              # (1, P, 80)
+                g_vec = embed_utterance(net_g.enc_spk, mel)                 # (1, gin)
+                y_hat, y_hat_mel = synth(unit, g_vec)
+                mel_n, y_hat_mel_n = mel[:, :n], y_hat_mel[:, :n]
+                writer.images(global_step, {
+                    f"gen/mel_{i}": plot_spectrogram(y_hat_mel_n[0].cpu().numpy().T),
+                    f"gt/mel_{i}": plot_spectrogram(mel_n[0].cpu().numpy().T)})
+                writer.audios(global_step, {f"gen/audio_{i}": y_hat[: n * hop].cpu().numpy(),
+                                            f"gt/audio_{i}": item["wave"][:, 0]},
+                              d.sampling_rate)
+                mel_l1s.append(float((y_hat_mel_n - mel_n).abs().mean()))
+                g_hat = embed_utterance(net_g.enc_spk, y_hat_mel_n)
+                spk_sims.append(float((g_vec * g_hat).sum()
+                                      / (g_vec.norm() * g_hat.norm() + 1e-8)))
+                stash.append((n, unit, g_vec))
+            vc_sims, vc_margins, targets = [], [], []
+            if len(stash) >= 2:
+                g_unit = np.stack([unit_vector(g) for _, _, g in stash])
+                cos = g_unit @ g_unit.T
+                np.fill_diagonal(cos, np.inf)
+                targets = [int(j) for j in np.argmin(cos, axis=1)]
+                for i, (n, unit, _) in enumerate(stash):
+                    j = targets[i]
+                    y_vc, y_vc_mel = synth(unit, stash[j][2])
+                    g_hat = unit_vector(embed_utterance(net_g.enc_spk, y_vc_mel[:, :n]))
+                    sim_t, sim_s = float(g_hat @ g_unit[j]), float(g_hat @ g_unit[i])
+                    vc_sims.append(sim_t)
+                    vc_margins.append(sim_t - sim_s)
+                    if i == 0:
+                        writer.audios(global_step, {"vc/audio_0": y_vc[: n * hop].cpu().numpy()},
+                                      d.sampling_rate)
+    finally:
+        net_g.train(was_training)
+    scalars = {}
+    if mel_l1s:
+        scalars = {"eval/mel_l1": float(np.mean(mel_l1s)),
+                   "eval/spk_sim": float(np.mean(spk_sims))}
+        if vc_sims:
+            scalars["eval/vc_spk_sim"] = float(np.mean(vc_sims))
+            scalars["eval/vc_spk_margin"] = float(np.mean(vc_margins))
+        writer.scalars(global_step, scalars)
+    writer.flush()
+    return {"scalars": scalars, "vc_targets": targets}
 
 
-def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None) -> dict:
-    """Train; returns {"steps", "losses" (one dict per step), "step_seconds",
-    "checkpoint" (the last G/D paths written)}."""
-    check_supported(cfg)
-    log = _logger(cfg.model_dir)
-    train_ds = UnitAudioSpecDataset("train", cfg, with_spec=cfg.train.transfer != "compact")
-    sampler = BucketSampler(train_ds.lengths, cfg.train.batch_size, BUCKET_BOUNDARIES)
-    loader = DataLoader(train_ds, sampler, cfg, num_workers=cfg.train.loader_workers,
-                        seed=cfg.train.seed, prefetch=cfg.train.prefetch_batches)
-    if len(loader) == 0:
-        raise ValueError(f"no utterance of {cfg.data.training_files} falls in a "
-                         f"length bucket ({BUCKET_BOUNDARIES[0]}-"
-                         f"{BUCKET_BOUNDARIES[-1]} frames)")
-    state = create_train_state(cfg, device)
-    log.info("Generator params: %.2fM | Discriminator params: %.2fM on %s",
-             sum(p.numel() for p in state.net_g.parameters()) / 1e6,
-             sum(p.numel() for p in state.net_d.parameters()) / 1e6, device)
+def _initial_state(cfg: QuickVCConfig, device: torch.device,
+                   init_torch: tuple[str, str | None] | None, log):
+    """The newest checkpoint pair in ``model_dir`` (a resume, with its
+    optimizers); else the reference-layout ``init_torch`` pair (G, D or
+    None) with fresh optimizers and the step counter at G's ``iteration``;
+    else seeded random weights."""
     resumed = latest_step(cfg.model_dir)
     if resumed is not None:
+        state = create_train_state(cfg, device)
         for kind, net, optim in (("G", state.net_g, state.optim_g),
                                  ("D", state.net_d, state.optim_d)):
             load_checkpoint(os.path.join(cfg.model_dir, f"{kind}_{resumed}.pth"), net, optim)
         state.step = resumed
         log.info("Resumed from checkpoint at step %d", resumed)
+        return state
+    if init_torch is None:
+        return create_train_state(cfg, device)
+    g_path, d_path = init_torch
+    net_g, net_d = build_models(cfg)
+    init_random_(net_g, cfg.train.seed)
+    init_random_(net_d, cfg.train.seed + 1)
+    load_generator(g_path, net_g)
+    if d_path is not None:
+        load_discriminator(d_path, net_d)
+    state = create_train_state(cfg, device, net_g, net_d)
+    ckpt = torch.load(g_path, map_location="cpu", weights_only=True)
+    state.step = int(ckpt.get("iteration") or 0) if isinstance(ckpt, dict) else 0
+    log.info("Warm-started from torch checkpoint %s%s at iteration %d (fresh optimizers)",
+             g_path, f" + {d_path}" if d_path else " (D from scratch)", state.step)
+    return state
+
+
+def _host_metrics(m: dict[str, torch.Tensor]) -> tuple[dict, dict]:
+    """A step's metrics on the host: (scalars and vectors, the img/ arrays)."""
+    host = {k: v.cpu().numpy() for k, v in m.items()}
+    imgs = {k: host.pop(k) for k in list(host) if k.startswith("img/")}
+    return host, imgs
+
+
+def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
+        init_torch: tuple[str, str | None] | None = None) -> dict:
+    """Train; returns {"steps", "losses" (one dict per step), "step_seconds"
+    (batch upload, step and sync of each step), "log_seconds" (each log
+    step's metrics read, images and event writes), "evals" (one dict per
+    eval: its TensorBoard step, seconds and scalars), "checkpoint" (the last
+    G/D paths written)}.
+
+    Counting rule. ``g`` is the number of updates taken before a step (the
+    JAX loop's ``global_step``). After the update, the step logs when ``g``
+    is a multiple of ``log_interval``, evaluates and checkpoints when ``g``
+    is a multiple of ``eval_interval``, and checkpoints again (an export)
+    when ``g`` is a multiple of ``export_torch_every``: the JAX loop's
+    points, so eval runs after updates 1, eval_interval + 1, .... TensorBoard
+    events carry ``g`` as their step, as the JAX loop's do. Checkpoint files
+    are named by the updates taken, ``g + 1``, which ``latest_step`` reads
+    back as the counter on resume; the text log's "step" counts the same.
+    Every checkpoint is a full reference-layout pair with its optimizer
+    state, so an export is also a resume point; only non-export pairs past
+    the newest ``ckpt_max_to_keep`` are deleted. The last step of
+    ``max_steps``, and a host-memory restart, checkpoint too.
+    """
+    check_supported(cfg)
+    log = get_logger(cfg.model_dir)
+    train_ds = UnitAudioSpecDataset("train", cfg, with_spec=cfg.train.transfer != "compact")
+    eval_ds = UnitAudioSpecDataset("eval", cfg)
+    sampler = BucketSampler(train_ds.lengths, cfg.train.batch_size, BUCKET_BOUNDARIES)
+    loader = DataLoader(train_ds, sampler, cfg, num_workers=cfg.train.loader_workers,
+                        seed=cfg.train.seed, prefetch=cfg.train.prefetch_batches,
+                        mode=cfg.train.loader_mode)
+    if len(loader) == 0:
+        raise ValueError(f"no utterance of {cfg.data.training_files} falls in a "
+                         f"length bucket ({BUCKET_BOUNDARIES[0]}-"
+                         f"{BUCKET_BOUNDARIES[-1]} frames)")
+    state = _initial_state(cfg, device, init_torch, log)
+    log.info("Generator params: %.2fM | Discriminator params: %.2fM on %s",
+             sum(p.numel() for p in state.net_g.parameters()) / 1e6,
+             sum(p.numel() for p in state.net_d.parameters()) / 1e6, device)
+
+    t = cfg.train
+    export_every = t.export_torch_every
+
+    def save(lr: float, epoch: int) -> None:
+        paths = tuple(os.path.join(cfg.model_dir, f"{k}_{state.step}.pth") for k in "GD")
+        if out["checkpoint"] == paths:
+            return  # this step's pair is already written
+        save_checkpoint(paths[0], state.net_g, state.optim_g, lr, epoch)
+        save_checkpoint(paths[1], state.net_d, state.optim_d, lr, epoch)
+        out["checkpoint"] = paths
+        log.info("saved %s", " and ".join(paths))
+        prune_checkpoints(cfg.model_dir, t.ckpt_max_to_keep,
+                          keep=lambda n: bool(export_every) and (n - 1) % export_every == 0)
 
     basis = mel_basis(cfg, device)
     gen = torch.Generator(device=device)
     epoch0 = state.step // len(loader) + 1
     set_epoch(state, epoch0)
     loader.skip_next_iter(state.step % len(loader))
-    out = {"steps": state.step, "losses": [], "step_seconds": [], "checkpoint": None}
+    out = {"steps": state.step, "losses": [], "step_seconds": [], "log_seconds": [],
+           "evals": [], "checkpoint": None}
+    if max_steps is not None and state.step >= max_steps:
+        return out
+    writer = Summarizer(cfg.model_dir)
+    writer_eval = Summarizer(os.path.join(cfg.model_dir, "eval"))
+    walls = StepWallTracker()
+    # warns while no step completes (a hung card or loader); stopped in the
+    # finally, so it never outlives the run
+    wd_stop = walls.watchdog(log, lambda: walls.total_steps)
     unhealthy = 0
-    for epoch in range(epoch0, cfg.train.epochs + 1):
-        sampler.set_epoch(epoch)
-        lr = state.optim_g.param_groups[0]["lr"]
-        for host_batch in loader:
-            t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                     for k, v in host_batch.items()}
-            gen.manual_seed(cfg.train.seed * 1_000_003 + state.step)  # resumable draws
-            m = train_step(state, batch, basis, generator=gen)
-            scalars = {k: float(m[f"loss/{k}"]) for k in ("g/total", "d/total", "g/mel", "g/kl")}
-            skipped = float(m.get("guard/d_skipped", 0.0)) + float(m.get("guard/g_skipped", 0.0))
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            out["step_seconds"].append(time.perf_counter() - t0)
-            out["losses"].append(dict(scalars, step=state.step, skipped=skipped))
-            out["steps"] = state.step
-            if not all(math.isfinite(v) for v in scalars.values()) or skipped:
-                unhealthy += 1
-                guarded = cfg.train.guard_nonfinite or cfg.train.guard_loss_max > 0
-                if not guarded or unhealthy >= 10:
-                    raise FloatingPointError(
-                        f"unhealthy training at step {state.step}: {scalars}, "
-                        f"{skipped:g} updates skipped; a restart resumes from "
-                        "the last checkpoint")
-                log.warning("unhealthy step %d (%s); the guard left the params "
-                            "untouched", state.step, scalars)
-            else:
-                unhealthy = 0
-            if (state.step - 1) % cfg.train.log_interval == 0:
-                log.info("epoch %d step %d lr %.3e | g %.3f d %.3f mel %.3f kl %.3f "
-                         "(%.3f s)", epoch, state.step, lr, scalars["g/total"],
-                         scalars["d/total"], scalars["g/mel"], scalars["g/kl"],
-                         out["step_seconds"][-1])
-            done = max_steps is not None and state.step >= max_steps
-            if done or (cfg.train.eval_interval and state.step % cfg.train.eval_interval == 0):
-                out["checkpoint"] = _save(state, lr, epoch)
-                log.info("saved %s", " and ".join(out["checkpoint"]))
-            if done:
-                return out
-        state.sched_g.step()
-        state.sched_d.step()
-        log.info("====> Epoch %d done", epoch)
-    return out
+    try:
+        for epoch in range(epoch0, t.epochs + 1):
+            sampler.set_epoch(epoch)
+            lr = state.optim_g.param_groups[0]["lr"]
+            t_iter = time.perf_counter()   # the step wall includes the wait for the batch
+            for host_batch in loader:
+                t0 = time.perf_counter()
+                g = state.step
+                # a copy: process workers' arrays live in shared memory they reuse
+                batch = {k: torch.tensor(v, device=device) for k, v in host_batch.items()}
+                del host_batch
+                gen.manual_seed(t.seed * 1_000_003 + g)  # resumable draws
+                m = train_step(state, batch, basis, generator=gen)
+                scalars = {k: float(m[f"loss/{k}"])
+                           for k in ("g/total", "d/total", "g/mel", "g/kl")}
+                skipped = sum(float(m.get(f"guard/{k}_skipped", 0.0)) for k in "dg")
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t1 = time.perf_counter()
+                stall_median = walls.add(t1 - t_iter)
+                if stall_median is not None:
+                    log.warning("stall: step %d wall %.2f s > %.0fx running median %.3f s "
+                                "(stall #%d this run)", state.step, t1 - t_iter,
+                                walls.stall_factor, stall_median, walls.stalls)
+                out["step_seconds"].append(t1 - t0)
+                out["losses"].append(dict(scalars, step=state.step, skipped=skipped))
+                out["steps"] = state.step
+                if not all(math.isfinite(v) for v in scalars.values()) or skipped:
+                    unhealthy += 1
+                    guarded = t.guard_nonfinite or t.guard_loss_max > 0
+                    if not guarded or unhealthy >= 10:
+                        raise FloatingPointError(
+                            f"unhealthy training at step {state.step}: {scalars}, "
+                            f"{skipped:g} updates skipped; a restart resumes from "
+                            "the last checkpoint")
+                    log.warning("unhealthy step %d (%s); the guard left the params "
+                                "untouched", state.step, scalars)
+                else:
+                    unhealthy = 0
+                if g % t.log_interval == 0:
+                    tl = time.perf_counter()
+                    log.info("epoch %d step %d lr %.3e | g %.3f d %.3f mel %.3f kl %.3f "
+                             "(%.3f s)", epoch, state.step, lr, scalars["g/total"],
+                             scalars["d/total"], scalars["g/mel"], scalars["g/kl"],
+                             out["step_seconds"][-1])
+                    host, imgs = _host_metrics(m)
+                    rss = host_rss_gb()
+                    writer.scalars(g, host | walls.summary() | {"host/rss_gb": rss})
+                    writer.images(g, {
+                        "slice/mel_org": plot_spectrogram(imgs["img/mel_org"].T),
+                        "slice/mel_gen": plot_spectrogram(imgs["img/mel_gen"].T),
+                        "all/mel": plot_spectrogram(imgs["img/mel_all"].T)})
+                    writer.flush()
+                    out["log_seconds"].append(time.perf_counter() - tl)
+                    if 0 < t.max_host_rss_gb < rss:
+                        save(lr, epoch)
+                        log.warning("host RSS %.2f GB > limit %.2f GB: checkpointed at step "
+                                    "%d, requesting restart", rss, t.max_host_rss_gb,
+                                    state.step)
+                        raise HostMemoryRestart(rss, t.max_host_rss_gb, state.step)
+                if t.eval_interval and g % t.eval_interval == 0:
+                    te = time.perf_counter()
+                    ev = evaluate(g, cfg, state.net_g, eval_ds, basis, writer_eval)
+                    out["evals"].append({"step": g, "seconds": time.perf_counter() - te}
+                                        | ev["scalars"])
+                    if ev["scalars"]:
+                        log.info("eval after update %d (TensorBoard step %d) | mel_l1 %.4f",
+                                 state.step, g, ev["scalars"]["eval/mel_l1"])
+                    save(lr, epoch)
+                if export_every and g % export_every == 0:
+                    save(lr, epoch)
+                    log.info("exported reference-layout G_%d.pth/D_%d.pth", state.step,
+                             state.step)
+                if max_steps is not None and state.step >= max_steps:
+                    save(lr, epoch)
+                    return out
+                t_iter = time.perf_counter()
+            state.sched_g.step()
+            state.sched_d.step()
+            log.info("====> Epoch %d done", epoch)
+        return out
+    finally:
+        wd_stop.set()
+        loader.close()
+        writer.close()
+        writer_eval.close()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -144,7 +359,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-steps", type=int, default=None,
                    help="stop (and checkpoint) after N steps in all")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
-    return p.parse_args(argv)
+    p.add_argument("--export-torch-every", type=int, default=None, metavar="N",
+                   help="also checkpoint after every update whose prior count is a "
+                        "multiple of N (kept by the pruning); overrides "
+                        "train.export_torch_every")
+    p.add_argument("--init-from-torch", type=str, nargs="+", default=None,
+                   metavar=("G.pth", "D.pth"),
+                   help="warm-start from reference-layout checkpoints (fresh "
+                        "optimizers, the step counter at G's iteration); a "
+                        "checkpoint pair in the model directory wins (a resume)")
+    args = p.parse_args(argv)
+    if args.init_from_torch and len(args.init_from_torch) > 2:
+        p.error("--init-from-torch takes G.pth [D.pth]")
+    return args
 
 
 def main(argv=None) -> dict:
@@ -155,4 +382,15 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.config, args.model, args.modelroot)
-    return run(cfg, device, args.max_steps)
+    if args.export_torch_every is not None:
+        cfg.train.export_torch_every = args.export_torch_every
+    init_torch = None
+    if args.init_from_torch:
+        init_torch = (args.init_from_torch[0], (args.init_from_torch[1:] or [None])[0])
+    try:
+        return run(cfg, device, args.max_steps, init_torch)
+    except HostMemoryRestart as e:
+        # checkpointed: scripts/supervise_train.py (or any process manager)
+        # relaunches on this code, and the run resumes where it stopped
+        print(f"restart requested: {e}", flush=True)
+        raise SystemExit(RESTART_EXIT_CODE) from e

@@ -42,7 +42,6 @@ def check_supported(cfg: QuickVCConfig) -> None:
          f"train.grad_reduce_dtype={t.grad_reduce_dtype!r}", 12),
         (t.num_hosts > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1,
          "more than one training process", 12),
-        (t.loader_mode != "thread", f"train.loader_mode={t.loader_mode!r}", 11),
     ]
     for bad, what, item in missing:
         if bad:

@@ -45,3 +45,21 @@ def latest_step(model_dir: str) -> int | None:
             steps.setdefault(int(m.group(2)), set()).add(m.group(1))
     pairs = [s for s, kinds in steps.items() if kinds == {"G", "D"}]
     return max(pairs) if pairs else None
+
+
+def prune_checkpoints(model_dir: str, max_to_keep: int, keep=lambda step: False) -> list[int]:
+    """Delete the ``G_{step}.pth``/``D_{step}.pth`` files of all but the
+    newest ``max_to_keep`` steps, sparing every step for which ``keep(step)``
+    holds (those count toward no limit); ``max_to_keep <= 0`` keeps all.
+    Returns the steps deleted."""
+    if max_to_keep <= 0 or not os.path.isdir(model_dir):
+        return []
+    steps = sorted({int(m.group(1)) for name in os.listdir(model_dir)
+                    if (m := re.fullmatch(r"[GD]_(\d+)\.pth", name)) and not keep(int(m.group(1)))})
+    doomed = steps[:-max_to_keep]
+    for step in doomed:
+        for kind in "GD":
+            path = os.path.join(model_dir, f"{kind}_{step}.pth")
+            if os.path.exists(path):
+                os.remove(path)
+    return doomed

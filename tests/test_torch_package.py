@@ -26,14 +26,18 @@ def test_cli_cuda_without_card_raises(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import neither JAX nor quickvc_tpu."""
+    """Every module of the port, and chip_smoke.py, import neither JAX nor
+    quickvc_tpu, nor tensorboard, tensorboardX, matplotlib, protobuf or soundfile."""
     code = """
 import importlib, pkgutil, runpy, sys
 import quickvc_tpu_torch
 for m in pkgutil.walk_packages(quickvc_tpu_torch.__path__, "quickvc_tpu_torch."):
     importlib.import_module(m.name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
-bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "quickvc_tpu")]
+bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "quickvc_tpu",
+                                                     "tensorboard", "tensorboardX", "matplotlib",
+                                                     "soundfile")
+       or n.startswith("google.protobuf")]
 new = ["quickvc_tpu_torch." + m for m in ("infer.streaming", "infer.realtime", "ops.int8_mm",
                                          "scripts.int8_matmul_probe", "scripts.realtime_bench")]
 bad += [m + " not imported" for m in new if m not in sys.modules]

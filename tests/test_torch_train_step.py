@@ -75,7 +75,7 @@ def test_trainer_cli_trains_resumes_and_converts(tmp_path):
     listing = write_corpus(tmp_path / "corpus", np.random.default_rng(4),
                            [0.9, 0.95, 1.0, 0.85])
     _, cfg = configs(eval_interval=2, epochs=5)
-    cfg.data.training_files = listing
+    cfg.data.training_files = cfg.data.validation_files = listing
     hpfile = str(tmp_path / "tiny.json")
     cfg.save(hpfile)
     args = ["-c", hpfile, "-m", "run", "-mr", str(tmp_path / "logs"), "--device", "cpu"]
@@ -107,7 +107,7 @@ def test_trainer_cli_trains_resumes_and_converts(tmp_path):
 
 @pytest.mark.parametrize("option", [
     {"precision": "bf16"}, {"split_prior": True}, {"zero_opt_state": True},
-    {"grad_reduce_dtype": "bf16"}, {"num_hosts": 2}, {"loader_mode": "process"}])
+    {"grad_reduce_dtype": "bf16"}, {"num_hosts": 2}])
 def test_unported_trainer_options_raise(tmp_path, option):
     """Each JAX-trainer option the port lacks stops the trainer at start,
     naming its ROADMAP item; none is ignored."""
@@ -115,7 +115,7 @@ def test_unported_trainer_options_raise(tmp_path, option):
 
     _, cfg = configs(**option)
     cfg.model_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A step 1[123]\b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A step 1[23]\b"):
         loop.run(cfg, torch.device("cpu"), max_steps=1)
 
 
