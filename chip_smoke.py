@@ -32,7 +32,12 @@
    K10 (the 3xTF32 tensor-core attention body) are timed in turns with
    ``F.scaled_dot_product_attention`` on the same inputs, their bound the
    3xTF32 one, with the float32-FMA bound beside it on their
-   ``kernel_check`` lines (``bound_f32_fma_ms``).
+   ``kernel_check`` lines (``bound_f32_fma_ms``). K2's bf16 mode (bf16
+   ``mma.sync``) is held against its plain version on the same bf16 inputs
+   at (8, 250, 768), the live wave windows of 64 streams and a ragged (3,
+   333, 768) (max |diff| <= 8e-3 max|v|, its error against float64
+   attention at most 1.5x the plain version's) and timed in turns with bf16
+   SDPA, its bound the bytes.
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
@@ -54,13 +59,20 @@
    (resumed) step; holds the eval with the trained ``G_7.pth`` on the card
    against the CPU plain path; compares the batches of the first 2 epochs
    (one each) from thread and process loader workers; converts a pair with
-   ``G_7.pth``.
+   ``G_7.pth``. Then the same trainer at ``precision: "bf16"`` (units on
+   the wire in bf16) for 4 steps with eval after update 1: finite losses,
+   K4 once a step, K1 and K3 in the float32 eval, float32 parameters and
+   moments in its checkpoints, its step walls and peak memory printed beside
+   the float32 run's.
 6. Drives the discriminator's opt-in K5/K6 path (``fused_conv5=True``, the
    A/B of ``scripts/disc_pallas_ab.py``): one D-phase forward and backward
    of the full-width MPD at the training batch, held against the default
    cuDNN discriminator.
 7. Checks one training step on the card against the same step on the CPU
-   plain path at a small config (same weights, batch and draws).
+   plain path at a small config (same weights, batch and draws), in float32
+   and at bf16 (the bf16 step relative to the CPU's bf16 error against its
+   float32 step; every parameter float32 after it), and the bf16 speaker
+   LSTM (cuDNN on the card, the JAX recurrence on the CPU) at full width.
 8. Drives offline unit encoding, the CLI ``quickvc_tpu_torch.encode`` with
    ``--batch 16``, at full width (the conversion's random HuBERT-soft) on 32
    seeded synthetic wavs in two 1-s buckets, three times: the default
@@ -94,11 +106,15 @@
     latency and launches per tick; profiles 5 unit ticks at N = 1 and 5
     wave ticks at N = 64; then a full-width unit session (N = 2, chunk 16,
     left and right 96, noise 0) over a 12-s unit stream and its flush
-    against batch ``infer`` of the same units.
+    against batch ``infer`` of the same units. The benchmark runs with
+    ``--precision f32`` and again with ``--precision bf16`` (K2's bf16 mode
+    12 times a wave tick), the step times printed side by side.
 14. Checks one streaming batch (HuBERT units of two 4-s sources, then
     ``streaming_infer``) and three ticks of a full-width wave session (N =
     2, chunk 16, left 48, right 16) on the card against the CPU plain path
-    (noise 0, 1e-3 x peak).
+    (noise 0, 1e-3 x peak); then three ticks of the same session at bf16
+    (K2 bf16, K3) against the CPU's bf16 session, relative to its bf16
+    error against its float32 one.
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -142,7 +158,9 @@ TPU_KERNELS = [
      "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: K4's real FFT (FFT_SIZES), "
      "dense DFT up to n_fft 4096"),
     ("K2", "quickvc_tpu/ops/fused_attention.py:113", "fused_attention_packed",
-     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
+     "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh (bf16 mma.sync, float32 "
+     "softmax and accumulation)"),
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
      "ported: quickvc_tpu_torch/csrc/fused_istft.cu; the JAX head's sizes, n_fft up to 2048; "
      "redesigned: persistent planned grid, host-built tables, loads one step ahead"),
@@ -150,20 +168,23 @@ TPU_KERNELS = [
      "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: real FFT (FFT_SIZES), "
      "dense DFT up to n_fft 4096"),
     ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward (and dx)",
-     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores"),
+     "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores; "
+     "bf16 mode: ROADMAP A18"),
     ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores, "
-     "deterministic split-K"),
+     "deterministic split-K; bf16 mode: ROADMAP A18"),
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
      "ported: quickvc_tpu_torch/csrc/fused_extractor.cu; redesigned: 3xTF32 tensor-core "
-     "implicit GEMM, conv0 produced on chip"),
+     "implicit GEMM, conv0 produced on chip; bf16 mode: ROADMAP A19"),
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
      "ported: quickvc_tpu_torch/csrc/fused_transformer.cu; redesigned: GEMMs and attention "
-     "on 3xTF32 tensor cores"),
+     "on 3xTF32 tensor cores; bf16 mode: ROADMAP A20"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
-     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
+     "bf16 mode: ROADMAP A21"),
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
-     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores"),
+     "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
+     "bf16 mode: ROADMAP A21"),
     ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm",
      "ported: quickvc_tpu_torch/csrc/int8_mm.cu; redesigned: persistent TMA + wgmma, bf16 "
      "without a B^T pre-pass"),
@@ -172,6 +193,7 @@ TPU_KERNELS = [
 # fall in the (600, 700]-frame bucket, cropped to max_speclen 512)
 TRAIN_STEPS = 7
 TRAIN_WARMUP = 2
+BF16_TRAIN_STEPS = 4   # the same trainer at precision bf16: eval after update 1 only
 # eval after updates 1 and 5 (the JAX loop's points at eval_interval 4) on three
 # held-out utterances that are not whole seconds, so the 1-s buckets reflect-pad
 EVAL_INTERVAL = 4
@@ -189,6 +211,7 @@ ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
                ("pallas_fused_layer", "pallas", True))   # (name, --hubert-front, fused_layer)
 # the port's __global__ functions, as the profiler names them
 DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_kernel",
+                    "attention_bf16_kernel",
                     "polar_istft_kernel",
                     "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
                     "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
@@ -196,10 +219,11 @@ DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_k
                     "mm_wgmma_kernel", "transpose_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
-# K2/K8/K9/K10, K5/K6's implicit GEMM and K6's split-K sum, K7, K8's GEMMs
-# and their split-K sum, K3's both bodies); none may spill
+# K2/K8/K9/K10 and K2's bf16 body, K5/K6's implicit GEMM and K6's split-K
+# sum, K7, K8's GEMMs and their split-K sum, K3's both bodies); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
-               "transpose_kernel", "attention_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
+               "transpose_kernel", "attention_kernel", "attention_bf16_kernel",
+               "conv5_gemm_kernel", "splitk_sum_kernel",
                "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
                "polar_istft_kernel", "polar_istft_kernel_rt")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
@@ -207,6 +231,8 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
               "mm_bf16": "redesigned: persistent TMA + wgmma, B read MN-major (no pre-pass)",
               "attention_packed": "redesigned: 3xTF32 tensor cores",
+              "attention_packed_bf16": "ported: bf16 mma.sync, float32 softmax and "
+                                       "accumulation",
               "attention_packed_aligned": "redesigned: 3xTF32 tensor cores",
               "attention": "redesigned: 3xTF32 tensor cores",
               "conv5_lrelu": "redesigned: 3xTF32 tensor-core implicit GEMM",
@@ -223,7 +249,9 @@ STREAM_CHUNK, STREAM_CONTEXT = 96, 96
 EDGE_FRAMES = 200     # trimmed at each edge before streaming and batch output are compared
 # live sessions: the realtime benchmark up to 64 streams, then a parity session
 LIVE_STREAMS = 64
-LIVE_ARGS = ["--device", "cuda", "--iters", "10", "--max-streams", str(LIVE_STREAMS)]
+LIVE_ARGS = ["--device", "cuda", "--iters", "10", "--max-streams", str(LIVE_STREAMS),
+             "--precision", "f32"]
+LIVE_ARGS_BF16 = LIVE_ARGS[:-1] + ["bf16"]
 PARITY_FRAMES, PARITY_CHUNK, PARITY_CONTEXT = 600, 16, 96
 LIVE_SPAN = "quickvc_live_ticks"   # profiled span of a few live-session ticks
 
@@ -443,6 +471,7 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         shape=[[b, t_u, d]] * 3, **merge_checks(k2_checks),
         **turns(k2, k2_library), plain_ms=cuda_ms(k2_plain),
         **attention_bounds(4 * b * t_u * t_u * d, 4 * 4 * b * t_u * d)))
+    results.append(check_attention_bf16(dev, shapes))
 
     # K3 at the decoder head of the same batch: 4 bands x 8 rows, 20*250+1 frames,
     # read as strided views of the subband conv output like the decoder does;
@@ -517,6 +546,60 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
         r["bound_by"] = "operations" if r["bound_ops_ms"] >= r["bound_bytes_ms"] else "bytes"
     return results
+
+
+def check_attention_bf16(dev: torch.device, shapes: dict) -> dict:
+    """K2's bf16 mode at the conversion's HuBERT shape (8, 250, 768), the live
+    wave windows of 64 streams and a ragged T, against its plain version on
+    the same bf16 inputs: max |kernel - plain| <= 8e-3 max|v|, and the
+    kernel's max error against float64 attention of those inputs at most
+    1.5x the plain version's (PERF.md section 2); timed in turns with SDPA
+    on the same bf16 (B, H, T, 64) inputs."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    def inputs(b: int, t: int, seed: int):
+        qkv = torch.randn(b, t, 3 * 768, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(seed))
+        return qkv.bfloat16().chunk(3, dim=-1)
+
+    def exact(q, k, v):
+        b, t, _ = q.shape
+        qh, kh, vh = (z.double().reshape(b, t, 12, 64).transpose(1, 2) for z in (q, k, v))
+        o = torch.softmax(qh @ kh.transpose(-1, -2) * 0.125, dim=-1) @ vh
+        return o.transpose(1, 2).reshape(b, t, 768)
+
+    def check(q, k, v) -> dict:
+        ours = fa.attention_packed_kernel(q, k, v, 12, 0.125)
+        plain = fa.attention_packed_reference(q, k, v, 12, 0.125)
+        ref = exact(q, k, v)
+        err_k, err_p = (float((x.double() - ref).abs().max()) for x in (ours, plain))
+        tol = 8e-3 * float(v.float().abs().max())
+        diff = (ours.float() - plain.float()).abs()
+        return {"max_abs_err": float(diff.max()),
+                "max_rel_err": float((diff / plain.float().abs().clamp(min=1e-12)).max()),
+                "err_f64_kernel": err_k, "err_f64_plain": err_p, "atol": tol, "rtol": 0.0,
+                "dtype": str(ours.dtype),
+                "within_tol": bool(ours.dtype == torch.bfloat16 and float(diff.max()) <= tol
+                                   and err_k <= 1.5 * err_p)}
+
+    b, t_u = BATCH, 5 * SR // 320
+    k2b_shapes = [(b, t_u), *((LIVE_STREAMS, t) for t in shapes["live_windows"]), (3, 333)]
+    checks = {str((n, t, 768)): check(*inputs(n, t, SEED + 40 + i))
+              for i, (n, t) in enumerate(k2b_shapes)}
+    q, k, v = inputs(b, t_u, SEED + 39)
+    qh, kh, vh = (z.reshape(b, t_u, 12, 64).transpose(1, 2).contiguous() for z in (q, k, v))
+    flops, nbytes = 4 * b * t_u * t_u * 768, 4 * 2 * b * t_u * 768
+    return dict(
+        name="attention_packed_bf16", tpu_id="K2",
+        source="quickvc_tpu_torch/csrc/fused_attention_bf16.cuh",
+        replaces="quickvc_tpu/ops/fused_attention.py:113", shape=[[b, t_u, 768]] * 3,
+        **merge_checks(checks),
+        **turns(lambda: fa.attention_packed_kernel(q, k, v, 12, 0.125),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)),
+        plain_ms=cuda_ms(lambda: fa.attention_packed_reference(q, k, v, 12, 0.125)),
+        bound_ops_ms=flops / BF16_FLOPS * 1e3, bound_bytes_ms=nbytes / HBM_BYTES * 1e3)
 
 
 def check_training_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
@@ -1414,6 +1497,67 @@ def check_training(tmp: str, rng: np.random.Generator, files, n_frames) -> dict:
     # the trained generator converts (reference layout, strict load)
     conv = run_convert([hpfile, g_path, files[2], files[3]], os.path.join(tmp, "trained_out"))
     check_outputs(conv, n_frames)
+    out["hpfile"] = hpfile
+    return out
+
+
+def check_training_bf16(tmp: str, f32: dict) -> dict:
+    """The trainer CLI at ``precision: "bf16"`` on the same corpus and config
+    (compact transfer, the units shipped as bf16), BF16_TRAIN_STEPS steps with
+    eval after update 1: finite losses, no skipped update, K4 once a step, K1
+    (FFT route) and K3 twice a held-out item in the float32 eval and nothing
+    else, float32 parameters and AdamW moments in the checkpoints; the step
+    walls and peak memory printed beside the float32 run's of this call."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.ops import fused_mel
+
+    with open(f32["hpfile"]) as f:
+        cfg = json.load(f)
+    cfg["train"]["precision"] = "bf16"
+    hpfile = os.path.join(tmp, "train_config_bf16.json")
+    with open(hpfile, "w") as f:
+        json.dump(cfg, f)
+    root = os.path.join(tmp, "logs_bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    summary = run_train(hpfile, root, BF16_TRAIN_STEPS)
+    launches = ops.launch_counts()
+    mel_routes = dict(fused_mel.STATS.routes)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_eval = 2 * len(EVAL_SECONDS) * len(range(0, BF16_TRAIN_STEPS, EVAL_INTERVAL))
+    expected = {name: 0 for name in launches} | {"wave_to_spec_halo": BF16_TRAIN_STEPS,
+                                                 "wave_to_mel": per_eval,
+                                                 "polar_inverse_stft": per_eval}
+    dtypes = set()
+    for kind in "GD":
+        ckpt = torch.load(os.path.join(root, "smoke", f"{kind}_{BF16_TRAIN_STEPS}.pth"),
+                          weights_only=True)
+        dtypes |= {str(v.dtype) for v in ckpt["model"].values()}
+        dtypes |= {str(v.dtype) for st in ckpt["optimizer"]["state"].values()
+                   for v in st.values()}
+    losses = summary["losses"]
+    timed = summary["step_seconds"][TRAIN_WARMUP:]
+    out = {"steps": summary["steps"], "step_seconds": summary["step_seconds"],
+           "mean_step_seconds": float(np.mean(timed)),
+           "f32_mean_step_seconds": f32["mean_step_seconds"],
+           "peak_memory_gb": peak_gb, "f32_peak_memory_gb": f32["peak_memory_gb"],
+           "eval_seconds": [e["seconds"] for e in summary["evals"]], "evals": summary["evals"],
+           "losses_first": losses[0], "losses_last": losses[-1],
+           "checkpoint_dtypes": sorted(dtypes), "launches": launches,
+           "expected_launches": expected, "wave_to_mel_routes": mel_routes}
+    print("train_bf16 " + json.dumps(out))
+    require(summary["steps"] == BF16_TRAIN_STEPS == len(losses),
+            f"{BF16_TRAIN_STEPS} bf16 training steps")
+    require(all(np.isfinite(v) for step in losses for v in step.values()),
+            "finite bf16 losses")
+    require(not any(step["skipped"] for step in losses), "no bf16 update skipped by the guard")
+    require([e["step"] for e in summary["evals"]] == [0], "one eval, after update 1")
+    require(all(np.isfinite(v) for e in summary["evals"] for v in e.values()),
+            "finite eval metrics of the bf16 run")
+    require(launches == expected, f"bf16 training launches {launches} != {expected}")
+    require(mel_routes == {"fft": per_eval}, f"the eval's log-mels took routes {mel_routes}")
+    require(dtypes == {"torch.float32"}, f"bf16 checkpoints hold {dtypes}, not float32 only")
     return out
 
 
@@ -1470,55 +1614,119 @@ def check_disc_fused(dev: torch.device, rng: np.random.Generator) -> dict:
 
 
 def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
-    """A small config, the same weights, compact batch and draws on both."""
+    """A small config, the same weights, compact batch and draws on both, in
+    float32 (losses rtol 2e-4, gradients 2e-3) and at ``precision: "bf16"``,
+    held relative to the bf16 error of the CPU step against its float32 step
+    (PERF.md section 2): losses ``|card - cpu| <= max(2 |cpu - cpu_f32|,
+    4e-3 |cpu_f32|)``, each gradient ``maxrel(card, cpu) <= max(2
+    maxrel(cpu, cpu_f32), 2e-2)``; every parameter float32 afterwards. The
+    posterior noise is bf16-valued, so both precisions draw the same."""
     import copy
 
     from quickvc_tpu_torch.config import config_from_dict
     from quickvc_tpu_torch.train.state import create_train_state
     from quickvc_tpu_torch.train.step import mel_basis, train_step
 
-    cfg = config_from_dict({
-        "train": {"segment_size": 2560, "max_speclen": 32, "precision": "f32",
-                  "learning_rate": 1e-4, "disc_width": 0.25, "batch_size": 2},
-        "model": {"inter_channels": 16, "hidden_channels": 16, "upsample_initial_channel": 32,
-                  "gin_channels": 16, "resblock_kernel_sizes": [3],
-                  "resblock_dilation_sizes": [[1, 3, 5]], "enc_wn_layers": 2,
-                  "flow_wn_layers": 2, "n_flows": 2}})
+    def small(precision: str):
+        return config_from_dict({
+            "train": {"segment_size": 2560, "max_speclen": 32, "precision": precision,
+                      "learning_rate": 1e-4, "disc_width": 0.25, "batch_size": 2},
+            "model": {"inter_channels": 16, "hidden_channels": 16,
+                      "upsample_initial_channel": 32, "gin_channels": 16,
+                      "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 3, 5]],
+                      "enc_wn_layers": 2, "flow_wn_layers": 2, "n_flows": 2}})
+
     frames = 16
     wave = np.stack([synth_voice(1.0, SR, rng)[: frames * 320 + 960] for _ in range(2)])
     batch = {"unit": torch.from_numpy(rng.standard_normal((2, frames, 256)).astype(np.float32)),
              "wave_s16": torch.from_numpy(np.round(wave * 32767).astype(np.int16)),
              "n_take": torch.tensor([frames, frames - 5], dtype=torch.int32)}
     eps_q = torch.from_numpy(rng.standard_normal((2, 16, frames)).astype(np.float32))
+    eps_q = eps_q.bfloat16().float()
     ids = torch.tensor([3, 8])
-    cpu = create_train_state(cfg, torch.device("cpu"))
-    gpu = create_train_state(cfg, torch.device("cuda"), copy.deepcopy(cpu.net_g),
-                             copy.deepcopy(cpu.net_d))
-    results = []
-    for state in (cpu, gpu):
-        dev = next(state.net_g.parameters()).device
-        # the CPU side on torch's native convolutions: oneDNN's float32 weight
-        # gradients of the scale discriminator's first convolutions drift by
-        # up to 3e-3 of their max, depending on the thread count
-        with torch.backends.mkldnn.flags(enabled=False):
-            results.append(train_step(state, {k: v.to(dev) for k, v in batch.items()},
-                                      mel_basis(cfg, dev), eps_q=eps_q.to(dev), ids_slice=ids,
-                                      debug_grads=True))
-    ref, ours = results
+    base = create_train_state(small("f32"), torch.device("cpu"))
+    results, params_f32 = {}, True
+    for precision in ("f32", "bf16"):
+        cfg = small(precision)
+        for name in ("cpu", "cuda"):
+            dev = torch.device(name)
+            state = create_train_state(cfg, dev, copy.deepcopy(base.net_g),
+                                       copy.deepcopy(base.net_d))
+            # the CPU side on torch's native convolutions: oneDNN's float32 weight
+            # gradients of the scale discriminator's first convolutions drift by
+            # up to 3e-3 of their max, depending on the thread count
+            with torch.backends.mkldnn.flags(enabled=False):
+                results[precision, name] = train_step(
+                    state, {k: v.to(dev) for k, v in batch.items()}, mel_basis(cfg, dev),
+                    eps_q=eps_q.to(dev), ids_slice=ids, debug_grads=True)
+            params_f32 &= all(p.dtype == torch.float32 for net in (state.net_g, state.net_d)
+                              for p in net.parameters())
     loss_keys = ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl",
                  "loss/g/total")
+
+    def maxrel(a, b) -> float:
+        return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max().clamp(min=1e-6))
+
+    ref, ours = results["f32", "cpu"], results["f32", "cuda"]
     losses = {k: [float(ours[k]), float(ref[k])] for k in loss_keys}
-    grad_err = {}
+    grad_err = {which: max(maxrel(ours[f"debug/{which}_grads"][k], v)
+                           for k, v in ref[f"debug/{which}_grads"].items())
+                for which in ("d", "g")}
+    ref16, ours16 = results["bf16", "cpu"], results["bf16", "cuda"]
+    losses16, loss16_ok = {}, True
+    for k in loss_keys:
+        o, r, y = float(ours16[k]), float(ref16[k]), float(ref[k])
+        bound = max(2 * abs(r - y), 4e-3 * abs(y))
+        losses16[k] = {"card": o, "cpu": r, "cpu_f32": y, "err": abs(o - r), "bound": bound}
+        loss16_ok &= abs(o - r) <= bound
+    grads16, grad16_ok = {}, True
     for which in ("d", "g"):
-        grad_err[which] = max(
-            float((ours[f"debug/{which}_grads"][k].cpu() - v).abs().max()
-                  / v.abs().max().clamp(min=1e-6))
-            for k, v in ref[f"debug/{which}_grads"].items())
-    out = {"losses_card_cpu": losses, "grad_max_rel_err": grad_err}
+        ratios = {}
+        for k, r in ref16[f"debug/{which}_grads"].items():
+            err = maxrel(ours16[f"debug/{which}_grads"][k], r)
+            bound = max(2 * maxrel(r, ref[f"debug/{which}_grads"][k]), 2e-2)
+            ratios[k] = err / bound
+            grad16_ok &= err <= bound
+        worst = max(ratios, key=ratios.get)
+        grads16[which] = {"tensors": len(ratios), "worst": worst,
+                          "worst_err_over_bound": ratios[worst]}
+    out = {"losses_card_cpu": losses, "grad_max_rel_err": grad_err,
+           "bf16": {"losses": losses16, "grads": grads16, "params_float32": params_f32}}
     print("train_cpu_reference_check " + json.dumps(out))
     require(all(abs(a - b) <= 1e-5 + 2e-4 * abs(b) for a, b in losses.values()),
             "training losses on the card match the CPU path")
     require(max(grad_err.values()) < 2e-3, "training gradients on the card match the CPU path")
+    require(loss16_ok, "bf16 training losses on the card match the CPU path")
+    require(grad16_ok, "bf16 training gradients on the card match the CPU path")
+    require(params_f32, "every parameter stays float32 after a bf16 step")
+    return out
+
+
+def check_speaker_lstm_bf16(rng: np.random.Generator) -> dict:
+    """The speaker encoder at bf16 at full width on a training-shaped mel
+    (32, 512, 80): cuDNN's LSTM on bf16 weight copies on the card against the
+    JAX recurrence step by step on the CPU (``models/encoders.py``), the
+    CPU's float32 ``nn.LSTM`` the yardstick: d-vectors within
+    ``max(2 max|cpu - cpu_f32|, 1e-2 peak)``."""
+    from quickvc_tpu_torch.models.encoders import SpeakerEncoder
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    enc = init_random_(SpeakerEncoder(), SEED + 5)
+    mel = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, 512, 80)).astype(np.float32))
+    with torch.no_grad():
+        ref32 = enc(mel)
+        ref = enc(mel.bfloat16()).float()
+        enc.cuda()
+        t0 = time.perf_counter()
+        ours = enc(mel.cuda().bfloat16()).float().cpu()
+        seconds = time.perf_counter() - t0
+    err, bf16_err = float((ours - ref).abs().max()), float((ref - ref32).abs().max())
+    out = {"shape": list(ours.shape), "max_abs_err": err, "cpu_bf16_vs_f32_max_abs": bf16_err,
+           "card_vs_cpu_f32_max_abs": float((ours - ref32).abs().max()),
+           "peak": float(ref32.abs().max()), "card_seconds": seconds}
+    out["bound"] = max(2 * bf16_err, 1e-2 * out["peak"])
+    print("speaker_lstm_bf16_check " + json.dumps(out))
+    require(err <= out["bound"], "the bf16 speaker LSTM on the card matches the CPU recurrence")
     return out
 
 
@@ -1863,6 +2071,72 @@ def check_sessions_against_cpu(net_g, hubert, rng: np.random.Generator) -> dict:
     return out
 
 
+def check_live_bf16(f32_points: list[dict]) -> dict:
+    """The live benchmark at ``--precision bf16`` (the JAX benchmark's
+    default): the same points as the float32 run, each tick's launches
+    checked (K2 in its bf16 mode, 12 a wave tick), the step times printed
+    beside the float32 run's of this call."""
+    from quickvc_tpu_torch.scripts import realtime_bench
+
+    records = realtime_bench.main(LIVE_ARGS_BF16)
+    require(len(records) == len(f32_points), f"{len(f32_points)} bf16 live points")
+    for rec in records:
+        want = {"polar_inverse_stft": 1} | ({"attention_packed_bf16": 12}
+                                            if rec["domain"] == "wave" else {})
+        require(rec["launches_per_tick"] == want,
+                f"bf16 {rec['domain']} x {rec['streams']} tick launches "
+                f"{rec['launches_per_tick']} != {want}")
+    side = [{"domain": a["domain"], "streams": a["streams"], "chunk_ms": a["chunk_ms"],
+             "f32_step_ms": a["step_ms"], "bf16_step_ms": b["step_ms"]}
+            for a, b in zip(f32_points, records)]
+    print("live_bf16 " + json.dumps({"vs_f32": side}))
+    return {"points": records, "vs_f32": side}
+
+
+def check_bf16_session_against_cpu(net_g, hubert, rng: np.random.Generator) -> dict:
+    """Three ticks of a 2-stream bf16 wave session (chunk 16, left 48, right
+    16, noise 0) on the card (K2 bf16, K3) against the same session on the
+    CPU, the CPU's float32 session the yardstick (PERF.md section 2):
+    ``max|card - cpu| <= max(2 max|cpu - cpu_f32|, 1e-2 peak)``. The card's
+    launches are this path's: the counters zeroed just before it."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.infer import RealtimeWaveSession
+
+    hop, chunk, ticks = 320, 16, 3
+    live = np.stack([synth_voice(ticks * chunk * hop / SR + 1e-3, SR, rng)[: ticks * chunk * hop]
+                     for _ in range(2)])
+    g = rng.standard_normal((2, 256)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+
+    def path(dev, dtype):
+        h, net = hubert.to(dev), net_g.to(dev)
+        session = RealtimeWaveSession(net, g, h, chunk=chunk, left=48, right=16, device=dev,
+                                      dtype=dtype)
+        return np.concatenate([session.push(live[:, i * chunk * hop : (i + 1) * chunk * hop])
+                               for i in range(ticks)], axis=1)
+
+    cpu = torch.device("cpu")
+    ref32, ref = path(cpu, torch.float32), path(cpu, torch.bfloat16)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ours = path(torch.device("cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expected = {name: 0 for name in launches} | {"attention_packed_bf16": 12 * ticks,
+                                                 "polar_inverse_stft": ticks}
+    err, bf16_err = float(np.abs(ours - ref).max()), float(np.abs(ref - ref32).max())
+    peak = float(np.abs(ref32).max())
+    out = {"streams": 2, "ticks": ticks, "shape": list(ours.shape), "max_abs_err": err,
+           "cpu_bf16_vs_f32_max_abs": bf16_err, "peak": peak,
+           "bound": max(2 * bf16_err, 1e-2 * peak), "launches": launches,
+           "expected_launches": expected}
+    print("bf16_session_cpu_reference_check " + json.dumps(out))
+    require(ours.shape == (2, ticks * chunk * hop), "bf16 session output length")
+    require(launches == expected, f"bf16 session launches {launches} != {expected}")
+    require(err <= out["bound"], "the bf16 wave session on the card matches the CPU's")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1921,8 +2195,10 @@ def main() -> int:
         train = check_training(tmp, rng, files, n_frames)
         encoding = check_encoding(tmp, rng, files[2])
         check_encode_against_cpu(tmp, rng, files[2])
+        check_training_bf16(tmp, train)
         check_streaming(tmp, rng, files)
-        check_live_sessions(dev, net_g, hubert, rng)
+        live = check_live_sessions(dev, net_g, hubert, rng)
+        check_live_bf16(live["points"])
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
     expected = {name: 0 for name in launches} | {
@@ -1940,12 +2216,15 @@ def main() -> int:
     print("convert " + json.dumps(throughput))
     reference = check_against_cpu(cfg, net_g, hubert, rng)
     check_sessions_against_cpu(net_g, hubert, rng)
+    bf16_session = check_bf16_session_against_cpu(net_g, hubert, rng)
     disc = check_disc_fused(dev, rng)
     check_train_step_against_cpu(rng)
+    check_speaker_lstm_bf16(rng)
 
     # launches: each kernel's count in the path that runs it (the counters
     # zeroed just before that path, read just after)
     path_of = {"wave_to_mel": ("convert", launches), "attention_packed": ("convert", launches),
+               "attention_packed_bf16": ("live_bf16_session", bf16_session["launches"]),
                "polar_inverse_stft": ("convert", launches),
                "wave_to_spec_halo": ("train", train["launches"]),
                "conv5_lrelu": ("disc_fused_path", disc["launches"]),
@@ -1974,7 +2253,7 @@ def main() -> int:
                       "device_kernels", "pre_pass_launched", "library_f32_out_ms",
                       "library_f32_out_note", "ms_32_8", "dense_800_ms",
                       "dense_800_plain_ms", "dense_800_bound_ms", "device_ms_shapes",
-                      "l2_cold_device_ms"):
+                      "l2_cold_device_ms", "err_f64_kernel", "err_f64_plain", "dtype"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

@@ -1,5 +1,5 @@
 // Kernels K2, K9 and K10: multi-head attention, float32, for sm_90a, on
-// three layouts of q/k/v.
+// three layouts of q/k/v; and K2's bf16 mode (fused_attention_bf16.cuh).
 //
 // Replaces the TPU kernels of quickvc_tpu/ops/fused_attention.py:
 //   K2  fused_attention_packed          (pallas_call at :113, body _packed_kernel :58-85):
@@ -31,6 +31,7 @@
 // copies are in fused_attention.cuh, which K8's layer shares.
 
 #include "fused_attention.cuh"
+#include "fused_attention_bf16.cuh"
 
 // K2, and K9 with D = 128: q/k/v (B, T, H*D) with row strides q_ts, k_ts,
 // v_ts and batch strides q_bs, k_bs, v_bs (head h at column offset h*D) into
@@ -56,4 +57,19 @@ extern "C" int qvc_attention_headed(const void* q, const void* k, const void* v,
   return (int)attn::launch_any(D, (const float*)q, (const float*)k, (const float*)v, (float*)o,
                                batch, T, H, {q_bs, q_hs, q_ts}, {k_bs, k_hs, k_ts},
                                {v_bs, v_hs, v_ts}, so, scale, (cudaStream_t)stream);
+}
+
+// K2 at bf16: q/k/v (B, T, H*D) bfloat16 with row strides q_ts, k_ts, v_ts
+// and batch strides q_bs, k_bs, v_bs (in values; head h at column h*D) into
+// the packed bfloat16 (B, T, H*D) output o. D is 16, 32, 64 or 128.
+extern "C" int qvc_attention_packed_bf16(const void* q, const void* k, const void* v, void* o,
+                                         int batch, int T, int H, int D, long long q_bs,
+                                         long long q_ts, long long k_bs, long long k_ts,
+                                         long long v_bs, long long v_ts, float scale,
+                                         void* stream) {
+  using attn_bf16::bf16_t;
+  const attn_bf16::Strides so{(long long)T * H * D, D, (long long)H * D};
+  return (int)attn_bf16::launch_any(D, (const bf16_t*)q, (const bf16_t*)k, (const bf16_t*)v,
+                                    (bf16_t*)o, batch, T, H, {q_bs, D, q_ts}, {k_bs, D, k_ts},
+                                    {v_bs, D, v_ts}, so, scale, (cudaStream_t)stream);
 }

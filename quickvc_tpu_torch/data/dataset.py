@@ -12,7 +12,12 @@ with its HuBERT-soft units in a sibling ``.npy`` of shape (frames, 256).
 - ``transfer='compact'``: unit (B, L, 256), the raw int16 crop with the
   STFT halo ``wave_s16`` (B, L*hop + n_fft - hop) and the valid-frame counts
   ``n_take`` (B,); the training step computes the spectrogram on the card
-  (kernel K4) and masks past ``n_take``.
+  (kernel K4) and masks past ``n_take``. At ``train.precision: "bf16"`` the
+  units ship in bf16, the dtype the step casts them to, as the JAX loader
+  ships them (``quickvc_tpu/data/dataset.py:256-268``): numpy has no bf16,
+  so the buffers hold the bit patterns as ``uint16``
+  (:mod:`quickvc_tpu_torch.utils.bf16`), which the trainer views as
+  ``torch.bfloat16`` after its copy.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from quickvc_tpu_torch.config import QuickVCConfig
 from quickvc_tpu_torch.data.audio_io import read_wav
 from quickvc_tpu_torch.dsp.stft import wave_to_spec
+from quickvc_tpu_torch.utils import bf16
 
 BUCKET_BOUNDARIES = [32, 40, 50, 60, 70, 80, 90, 100, 110, 120, 160, 200, 230,
                      260, 300, 350, 400, 450, 500, 600, 700, 800, 900, 1000]
@@ -164,6 +170,11 @@ class BucketSampler:
         return sum(n // self.batch_size for n in self.num_samples_per_bucket)
 
 
+def bf16_wire(cfg: QuickVCConfig) -> bool:
+    """True when the units ship as bf16 bits (compact transfer at bf16)."""
+    return cfg.train.transfer == "compact" and cfg.train.precision == "bf16"
+
+
 def collate_shapes(batch: int, bucket_lo: int, cfg: QuickVCConfig) -> dict[str, tuple]:
     """(shape, dtype) of a bucket's assembly buffers (the unit, spec and wave
     buffers keep the trailing frame that the yielded arrays drop)."""
@@ -172,7 +183,8 @@ def collate_shapes(batch: int, bucket_lo: int, cfg: QuickVCConfig) -> dict[str, 
     f32 = np.dtype(np.float32)
     if cfg.train.transfer == "compact":
         pad = (cfg.data.filter_length - hop) // 2
-        return {"unit": ((batch, seg, cfg.model.unit_channels), f32),
+        unit = np.dtype(np.uint16) if bf16_wire(cfg) else f32
+        return {"unit": ((batch, seg, cfg.model.unit_channels), unit),
                 "wave_s16": ((batch, (seg - 1) * hop + 2 * pad), np.dtype(np.int16)),
                 "n_take": ((batch,), np.dtype(np.int32))}
     return {"unit": ((batch, seg, cfg.model.unit_channels), f32),
@@ -199,12 +211,13 @@ def collate_batch(items: list[dict[str, np.ndarray]], bucket_lo: int,
     if cfg.train.transfer == "compact":
         pad = (cfg.data.filter_length - hop) // 2
         out_unit, out_w16, out_take = out["unit"], out["wave_s16"], out["n_take"]
+        wire = bf16.to_bits if bf16_wire(cfg) else np.asarray
         for i, it in enumerate(items):
             n_frames = min(it["unit"].shape[0], it["wave"].shape[0] // hop)
             start = int(rng.integers(0, max(n_frames - seg, 0) + 1))
             take = min(seg - 1, n_frames)  # valid frames after the trailing drop
-            out_unit[i, :take] = it["unit"][start : start + take]
-            out_unit[i, take:] = 0.0
+            out_unit[i, :take] = wire(it["unit"][start : start + take])
+            out_unit[i, take:] = 0     # 0.0 in float32 and in bf16 bits
             # the s16 round trip is exact: the samples came from int16 / 32768
             w16 = np.pad((it["wave"][:, 0] * 32768.0).astype(np.int16), (pad, pad),
                          mode="reflect")

@@ -25,7 +25,12 @@ chunk's duration plus the lookahead plus the step's compute time
 
 Input and output are numpy arrays; the window, the nets and the step live on
 ``device`` (the card unless the caller passes ``"cpu"``), where the nets
-must already be.
+must already be. ``dtype`` is the step's compute dtype: float32 by default;
+``torch.bfloat16`` runs the step as the JAX live benchmark's bf16 steps do
+(``scripts/realtime_bench.py:65-77``): units (from the window, or from
+HuBERT-soft run on the bf16 wave window and cast to float32 first) and the
+d-vectors cast to bf16 into ``infer`` at the session's noise; the audio
+comes back float32.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ class RealtimeSession:
 
     def __init__(self, net, g_vec, *, chunk: int = 16, left: int = 48, right: int = 16,
                  hop_length: int = 320, unit_channels: int | None = None,
-                 noise_scale: float = 0.0, seed: int = 0, device: str | torch.device = "cuda"):
+                 noise_scale: float = 0.0, seed: int = 0, device: str | torch.device = "cuda",
+                 dtype: torch.dtype = torch.float32):
         if chunk < 1 or left < 0 or right < 0:
             raise ValueError("chunk >= 1, contexts >= 0 required")
         self.device = resolve_device(device)
@@ -57,6 +63,7 @@ class RealtimeSession:
         self.hop = hop_length
         self.window = left + chunk + right
         self.noise_scale = float(noise_scale)
+        self.dtype = dtype
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         dim = net.enc_p.pre.in_channels if unit_channels is None else unit_channels
         self._buf = torch.zeros((self.batch, self.window, dim), device=self.device)
@@ -73,8 +80,8 @@ class RealtimeSession:
         """One tick on the device: a (N, window, C) unit window -> the
         (N, chunk * hop) centre of its synthesis."""
         with torch.inference_mode():
-            wave = self.net.infer(window.transpose(1, 2), self.g_vec, self.noise_scale,
-                                  self._gen)
+            wave = self.net.infer(window.transpose(1, 2).to(self.dtype),
+                                  self.g_vec.to(self.dtype), self.noise_scale, self._gen)
         lo = self.left * self.hop
         return wave[:, 0, lo : lo + self.chunk * self.hop]
 
@@ -133,7 +140,7 @@ class RealtimeWaveSession(RealtimeSession):
     def step(self, window: torch.Tensor) -> torch.Tensor:
         """One tick: a (N, window * hop) wave window -> (N, chunk * hop) samples."""
         with torch.inference_mode():
-            units = self.hubert.units(window)
+            units = self.hubert.units(window.to(self.dtype)).float()
         return super().step(units)
 
     def _block(self, wave: np.ndarray | None) -> torch.Tensor:

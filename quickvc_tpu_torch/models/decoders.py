@@ -19,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as polar_inverse_stft_plain
-from quickvc_tpu_torch.models.layers import (WNConv1d, WNConvTranspose1d,
+from quickvc_tpu_torch.models.layers import (Conv1d, WNConv1d, WNConvTranspose1d,
                                              leaky_relu, reflection_pad_left)
 from quickvc_tpu_torch.models.modules import ResBlock1
 from quickvc_tpu_torch.ops.fused_istft import polar_inverse_stft
@@ -39,7 +39,7 @@ class MultistreamISTFTGenerator(nn.Module):
         self.n_fft, self.hop = gen_istft_n_fft, gen_istft_hop_size
         uic = upsample_initial_channel
         self.conv_pre = WNConv1d(initial_channel, uic, 7, padding=3)
-        self.cond = nn.Conv1d(gin_channels, uic, 1)
+        self.cond = Conv1d(gin_channels, uic, 1)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
@@ -61,7 +61,11 @@ class MultistreamISTFTGenerator(nn.Module):
         """``differentiable=True`` (training) runs the head as the plain
         :func:`quickvc_tpu_torch.dsp.istft.polar_inverse_stft`, which autograd
         differentiates, as the JAX training step runs its XLA head;
-        ``False`` (inference) dispatches the head to kernel K3 on the card."""
+        ``False`` (inference) dispatches the head to kernel K3 on the card.
+
+        The backbone computes in ``x``'s dtype; the head takes its spectra in
+        float32 whatever that dtype (``quickvc_tpu/dsp/istft.py:114-115``), so
+        both outputs are float32."""
         x = self.conv_pre(x) + self.cond(g)
         for i, up in enumerate(self.ups):
             x = up(leaky_relu(x))
@@ -74,7 +78,7 @@ class MultistreamISTFTGenerator(nn.Module):
         # The head reads these strided views in place: (B*s, F, n_freq).
         spec = x.view(b * s, 2 * n_freq, f).transpose(1, 2)
         head = polar_inverse_stft_plain if differentiable else polar_inverse_stft
-        wave = head(spec[..., :n_freq], spec[..., n_freq:], self.n_fft, self.hop)
+        wave = head(spec[..., :n_freq].float(), spec[..., n_freq:].float(), self.n_fft, self.hop)
         y_mb = wave.view(b, s, -1)
         y_mb = F.conv_transpose1d(y_mb, self.updown_filter * s, stride=s)
         return self.multistream_conv_post(y_mb), y_mb

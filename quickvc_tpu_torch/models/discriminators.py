@@ -13,6 +13,11 @@ stacks). ``fused_conv5=True`` routes each period discriminator's fifth conv
 (C -> C, (5, 1), stride 1) through kernels K5/K6
 (:mod:`quickvc_tpu_torch.ops.fused_disc_conv`); it is off by default, as in
 the JAX package.
+
+Each conv computes in its input's dtype (float32 parameters cast where
+used, as ``quickvc_tpu/models/discriminators.py:43-49``); the training step
+feeds bf16 waves at ``precision: "bf16"``. K5/K6 take float32 only, so
+``fused_conv5=True`` with a bf16 wave raises ``TypeError`` (ROADMAP A18).
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ K2 on the packed q/k/v (or, with ``use_fused_layer``, each layer whole as
 kernel K8), and the 256-d soft projection. Keys follow
 ``quickvc_tpu/utils/hubert_port.py:expected_hubert_sd_shapes``, so a bshall
 ``hubert-soft.pt`` loads strictly (``utils/weights.py:load_hubert``).
+
+It computes in the wave's dtype, as the JAX package does: a bf16 wave runs
+every conv and linear in bf16 (float32 parameters cast where used), the
+norms in float32 on the upcast input with the result cast back
+(``norm_like``), GELU in its tanh form, and attention through K2's bf16 mode
+on the card. The ``pallas`` front (K7) and the fused layer (K8) take float32
+only (ROADMAP A19, A20).
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.models.layers import WNConv1d
+from quickvc_tpu_torch.models.layers import Conv1d, Linear, WNConv1d, cast_like, norm_like
 from quickvc_tpu_torch.ops.fused_attention import attention_packed
 from quickvc_tpu_torch.ops.fused_extractor import extractor_front, groupnorm_affine_closed_form
 from quickvc_tpu_torch.ops.fused_transformer import transformer_layer
@@ -48,12 +55,12 @@ class FeatureExtractor(nn.Module):
             raise ValueError(f"front {front!r} not in {FRONTS}")
         self.front = front
         c = channels
-        self.conv0 = nn.Conv1d(1, c, 10, 5, bias=False)
+        self.conv0 = Conv1d(1, c, 10, 5, bias=False)
         self.norm0 = nn.GroupNorm(c, c)
         for i in range(1, 5):
-            setattr(self, f"conv{i}", nn.Conv1d(c, c, 3, 2, bias=False))
+            setattr(self, f"conv{i}", Conv1d(c, c, 3, 2, bias=False))
         for i in range(5, 7):
-            setattr(self, f"conv{i}", nn.Conv1d(c, c, 2, 2, bias=False))
+            setattr(self, f"conv{i}", Conv1d(c, c, 2, 2, bias=False))
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         if self.front == "pallas":  # conv0 through conv1's GELU in one pass
@@ -67,7 +74,7 @@ class FeatureExtractor(nn.Module):
                     wav, self.conv0.weight, self.norm0.weight, self.norm0.bias)
                 x = gelu(y * scale[:, :, None].to(y.dtype) + shift[:, :, None].to(y.dtype))
             else:
-                x = gelu(self.norm0(y))
+                x = gelu(norm_like(self.norm0, y))
             first = 1
         for i in range(first, 7):
             x = gelu(getattr(self, f"conv{i}")(x))
@@ -78,10 +85,10 @@ class FeatureProjection(nn.Module):
     def __init__(self, conv_dim: int = 512, embed_dim: int = 768):
         super().__init__()
         self.norm = nn.LayerNorm(conv_dim)
-        self.projection = nn.Linear(conv_dim, embed_dim)
+        self.projection = Linear(conv_dim, embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.norm(x))
+        return self.projection(norm_like(self.norm, x))
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -104,10 +111,10 @@ class SelfAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
+        q, k, v = F.linear(x, *cast_like(x, self.in_proj_weight, self.in_proj_bias)).chunk(3, dim=-1)
         d = x.shape[-1] // self.num_heads
         return self.out_proj(attention_packed(q, k, v, self.num_heads, 1.0 / math.sqrt(d)))
 
@@ -126,16 +133,16 @@ class TransformerLayer(nn.Module):
         super().__init__()
         self.use_fused_layer = use_fused_layer
         self.self_attn = SelfAttention(embed_dim, num_heads)
-        self.linear1 = nn.Linear(embed_dim, ffn_dim)
-        self.linear2 = nn.Linear(ffn_dim, embed_dim)
+        self.linear1 = Linear(embed_dim, ffn_dim)
+        self.linear2 = Linear(ffn_dim, embed_dim)
         self.norm1 = nn.LayerNorm(embed_dim)
         self.norm2 = nn.LayerNorm(embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_fused_layer:
             return transformer_layer(x, self)
-        x = self.norm1(x + self.self_attn(x))
-        return self.norm2(x + self.linear2(gelu(self.linear1(x))))
+        x = norm_like(self.norm1, x + self.self_attn(x))
+        return norm_like(self.norm2, x + self.linear2(gelu(self.linear1(x))))
 
 
 class Encoder(nn.Module):
@@ -168,12 +175,12 @@ class HubertSoft(nn.Module):
         self.norm = nn.LayerNorm(embed_dim)
         self.encoder = Encoder(num_layers, embed_dim=embed_dim, num_heads=num_heads,
                                ffn_dim=ffn_dim, use_fused_layer=use_fused_layer)
-        self.proj = nn.Linear(embed_dim, unit_dim)
+        self.proj = Linear(embed_dim, unit_dim)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         x = self.feature_extractor(wav).transpose(1, 2)
         x = self.feature_projection(x)
-        x = self.norm(x + self.positional_embedding(x))
+        x = norm_like(self.norm, x + self.positional_embedding(x))
         return self.proj(self.encoder(x))
 
     def units(self, wav: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,20 @@ the legacy ``torch.nn.utils.weight_norm`` that reference checkpoints carry
 (``parametrizations.weight.original0/1`` would not load them), with the
 same rule: ``weight = g * v / ||v||``, the norm taken over every dim except
 ``dim``.
+
+Compute dtype, as the JAX layers have it (``quickvc_tpu/models/layers.py``):
+parameters stay float32, and each layer casts its (weight-normed) weight
+and its bias to the input's dtype where it uses them, so a bf16 input runs
+the layer in bf16 while gradients and optimizer moments stay float32. A
+float32 input is untouched (the casts are no-ops).
+
+On the card a bf16 convolution is cuDNN's: bf16 operands, float32 sums, the
+output rounded to bf16 once. Torch's CPU backends do not all compute that
+(oneDNN's bf16 transposed convolution gives wrong input gradients on some
+CPUs; the native path rounds partial sums), so on the CPU :func:`conv` takes
+the bf16-rounded operands through a float32 convolution and rounds its
+output to bf16 once: the card's arithmetic, which the CPU tests hold
+against the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +36,42 @@ def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
+
+
+def cast_like(x: torch.Tensor, *params: torch.Tensor | None) -> list[torch.Tensor | None]:
+    """``params`` in ``x``'s dtype (None stays None)."""
+    return [None if p is None else p.to(x.dtype) for p in params]
+
+
+def conv(fn, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+         *args) -> torch.Tensor:
+    """``fn(x, weight, bias, *args)``, a ``torch.nn.functional`` convolution, in
+    ``x``'s dtype (see the module's note on bf16 on the CPU)."""
+    w, b = cast_like(x, weight, bias)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return fn(x.float(), w.float(), None if b is None else b.float(), *args).to(x.dtype)
+    return fn(x, w, b, *args)
+
+
+def norm_like(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm or GroupNorm in float32 on ``x`` upcast, returned in ``x``'s
+    dtype, as the JAX package's ``norm_like`` (``models/hubert.py:37-45``)."""
+    return norm(x.float()).to(x.dtype)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` (same keys) computing in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.conv1d, x, self.weight, self.bias, self.stride, self.padding,
+                    self.dilation, self.groups)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (same keys) computing in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, *cast_like(x, self.weight, self.bias))
 
 
 def reflection_pad_left(x: torch.Tensor) -> torch.Tensor:
@@ -58,8 +108,8 @@ class WNConv1d(_WeightNorm):
         self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.weight(), self.bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        return conv(F.conv1d, x, self.weight(), self.bias, self.stride, self.padding,
+                    self.dilation, self.groups)
 
 
 class WNConv2d(_WeightNorm):
@@ -73,7 +123,7 @@ class WNConv2d(_WeightNorm):
         self.stride, self.padding = stride, padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight(), self.bias, self.stride, self.padding)
+        return conv(F.conv2d, x, self.weight(), self.bias, self.stride, self.padding)
 
 
 class WNConvTranspose1d(_WeightNorm):
@@ -87,5 +137,5 @@ class WNConvTranspose1d(_WeightNorm):
         self.stride, self.padding, self.output_padding = stride, padding, output_padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.weight(), self.bias, self.stride,
-                                  self.padding, self.output_padding)
+        return conv(F.conv_transpose1d, x, self.weight(), self.bias, self.stride,
+                    self.padding, self.output_padding)

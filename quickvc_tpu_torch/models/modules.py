@@ -4,7 +4,10 @@ Ports of ``quickvc_tpu/models/modules.py``, laid out as the reference
 (``modules.py:37-224``, ``models.py:17-95``) so its checkpoints load:
 per-layer ``in_layers``/``res_skip_layers`` (the last res/skip layer is h
 wide, skip only), ``flow.flows.{2i}`` couplings interleaved with Flips.
-Tensors are channels-first (B, C, T).
+Tensors are channels-first (B, C, T). Every block computes in its input's
+dtype (float32 parameters cast where used, ``layers.py``): the WaveNet's
+skip sum starts as zeros of that dtype and the posterior noise is drawn in
+it, as the JAX modules do (``quickvc_tpu/models/modules.py:81, 200``).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from quickvc_tpu_torch.models.layers import WNConv1d, get_padding, leaky_relu
+from quickvc_tpu_torch.models.layers import Conv1d, WNConv1d, get_padding, leaky_relu
 
 
 class WN(nn.Module):
@@ -80,9 +83,9 @@ class ResidualCouplingLayer(nn.Module):
                  dilation_rate: int, n_layers: int, gin_channels: int = 0):
         super().__init__()
         self.half = channels // 2
-        self.pre = nn.Conv1d(self.half, hidden_channels, 1)
+        self.pre = Conv1d(self.half, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
-        self.post = nn.Conv1d(hidden_channels, self.half, 1)
+        self.post = Conv1d(hidden_channels, self.half, 1)
 
     def forward(self, x: torch.Tensor, g: torch.Tensor | None = None,
                 reverse: bool = False) -> torch.Tensor:
@@ -126,19 +129,20 @@ class CondNormalWN(nn.Module):
                  gin_channels: int = 0):
         super().__init__()
         self.out_channels = out_channels
-        self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
+        self.pre = Conv1d(in_channels, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
-        self.proj = nn.Conv1d(hidden_channels, 2 * out_channels, 1)
+        self.proj = Conv1d(hidden_channels, 2 * out_channels, 1)
 
     def forward(self, x: torch.Tensor, g: torch.Tensor | None = None,
                 noise_scale: float = 1.0, generator: torch.Generator | None = None,
                 eps: torch.Tensor | None = None):
         """``eps`` replaces the standard-normal draw (tests inject the JAX
-        package's noise through it)."""
+        package's noise through it); drawn or given, the noise takes ``mu``'s
+        dtype."""
         stats = self.proj(self.enc(self.pre(x), g))
         mu, logs = stats[:, : self.out_channels], stats[:, self.out_channels :]
         if noise_scale == 0.0:
             return mu, mu, logs
         if eps is None:
             eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
-        return mu + eps * torch.exp(logs) * noise_scale, mu, logs
+        return mu + eps.to(mu.dtype) * torch.exp(logs) * noise_scale, mu, logs

@@ -6,6 +6,11 @@ forward flow, a random ``segment_size``-frame slice decoded with the
 differentiable head) and ``infer`` (prior sample, reverse flow, decoder with
 kernel K3). Tensors are channels-first: unit (B, 256, F), spec (B, 641, F),
 mel (B, 80, F), as the reference's ``forward(c, spec, mel)`` takes them.
+
+Both compute in their inputs' dtype (the training step and the live bench
+pass bf16 at ``precision: "bf16"``, as the JAX step and bench cast): the
+waves come back float32 (the decoder's head computes in float32), the
+latents of ``forward`` in the inputs' dtype.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_ist
                                fused_disc_conv.DW_STATS, fused_extractor.STATS,
                                fused_transformer.STATS, fused_attention.ALIGNED_STATS,
                                fused_attention.HEADED_STATS, int8_mm.S8_STATS,
-                               int8_mm.BF16_STATS)}
+                               int8_mm.BF16_STATS, fused_attention.BF16_STATS)}
 
 
 def reset_launch_counts() -> None:

@@ -35,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
            "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu", "mma_rate.cu")
-HEADERS = ("fused_attention.cuh", "tf32x3.cuh")  # included by several sources
+HEADERS = ("fused_attention.cuh", "fused_attention_bf16.cuh",
+           "tf32x3.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "qvc_wave_to_spec_halo_dense": [_P, _P] + [_I] * 6 + [_P],
     "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _I, _I, _P, _P, _I, _P],
     "qvc_attention_packed": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    "qvc_attention_packed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     "qvc_attention_headed": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw": [_P] * 4 + [_I] * 6 + [_P],
@@ -189,12 +191,40 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             "through the plain version instead)")
 
 
-def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is float32 on one CUDA device."""
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
+# why a float32-only kernel refuses bf16: K1, K3 and K4 have no bf16 mode in
+# JAX either (its bf16 paths cast at their edges); K5-K10 have one, each
+# queued in ROADMAP.md under the label named here
+AT_EDGE = "the JAX kernel computes in float32 too; a bf16 path casts at its edge"
+
+
+def bf16_item(label: str) -> str:
+    return f"its bf16 mode is ROADMAP {label}, not ported yet"
+
+
+def require_dtype(name: str, *tensors: torch.Tensor, dtypes=F32, why: str = "") -> torch.dtype:
+    """Raise TypeError unless every tensor has one dtype, and one of ``dtypes``
+    (``why`` says why another is refused); returns that dtype. The
+    dispatchers call it on both devices, so the CPU tests see the card's
+    contract."""
+    for t in tensors:
+        if t.dtype not in dtypes:
+            takes = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{name}: kernel takes {takes}, got {t.dtype}"
+                            + (f" ({why})" if why else ""))
+    kinds = {t.dtype for t in tensors}
+    if len(kinds) > 1:
+        raise TypeError(f"{name}: inputs of one dtype, got {[str(t.dtype) for t in tensors]}")
+    return kinds.pop()
+
+
+def require_cuda(name: str, *tensors: torch.Tensor, dtypes=F32, why: str = "") -> torch.dtype:
+    """Raise unless every tensor is on one CUDA device (ValueError) with one
+    dtype of ``dtypes`` (TypeError); returns that dtype."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+    return require_dtype(name, *tensors, dtypes=dtypes, why=why)

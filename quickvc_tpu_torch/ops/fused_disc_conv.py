@@ -29,12 +29,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library,
-                                         require_cuda_f32, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (KernelStats, bf16_item, check, device_sms, library,
+                                         require_cuda, require_dtype, stream_ptr)
 
 K5 = 5
 STATS = KernelStats("conv5_lrelu")        # K5 launches: forward and dx
 DW_STATS = KernelStats("conv5_lrelu_dw")  # K6 launches
+BF16_MODE = bf16_item("A18")   # the fused D phase at bf16
 
 # The kernels' tiling (csrc/fused_disc_conv.cu: BM, BN, BK, MIN_BLOCKS): a
 # block computes a TILE_M x TILE_N output tile, walks K in tiles of K_TILE
@@ -109,7 +110,7 @@ def conv5_lrelu_reference(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def _require(name: str, *tensors: torch.Tensor) -> None:
-    require_cuda_f32(name, *tensors)
+    require_cuda(name, *tensors, why=BF16_MODE)
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous, got strides {t.stride()}")
@@ -182,7 +183,9 @@ class Conv5LReLU(torch.autograd.Function):
 
 def conv5_lrelu(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                 slope: float = 0.1) -> torch.Tensor:
-    """(N, R, C_in) -> (N, R, C_out): plain on CPU, K5/K6 on CUDA."""
+    """(N, R, C_in) -> (N, R, C_out): plain on CPU, K5/K6 on CUDA; float32
+    only on both (a bf16 ``x`` raises TypeError)."""
+    require_dtype("conv5_lrelu", x, why=BF16_MODE)
     if x.device.type == "cpu":
         return conv5_lrelu_reference(x, kernel, bias, slope)
     return Conv5LReLU.apply(x, kernel, bias, slope)

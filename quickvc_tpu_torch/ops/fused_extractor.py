@@ -29,10 +29,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library, refuse_grad,
-                                         require_cuda_f32, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (KernelStats, bf16_item, check, library, refuse_grad,
+                                         require_cuda, require_dtype, stream_ptr)
 
 STATS = KernelStats("extractor_front")
+BF16_MODE = bf16_item("A19")   # the `pallas` encode front at bf16
 
 
 def groupnorm_affine_closed_form(wav: torch.Tensor, conv0_weight: torch.Tensor,
@@ -78,7 +79,7 @@ def extractor_front_kernel(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Ten
                            beta: torch.Tensor, w1: torch.Tensor,
                            eps: float = 1e-5) -> torch.Tensor:
     """Launch K7 on float32 CUDA tensors; the affine is computed first in PyTorch."""
-    require_cuda_f32("extractor_front", wav, w0, gamma, beta, w1)
+    require_cuda("extractor_front", wav, w0, gamma, beta, w1, why=BF16_MODE)
     b, t = wav.shape
     c = w0.shape[0]
     n1 = front_rows(t)
@@ -106,6 +107,7 @@ def extractor_front(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
                     beta: torch.Tensor, w1: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """The extractor front: plain on CPU, K7 on CUDA. No backward."""
     refuse_grad("extractor_front", wav, w0, gamma, beta, w1)
+    require_dtype("extractor_front", wav, why=BF16_MODE)
     if wav.device.type == "cpu":
         return extractor_front_reference(wav, w0, gamma, beta, w1, eps)
     return extractor_front_kernel(wav, w0, gamma, beta, w1, eps)

@@ -21,8 +21,8 @@ import torch
 from quickvc_tpu_torch.dsp.istft import _inverse_dft_matrices, _ola_envelope
 from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as polar_inverse_stft_plain
 from quickvc_tpu_torch.dsp.stft import hann_window
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library, refuse_grad,
-                                         require_cuda_f32, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (AT_EDGE, KernelStats, check, device_sms, library,
+                                         refuse_grad, require_cuda, stream_ptr)
 
 STATS = KernelStats("polar_inverse_stft")
 # the (n_fft, hop) with a body of its own (configs/quickvc.json decoder)
@@ -176,7 +176,7 @@ def polar_inverse_stft_kernel(log_mag: torch.Tensor, phase: torch.Tensor,
                               n_fft: int, hop: int) -> torch.Tensor:
     """Launch K3: (rows, F, n_fft//2+1) x2 float32 CUDA, any strides ->
     (rows, hop*(F-1)); (n_fft, hop) as :func:`istft_route` takes them."""
-    require_cuda_f32("polar_inverse_stft", log_mag, phase)
+    require_cuda("polar_inverse_stft", log_mag, phase, why=AT_EDGE)
     compiled = (n_fft, hop) == COMPILED
     if not compiled:
         istft_route(n_fft, hop)

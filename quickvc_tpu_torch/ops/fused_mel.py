@@ -28,8 +28,8 @@ from quickvc_tpu_torch.dsp.mel import mel_filterbank
 from quickvc_tpu_torch.dsp.stft import padded_window
 from quickvc_tpu_torch.dsp.stft import wave_to_mel as wave_to_mel_plain
 from quickvc_tpu_torch.dsp.stft import wave_to_spec_halo as wave_to_spec_halo_plain
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library, refuse_grad,
-                                         require_cuda_f32, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (AT_EDGE, KernelStats, check, library, refuse_grad,
+                                         require_cuda, stream_ptr)
 
 STATS = KernelStats("wave_to_mel")
 SPEC_STATS = KernelStats("wave_to_spec_halo")
@@ -55,7 +55,7 @@ def _device_tables(device: torch.device, sr, n_fft, n_mels, fmin, fmax):
 
 
 def _require_wave(name: str, y: torch.Tensor) -> None:
-    require_cuda_f32(name, y)
+    require_cuda(name, y, why=AT_EDGE)
     if y.dim() != 2 or not y.is_contiguous():
         raise ValueError(f"{name}: need a contiguous (B, T) wave, got "
                          f"{tuple(y.shape)} strides {y.stride()}")

@@ -25,10 +25,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library, refuse_grad,
-                                         require_cuda_f32, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (KernelStats, bf16_item, check, device_sms, library,
+                                         refuse_grad, require_cuda, require_dtype, stream_ptr)
 
 STATS = KernelStats("transformer_layer")
+BF16_MODE = bf16_item("A20")   # the fused-layer encode at bf16
 HEAD_DIM = 64   # compiled into the attention (HuBERT-base: 768 / 12)
 EPS = 1e-5
 
@@ -124,7 +125,7 @@ def transformer_layer_reference(x: torch.Tensor, layer) -> torch.Tensor:
 def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
     """Launch K8 on a float32 CUDA (B, T, H*64) tensor and the layer's weights."""
     weights = [w.contiguous() for w in _weights(layer)]
-    require_cuda_f32("transformer_layer", x, *weights)
+    require_cuda("transformer_layer", x, *weights, why=BF16_MODE)
     b, t, d = x.shape
     h = layer.self_attn.num_heads
     f = weights[6].shape[0]
@@ -157,6 +158,7 @@ def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
 def transformer_layer(x: torch.Tensor, layer) -> torch.Tensor:
     """One post-norm layer: plain on CPU, K8 on CUDA. No backward."""
     refuse_grad("transformer_layer", x, *_weights(layer))
+    require_dtype("transformer_layer", x, why=BF16_MODE)
     if x.device.type == "cpu":
         return transformer_layer_reference(x, layer)
     return transformer_layer_kernel(x, layer)

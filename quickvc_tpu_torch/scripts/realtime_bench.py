@@ -15,10 +15,12 @@ it prints one JSON line:
 - ``launches_per_tick``: the port's kernel launches in one step.
 
 A point is real-time when step_ms < the chunk's duration; the largest such N
-is the card's live-stream capacity at that latency.
+is the card's live-stream capacity at that latency. ``--precision bf16``
+(the default, as the JAX benchmark's) runs the sessions' steps in bf16 as
+the JAX benchmark's ``synth_step`` and ``wave_step`` do; ``f32`` in float32.
 
     python -m quickvc_tpu_torch.scripts.realtime_bench [--device cuda|cpu] [--iters 20]
-        [--precision f32] [--max-streams N]
+        [--precision bf16|f32] [--max-streams N]
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--iters", type=int, default=20, help="timed steps per point")
-    p.add_argument("--precision", choices=["f32", "bf16"], default="f32")
+    p.add_argument("--precision", choices=["f32", "bf16"], default="bf16")
     p.add_argument("--max-streams", type=int, default=None,
                    help="skip the points with more concurrent streams than this")
     return p.parse_args(argv)
@@ -61,10 +63,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> list[dict]:
     """Run the benchmark; returns one record per point."""
     args = parse_args(argv)
-    if args.precision != "f32":
-        raise NotImplementedError(
-            f"--precision {args.precision} (bf16 serving): not ported yet (ROADMAP queue A "
-            "step 13); the port serves in float32")
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -83,7 +82,8 @@ def main(argv=None) -> list[dict]:
             continue
         g = rng.standard_normal((n, cfg.model.gin_channels)).astype(np.float32)
         g /= np.linalg.norm(g, axis=1, keepdims=True)
-        kw = dict(chunk=chunk, left=left, right=right, hop_length=hop, device=device)
+        kw = dict(chunk=chunk, left=left, right=right, hop_length=hop, device=device,
+                  dtype=dtype)
         window = left + chunk + right
         if domain == "units":
             session = RealtimeSession(net, g, **kw)
@@ -102,6 +102,7 @@ def main(argv=None) -> list[dict]:
         chunk_ms = chunk * FRAME_MS
         rec = {"domain": domain, "streams": n, "chunk_ms": chunk_ms,
                "lookahead_ms": right * FRAME_MS, "window_frames": window, "device": kind,
+               "precision": args.precision,
                "step_ms": step_ms, "rtf": step_ms / chunk_ms,
                "latency_ms": chunk_ms + right * FRAME_MS + step_ms,
                "realtime": step_ms < chunk_ms, "launches_per_tick": launches}

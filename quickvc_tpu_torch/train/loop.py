@@ -20,6 +20,10 @@ same updates as an uninterrupted one. Past ``train.max_host_rss_gb`` the
 run checkpoints and exits with code 75, which ``scripts/supervise_train.py
 -- python -m quickvc_tpu_torch.train ...`` answers with a relaunch.
 
+``train.precision`` sets the step's compute dtype (``train/step.py``); the
+eval runs in float32 whatever it is, as the JAX loop's does, and
+checkpoints hold float32 parameters and moments either way.
+
 Runs on the card unless ``--device cpu`` is given; CUDA without a card raises.
 """
 
@@ -50,6 +54,15 @@ from quickvc_tpu_torch.utils.checkpoint import (latest_step, load_checkpoint, pr
 from quickvc_tpu_torch.utils.device import resolve_device
 from quickvc_tpu_torch.utils.logging import Summarizer, get_logger, plot_spectrogram
 from quickvc_tpu_torch.utils.weights import init_random_, load_discriminator, load_generator
+
+
+def _upload(v: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of one wire array on ``device``; bf16 bit patterns (``uint16``,
+    the compact wire's units at ``precision: "bf16"``) are viewed as
+    ``torch.bfloat16`` after the copy."""
+    if v.dtype == np.uint16:
+        return torch.tensor(v.view(np.int16), device=device).view(torch.bfloat16)
+    return torch.tensor(v, device=device)
 
 
 def _pad_frames(x: np.ndarray, target: int) -> np.ndarray:
@@ -272,7 +285,7 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
                 t0 = time.perf_counter()
                 g = state.step
                 # a copy: process workers' arrays live in shared memory they reuse
-                batch = {k: torch.tensor(v, device=device) for k, v in host_batch.items()}
+                batch = {k: _upload(v, device) for k, v in host_batch.items()}
                 del host_batch
                 gen.manual_seed(t.seed * 1_000_003 + g)  # resumable draws
                 m = train_step(state, batch, basis, generator=gen)
@@ -378,7 +391,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # float32 everywhere: cuDNN convolutions would otherwise run in TF32
+        # float32 products in float32: cuDNN convolutions would otherwise run in TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.config, args.model, args.modelroot)

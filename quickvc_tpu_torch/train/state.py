@@ -35,7 +35,6 @@ def check_supported(cfg: QuickVCConfig) -> None:
     """Raise NotImplementedError for JAX-trainer options the port lacks."""
     t = cfg.train
     missing = [
-        (t.precision != "f32", f"train.precision={t.precision!r} (bf16 training)", 13),
         (t.split_prior, "train.split_prior=true", 12),
         (t.zero_opt_state, "train.zero_opt_state=true (ZeRO-1 moments)", 12),
         (t.grad_reduce_dtype != "f32",
@@ -47,7 +46,7 @@ def check_supported(cfg: QuickVCConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what}: not ported yet (ROADMAP queue A step {item}); the "
-                "port trains in float32 in one process")
+                "port trains in one process")
 
 
 def make_optimizer(params, cfg: QuickVCConfig) -> torch.optim.AdamW:

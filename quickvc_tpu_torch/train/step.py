@@ -13,10 +13,18 @@ Port of ``quickvc_tpu/train/step.py:134-357`` (reference ``train.py:117-162``):
    matching + 45 * mel-L1 (``y_hat``'s mel by the differentiable
    :func:`quickvc_tpu_torch.dsp.stft.wave_to_mel`) + KL; AdamW step of G.
 
+Precision (``train.precision``, ``quickvc_tpu/train/step.py:123-131,
+186-215, 247-270``): at ``"bf16"`` the generator takes unit, spec and mel in
+bf16 and its latents are cast back to float32; D takes the target and
+generated waves in bf16 and its logits are cast to float32; the feature
+maps stay bf16 into ``feature_loss``. The spectrogram (K4), the decoder's
+head, the mel loss, KL and the rest run in float32, and so do the
+parameters, their gradients and the AdamW moments.
+
 The guard: a non-finite gradient or loss, or ``|loss| >= guard_loss_max``,
 skips that network's optimizer step, so its params and moments stay as they
-were. The step returns the JAX step's metric names as tensors; reading them
-syncs with the card.
+were. The step returns the JAX step's metric names as float32 tensors;
+reading them syncs with the card.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from quickvc_tpu_torch.ops.slicing import slice_segments
 from quickvc_tpu_torch.train.state import TrainState
 
 STEP_SPAN = "quickvc_train_step"
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}   # train.precision -> compute dtype
 
 
 def mel_basis(cfg, device: torch.device) -> torch.Tensor:
@@ -105,17 +114,24 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
     net_g, net_d = state.net_g, state.net_d
     hop, seg_frames = cfg.data.hop_length, cfg.segment_frames
     guard = cfg.train.guard_nonfinite or cfg.train.guard_loss_max > 0
+    dt = DTYPES[cfg.train.precision]
     with torch.profiler.record_function(STEP_SPAN):
         unit, spec, wave = decode_batch(batch, cfg)
         mel = spec_to_mel(spec, basis)                                  # (B, F, 80)
-        y_hat, _, ids, (z, z_p, m_p, logs_p, m_q, logs_q) = net_g(
-            unit.transpose(1, 2), spec.transpose(1, 2), mel.transpose(1, 2),
-            generator, eps_q, ids_slice)
+        y_hat, _, ids, latents = net_g(
+            unit.transpose(1, 2).to(dt), spec.transpose(1, 2).to(dt),
+            mel.transpose(1, 2).to(dt), generator, eps_q, ids_slice)
+        z, z_p, m_p, logs_p, m_q, logs_q = (t.float() for t in latents)
         y_seg = slice_segments(wave[:, None], ids * hop, cfg.train.segment_size)
+
+        def disc(y_fake, pair):
+            logits_r, logits_g, fmap_r, fmap_g = net_d(y_seg.to(dt), y_fake.to(dt), pair=pair)
+            return ([l.float() for l in logits_r], [l.float() for l in logits_g],
+                    fmap_r, fmap_g)
 
         # ---- D phase ----
         d_names, d_params = zip(*net_d.named_parameters())
-        logits_r, logits_g, _, _ = net_d(y_seg, y_hat.detach(), pair=True)
+        logits_r, logits_g, _, _ = disc(y_hat.detach(), True)
         loss_disc, losses_d_r, losses_d_g = discriminator_loss(logits_r, logits_g)
         d_grads = torch.autograd.grad(loss_disc, d_params)
         d_ok = _guard_ok(d_grads, loss_disc, cfg) if guard else True
@@ -123,7 +139,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
 
         # ---- G phase, against the updated D ----
         with _frozen(net_d):
-            logits_r, logits_g, fmap_r, fmap_g = net_d(y_seg, y_hat, pair=False)
+            logits_r, logits_g, fmap_r, fmap_g = disc(y_hat, False)
         d = cfg.data
         y_hat_mel = wave_to_mel(y_hat[:, 0], basis, d.filter_length, hop, d.win_length)
         y_mel = slice_segments(mel.transpose(1, 2), ids, seg_frames).transpose(1, 2)
@@ -148,7 +164,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
         "img/mel_all": mel[0],
         "grad_norm/d": _global_norm(d_grads), "grad_norm/g": _global_norm(g_grads),
     }
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: v.detach().float() for k, v in metrics.items()}
     if guard:
         metrics["guard/d_skipped"] = torch.tensor(0.0 if d_ok else 1.0)
         metrics["guard/g_skipped"] = torch.tensor(0.0 if g_ok else 1.0)

@@ -16,7 +16,9 @@ full-width shapes, and bit-equal from one launch to the next), the
 extractor front atol 5e-4 / rtol 1e-3 (the JAX gate), the transformer layer and the K9/K10 attention layouts atol
 1e-4 / rtol 1e-3 (the extractor front and the layer also bit-equal from one
 launch to the next), the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
-1e-4, streaming and a live session on the card within 1e-3 x peak of the CPU.
+1e-4, streaming and a live session on the card within 1e-3 x peak of the CPU;
+K2's bf16 mode within 8e-3 max|v| of its plain version, its error against
+float64 attention at most 1.5x the plain version's.
 """
 
 import pytest
@@ -155,6 +157,39 @@ def test_attention_kernel_on_qkv_views(cuda, t_len):
     torch.testing.assert_close(
         ours, fused_attention.attention_packed_reference(q, k, v, 12, 0.125),
         atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("t_len,d", [(37, 64), (250, 64), (333, 64), (61, 16), (61, 32),
+                                     (61, 128)])
+def test_attention_bf16_kernel_on_qkv_views(cuda, t_len, d):
+    """K2's bf16 mode against its plain version on the same bf16 inputs:
+    max |diff| <= 8e-3 max|v|, its error against float64 attention at most
+    1.5x the plain version's; counted apart from the float32 launches."""
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    h = 768 // d if d == 64 else 4
+    qkv = torch.randn(3, t_len, 3 * h * d, device=cuda, generator=_gen(cuda, t_len + d))
+    q, k, v = qkv.bfloat16().chunk(3, dim=-1)
+    before = (fa.STATS.launches, fa.BF16_STATS.launches)
+    ours = fa.attention_packed(q, k, v, h, d ** -0.5)
+    assert (fa.STATS.launches, fa.BF16_STATS.launches) == (before[0], before[1] + 1)
+    plain = fa.attention_packed_reference(q, k, v, h, d ** -0.5)
+    qh, kh, vh = (z.double().reshape(3, t_len, h, d).transpose(1, 2) for z in (q, k, v))
+    exact = (torch.softmax(qh @ kh.transpose(-1, -2) * d ** -0.5, -1) @ vh
+             ).transpose(1, 2).reshape(3, t_len, h * d)
+    assert ours.dtype == torch.bfloat16
+    assert float((ours.float() - plain.float()).abs().max()) <= 8e-3 * float(v.float().abs().max())
+    assert (ours.double() - exact).abs().max() <= 1.5 * (plain.double() - exact).abs().max()
+
+
+def test_attention_bf16_kernel_refuses_mixed_dtypes(cuda):
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    q = torch.zeros(1, 8, 64, device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.attention_packed_kernel(q, q.bfloat16(), q, 1, 0.125)
+    with pytest.raises(TypeError, match="ROADMAP A21"):
+        fa.attention_kernel(*(q.bfloat16()[:, None],) * 3, 0.125)
 
 
 def test_polar_istft_kernel_on_strided_views(cuda):

@@ -265,7 +265,7 @@ def test_layer_wrapper_hands_the_kernel_its_plans(monkeypatch):
         sizes.append(shape)
         return real_empty(*shape, **kw)
 
-    monkeypatch.setattr(ft, "require_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(ft, "require_cuda", lambda *a, **kw: torch.float32)
     monkeypatch.setattr(ft, "library", lambda: FakeLib())
     monkeypatch.setattr(ft, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(ft, "device_sms", lambda index: 132)

@@ -280,7 +280,7 @@ def test_wrapper_hands_the_kernel_its_plan_and_tables(monkeypatch):
             calls.append(args)
             return 0
 
-    monkeypatch.setattr(fi, "require_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(fi, "require_cuda", lambda *a, **kw: torch.float32)
     monkeypatch.setattr(fi, "library", lambda: FakeLib())
     monkeypatch.setattr(fi, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(fi, "device_sms", lambda index: 132)

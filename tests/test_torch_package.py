@@ -27,7 +27,8 @@ def test_cli_cuda_without_card_raises(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import neither JAX nor
-    quickvc_tpu, nor tensorboard, tensorboardX, matplotlib, protobuf or soundfile."""
+    quickvc_tpu, nor tensorboard, tensorboardX, matplotlib, protobuf, soundfile
+    or ml_dtypes (the card's machine has no ml_dtypes: bf16 rides as uint16 bits)."""
     code = """
 import importlib, pkgutil, runpy, sys
 import quickvc_tpu_torch
@@ -36,7 +37,7 @@ for m in pkgutil.walk_packages(quickvc_tpu_torch.__path__, "quickvc_tpu_torch.")
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "quickvc_tpu",
                                                      "tensorboard", "tensorboardX", "matplotlib",
-                                                     "soundfile")
+                                                     "soundfile", "ml_dtypes")
        or n.startswith("google.protobuf")]
 new = ["quickvc_tpu_torch." + m for m in ("infer.streaming", "infer.realtime", "ops.int8_mm",
                                          "scripts.int8_matmul_probe", "scripts.realtime_bench")]

@@ -106,7 +106,7 @@ def test_trainer_cli_trains_resumes_and_converts(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    {"precision": "bf16"}, {"split_prior": True}, {"zero_opt_state": True},
+    {"split_prior": True}, {"zero_opt_state": True},
     {"grad_reduce_dtype": "bf16"}, {"num_hosts": 2}])
 def test_unported_trainer_options_raise(tmp_path, option):
     """Each JAX-trainer option the port lacks stops the trainer at start,
@@ -115,7 +115,7 @@ def test_unported_trainer_options_raise(tmp_path, option):
 
     _, cfg = configs(**option)
     cfg.model_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A step 1[23]\b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A step 12\b"):
         loop.run(cfg, torch.device("cpu"), max_steps=1)
 
 

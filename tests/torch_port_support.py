@@ -1,7 +1,7 @@
 """Shared set-up of the PyTorch-port tests: tiny JAX models, their weights in
 the port, a numpy emulation of the kernels' 3xTF32 tensor-core arithmetic,
-a numpy model of the real FFT that K1 and K4 share, and the JAX log-mel
-kernels' size rule.
+a numpy model of the real FFT that K1 and K4 share, the JAX log-mel
+kernels' size rule, and bf16 bit patterns read back as values or tensors.
 
 Inputs and weights come from numpy seeds; weights cross from
 the flax parameter trees through ``quickvc_tpu_torch.utils.weights``. JAX is
@@ -87,6 +87,18 @@ def tiny_hubert(front: str, seed: int = 0, fused_layer: bool = False):
 
 def t(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def bf16_values(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns (``quickvc_tpu_torch.utils.bf16.to_bits``) -> the
+    float32 values they stand for (exact)."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    """bf16 bit patterns -> a ``torch.bfloat16`` tensor sharing their memory."""
+    return torch.from_numpy(np.ascontiguousarray(bits, np.uint16).view(np.int16)).view(
+        torch.bfloat16)
 
 
 # 3xTF32 as csrc/tf32x3.cuh computes it: each float32 operand x split into
