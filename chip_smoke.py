@@ -37,7 +37,13 @@
    at (8, 250, 768), the live wave windows of 64 streams and a ragged (3,
    333, 768) (max |diff| <= 8e-3 max|v|, its error against float64
    attention at most 1.5x the plain version's) and timed in turns with bf16
-   SDPA, its bound the bytes.
+   SDPA, its bound the bytes. The bf16 modes of K7 (at the encoding batch),
+   K8 (at (16, 300, 768) and, split-K, (1, 300, 768)), K9 and K10 (at the
+   attention layouts' shapes) are held against their plain versions on the
+   same bf16 inputs (max |diff| <= 1e-2 max|plain| or two bf16 ulps of it,
+   and each kernel's error against its float32 kernel on the bf16-valued
+   inputs at most 1.5x the plain version's) and timed in turns with cuDNN's
+   bf16 chain, ``nn.TransformerEncoderLayer`` in bf16 and bf16 SDPA.
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
@@ -85,7 +91,8 @@
 10. Drives the attention ops API: K10 (``ops.fused_attention.attention``,
     (B, H, T, D)) at the conversion's HuBERT shape (8, 12, 250, 64) and at
     (2, 3, 50, 16), K9 (``attention_packed_aligned``) at (8, 250, 12*128),
-    through their public dispatchers; K9 and K10 are also held against their
+    through their public dispatchers, in float32 and again in bf16 (their
+    bf16 modes, counted apart); K9 and K10 are also held against their
     plain versions and ``F.scaled_dot_product_attention`` in step 2.
 11. Runs the int8 GEMM probe, ``python -m
     quickvc_tpu_torch.scripts.int8_matmul_probe`` (K11 in int8 and bf16 at
@@ -114,7 +121,10 @@
     2, chunk 16, left 48, right 16) on the card against the CPU plain path
     (noise 0, 1e-3 x peak); then three ticks of the same session at bf16
     (K2 bf16, K3) against the CPU's bf16 session, relative to its bf16
-    error against its float32 one.
+    error against its float32 one; and three ticks of the bf16 session with
+    a HuBERT running the ``pallas`` front and fused layers (K7 bf16 once and
+    K8 bf16 12 times a tick, K3), against the CPU's the same way, then at
+    N = 64 its step time over 5 ticks in turns with the ``faststats`` one.
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -175,16 +185,18 @@ TPU_KERNELS = [
      "deterministic split-K; bf16 mode: ROADMAP A18"),
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
      "ported: quickvc_tpu_torch/csrc/fused_extractor.cu; redesigned: 3xTF32 tensor-core "
-     "implicit GEMM, conv0 produced on chip; bf16 mode: ROADMAP A19"),
+     "implicit GEMM, conv0 produced on chip; bf16 mode: same file, on the bf16 mma.sync "
+     "core of quickvc_tpu_torch/csrc/bf16_gemm.cuh"),
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
      "ported: quickvc_tpu_torch/csrc/fused_transformer.cu; redesigned: GEMMs and attention "
-     "on 3xTF32 tensor cores; bf16 mode: ROADMAP A20"),
+     "on 3xTF32 tensor cores; bf16 mode: same file, GEMMs on the bf16 mma.sync core of "
+     "quickvc_tpu_torch/csrc/bf16_gemm.cuh, K2's bf16 attention body"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
-     "bf16 mode: ROADMAP A21"),
+     "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh at D = 128"),
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
-     "bf16 mode: ROADMAP A21"),
+     "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh"),
     ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm",
      "ported: quickvc_tpu_torch/csrc/int8_mm.cu; redesigned: persistent TMA + wgmma, bf16 "
      "without a B^T pre-pass"),
@@ -215,17 +227,20 @@ DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_k
                     "polar_istft_kernel",
                     "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
                     "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
-                    "row_layer_norm_kernel",
+                    "row_layer_norm_kernel", "extractor_front_bf16_kernel",
+                    "linear_bf16_kernel", "linear_bf16_splitk_kernel",
                     "mm_wgmma_kernel", "transpose_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
 # K2/K8/K9/K10 and K2's bf16 body, K5/K6's implicit GEMM and K6's split-K
-# sum, K7, K8's GEMMs and their split-K sum, K3's both bodies); none may spill
+# sum, K7, K8's GEMMs and their split-K sum, K3's both bodies, and the bf16
+# modes of K7 and K8's GEMMs); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
                "transpose_kernel", "attention_kernel", "attention_bf16_kernel",
                "conv5_gemm_kernel", "splitk_sum_kernel",
                "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
-               "polar_istft_kernel", "polar_istft_kernel_rt")
+               "extractor_front_bf16_kernel", "linear_bf16_kernel",
+               "linear_bf16_splitk_kernel", "polar_istft_kernel", "polar_istft_kernel_rt")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "wave_to_spec_halo": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
@@ -240,6 +255,12 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "extractor_front": "redesigned: 3xTF32 tensor-core implicit GEMM, conv0 "
                                  "produced on chip",
               "transformer_layer": "redesigned: GEMMs on 3xTF32 tensor cores, planned split-K",
+              "extractor_front_bf16": "ported: conv1 on the bf16 mma.sync GEMM core, h "
+                                      "produced on chip in bf16",
+              "transformer_layer_bf16": "ported: GEMMs on the bf16 mma.sync GEMM core, K2's "
+                                        "bf16 attention body",
+              "attention_packed_aligned_bf16": "ported: K2's bf16 body at D = 128",
+              "attention_bf16": "ported: K2's bf16 body on (B, H, T, D)",
               "polar_inverse_stft": "redesigned: persistent planned grid, host-built tables, "
                                     "loads one step ahead"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
@@ -253,6 +274,14 @@ LIVE_ARGS = ["--device", "cuda", "--iters", "10", "--max-streams", str(LIVE_STRE
              "--precision", "f32"]
 LIVE_ARGS_BF16 = LIVE_ARGS[:-1] + ["bf16"]
 PARITY_FRAMES, PARITY_CHUNK, PARITY_CONTEXT = 600, 16, 96
+# the bf16 modes of K7-K10 against their plain versions (PERF.md section 2):
+# max|kernel - plain| <= BF16_GATE max|plain| (or two bf16 ulps of it), and
+# the kernel's error against the float32 kernel on the same bf16-valued
+# inputs <= BF16_F32_RATIO times the plain version's
+BF16_GATE, BF16_F32_RATIO = 1e-2, 1.5
+# the bf16 wave session with the `pallas` front and fused layers: launches a tick
+PALLAS_BF16_TICK = {"extractor_front_bf16": 1, "transformer_layer_bf16": 12,
+                    "polar_inverse_stft": 1}
 LIVE_SPAN = "quickvc_live_ticks"   # profiled span of a few live-session ticks
 
 
@@ -541,6 +570,7 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     results += check_training_kernels(dev, rng)
     results += check_encoding_kernels(dev, rng)
     results += check_attention_layouts(dev)
+    results += check_bf16_modes(dev)
     results += check_gemm_kernels(dev)
     for r in results:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
@@ -766,11 +796,9 @@ def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[
     its library chain; bounds 3xTF32, the float32 FMA figure beside them."""
     import torch.nn.functional as F
 
-    from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import fused_extractor as fe
     from quickvc_tpu_torch.ops import fused_transformer as ft
     from quickvc_tpu_torch.ops._cuda import library
-    from quickvc_tpu_torch.utils.weights import init_random_
 
     results = []
     b, t_len, c = ENCODE_BATCH, 6 * SR + 80, 512
@@ -812,14 +840,7 @@ def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[
         bound_f32_fma_ms=(conv1_flops + conv0_flops) / F32_FLOPS * 1e3))
     del wav, front, plain, ours
 
-    # K8: a seeded layer with its biases and norm affines off their init constants
-    layer = init_random_(TransformerLayer(use_fused_layer=True), SEED + 8)
-    gen = torch.Generator().manual_seed(SEED + 8)
-    with torch.no_grad():
-        for prm in layer.parameters():
-            if prm.dim() == 1:
-                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
-    layer = layer.to(dev).eval()
+    layer = seeded_layer(dev)
     lib_layer = torch.nn.TransformerEncoderLayer(768, 12, 3072, dropout=0.0, activation="gelu",
                                                  batch_first=True).to(dev).eval()
     lib_layer.load_state_dict(layer.state_dict())
@@ -862,6 +883,198 @@ def check_encoding_kernels(dev: torch.device, rng: np.random.Generator) -> list[
         bound_ops_ms=3 * flops / TF32_FLOPS * 1e3,
         bound_bytes_ms=4 * (2 * m * d + 4 * d * d + 2 * d * f + 9 * d + f) / HBM_BYTES * 1e3,
         bound_f32_fma_ms=flops / F32_FLOPS * 1e3))
+    return results
+
+
+def seeded_layer(dev: torch.device):
+    """A seeded full-width HuBERT layer with its biases and norm affines off
+    their init constants, fused (K8), on ``dev``."""
+    from quickvc_tpu_torch.models.hubert import TransformerLayer
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    layer = init_random_(TransformerLayer(use_fused_layer=True), SEED + 8)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    with torch.no_grad():
+        for prm in layer.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+    return layer.to(dev).eval()
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return float(2.0 ** (np.floor(np.log2(x)) - 7)) if x > 0 else 0.0
+
+
+def bf16_gate(ours: torch.Tensor, plain: torch.Tensor, ref32: torch.Tensor) -> dict:
+    """A bf16 mode's gates on one shape (PERF.md section 2): max|ours - plain|
+    within BF16_GATE max|plain| or two bf16 ulps of it, and ours' max error
+    against the float32 kernel ``ref32`` on the same bf16-valued inputs at
+    most BF16_F32_RATIO times the plain version's."""
+    diff = (ours.float() - plain.float()).abs()
+    peak = float(plain.float().abs().max())
+    tol = max(BF16_GATE * peak, 2 * bf16_ulp(peak))
+    err_k, err_p = (float((z.float() - ref32.float()).abs().max()) for z in (ours, plain))
+    return {"max_abs_err": float(diff.max()),
+            "max_rel_err": float((diff / plain.float().abs().clamp(min=1e-12)).max()),
+            "atol": tol, "rtol": 0.0, "err_f32_kernel": err_k, "err_f32_plain": err_p,
+            "dtype": str(ours.dtype),
+            "within_tol": bool(ours.dtype == torch.bfloat16 and bool(torch.isfinite(ours).all())
+                               and float(diff.max()) <= tol and err_k <= BF16_F32_RATIO * err_p)}
+
+
+def check_bf16_modes(dev: torch.device) -> list[dict]:
+    """The bf16 modes of K7 (the encoding batch's 6-s bucket, (16, 96080) ->
+    (16, 9607, 512)), K8 ((16, 300, 768) and, split-K, (1, 300, 768)), K9
+    ((8, 250, 12*128)) and K10 ((8, 12, 250, 64) and (2, 3, 50, 16)) on bf16
+    inputs and float32 parameters, as the models hand them over, against
+    their plain versions and the float32 kernels (``bf16_gate``); each timed
+    in turns with its bf16 library call: cuDNN's bf16 chain (K7),
+    ``nn.TransformerEncoderLayer`` in bf16 (K8), bf16 SDPA (K9, K10). Its own
+    seeds, and torch's generators restored after it, so that the phases
+    after it draw what they drew before it was added."""
+    with torch.random.fork_rng(devices=[dev]):
+        return _check_bf16_modes(dev, np.random.default_rng(SEED + 13))
+
+
+def _check_bf16_modes(dev: torch.device, rng: np.random.Generator) -> list[dict]:
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_attention as fa
+    from quickvc_tpu_torch.ops import fused_extractor as fe
+    from quickvc_tpu_torch.ops import fused_transformer as ft
+
+    bf, results = torch.bfloat16, []
+    b, t_len, c = ENCODE_BATCH, 6 * SR + 80, 512
+    wav = torch.from_numpy(np.stack([synth_voice(6.0 + 0.01, SR, rng)[:t_len]
+                                     for _ in range(b)])).to(dev).to(bf)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    w0 = 0.3 * torch.randn(c, 1, 10, device=dev, generator=g)
+    gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
+    beta = 0.1 * torch.randn(c, device=dev, generator=g)
+    w1 = torch.randn(c, c, 3, device=dev, generator=g) / np.sqrt(3 * c)
+    front = (wav, w0, gamma, beta, w1)
+    w0b, w1b, gb, bb = (z.to(bf) for z in (w0, w1, gamma, beta))
+
+    def k7():
+        return fe.extractor_front_kernel(*front)
+
+    def k7_library():   # cuDNN's bf16 conv0 -> GroupNorm -> GELU -> conv1 -> GELU
+        y = F.gelu(F.group_norm(F.conv1d(wav[:, None], w0b, stride=5), c, gb, bb, 1e-5),
+                   approximate="tanh")
+        return F.gelu(F.conv1d(y, w1b, stride=2), approximate="tanh").transpose(1, 2)
+
+    ours = k7()
+    gate = bf16_gate(ours, fe.extractor_front_reference(*front), fe.extractor_front_kernel(
+        wav.float(), w0b.float(), gamma, beta, w1b.float()))
+    deterministic = bool(torch.equal(k7(), ours))
+    n1, tc = fe.front_rows(t_len), (t_len - 10) // 5 + 1
+    conv1_flops, conv0_flops = 2 * b * n1 * c * 3 * c, 2 * b * tc * c * 10
+    results.append(dict(
+        name="extractor_front_bf16", tpu_id="K7",
+        source="quickvc_tpu_torch/csrc/fused_extractor.cu",
+        replaces="quickvc_tpu/ops/fused_extractor.py:187", shape=[[b, t_len], [b, n1, c]],
+        **(gate | {"within_tol": gate["within_tol"] and deterministic}),
+        deterministic=deterministic, **turns(k7, k7_library, iters=10),
+        plain_ms=cuda_ms(lambda: fe.extractor_front_reference(*front), iters=10),
+        # conv1 on bf16 tensor cores, conv0 on the float32 FMA units; bytes:
+        # the bf16 wave, weights and output, the float32 affine
+        bound_ops_ms=(conv1_flops / BF16_FLOPS + conv0_flops / F32_FLOPS) * 1e3,
+        bound_bytes_ms=(2 * (b * t_len + 10 * c + 3 * c * c + b * n1 * c)
+                        + 4 * 2 * b * c) / HBM_BYTES * 1e3))
+    del wav, front, ours
+
+    layer = seeded_layer(dev)
+    # the float32 kernel's layer: the same parameters, its matrices bf16-valued
+    layer32 = seeded_layer(dev)
+    with torch.no_grad():
+        for prm in layer32.parameters():
+            if prm.dim() == 2:
+                prm.copy_(prm.to(bf).float())
+    lib_layer = torch.nn.TransformerEncoderLayer(768, 12, 3072, dropout=0.0, activation="gelu",
+                                                 batch_first=True).to(dev).eval()
+    lib_layer.load_state_dict(layer.state_dict())
+    lib_layer = lib_layer.to(bf)
+    t_u, d, f = 300, 768, 3072
+    x = torch.randn(b, t_u, d, device=dev, generator=g).to(bf)
+    x_one = torch.randn(1, t_u, d, device=dev, generator=g).to(bf)
+
+    def k8(z=x):
+        return ft.transformer_layer_kernel(z, layer)
+
+    def k8_library():
+        with torch.inference_mode():
+            return lib_layer(x)
+
+    checks = {str([b, t_u, d]): bf16_gate(k8(), ft.transformer_layer_reference(x, layer),
+                                          ft.transformer_layer_kernel(x.float(), layer32)),
+              str([1, t_u, d]) + " split-K": bf16_gate(
+                  k8(x_one), ft.transformer_layer_reference(x_one, layer),
+                  ft.transformer_layer_kernel(x_one.float(), layer32))}
+    merged = merge_checks(checks)
+    deterministic = bool(torch.equal(k8(), k8()) and torch.equal(k8(x_one), k8(x_one)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    m = b * t_u
+    flops = 2 * m * d * (4 * d + 2 * f) + 4 * b * 12 * t_u * t_u * 64
+    results.append(dict(
+        name="transformer_layer_bf16", tpu_id="K8",
+        source="quickvc_tpu_torch/csrc/fused_transformer.cu",
+        replaces="quickvc_tpu/ops/fused_transformer.py:155", shape=[[b, t_u, d]],
+        **(merged | {"within_tol": merged["within_tol"] and deterministic}),
+        deterministic=deterministic,
+        plans={str([b, t_u, d]): [p._asdict() for p in ft.layer_plans(m, d, f, sms,
+                                                                      ft.BF16_TILING)],
+               str([1, t_u, d]): [p._asdict() for p in ft.layer_plans(t_u, d, f, sms,
+                                                                     ft.BF16_TILING)]},
+        **turns(k8, k8_library), ms_split_k=cuda_ms(lambda: k8(x_one)),
+        plain_ms=cuda_ms(lambda: ft.transformer_layer_reference(x, layer)),
+        # bf16 products and attention; bytes: x, the bf16 weights, the
+        # float32 vectors, the output
+        bound_ops_ms=flops / BF16_FLOPS * 1e3,
+        bound_bytes_ms=(2 * (2 * m * d + 4 * d * d + 2 * d * f) + 4 * (9 * d + f))
+        / HBM_BYTES * 1e3))
+    del layer, layer32, lib_layer, x, x_one
+
+    a = attention_inputs(dev)
+    q, k, v = (z.to(bf) for z in a["headed"])
+    small = [z.to(bf) for z in a["headed_d16"]]
+    bh, h, t_a, dh = q.shape
+    checks = {"(8, 12, 250, 64)": bf16_gate(fa.attention_kernel(q, k, v, 0.125),
+                                            fa.attention_reference(q, k, v, 0.125),
+                                            fa.attention_kernel(q.float(), k.float(),
+                                                                v.float(), 0.125)),
+              "(2, 3, 50, 16)": bf16_gate(fa.attention_kernel(*small, 0.25),
+                                          fa.attention_reference(*small, 0.25),
+                                          fa.attention_kernel(*(z.float() for z in small),
+                                                              0.25))}
+    results.append(dict(
+        name="attention_bf16", tpu_id="K10",
+        source="quickvc_tpu_torch/csrc/fused_attention_bf16.cuh",
+        replaces="quickvc_tpu/ops/fused_attention.py:231", shape=[[bh, h, t_a, dh]] * 3,
+        **merge_checks(checks),
+        **turns(lambda: fa.attention_kernel(q, k, v, 0.125),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
+        plain_ms=cuda_ms(lambda: fa.attention_reference(q, k, v, 0.125)),
+        bound_ops_ms=4 * bh * h * t_a * t_a * dh / BF16_FLOPS * 1e3,
+        bound_bytes_ms=4 * 2 * bh * h * t_a * dh / HBM_BYTES * 1e3))
+
+    qa, ka, va = (z.to(bf) for z in a["aligned"])
+    heads = [z.reshape(bh, t_a, 12, 128).transpose(1, 2) for z in (qa, ka, va)]
+    out = fa.attention_packed_aligned_kernel(qa, ka, va, 12, 0.125)
+    gate = bf16_gate(out, fa.attention_packed_aligned_reference(qa, ka, va, 12, 0.125),
+                     fa.attention_packed_aligned_kernel(qa.float(), ka.float(), va.float(), 12,
+                                                        0.125))
+    pad_zero = not bool(out.reshape(bh, t_a, 12, 128)[..., 64:].any())
+    results.append(dict(
+        name="attention_packed_aligned_bf16", tpu_id="K9",
+        source="quickvc_tpu_torch/csrc/fused_attention_bf16.cuh",
+        replaces="quickvc_tpu/ops/fused_attention.py:194", shape=[[bh, t_a, 12 * 128]] * 3,
+        **(gate | {"within_tol": gate["within_tol"] and pad_zero}), padded_lanes_zero=pad_zero,
+        **turns(lambda: fa.attention_packed_aligned_kernel(qa, ka, va, 12, 0.125),
+                lambda: F.scaled_dot_product_attention(*heads, scale=0.125)),
+        plain_ms=cuda_ms(lambda: fa.attention_packed_aligned_reference(qa, ka, va, 12, 0.125)),
+        bound_ops_ms=4 * bh * 12 * t_a * t_a * 128 / BF16_FLOPS * 1e3,
+        bound_bytes_ms=4 * 2 * bh * t_a * 12 * 128 / HBM_BYTES * 1e3))
     return results
 
 
@@ -1837,27 +2050,33 @@ def check_encode_against_cpu(tmp: str, rng: np.random.Generator, hubert_pt: str)
 
 def drive_attention_api(dev: torch.device) -> dict:
     """K10 and K9 through their public dispatchers, ``attention`` and
-    ``attention_packed_aligned``, the counters zeroed just before and read
-    just after."""
+    ``attention_packed_aligned``, in float32 and then on the same inputs in
+    bf16 (their bf16 modes), the counters zeroed just before each pass and
+    read just after."""
     from quickvc_tpu_torch import ops
     from quickvc_tpu_torch.ops import fused_attention as fa
 
     x = attention_inputs(dev)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    with torch.inference_mode():
-        outs = {"headed": fa.attention(*x["headed"], 0.125),
-                "headed_d16": fa.attention(*x["headed_d16"], 0.25),
-                "aligned": fa.attention_packed_aligned(*x["aligned"], 12, 0.125)}
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    expected = {name: 0 for name in launches} | {"attention": 2, "attention_packed_aligned": 1}
-    out = {"shapes": {k: list(v.shape) for k, v in outs.items()}, "launches": launches,
-           "expected_launches": expected}
+    out = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        z = {k: [t.to(dtype) for t in v] for k, v in x.items()}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            outs = {"headed": fa.attention(*z["headed"], 0.125),
+                    "headed_d16": fa.attention(*z["headed_d16"], 0.25),
+                    "aligned": fa.attention_packed_aligned(*z["aligned"], 12, 0.125)}
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        expected = {name: 0 for name in launches} | {f"attention{suffix}": 2,
+                                                     f"attention_packed_aligned{suffix}": 1}
+        out |= {f"shapes{suffix}": {k: list(v.shape) for k, v in outs.items()},
+                f"dtypes{suffix}": sorted({str(v.dtype) for v in outs.values()}),
+                f"launches{suffix}": launches, f"expected_launches{suffix}": expected}
+        require(all(bool(torch.isfinite(v).all()) and v.dtype == dtype for v in outs.values()),
+                f"attention API outputs are finite {dtype}")
+        require(launches == expected, f"attention API launches {launches} != {expected}")
     print("attention_api " + json.dumps(out))
-    require(all(bool(torch.isfinite(v).all()) for v in outs.values()),
-            "attention API outputs are finite")
-    require(launches == expected, f"attention API launches {launches} != {expected}")
     return out
 
 
@@ -2093,10 +2312,12 @@ def check_live_bf16(f32_points: list[dict]) -> dict:
     return {"points": records, "vs_f32": side}
 
 
-def check_bf16_session_against_cpu(net_g, hubert, rng: np.random.Generator) -> dict:
+def check_bf16_session_against_cpu(net_g, hubert, rng: np.random.Generator,
+                                   name: str = "bf16_session", per_tick=None) -> dict:
     """Three ticks of a 2-stream bf16 wave session (chunk 16, left 48, right
-    16, noise 0) on the card (K2 bf16, K3) against the same session on the
-    CPU, the CPU's float32 session the yardstick (PERF.md section 2):
+    16, noise 0) on the card (by default K2 bf16 and K3; ``per_tick`` gives
+    another HuBERT's launches a tick) against the same session on the CPU,
+    the CPU's float32 session the yardstick (PERF.md section 2):
     ``max|card - cpu| <= max(2 max|cpu - cpu_f32|, 1e-2 peak)``. The card's
     launches are this path's: the counters zeroed just before it."""
     from quickvc_tpu_torch import ops
@@ -2122,18 +2343,54 @@ def check_bf16_session_against_cpu(net_g, hubert, rng: np.random.Generator) -> d
     ours = path(torch.device("cuda"), torch.bfloat16)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    expected = {name: 0 for name in launches} | {"attention_packed_bf16": 12 * ticks,
-                                                 "polar_inverse_stft": ticks}
+    per_tick = per_tick or {"attention_packed_bf16": 12, "polar_inverse_stft": 1}
+    expected = {k: 0 for k in launches} | {k: n * ticks for k, n in per_tick.items()}
     err, bf16_err = float(np.abs(ours - ref).max()), float(np.abs(ref - ref32).max())
     peak = float(np.abs(ref32).max())
     out = {"streams": 2, "ticks": ticks, "shape": list(ours.shape), "max_abs_err": err,
            "cpu_bf16_vs_f32_max_abs": bf16_err, "peak": peak,
            "bound": max(2 * bf16_err, 1e-2 * peak), "launches": launches,
            "expected_launches": expected}
-    print("bf16_session_cpu_reference_check " + json.dumps(out))
-    require(ours.shape == (2, ticks * chunk * hop), "bf16 session output length")
-    require(launches == expected, f"bf16 session launches {launches} != {expected}")
-    require(err <= out["bound"], "the bf16 wave session on the card matches the CPU's")
+    print(f"{name}_cpu_reference_check " + json.dumps(out))
+    require(ours.shape == (2, ticks * chunk * hop), f"{name} output length")
+    require(launches == expected, f"{name} launches {launches} != {expected}")
+    require(err <= out["bound"], f"the {name} on the card matches the CPU's")
+    return out
+
+
+def pallas_hubert(hubert):
+    """The same HuBERT-soft with the `pallas` front (K7) and every layer fused (K8)."""
+    from quickvc_tpu_torch.models.hubert import HubertSoft
+
+    h = HubertSoft(front="pallas", use_fused_layer=True)
+    h.load_state_dict(hubert.state_dict())
+    return h.eval()
+
+
+def time_pallas_bf16_session(net_g, hubert, hub_pallas, rng: np.random.Generator) -> dict:
+    """The bf16 wave session at N = 64 (chunk 16, left 48, right 16), its step
+    time in CUDA events over 5 ticks, with the `pallas` front and fused
+    layers and with the default `faststats` HuBERT, in turns (faststats,
+    pallas, pallas, faststats). A number, not a claim."""
+    from quickvc_tpu_torch.infer import RealtimeWaveSession
+
+    dev, n, chunk, left, right = torch.device("cuda"), LIVE_STREAMS, 16, 48, 16
+    g = rng.standard_normal((n, 256)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    win = torch.from_numpy((0.1 * rng.standard_normal((n, (left + chunk + right) * 320)))
+                           .astype(np.float32)).to(dev)
+    sessions = {k: RealtimeWaveSession(net_g.to(dev), g, h.to(dev), chunk=chunk, left=left,
+                                       right=right, device=dev, dtype=torch.bfloat16)
+                for k, h in (("faststats", hubert), ("pallas_fused_layer", hub_pallas))}
+    for s in sessions.values():
+        s.step(win)   # cuDNN set-up for this shape
+    order = ["faststats", "pallas_fused_layer", "pallas_fused_layer", "faststats"]
+    readings = [(k, cuda_ms(lambda k=k: sessions[k].step(win), iters=5, warmup=1))
+                for k in order]
+    out = {"streams": n, "chunk": chunk, "left": left, "right": right, "ticks": 5,
+           "turns": readings} | {f"{k}_step_ms": sum(ms for kk, ms in readings if kk == k) / 2
+                                 for k in sessions}
+    print("live_pallas_bf16 " + json.dumps(out))
     return out
 
 
@@ -2217,6 +2474,14 @@ def main() -> int:
     reference = check_against_cpu(cfg, net_g, hubert, rng)
     check_sessions_against_cpu(net_g, hubert, rng)
     bf16_session = check_bf16_session_against_cpu(net_g, hubert, rng)
+    # the pallas-front session on its own seeds, torch's generators restored
+    # after it: the phases after it draw what they drew before it was added
+    with torch.random.fork_rng(devices=[dev]):
+        rng_pallas = np.random.default_rng(SEED + 14)
+        hub_pallas = pallas_hubert(hubert)
+        pallas_session = check_bf16_session_against_cpu(
+            net_g, hub_pallas, rng_pallas, "pallas_bf16_session", PALLAS_BF16_TICK)
+        time_pallas_bf16_session(net_g, hubert, hub_pallas, rng_pallas)
     disc = check_disc_fused(dev, rng)
     check_train_step_against_cpu(rng)
     check_speaker_lstm_bf16(rng)
@@ -2234,6 +2499,12 @@ def main() -> int:
                                      encoding["pallas_fused_layer"]["launches"]),
                "attention": ("attention_api", attention_api["launches"]),
                "attention_packed_aligned": ("attention_api", attention_api["launches"]),
+               "extractor_front_bf16": ("live_pallas_bf16_session", pallas_session["launches"]),
+               "transformer_layer_bf16": ("live_pallas_bf16_session",
+                                          pallas_session["launches"]),
+               "attention_bf16": ("attention_api_bf16", attention_api["launches_bf16"]),
+               "attention_packed_aligned_bf16": ("attention_api_bf16",
+                                                 attention_api["launches_bf16"]),
                "mm_s8": ("int8_probe", probe["launches"]),
                "mm_bf16": ("int8_probe", probe["launches"])}
     for k in kernels:
@@ -2253,7 +2524,8 @@ def main() -> int:
                       "device_kernels", "pre_pass_launched", "library_f32_out_ms",
                       "library_f32_out_note", "ms_32_8", "dense_800_ms",
                       "dense_800_plain_ms", "dense_800_bound_ms", "device_ms_shapes",
-                      "l2_cold_device_ms", "err_f64_kernel", "err_f64_plain", "dtype"):
+                      "l2_cold_device_ms", "err_f64_kernel", "err_f64_plain", "dtype",
+                      "err_f32_kernel", "err_f32_plain"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

@@ -1,5 +1,10 @@
 // Kernels K2, K9 and K10: multi-head attention, float32, for sm_90a, on
-// three layouts of q/k/v; and K2's bf16 mode (fused_attention_bf16.cuh).
+// three layouts of q/k/v; and their bf16 modes (fused_attention_bf16.cuh):
+// K2 and K9 (D = 128) through qvc_attention_packed_bf16, K10 through
+// qvc_attention_headed_bf16. For bf16 inputs the TPU kernels' _prec leaves
+// the MXU one bf16 pass with float32 results (quickvc_tpu/ops/
+// fused_attention.py:31-56, 137-161): float32 scores and softmax, p rounded
+// to bf16 for the PV product, the output rounded to bf16.
 //
 // Replaces the TPU kernels of quickvc_tpu/ops/fused_attention.py:
 //   K2  fused_attention_packed          (pallas_call at :113, body _packed_kernel :58-85):
@@ -59,9 +64,10 @@ extern "C" int qvc_attention_headed(const void* q, const void* k, const void* v,
                                {v_bs, v_hs, v_ts}, so, scale, (cudaStream_t)stream);
 }
 
-// K2 at bf16: q/k/v (B, T, H*D) bfloat16 with row strides q_ts, k_ts, v_ts
-// and batch strides q_bs, k_bs, v_bs (in values; head h at column h*D) into
-// the packed bfloat16 (B, T, H*D) output o. D is 16, 32, 64 or 128.
+// K2 at bf16, and K9 at bf16 with D = 128: q/k/v (B, T, H*D) bfloat16 with
+// row strides q_ts, k_ts, v_ts and batch strides q_bs, k_bs, v_bs (in values;
+// head h at column h*D) into the packed bfloat16 (B, T, H*D) output o. D is
+// 16, 32, 64 or 128.
 extern "C" int qvc_attention_packed_bf16(const void* q, const void* k, const void* v, void* o,
                                          int batch, int T, int H, int D, long long q_bs,
                                          long long q_ts, long long k_bs, long long k_ts,
@@ -72,4 +78,21 @@ extern "C" int qvc_attention_packed_bf16(const void* q, const void* k, const voi
   return (int)attn_bf16::launch_any(D, (const bf16_t*)q, (const bf16_t*)k, (const bf16_t*)v,
                                     (bf16_t*)o, batch, T, H, {q_bs, D, q_ts}, {k_bs, D, k_ts},
                                     {v_bs, D, v_ts}, so, scale, (cudaStream_t)stream);
+}
+
+// K10 at bf16: q/k/v (B, H, T, D) bfloat16 through their (batch, head, row)
+// strides (in values) into the contiguous bfloat16 (B, H, T, D) output o.
+// D is 16, 32, 64 or 128.
+extern "C" int qvc_attention_headed_bf16(const void* q, const void* k, const void* v, void* o,
+                                         int batch, int H, int T, int D, long long q_bs,
+                                         long long q_hs, long long q_ts, long long k_bs,
+                                         long long k_hs, long long k_ts, long long v_bs,
+                                         long long v_hs, long long v_ts, float scale,
+                                         void* stream) {
+  using attn_bf16::bf16_t;
+  const attn_bf16::Strides so{(long long)H * T * D, (long long)T * D, D};
+  return (int)attn_bf16::launch_any(D, (const bf16_t*)q, (const bf16_t*)k, (const bf16_t*)v,
+                                    (bf16_t*)o, batch, T, H, {q_bs, q_hs, q_ts},
+                                    {k_bs, k_hs, k_ts}, {v_bs, v_hs, v_ts}, so, scale,
+                                    (cudaStream_t)stream);
 }

@@ -1,6 +1,8 @@
 // The bf16 body of kernel K2 (see fused_attention.cu): multi-head attention
-// on bfloat16 q/k/v with float32 scores and accumulation, for sm_90a.
-// Included by fused_attention.cu only; everything here has internal linkage.
+// on bfloat16 q/k/v with float32 scores and accumulation, for sm_90a. K9
+// and K10 run it in their bf16 modes, K8's bf16 layer on its qkv columns.
+// Included by fused_attention.cu and fused_transformer.cu; everything here
+// has internal linkage.
 //
 // Replaces the bf16 mode of the TPU kernel quickvc_tpu/ops/fused_attention.py
 // fused_attention_packed (pallas_call at :113, body _packed_kernel :58-85):
@@ -50,12 +52,18 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "tf32x3.cuh"  // the cp.async copies
+#include "bf16_gemm.cuh"  // the bf16 fragment helpers
+#include "tf32x3.cuh"     // the cp.async copies
 
 namespace {
 namespace attn_bf16 {
 
-typedef unsigned short bf16_t;  // raw bfloat16 bits; the tensor cores read them
+// the fragment helpers, shared with the bf16 GEMM core
+using bf16core::bf16_t;
+using bf16core::ldmatrix_x4;
+using bf16core::ldmatrix_x4_trans;
+using bf16core::mma_bf16;
+using bf16core::pack_bf16;
 
 constexpr int WARPS = 4;
 constexpr int BM = 16 * WARPS;  // query rows per block
@@ -80,34 +88,6 @@ constexpr int smem_bytes() {
 struct Strides {
   long long b, h, t;
 };
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a b on one m16n8k16 bf16 tile, float32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (to nearest even), lo in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
 
 // values (r, c) and (r, c + 1) of a row-major operand as one A-fragment
 // register; zero past T

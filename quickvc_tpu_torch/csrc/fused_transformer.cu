@@ -1,4 +1,5 @@
-// Kernel K8: one post-norm HuBERT transformer layer, float32, for sm_90a.
+// Kernel K8: one post-norm HuBERT transformer layer, float32, for sm_90a;
+// its bf16 mode, qvc_transformer_layer_bf16, is at the end of this file.
 //
 // Replaces the TPU kernel quickvc_tpu/ops/fused_transformer.py:
 // fused_transformer_layer (pallas_call at fused_transformer.py:155; body
@@ -68,7 +69,9 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16_gemm.cuh"
 #include "fused_attention.cuh"
+#include "fused_attention_bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -272,10 +275,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// y (M, D) = (x - mean) / sqrt(var + eps) * g + b over each row, D <= 1024.
+__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_value(bf16core::bf16_t* p, float v) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// y (M, D) = (x - mean) / sqrt(var + eps) * g + b over each row, D <= 1024;
+// y float32, or rounded once to bf16 (the bf16 layer's x1 and output).
+template <typename OutT>
 __global__ void __launch_bounds__(LN_THREADS)
 row_layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                  const float* __restrict__ b, float* __restrict__ y, int M, int D, float eps) {
+                      const float* __restrict__ b, OutT* __restrict__ y, int M, int D,
+                      float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
   if (row >= M) return;
@@ -296,11 +307,11 @@ row_layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ g,
     q += d * d;
   }
   const float rstd = rsqrtf(warp_sum(q) / D + eps);
-  float* yr = y + (long long)row * D;
+  OutT* yr = y + (long long)row * D;
 #pragma unroll
   for (int i = 0; i < LN_PER_LANE; ++i) {
     const int c = lane + 32 * i;
-    if (c < D) yr[c] = (v[i] - mean) * rstd * __ldg(g + c) + __ldg(b + c);
+    if (c < D) store_value(yr + c, (v[i] - mean) * rstd * __ldg(g + c) + __ldg(b + c));
   }
 }
 
@@ -333,10 +344,11 @@ cudaError_t linear(const float* A, const float* W, const float* bias, const floa
   return cudaGetLastError();
 }
 
-cudaError_t layer_norm(const float* x, const float* g, const float* b, float* y, int M, int D,
+template <typename OutT>
+cudaError_t layer_norm(const float* x, const float* g, const float* b, OutT* y, int M, int D,
                        cudaStream_t stream) {
   const int blocks = (M + LN_ROWS - 1) / LN_ROWS;
-  row_layer_norm_kernel<<<blocks, LN_THREADS, 0, stream>>>(x, g, b, y, M, D, 1e-5f);
+  row_layer_norm_kernel<OutT><<<blocks, LN_THREADS, 0, stream>>>(x, g, b, y, M, D, 1e-5f);
   return cudaGetLastError();
 }
 
@@ -389,7 +401,7 @@ extern "C" int qvc_transformer_layer(
   if ((err = linear<BIAS_RESIDUAL>(heads_f, (const float*)w_out, (const float*)b_out, xf, sum_f,
                                    ws, M, D, D, s_out, kc_out, s)))
     return (int)err;
-  if ((err = layer_norm(sum_f, (const float*)ln1_g, (const float*)ln1_b, x1_f, M, D, s)))
+  if ((err = layer_norm<float>(sum_f, (const float*)ln1_g, (const float*)ln1_b, x1_f, M, D, s)))
     return (int)err;
   if ((err = linear<BIAS_GELU>(x1_f, (const float*)w1, (const float*)b1, nullptr, mid_f, ws, M,
                                F, D, s_1, kc_1, s)))
@@ -397,5 +409,86 @@ extern "C" int qvc_transformer_layer(
   if ((err = linear<BIAS_RESIDUAL>(mid_f, (const float*)w2, (const float*)b2, x1_f, sum_f, ws,
                                    M, D, F, s_2, kc_2, s)))
     return (int)err;
-  return (int)layer_norm(sum_f, (const float*)ln2_g, (const float*)ln2_b, (float*)out, M, D, s);
+  return (int)layer_norm<float>(sum_f, (const float*)ln2_g, (const float*)ln2_b, (float*)out, M,
+                                D, s);
+}
+
+// The bf16 mode of the layer (the TPU kernel's cdt = bf16): x, the four
+// weight matrices, the scratch qkv, heads, x1 and mid, and out are bf16;
+// the biases and LayerNorm affines, the scratch sum and the workspace
+// float32. It rounds where the TPU kernel rounds (fused_transformer.py:
+// 63-117), every product a bf16 x bf16 -> float32 one on the bf16 GEMM core
+// (bf16_gemm.cuh) and every bias, LayerNorm and GELU in float32:
+//
+//   qkv = bf16(x Win^T + bin)
+//   o_h = bf16(softmax(q_h k_h^T * scale) v_h)   K2's bf16 body (float32
+//                                                scores, softmax and sums)
+//   sum = f32(x) + heads Wout^T + bout            (= bout + sum_h o_h Wout_h)
+//   x1  = bf16(LN1(sum))
+//   mid = bf16(gelu_tanh(bf16(x1 W1^T + b1)))
+//   sum = f32(x1) + mid W2^T + b2
+//   out = bf16(LN2(sum))
+//
+// One difference in where it rounds: K2's bf16 body is an online softmax
+// that rounds each key tile's unnormalised exp(s - m) to bf16 for the PV
+// product and divides by the row sum at the end; the TPU kernel rounds the
+// normalised p. Both lie within the bf16 gates (PERF.md section 2,
+// tests/test_torch_attention_bf16.py's model of the body).
+//
+// What bounds it on this card: operations. At the encoding batch (16, 300,
+// 768) the 72.3 GFLOP take 0.073 ms at the 989 TFLOP/s dense bf16 rate,
+// against ~29 MB of bf16 weights and activations (0.009 ms).
+//
+// The same launches as the float32 entry (qvc_transformer_layer_launches);
+// plans hold (splits, k_chunk) of in_proj, out_proj, linear1 and linear2 on
+// the bf16 core's 64-wide k tiles. Needs D = H * 64 <= 1024, F % 8 == 0
+// and 16-byte aligned tensors.
+extern "C" int qvc_transformer_layer_bf16(
+    const void* x, const void* w_in, const void* b_in, const void* w_out, const void* b_out,
+    const void* ln1_g, const void* ln1_b, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* ln2_g, const void* ln2_b, void* qkv, void* heads, void* sum,
+    void* x1, void* mid, void* workspace, void* out, int batch, int T, int D, int H, int F,
+    float scale, int s_in, int kc_in, int s_out, int kc_out, int s_1, int kc_1, int s_2,
+    int kc_2, void* stream) {
+  using bf16core::bf16_t;
+  using bf16core::linear_bf16;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int M = batch * T;
+  if (!bf16core::valid_plan(D, s_in, kc_in) || !bf16core::valid_plan(D, s_out, kc_out) ||
+      !bf16core::valid_plan(D, s_1, kc_1) || !bf16core::valid_plan(F, s_2, kc_2) ||
+      (workspace == nullptr && (s_in > 1 || s_out > 1 || s_1 > 1 || s_2 > 1)))
+    return (int)cudaErrorInvalidValue;
+  const bf16_t* xb = (const bf16_t*)x;
+  bf16_t* qkv_b = (bf16_t*)qkv;
+  bf16_t* heads_b = (bf16_t*)heads;
+  float* sum_f = (float*)sum;
+  bf16_t* x1_b = (bf16_t*)x1;
+  bf16_t* mid_b = (bf16_t*)mid;
+  float* ws = (float*)workspace;
+  using bf16core::GELU;
+  using bf16core::RESIDUAL;
+  using bf16core::ROUND;
+  cudaError_t err;
+  if ((err = linear_bf16<ROUND>(xb, (const bf16_t*)w_in, (const float*)b_in, nullptr, qkv_b, ws,
+                                M, 3 * D, D, s_in, kc_in, s)))
+    return (int)err;
+  constexpr int HD = 64;  // head dim
+  const attn_bf16::Strides qkv_s{(long long)T * 3 * D, HD, 3 * D};
+  const attn_bf16::Strides heads_s{(long long)T * D, HD, D};
+  if ((err = attn_bf16::launch<HD>(qkv_b, qkv_b + D, qkv_b + 2 * D, heads_b, batch, T, H, qkv_s,
+                                   qkv_s, qkv_s, heads_s, scale, s)))
+    return (int)err;
+  if ((err = linear_bf16<RESIDUAL>(heads_b, (const bf16_t*)w_out, (const float*)b_out, xb, sum_f,
+                                   ws, M, D, D, s_out, kc_out, s)))
+    return (int)err;
+  if ((err = layer_norm<bf16_t>(sum_f, (const float*)ln1_g, (const float*)ln1_b, x1_b, M, D, s)))
+    return (int)err;
+  if ((err = linear_bf16<GELU>(x1_b, (const bf16_t*)w1, (const float*)b1, nullptr, mid_b, ws, M,
+                               F, D, s_1, kc_1, s)))
+    return (int)err;
+  if ((err = linear_bf16<RESIDUAL>(mid_b, (const bf16_t*)w2, (const float*)b2, x1_b, sum_f, ws,
+                                   M, D, F, s_2, kc_2, s)))
+    return (int)err;
+  return (int)layer_norm<bf16_t>(sum_f, (const float*)ln2_g, (const float*)ln2_b, (bf16_t*)out,
+                                 M, D, s);
 }

@@ -13,8 +13,9 @@ It computes in the wave's dtype, as the JAX package does: a bf16 wave runs
 every conv and linear in bf16 (float32 parameters cast where used), the
 norms in float32 on the upcast input with the result cast back
 (``norm_like``), GELU in its tanh form, and attention through K2's bf16 mode
-on the card. The ``pallas`` front (K7) and the fused layer (K8) take float32
-only (ROADMAP A19, A20).
+on the card. The ``pallas`` front (K7) and the fused layer (K8) take a bf16
+wave or hidden state through their bf16 modes, rounding where the TPU
+kernels round at bf16 (their plain versions on the CPU).
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
            "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu", "mma_rate.cu")
-HEADERS = ("fused_attention.cuh", "fused_attention_bf16.cuh",
+HEADERS = ("bf16_gemm.cuh", "fused_attention.cuh", "fused_attention_bf16.cuh",
            "tf32x3.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,10 +50,13 @@ _SIGNATURES = {
     "qvc_attention_packed": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     "qvc_attention_packed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     "qvc_attention_headed": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
+    "qvc_attention_headed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw": [_P] * 4 + [_I] * 6 + [_P],
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
+    "qvc_extractor_front_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_transformer_layer": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
+    "qvc_transformer_layer_bf16": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
     "qvc_transformer_layer_launches": [_I] * 4,
     "qvc_mm_s8": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_bf16": [_P] * 3 + [_I] * 4 + [_P],
@@ -194,8 +197,8 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
 F32 = (torch.float32,)
 F32_BF16 = (torch.float32, torch.bfloat16)
 # why a float32-only kernel refuses bf16: K1, K3 and K4 have no bf16 mode in
-# JAX either (its bf16 paths cast at their edges); K5-K10 have one, each
-# queued in ROADMAP.md under the label named here
+# JAX either (its bf16 paths cast at their edges); K5/K6 have one, queued in
+# ROADMAP.md under the label named here
 AT_EDGE = "the JAX kernel computes in float32 too; a bf16 path casts at its edge"
 
 
@@ -219,12 +222,17 @@ def require_dtype(name: str, *tensors: torch.Tensor, dtypes=F32, why: str = "") 
     return kinds.pop()
 
 
-def require_cuda(name: str, *tensors: torch.Tensor, dtypes=F32, why: str = "") -> torch.dtype:
-    """Raise unless every tensor is on one CUDA device (ValueError) with one
-    dtype of ``dtypes`` (TypeError); returns that dtype."""
+def require_device(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ValueError unless every tensor is on one CUDA device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor, dtypes=F32, why: str = "") -> torch.dtype:
+    """Raise unless every tensor is on one CUDA device (ValueError) with one
+    dtype of ``dtypes`` (TypeError); returns that dtype."""
+    require_device(name, *tensors)
     return require_dtype(name, *tensors, dtypes=dtypes, why=why)

@@ -12,36 +12,43 @@ Replace the TPU kernels of ``quickvc_tpu/ops/fused_attention.py``:
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The kernels take a head dim in :data:`HEAD_DIMS` and float32 (one
-3xTF32 body, ``csrc/fused_attention.cuh``, serves all three and K8's layer);
-K2 also takes bfloat16 q, k and v, which run the single-pass bf16 body of
-``csrc/fused_attention_bf16.cuh`` into a bf16 output, as the JAX kernel
-computes bf16 inputs. K9 and K10 refuse bf16 on both devices (ROADMAP A21).
-Each dispatcher counts only its own launches, in :data:`STATS` (K2 float32),
-:data:`BF16_STATS` (K2 bf16), :data:`ALIGNED_STATS` and :data:`HEADED_STATS`.
+3xTF32 body, ``csrc/fused_attention.cuh``, serves all three and K8's layer)
+or bfloat16 q, k and v, which run the single-pass bf16 body of
+``csrc/fused_attention_bf16.cuh`` into a bf16 output, as the JAX kernels
+compute bf16 inputs. Each dispatcher counts only its own launches, by
+dtype: :data:`STATS` and :data:`BF16_STATS` (K2), :data:`ALIGNED_STATS` and
+:data:`ALIGNED_BF16_STATS` (K9), :data:`HEADED_STATS` and
+:data:`HEADED_BF16_STATS` (K10).
 """
 
 from __future__ import annotations
 
 import torch
 
-from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, bf16_item, check, library,
-                                         refuse_grad, require_cuda, require_dtype, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, library, refuse_grad,
+                                         require_cuda, require_dtype, stream_ptr)
 
 STATS = KernelStats("attention_packed")                  # K2, float32
 BF16_STATS = KernelStats("attention_packed_bf16")        # K2, bfloat16
-ALIGNED_STATS = KernelStats("attention_packed_aligned")  # K9
-HEADED_STATS = KernelStats("attention")                  # K10
+ALIGNED_STATS = KernelStats("attention_packed_aligned")  # K9, float32
+ALIGNED_BF16_STATS = KernelStats("attention_packed_aligned_bf16")  # K9, bfloat16
+HEADED_STATS = KernelStats("attention")                  # K10, float32
+HEADED_BF16_STATS = KernelStats("attention_bf16")        # K10, bfloat16
 HEAD_DIMS = (16, 32, 64, 128)  # compiled into the body (HuBERT-base: 768 / 12 = 64)
 HEAD_PAD = 128                 # K9's lanes per head
-BF16_MODE = bf16_item("A21")   # K9 and K10 through the ops API at bf16
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (B, H, T, D), float32 scores."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    """softmax(q k^T * scale) v over (B, H, T, D), float32 scores and softmax.
+
+    At bf16 it computes what the TPU kernels K9 and K10 compute (one bf16
+    pass, ``quickvc_tpu/ops/fused_attention.py:39-56, 137-161``): the
+    products of bf16 values summed in float32, p rounded to bf16 for the
+    product with v, which sums in float32, and the output rounded to bf16."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(v.dtype)
 
 
 def _heads(z: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -71,8 +78,8 @@ def attention_packed_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def attention_packed_aligned_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        num_heads: int, scale: float,
                                        head_pad: int = HEAD_PAD) -> torch.Tensor:
-    """:func:`attention_reference` over the padded heads, as the JAX package's
-    off-TPU path computes it; zero padded q/k/v lanes give zero output lanes."""
+    """:func:`attention_reference` over the padded heads; zero padded q/k/v
+    lanes give zero output lanes."""
     if q.shape[-1] != num_heads * head_pad:
         raise ValueError(f"attention_packed_aligned: need (B, T, {num_heads}*{head_pad}), "
                          f"got {tuple(q.shape)}")
@@ -112,40 +119,44 @@ def attention_packed_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_packed_aligned_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     num_heads: int, scale: float,
                                     head_pad: int = HEAD_PAD) -> torch.Tensor:
-    """Launch K9 on float32 CUDA (B, T, H*128) views whose last dim is unit-stride."""
-    require_cuda("attention_packed_aligned", q, k, v, why=BF16_MODE)
+    """Launch K9 on float32 or bfloat16 CUDA (B, T, H*128) views whose last dim
+    is unit-stride; the output has their dtype."""
+    dtype = require_cuda("attention_packed_aligned", q, k, v, dtypes=F32_BF16)
     _require_same("attention_packed_aligned", q, k, v, 3, "(B, T, H*128)")
     b, t, hp = q.shape
     if head_pad != HEAD_PAD or hp != num_heads * HEAD_PAD:
         raise ValueError(f"attention_packed_aligned: the kernel takes heads padded to "
                          f"{HEAD_PAD} lanes, got head_pad={head_pad} and {hp} columns for "
                          f"{num_heads} heads")
-    out = torch.empty((b, t, hp), device=q.device, dtype=torch.float32)
+    bf16 = dtype == torch.bfloat16
+    out = torch.empty((b, t, hp), device=q.device, dtype=dtype)
     # K2's entry at D = 128: the padded slots are heads of 128 lanes
-    check(library().qvc_attention_packed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, num_heads, HEAD_PAD,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), float(scale), stream_ptr(q)), "attention_packed_aligned kernel")
-    ALIGNED_STATS.count()
+    entry = library().qvc_attention_packed_bf16 if bf16 else library().qvc_attention_packed
+    check(entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, num_heads,
+                HEAD_PAD, q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                v.stride(1), float(scale), stream_ptr(q)),
+          f"attention_packed_aligned kernel ({dtype})")
+    (ALIGNED_BF16_STATS if bf16 else ALIGNED_STATS).count()
     return out
 
 
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float) -> torch.Tensor:
-    """Launch K10 on float32 CUDA (B, H, T, D) views whose last dim is unit-stride;
-    the output is a contiguous (B, H, T, D)."""
-    require_cuda("attention", q, k, v, why=BF16_MODE)
+    """Launch K10 on float32 or bfloat16 CUDA (B, H, T, D) views whose last dim
+    is unit-stride; the output is a contiguous (B, H, T, D) of their dtype."""
+    dtype = require_cuda("attention", q, k, v, dtypes=F32_BF16)
     _require_same("attention", q, k, v, 4, "(B, H, T, D)")
     b, h, t, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"attention: head dim {d} is not one of {HEAD_DIMS}, the ones "
                          "the kernel is built for")
-    out = torch.empty((b, h, t, d), device=q.device, dtype=torch.float32)
-    check(library().qvc_attention_headed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale), stream_ptr(q)),
-        "attention kernel")
-    HEADED_STATS.count()
+    bf16 = dtype == torch.bfloat16
+    out = torch.empty((b, h, t, d), device=q.device, dtype=dtype)
+    entry = library().qvc_attention_headed_bf16 if bf16 else library().qvc_attention_headed
+    check(entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale), stream_ptr(q)),
+          f"attention kernel ({dtype})")
+    (HEADED_BF16_STATS if bf16 else HEADED_STATS).count()
     return out
 
 
@@ -164,19 +175,19 @@ def attention_packed_aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              num_heads: int, scale: float,
                              head_pad: int = HEAD_PAD) -> torch.Tensor:
     """Packed MHA over heads zero-padded to ``head_pad`` lanes (K9): plain on
-    CPU, the kernel on CUDA; float32 only. No backward."""
+    CPU, the kernel on CUDA; float32 or bfloat16. No backward."""
     refuse_grad("attention_packed_aligned", q, k, v)
-    require_dtype("attention_packed_aligned", q, k, v, why=BF16_MODE)
+    require_dtype("attention_packed_aligned", q, k, v, dtypes=F32_BF16)
     if q.device.type == "cpu":
         return attention_packed_aligned_reference(q, k, v, num_heads, scale, head_pad)
     return attention_packed_aligned_kernel(q, k, v, num_heads, scale, head_pad)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """MHA on (B, H, T, D) (K10): plain on CPU, the kernel on CUDA; float32
-    only. No backward."""
+    """MHA on (B, H, T, D) (K10): plain on CPU, the kernel on CUDA; float32 or
+    bfloat16. No backward."""
     refuse_grad("attention", q, k, v)
-    require_dtype("attention", q, k, v, why=BF16_MODE)
+    require_dtype("attention", q, k, v, dtypes=F32_BF16)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     return attention_kernel(q, k, v, scale)

@@ -22,6 +22,13 @@ takes the plain version,
 for a CUDA tensor (or raises). Layouts are the JAX package's: wave (B, T) in,
 (B, n1, C) out with n1 = ((T - 10) // 5 + 1 - 3) // 2 + 1; the weights keep
 torch's layouts, conv0 (C, 1, 10) and conv1 (C, C, 3).
+
+A bf16 wave takes K7's bf16 mode (``qvc_extractor_front_bf16``), as the JAX
+kernel computes a bf16 wave: conv0 and conv1 on bf16 operands (the weights
+rounded to bf16 once a call; the affine from conv0's unrounded weight)
+summed in float32, each pre-activation rounded to bf16, the tanh GELU in
+float32 and rounded again, a bf16 output. :data:`STATS` counts float32
+launches, :data:`BF16_STATS` bf16 ones.
 """
 
 from __future__ import annotations
@@ -29,11 +36,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, bf16_item, check, library, refuse_grad,
-                                         require_cuda, require_dtype, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, library, refuse_grad,
+                                         require_cuda, require_device, require_dtype,
+                                         stream_ptr)
 
 STATS = KernelStats("extractor_front")
-BF16_MODE = bf16_item("A19")   # the `pallas` encode front at bf16
+BF16_STATS = KernelStats("extractor_front_bf16")
+BF16_GROUP = 16   # the bf16 kernel's in-channel slice and output-channel group
 
 
 def groupnorm_affine_closed_form(wav: torch.Tensor, conv0_weight: torch.Tensor,
@@ -68,29 +77,58 @@ def front_rows(t: int) -> int:
 def extractor_front_reference(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
                               beta: torch.Tensor, w1: torch.Tensor,
                               eps: float = 1e-5) -> torch.Tensor:
-    """conv0 -> closed-form affine -> exact GELU -> conv1 -> GELU, (B, n1, C)."""
+    """conv0 -> closed-form affine -> GELU -> conv1 -> GELU, (B, n1, C) in the
+    wave's dtype: exact erf GELU in float32; at bf16 the TPU kernel's bf16
+    mode (``quickvc_tpu/ops/fused_extractor.py:92-110``): bf16 operands, the
+    affine from conv0's unrounded weight, float32 sums, each pre-activation
+    rounded to bf16 before the tanh GELU and its result rounded again."""
     scale, shift = groupnorm_affine_closed_form(wav, w0, gamma, beta, eps)
+    if wav.dtype == torch.bfloat16:
+        def act(z):   # float32 pre-activation -> bf16 -> tanh GELU (in float32) -> bf16
+            return F.gelu(z.bfloat16(), approximate="tanh")
+
+        y = F.conv1d(wav.float()[:, None], w0.bfloat16().float(), stride=5)
+        x = act(y * scale[:, :, None] + shift[:, :, None])
+        return act(F.conv1d(x.float(), w1.bfloat16().float(), stride=2)).transpose(1, 2)
     y = F.conv1d(wav[:, None], w0, stride=5)
     x = F.gelu(y * scale[:, :, None] + shift[:, :, None])
     return F.gelu(F.conv1d(x, w1, stride=2)).transpose(1, 2)
 
 
+def bf16_channel_order(c: int) -> torch.Tensor:
+    """The output channels in the order the bf16 kernel's w1t holds them:
+    within each group of 16, position q < 8 is channel 2q and 8 + q is 2q + 1
+    (so that a lane's accumulators hold adjacent channels)."""
+    q = torch.arange(BF16_GROUP)
+    within = torch.where(q < BF16_GROUP // 2, 2 * q, 2 * q - BF16_GROUP + 1)
+    return (torch.arange(0, c, BF16_GROUP)[:, None] + within).reshape(-1)
+
+
 def extractor_front_kernel(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
                            beta: torch.Tensor, w1: torch.Tensor,
                            eps: float = 1e-5) -> torch.Tensor:
-    """Launch K7 on float32 CUDA tensors; the affine is computed first in PyTorch."""
-    require_cuda("extractor_front", wav, w0, gamma, beta, w1, why=BF16_MODE)
+    """Launch K7 on CUDA tensors: a float32 wave and float32 weights, or a bf16
+    wave (weights of any float dtype, rounded to bf16 for the products); the
+    affine is computed first in PyTorch."""
+    bf16 = wav.dtype == torch.bfloat16
+    if bf16:
+        require_device("extractor_front", wav, w0, gamma, beta, w1)
+    else:
+        require_cuda("extractor_front", wav, w0, gamma, beta, w1, dtypes=F32_BF16)
     b, t = wav.shape
     c = w0.shape[0]
     n1 = front_rows(t)
+    group = BF16_GROUP if bf16 else 8
     if (w0.shape != (c, 1, 10) or w1.shape != (c, c, 3) or gamma.shape != (c,)
-            or beta.shape != (c,) or c % 8 or n1 < 1):
+            or beta.shape != (c,) or c % group or n1 < 1):
         raise ValueError(f"extractor_front: need wav (B, T >= 20), conv0 (C, 1, 10), conv1 "
-                         f"(C, C, 3), C % 8 == 0; got {tuple(wav.shape)} {tuple(w0.shape)} "
-                         f"{tuple(w1.shape)}")
+                         f"(C, C, 3), C % {group} == 0; got {tuple(wav.shape)} "
+                         f"{tuple(w0.shape)} {tuple(w1.shape)}")
     scale, shift = groupnorm_affine_closed_form(wav, w0, gamma, beta, eps)
     # einsum may give (B, C) in channel-major strides; the kernel reads row-major
     scale, shift = scale.contiguous(), shift.contiguous()
+    if bf16:
+        return _extractor_front_bf16(wav, w0, scale, shift, w1, n1)
     wav, w0 = wav.contiguous(), w0.contiguous()
     w1t = w1.permute(2, 1, 0).contiguous()          # [tap][in][out]
     out = torch.empty((b, n1, c), device=wav.device, dtype=torch.float32)
@@ -103,11 +141,31 @@ def extractor_front_kernel(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Ten
     return out
 
 
+def _extractor_front_bf16(wav: torch.Tensor, w0: torch.Tensor, scale: torch.Tensor,
+                          shift: torch.Tensor, w1: torch.Tensor, n1: int) -> torch.Tensor:
+    """K7's bf16 mode: conv0's weight rounded to bf16 (held as float32 values),
+    conv1's as bf16 [tap][in][out] in :func:`bf16_channel_order`."""
+    b, t = wav.shape
+    c = w0.shape[0]
+    wav = wav.contiguous()
+    w0b = w0.reshape(c, 10).bfloat16().float().contiguous()
+    w1t = w1.bfloat16().permute(2, 1, 0)[:, :, bf16_channel_order(c).to(w1.device)].contiguous()
+    out = torch.empty((b, n1, c), device=wav.device, dtype=torch.bfloat16)
+    if any(z.data_ptr() % 16 for z in (w0b, scale, shift, w1t)):
+        raise ValueError("extractor_front: the kernel's weights must start on a 16-byte boundary")
+    check(library().qvc_extractor_front_bf16(
+        wav.data_ptr(), w0b.data_ptr(), scale.data_ptr(), shift.data_ptr(), w1t.data_ptr(),
+        out.data_ptr(), b, t, c, n1, stream_ptr(wav)), "extractor_front kernel (bf16)")
+    BF16_STATS.count()
+    return out
+
+
 def extractor_front(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
                     beta: torch.Tensor, w1: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """The extractor front: plain on CPU, K7 on CUDA. No backward."""
+    """The extractor front: plain on CPU, K7 on CUDA; a float32 or bf16 wave,
+    the output in its dtype. No backward."""
     refuse_grad("extractor_front", wav, w0, gamma, beta, w1)
-    require_dtype("extractor_front", wav, why=BF16_MODE)
+    require_dtype("extractor_front", wav, dtypes=F32_BF16)
     if wav.device.type == "cpu":
         return extractor_front_reference(wav, w0, gamma, beta, w1, eps)
     return extractor_front_kernel(wav, w0, gamma, beta, w1, eps)

@@ -15,6 +15,14 @@ The four GEMMs run on TF32 tensor cores in 3xTF32. :func:`linear_plan`
 picks each one's split of its reduction: partial sums of a split GEMM go to
 a workspace that a second kernel sums in split order, so the same inputs
 give the same bits on every launch.
+
+A bf16 x takes the layer's bf16 mode (``qvc_transformer_layer_bf16``), as
+the TPU kernel computes a bf16 input: the four weight matrices cast to bf16
+once a call (as the JAX wrapper casts them), the GEMMs on the bf16
+tensor-core core of ``csrc/bf16_gemm.cuh`` (planned on
+:data:`BF16_TILING`), K2's bf16 attention body, float32 biases, LayerNorms
+and GELU, rounded to bf16 where the TPU kernel rounds; a bf16 output.
+:data:`STATS` counts float32 calls, :data:`BF16_STATS` bf16 ones.
 """
 
 from __future__ import annotations
@@ -25,25 +33,43 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, bf16_item, check, device_sms, library,
-                                         refuse_grad, require_cuda, require_dtype, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
+                                         refuse_grad, require_cuda, require_device,
+                                         require_dtype, stream_ptr)
+from quickvc_tpu_torch.ops.fused_attention import attention_reference
 
 STATS = KernelStats("transformer_layer")
-BF16_MODE = bf16_item("A20")   # the fused-layer encode at bf16
+BF16_STATS = KernelStats("transformer_layer_bf16")
 HEAD_DIM = 64   # compiled into the attention (HuBERT-base: 768 / 12)
 EPS = 1e-5
 
-# The GEMMs' tiling (csrc/fused_transformer.cu: BM, BN, BK, MAX_SPLITS): a
-# block computes a TILE_M x TILE_N output tile and walks K in tiles of
-# K_TILE (a split edge off them is refused), one block an SM.
+
+class Tiling(NamedTuple):
+    """A GEMM body's tiling: a block computes a tile_m x tile_n output tile
+    and walks K in tiles of k_tile (a split edge off them is refused),
+    ``blocks_per_sm`` blocks an SM; ``k_tile_bytes`` is the device-memory
+    traffic the card moves in the time one block takes for one K tile (the
+    plan's unit of cost)."""
+    tile_m: int
+    tile_n: int
+    k_tile: int
+    blocks_per_sm: int
+    k_tile_bytes: float
+
+
+# The float32 GEMMs' tiling (csrc/fused_transformer.cu: BM, BN, BK). K5's
+# tile is the same 256 x 128 x 32 on the same 3xTF32 body, and took 1.318 ms
+# for 2 waves of 160 K tiles (4.1 us a K tile, PERF.md's K5 row), at the
+# H100's 3.35 TB/s.
 TILE_M, TILE_N, K_TILE = 256, 128, 32
+F32_TILING = Tiling(TILE_M, TILE_N, K_TILE, 1, 3.35e12 * 1.318e-3 / 320)
+# The bf16 core's (csrc/bf16_gemm.cuh: BM, BN, BK, MIN_BLOCKS). Its time a K
+# tile is not measured yet: this takes the data sheet's 989 TFLOP/s dense
+# bf16 rate over 132 SMs, shared by their two blocks, for the tile's 2 x 128
+# x 128 x 64 flops (0.56 us), at 3.35 TB/s.
+BF16_TILING = Tiling(128, 128, 64, 2, 3.35e12 * (2 * 128 * 128 * 64) / (989e12 / 132 / 2))
 MAX_SPLITS = 4
 MIN_SPLIT_K_TILES = 4   # K tiles a split walks at least
-# Device-memory bytes the card moves in the time one block takes for one K
-# tile: K5's tile is the same 256 x 128 x 32 on the same 3xTF32 body, and
-# took 1.318 ms for 2 waves of 160 K tiles (4.1 us a K tile, PERF.md,
-# PR 7), at the H100's 3.35 TB/s.
-K_TILE_BYTES = 3.35e12 * 1.318e-3 / 320
 
 
 class LinearPlan(NamedTuple):
@@ -55,22 +81,25 @@ class LinearPlan(NamedTuple):
     workspace: int
 
 
-def linear_plan(m: int, n: int, k: int, sm_count: int = 132) -> LinearPlan:
+def linear_plan(m: int, n: int, k: int, sm_count: int = 132,
+                tiling: Tiling = F32_TILING) -> LinearPlan:
     """The split count that finishes the GEMM soonest by a model of its time.
 
-    The grid is ceil(M / TILE_M) x ceil(N / TILE_N) tiles, one block an SM;
-    split s ways it runs ceil(tiles s / sm_count) waves of blocks that walk
-    ceil(K tiles / s) K tiles each, and its partials cost 2 s M N floats of
-    device-memory traffic (written, then read by the sum), counted in K-tile
-    times (K_TILE_BYTES). The plan takes the s in 1..MAX_SPLITS of least
-    time (ties to the smaller s), each split walking at least
-    MIN_SPLIT_K_TILES K tiles, evened on K-tile edges so that none is empty.
-    At 16 x 300 frames (M = 4,800) no GEMM splits: the partials would cost
-    more than the last wave's idle SMs; at 16 x 250 in_proj splits 2 ways
-    and linear2 4; a small batch fills the card only split.
+    The grid is ceil(M / tile_m) x ceil(N / tile_n) tiles, ``blocks_per_sm``
+    blocks an SM; split s ways it runs ceil(tiles s / (sm_count
+    blocks_per_sm)) waves of blocks that walk ceil(K tiles / s) K tiles
+    each, and its partials cost 2 s M N floats of device-memory traffic
+    (written, then read by the sum), counted in K-tile times
+    (``k_tile_bytes``). The plan takes the s in 1..MAX_SPLITS of least time
+    (ties to the smaller s), each split walking at least MIN_SPLIT_K_TILES K
+    tiles, evened on K-tile edges so that none is empty. At 16 x 300 frames
+    (M = 4,800) no float32 GEMM splits: the partials would cost more than
+    the last wave's idle SMs; at 16 x 250 in_proj splits 2 ways and linear2
+    4; a small batch fills the card only split.
     """
-    k_tiles = -(-k // K_TILE)
-    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    k_tiles = -(-k // tiling.k_tile)
+    tiles = -(-m // tiling.tile_m) * -(-n // tiling.tile_n)
+    slots = sm_count * tiling.blocks_per_sm
 
     def even(s: int) -> tuple[int, int]:   # (splits, K tiles a split)
         per = -(-k_tiles // s)
@@ -78,18 +107,20 @@ def linear_plan(m: int, n: int, k: int, sm_count: int = 132) -> LinearPlan:
 
     def cost(s: int) -> float:
         s, per = even(s)
-        traffic = 2 * s * m * n * 4 / K_TILE_BYTES if s > 1 else 0.0
-        return -(-tiles * s // sm_count) * per + traffic
+        traffic = 2 * s * m * n * 4 / tiling.k_tile_bytes if s > 1 else 0.0
+        return -(-tiles * s // slots) * per + traffic
 
     allowed = [s for s in range(1, MAX_SPLITS + 1) if s == 1 or k_tiles >= s * MIN_SPLIT_K_TILES]
     splits, per = even(min(allowed, key=lambda s: (cost(s), s)))
-    return LinearPlan(splits, per * K_TILE, splits * m * n if splits > 1 else 0)
+    return LinearPlan(splits, per * tiling.k_tile, splits * m * n if splits > 1 else 0)
 
 
-def layer_plans(m: int, d: int, f: int, sm_count: int = 132) -> tuple[LinearPlan, ...]:
+def layer_plans(m: int, d: int, f: int, sm_count: int = 132,
+                tiling: Tiling = F32_TILING) -> tuple[LinearPlan, ...]:
     """The plans of in_proj (N 3D, K D), out_proj (D, D), linear1 (F, D) and
     linear2 (D, F) at M = B*T rows, in the order the layer runs them."""
-    return tuple(linear_plan(m, n, k, sm_count) for n, k in ((3 * d, d), (d, d), (f, d), (d, f)))
+    return tuple(linear_plan(m, n, k, sm_count, tiling)
+                 for n, k in ((3 * d, d), (d, d), (f, d), (d, f)))
 
 
 def _weights(layer) -> list[torch.Tensor]:
@@ -108,7 +139,10 @@ def _layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 def transformer_layer_reference(x: torch.Tensor, layer) -> torch.Tensor:
     """The layer with the out-projection folded per head, as the TPU kernel
-    computes it: acc = bout + sum_h softmax(q_h k_h^T / sqrt(d)) v_h Wout[:, h]^T."""
+    computes it: acc = bout + sum_h softmax(q_h k_h^T / sqrt(d)) v_h Wout[:, h]^T;
+    a bf16 x takes :func:`transformer_layer_reference_bf16`."""
+    if x.dtype == torch.bfloat16:
+        return transformer_layer_reference_bf16(x, layer)
     w_in, b_in, w_out, b_out, g1, be1, w1, b1, w2, b2, g2, be2 = _weights(layer)
     b, t, d = x.shape
     h = layer.self_attn.num_heads
@@ -122,10 +156,41 @@ def transformer_layer_reference(x: torch.Tensor, layer) -> torch.Tensor:
     return _layer_norm(x1 + y, g2, be2)
 
 
+def transformer_layer_reference_bf16(x: torch.Tensor, layer) -> torch.Tensor:
+    """The TPU kernel at bf16 (``quickvc_tpu/ops/fused_transformer.py:63-117``):
+    every product on bf16 operands (the weights rounded to bf16) summed in
+    float32, the biases, LayerNorms and GELU in float32, rounded to bf16
+    where it rounds: qkv, p and each head's output (:func:`attention_reference`
+    at bf16), x1, the linear1 pre-activation, the GELU and the output."""
+    w_in, b_in, w_out, b_out, g1, be1, w1, b1, w2, b2, g2, be2 = _weights(layer)
+    b, t, d = x.shape
+    h = layer.self_attn.num_heads
+    bf16 = torch.bfloat16
+
+    def linear(a, w, bias):   # bf16 operands, float32 sums and bias
+        return F.linear(a.float(), w.to(bf16).float(), bias.float())
+
+    q, k, v = (z.reshape(b, t, h, d // h).transpose(1, 2)
+               for z in linear(x, w_in, b_in).to(bf16).chunk(3, dim=-1))
+    heads = attention_reference(q, k, v, 1.0 / math.sqrt(d // h))
+    acc = linear(heads.transpose(1, 2).reshape(b, t, d), w_out, b_out)
+    x1 = _layer_norm(x.float() + acc, g1.float(), be1.float()).to(bf16)
+    mid = F.gelu(linear(x1, w1, b1).to(bf16), approximate="tanh")
+    return _layer_norm(x1.float() + linear(mid, w2, b2), g2.float(), be2.float()).to(bf16)
+
+
 def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
-    """Launch K8 on a float32 CUDA (B, T, H*64) tensor and the layer's weights."""
-    weights = [w.contiguous() for w in _weights(layer)]
-    require_cuda("transformer_layer", x, *weights, why=BF16_MODE)
+    """Launch K8 on a float32 CUDA (B, T, H*64) tensor and the layer's float32
+    weights, or its bf16 mode on a bf16 one (the weight matrices cast to bf16
+    and the vectors to float32 here, once a call)."""
+    weights = _weights(layer)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        require_device("transformer_layer", x, *weights)
+        weights = [w.to(torch.bfloat16) if w.dim() == 2 else w.float() for w in weights]
+    else:
+        require_cuda("transformer_layer", x, *weights, dtypes=F32_BF16)
+    weights = [w.contiguous() for w in weights]
     b, t, d = x.shape
     h = layer.self_attn.num_heads
     f = weights[6].shape[0]
@@ -137,28 +202,33 @@ def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
         raise ValueError("transformer_layer: every tensor must start on a 16-byte boundary")
     m = b * t
 
-    def scratch(cols):
-        return torch.empty((m, cols), device=x.device, dtype=torch.float32)
+    def scratch(cols, dtype=x.dtype):
+        return torch.empty((m, cols), device=x.device, dtype=dtype)
 
-    qkv, heads, total, x1, mid = scratch(3 * d), scratch(d), scratch(d), scratch(d), scratch(f)
-    plans = layer_plans(m, d, f, device_sms(x.device.index or 0))
+    # the scratch in x's dtype; the float32 sums the LayerNorms read
+    qkv, heads, x1, mid = scratch(3 * d), scratch(d), scratch(d), scratch(f)
+    total = scratch(d, torch.float32)
+    plans = layer_plans(m, d, f, device_sms(x.device.index or 0),
+                        BF16_TILING if bf16 else F32_TILING)
     ws_floats = max(p.workspace for p in plans)
     ws = torch.empty(ws_floats, device=x.device, dtype=torch.float32) if ws_floats else None
     out = torch.empty_like(x)
-    check(library().qvc_transformer_layer(
+    entry = library().qvc_transformer_layer_bf16 if bf16 else library().qvc_transformer_layer
+    check(entry(
         x.data_ptr(), *[w.data_ptr() for w in weights], qkv.data_ptr(), heads.data_ptr(),
         total.data_ptr(), x1.data_ptr(), mid.data_ptr(), None if ws is None else ws.data_ptr(),
         out.data_ptr(), b, t, d, h, f, 1.0 / math.sqrt(HEAD_DIM),
         *[v for p in plans for v in (p.splits, p.k_chunk)], stream_ptr(x)),
-        "transformer_layer kernel")
-    STATS.count()
+        f"transformer_layer kernel ({x.dtype})")
+    (BF16_STATS if bf16 else STATS).count()
     return out
 
 
 def transformer_layer(x: torch.Tensor, layer) -> torch.Tensor:
-    """One post-norm layer: plain on CPU, K8 on CUDA. No backward."""
+    """One post-norm layer: plain on CPU, K8 on CUDA; a float32 or bf16 x, the
+    output in its dtype. No backward."""
     refuse_grad("transformer_layer", x, *_weights(layer))
-    require_dtype("transformer_layer", x, why=BF16_MODE)
+    require_dtype("transformer_layer", x, dtypes=F32_BF16)
     if x.device.type == "cpu":
         return transformer_layer_reference(x, layer)
     return transformer_layer_kernel(x, layer)

@@ -78,9 +78,9 @@ def test_bf16_body_model_against_float64(t_len):
 
 
 def test_dispatchers_take_the_dtypes_their_kernels_take():
-    """K2 takes float32 and bf16 (the plain version here); K5-K10 refuse bf16
-    on both devices, naming the ROADMAP item of their bf16 mode; q, k and v
-    of mixed dtypes are refused."""
+    """K2 and K7-K10 take float32 and bf16 (the plain versions here) and
+    answer in the input's dtype; K5 refuses bf16 on both devices, naming the
+    ROADMAP item of its bf16 mode; q, k and v of mixed dtypes are refused."""
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import (fused_attention, fused_disc_conv, fused_extractor,
                                        fused_transformer)
@@ -97,21 +97,21 @@ def test_dispatchers_take_the_dtypes_their_kernels_take():
     xb = x.bfloat16()
     hb = torch.zeros(1, 2, 8, 16, dtype=torch.bfloat16)
     pad = torch.zeros(1, 8, 128, dtype=torch.bfloat16)
-    kernel = torch.zeros(5, 64, 64)
     layer = TransformerLayer(64, 1, 128)
-    refusals = [
-        ("A21", lambda: fused_attention.attention(hb, hb, hb, 0.25)),
-        ("A21", lambda: fused_attention.attention_packed_aligned(pad, pad, pad, 1, 0.125)),
-        ("A18", lambda: fused_disc_conv.conv5_lrelu(xb, kernel, torch.zeros(64))),
-        ("A19", lambda: fused_extractor.extractor_front(
-            torch.zeros(1, 400, dtype=torch.bfloat16), torch.zeros(8, 1, 10), torch.ones(8),
-            torch.zeros(8), torch.zeros(8, 8, 3))),
-        ("A20", lambda: fused_transformer.transformer_layer(xb, layer)),
-    ]
     with torch.no_grad():
-        for item, call in refusals:
-            with pytest.raises(TypeError, match=rf"bfloat16 \(its bf16 mode is ROADMAP {item}\b"):
-                call()
+        for p in layer.parameters():
+            p.fill_(0.01)
+        takes = [fused_attention.attention(hb, hb, hb, 0.25),
+                 fused_attention.attention_packed_aligned(pad, pad, pad, 1, 0.125),
+                 fused_extractor.extractor_front(
+                     torch.zeros(1, 400, dtype=torch.bfloat16), torch.zeros(16, 1, 10),
+                     torch.ones(16), torch.zeros(16), torch.zeros(16, 16, 3)),
+                 fused_transformer.transformer_layer(xb, layer)]
+        assert all(z.dtype == torch.bfloat16 for z in takes)
+        with pytest.raises(TypeError, match=r"bfloat16 \(its bf16 mode is ROADMAP A18\b"):
+            fused_disc_conv.conv5_lrelu(xb, torch.zeros(5, 64, 64), torch.zeros(64))
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_attention.attention(hb, hb.float(), hb, 0.25)
 
 
 def test_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
@@ -150,12 +150,19 @@ def test_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
 
 
 def test_build_lists_the_bf16_header():
-    """The header is hashed into the library's name (an edit rebuilds it),
-    K2's source includes it, and the bf16 entry's C signature is the float32
-    entry's."""
+    """The bf16 headers are hashed into the library's name (an edit rebuilds
+    it), the sources that use them include them, and each bf16 entry's C
+    signature is its float32 entry's."""
     from quickvc_tpu_torch.ops import _cuda
 
-    assert "fused_attention_bf16.cuh" in _cuda.HEADERS
-    assert '#include "fused_attention_bf16.cuh"' in (_cuda.CSRC / "fused_attention.cu").read_text()
-    assert (_cuda._SIGNATURES["qvc_attention_packed_bf16"]
-            == _cuda._SIGNATURES["qvc_attention_packed"])
+    assert {"fused_attention_bf16.cuh", "bf16_gemm.cuh"} <= set(_cuda.HEADERS)
+    for source, headers in (("fused_attention.cu", ["fused_attention_bf16.cuh"]),
+                            ("fused_transformer.cu", ["bf16_gemm.cuh",
+                                                      "fused_attention_bf16.cuh"]),
+                            ("fused_extractor.cu", ["bf16_gemm.cuh"])):
+        text = (_cuda.CSRC / source).read_text()
+        assert all(f'#include "{h}"' in text for h in headers), source
+    assert '#include "bf16_gemm.cuh"' in (_cuda.CSRC / "fused_attention_bf16.cuh").read_text()
+    for entry in ("qvc_attention_packed", "qvc_attention_headed", "qvc_extractor_front",
+                  "qvc_transformer_layer"):
+        assert _cuda._SIGNATURES[entry + "_bf16"] == _cuda._SIGNATURES[entry]

@@ -22,7 +22,11 @@
 - The live steps at bf16, unit and wave domain, against the JAX
   benchmark's ``synth_step`` / ``wave_step`` rebuilt here from
   ``scripts/realtime_bench.py:65-77`` (the script starts a benchmark when
-  imported), the JAX f32 steps as the yardstick.
+  imported), the JAX f32 steps as the yardstick; the wave step also with a
+  HuBERT that runs the ``pallas`` front and fused layers (K7 and K8 in
+  their bf16 modes), the JAX one traced with ``jax.default_backend``
+  reporting "tpu" and its Pallas kernels in interpret mode (off the TPU
+  the JAX HuBERT takes its XLA paths, which round elsewhere).
 
 Tolerances (PERF.md section 2), each relative to the bf16 error the
 reference itself shows against float32:
@@ -42,6 +46,8 @@ in the max-norm the port lands up to 2.24x the reference's own error
 (``discriminators.0.convs.4.weight_g``) where its own bf16 error is larger
 than JAX's; in the L2 norm every tensor is within 1.85x.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -269,9 +275,12 @@ def test_trainer_cli_bf16_trains_evaluates_and_resumes(tmp_path):
     assert "Resumed from checkpoint at step 2" in (run_dir / "train.log").read_text()
 
 
-@pytest.mark.parametrize("domain", ["units", "wave"])
-def test_live_steps_match_jax_bench(domain):
-    """Two streams, a 32-frame window (left 16, chunk 8, right 8), noise 0."""
+@pytest.mark.parametrize("domain", ["units", "wave", "pallas_wave"])
+def test_live_steps_match_jax_bench(domain, monkeypatch):
+    """Two streams, a 32-frame window (left 16, chunk 8, right 8), noise 0;
+    ``pallas_wave`` is the wave step with the `pallas` front and fused layers."""
+    from jax.experimental.pallas import tpu as pltpu
+
     from quickvc_tpu.models.hubert import HubertSoft as JaxHubert
     from quickvc_tpu.models.synthesizer import SynthesizerTrn as JaxSynth
     from quickvc_tpu_torch.infer import RealtimeSession, RealtimeWaveSession
@@ -279,7 +288,11 @@ def test_live_steps_match_jax_bench(domain):
     left, chunk, right = 16, 8, 8
     window = left + chunk + right
     net, params, port = tiny_generator(seed=31)
-    jhub, h_params, hubert = tiny_hubert("faststats", seed=32)
+    pallas = domain == "pallas_wave"
+    jhub, h_params, hubert = tiny_hubert("pallas" if pallas else "faststats", seed=32,
+                                         fused_layer=pallas)
+    if pallas:
+        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     rng = np.random.default_rng(33)
     g = rng.standard_normal((2, TINY_MODEL["gin_channels"])).astype(np.float32)
     g /= np.linalg.norm(g, axis=1, keepdims=True)
@@ -301,7 +314,8 @@ def test_live_steps_match_jax_bench(domain):
 
         fn, args = ((synth_step, (params, win, g)) if domain == "units"
                     else (wave_step, ({"params": h_params}, params, win, g)))
-        return np.asarray(compiled(fn, *args)(*args), np.float32)
+        with pltpu.force_tpu_interpret_mode() if pallas else contextlib.nullcontext():
+            return np.asarray(compiled(fn, *args)(*args), np.float32)
 
     def port_step(dtype):
         kw = dict(chunk=chunk, left=left, right=right, device="cpu", dtype=dtype)
@@ -313,6 +327,7 @@ def test_live_steps_match_jax_bench(domain):
     ours = port_step(torch.bfloat16)
     assert ours.dtype == np.float32 and ours.shape == ref.shape == (2, chunk * HOP)
     err = np.abs(ours - ref).max()
-    assert err <= max(2 * np.abs(ref - ref32).max(), 1e-2 * np.abs(ref32).max()), err
+    bound = max(2 * np.abs(ref - ref32).max(), 1e-2 * np.abs(ref32).max())
+    assert err <= bound, f"max|port - jax| = {err:.3g}, {err / bound:.3f} of {bound:.3g}"
     # the float32 session is the JAX f32 step (tests/test_torch_realtime.py's 1e-4 x peak)
     assert np.abs(port_step(torch.float32) - ref32).max() <= 1e-4 * np.abs(ref32).max()

@@ -18,7 +18,10 @@ extractor front atol 5e-4 / rtol 1e-3 (the JAX gate), the transformer layer and 
 launch to the next), the int8 GEMM exact and its bf16 form atol 2e-3 / rtol
 1e-4, streaming and a live session on the card within 1e-3 x peak of the CPU;
 K2's bf16 mode within 8e-3 max|v| of its plain version, its error against
-float64 attention at most 1.5x the plain version's.
+float64 attention at most 1.5x the plain version's; the bf16 modes of K7,
+K8, K9 and K10 within 1e-2 max|plain| (or two bf16 ulps of it) of their
+plain versions, each kernel's error against its float32 kernel on the same
+bf16-valued inputs at most 1.5x the plain version's.
 """
 
 import pytest
@@ -188,8 +191,52 @@ def test_attention_bf16_kernel_refuses_mixed_dtypes(cuda):
     q = torch.zeros(1, 8, 64, device=cuda)
     with pytest.raises(TypeError, match="one dtype"):
         fa.attention_packed_kernel(q, q.bfloat16(), q, 1, 0.125)
-    with pytest.raises(TypeError, match="ROADMAP A21"):
-        fa.attention_kernel(*(q.bfloat16()[:, None],) * 3, 0.125)
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.attention_kernel(q[:, None], q.bfloat16()[:, None], q[:, None], 0.125)
+
+
+def _bf16_gates(ours, plain, ref32):
+    """The bf16 modes' gates (PERF.md section 2)."""
+    peak = float(plain.float().abs().max())
+    ulp = 2.0 ** (int(torch.tensor(peak).log2().floor()) - 7)
+    assert ours.dtype == torch.bfloat16 and bool(torch.isfinite(ours).all())
+    assert float((ours.float() - plain.float()).abs().max()) <= max(1e-2 * peak, 2 * ulp)
+    err_k, err_p = ((z.float() - ref32.float()).abs().max() for z in (ours, plain))
+    assert err_k <= 1.5 * err_p
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 77, 16), (2, 3, 77, 32), (8, 12, 250, 64),
+                                   (2, 3, 77, 128)])
+def test_headed_attention_bf16_kernel(cuda, shape):
+    """K10's bf16 mode at each compiled head dim, on views of packed rows."""
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    b, h, t_len, d = shape
+    qkv = torch.randn(b, t_len, 3, h, d, device=cuda, generator=_gen(cuda, d)).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = (fa.HEADED_STATS.launches, fa.HEADED_BF16_STATS.launches)
+    ours = fa.attention(q, k, v, d ** -0.5)
+    assert (fa.HEADED_STATS.launches, fa.HEADED_BF16_STATS.launches) == (before[0],
+                                                                         before[1] + 1)
+    _bf16_gates(ours, fa.attention_reference(q, k, v, d ** -0.5),
+                fa.attention_kernel(q.float(), k.float(), v.float(), d ** -0.5))
+
+
+def test_packed_aligned_bf16_kernel(cuda):
+    """K9's bf16 mode: 64 true lanes a 128-lane head; padded lanes exactly zero."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    b, t_len = 3, 250
+    q, k, v = (F.pad(torch.randn(b, t_len, 12, 64, device=cuda, generator=_gen(cuda, i)),
+                     (0, 64)).reshape(b, t_len, 12 * 128).bfloat16() for i in range(3))
+    before = fa.ALIGNED_BF16_STATS.launches
+    ours = fa.attention_packed_aligned(q, k, v, 12, 0.125)
+    assert fa.ALIGNED_BF16_STATS.launches == before + 1
+    assert not ours.reshape(b, t_len, 12, 128)[..., 64:].any()
+    _bf16_gates(ours, fa.attention_packed_aligned_reference(q, k, v, 12, 0.125),
+                fa.attention_packed_aligned_kernel(q.float(), k.float(), v.float(), 12, 0.125))
 
 
 def test_polar_istft_kernel_on_strided_views(cuda):
@@ -279,6 +326,26 @@ def test_extractor_front_kernel_is_deterministic(cuda):
     assert torch.equal(fe.extractor_front(*front), fe.extractor_front(*front))
 
 
+@pytest.mark.parametrize("shape", [(2, 16003, 128), (3, 32083, 512), (2, 3013, 64),
+                                   (1, 1333, 512)])
+def test_extractor_front_bf16_kernel(cuda, shape):
+    """K7's bf16 mode on a bf16 wave and float32 weights, as the HuBERT hands
+    them over; bit-equal from one launch to the next."""
+    from quickvc_tpu_torch.ops import fused_extractor as fe
+
+    b, t_len, c = shape
+    wav, w0, gamma, beta, w1 = _front_inputs(cuda, b, t_len, c)
+    front = (wav.bfloat16(), w0, gamma, beta, w1)
+    before = (fe.STATS.launches, fe.BF16_STATS.launches)
+    ours = fe.extractor_front(*front)
+    assert (fe.STATS.launches, fe.BF16_STATS.launches) == (before[0], before[1] + 1)
+    assert ours.shape == (b, fe.front_rows(t_len), c)
+    _bf16_gates(ours, fe.extractor_front_reference(*front),
+                fe.extractor_front_kernel(wav.bfloat16().float(), w0.bfloat16().float(), gamma,
+                                          beta, w1.bfloat16().float()))
+    assert torch.equal(ours, fe.extractor_front(*front))
+
+
 def _fused_layer(dev, seed):
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.utils.weights import init_random_
@@ -306,6 +373,30 @@ def test_transformer_layer_kernel(cuda, t_len):
     assert (ft.STATS.launches, fused_attention.STATS.launches) == (before[0] + 1, before[1])
     torch.testing.assert_close(ours, ft.transformer_layer_reference(x, layer),
                                atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("t_len", [37, 300, 80])
+def test_transformer_layer_bf16_kernel(cuda, t_len):
+    """K8's bf16 mode at M = 111 and 900 (split and not) and a live window's
+    80 rows, against its plain version and the float32 kernel with the weight
+    matrices rounded to bf16; bit-equal from one launch to the next."""
+    from quickvc_tpu_torch.ops import fused_attention, fused_transformer as ft
+
+    layer = _fused_layer(cuda, t_len)
+    layer32 = _fused_layer(cuda, t_len)
+    with torch.no_grad():
+        for p in layer32.parameters():
+            if p.dim() == 2:
+                p.copy_(p.bfloat16().float())
+    x = torch.randn(3, t_len, 768, device=cuda, generator=_gen(cuda, t_len)).bfloat16()
+    before = (ft.STATS.launches, ft.BF16_STATS.launches, fused_attention.BF16_STATS.launches)
+    with torch.inference_mode():
+        ours = layer(x)
+        assert (ft.STATS.launches, ft.BF16_STATS.launches,
+                fused_attention.BF16_STATS.launches) == (before[0], before[1] + 1, before[2])
+        _bf16_gates(ours, ft.transformer_layer_reference(x, layer),
+                    ft.transformer_layer_kernel(x.float(), layer32))
+        assert torch.equal(ours, layer(x))
 
 
 @pytest.mark.parametrize("batch", [1, 16])

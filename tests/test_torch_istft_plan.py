@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_support  # noqa: F401  (caps torch's CPU threads)
+
 from quickvc_tpu_torch.dsp.istft import polar_inverse_stft
 from quickvc_tpu_torch.ops import fused_istft as fi
 

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
+import torch_port_support  # noqa: F401  (caps torch's CPU threads)
+
 HOP = 320
 
 

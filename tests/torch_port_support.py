@@ -14,8 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from quickvc_tpu_torch.config import ModelConfig
-from quickvc_tpu_torch.ops import fused_mel
+# torch's CPU ops take one intra-op thread a core by default; with several
+# pytest workers on one host that oversubscribes it, and at these tiny widths
+# the threads cost more than they save. Every port test that runs torch ops
+# imports this module (spawned loader workers start with their own default).
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+from quickvc_tpu_torch.config import ModelConfig  # noqa: E402
+from quickvc_tpu_torch.ops import fused_mel  # noqa: E402
 
 TINY_MODEL = dict(inter_channels=16, hidden_channels=16, upsample_initial_channel=32,
                   gin_channels=16, unit_channels=24, resblock_kernel_sizes=(3, 5),
