@@ -43,7 +43,11 @@
    same bf16 inputs (max |diff| <= 1e-2 max|plain| or two bf16 ulps of it,
    and each kernel's error against its float32 kernel on the bf16-valued
    inputs at most 1.5x the plain version's) and timed in turns with cuDNN's
-   bf16 chain, ``nn.TransformerEncoderLayer`` in bf16 and bf16 SDPA.
+   bf16 chain, ``nn.TransformerEncoderLayer`` in bf16 and bf16 SDPA. So are
+   the bf16 modes of K5 (forward, dx) and K6 (dW) at the five period shapes
+   in bf16 and at two shapes whose channels are not multiples of 8 (two
+   launches bit-equal; at p = 2 and 11 timed in turns with cuDNN's bf16
+   conv, its input and its weight gradient).
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
@@ -73,7 +77,13 @@
 6. Drives the discriminator's opt-in K5/K6 path (``fused_conv5=True``, the
    A/B of ``scripts/disc_pallas_ab.py``): one D-phase forward and backward
    of the full-width MPD at the training batch, held against the default
-   cuDNN discriminator.
+   cuDNN discriminator; the same on bf16 waves (K5 bf16 10 times, K6 bf16 5
+   times, nothing else of the port) against the default cuDNN bf16
+   discriminator, relative to the default's bf16 error against its float32
+   D phase; then the port of that A/B script at its defaults
+   (``quickvc_tpu_torch.scripts.disc_pallas_ab``: the fifth conv alone at p
+   = 2 and 11, three variants of the period discriminator at p = 2, 5, 11,
+   bf16), every line finite, K5/K6 bf16 launched as each variant implies.
 7. Checks one training step on the card against the same step on the CPU
    plain path at a small config (same weights, batch and draws), in float32
    and at bf16 (the bf16 step relative to the CPU's bf16 error against its
@@ -179,10 +189,11 @@ TPU_KERNELS = [
      "dense DFT up to n_fft 4096"),
     ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward (and dx)",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores; "
-     "bf16 mode: ROADMAP A18"),
+     "bf16 mode: same file, on the bf16 mma.sync core of quickvc_tpu_torch/csrc/bf16_gemm.cuh"),
     ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores, "
-     "deterministic split-K; bf16 mode: ROADMAP A18"),
+     "deterministic split-K; bf16 mode: same file, on the bf16 mma.sync core, split-K rounded "
+     "once"),
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
      "ported: quickvc_tpu_torch/csrc/fused_extractor.cu; redesigned: 3xTF32 tensor-core "
      "implicit GEMM, conv0 produced on chip; bf16 mode: same file, on the bf16 mma.sync "
@@ -229,18 +240,20 @@ DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_k
                     "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
                     "row_layer_norm_kernel", "extractor_front_bf16_kernel",
                     "linear_bf16_kernel", "linear_bf16_splitk_kernel",
+                    "conv5_bf16_kernel", "splitk_sum_bf16_kernel",
                     "mm_wgmma_kernel", "transpose_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
 # K2/K8/K9/K10 and K2's bf16 body, K5/K6's implicit GEMM and K6's split-K
 # sum, K7, K8's GEMMs and their split-K sum, K3's both bodies, and the bf16
-# modes of K7 and K8's GEMMs); none may spill
+# modes of K7, K8's GEMMs and K5/K6 with K6's bf16 split-K sum); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
                "transpose_kernel", "attention_kernel", "attention_bf16_kernel",
                "conv5_gemm_kernel", "splitk_sum_kernel",
                "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
                "extractor_front_bf16_kernel", "linear_bf16_kernel",
-               "linear_bf16_splitk_kernel", "polar_istft_kernel", "polar_istft_kernel_rt")
+               "linear_bf16_splitk_kernel", "polar_istft_kernel", "polar_istft_kernel_rt",
+               "conv5_bf16_kernel", "splitk_sum_bf16_kernel")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "wave_to_spec_halo": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
@@ -261,6 +274,9 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
                                         "bf16 attention body",
               "attention_packed_aligned_bf16": "ported: K2's bf16 body at D = 128",
               "attention_bf16": "ported: K2's bf16 body on (B, H, T, D)",
+              "conv5_lrelu_bf16": "ported: implicit GEMM on the bf16 mma.sync GEMM core",
+              "conv5_lrelu_dw_bf16": "ported: implicit GEMM on the bf16 mma.sync GEMM core, "
+                                     "split-K rounded once",
               "polar_inverse_stft": "redesigned: persistent planned grid, host-built tables, "
                                     "loads one step ahead"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
@@ -571,11 +587,105 @@ def check_kernels(dev: torch.device, rng: np.random.Generator) -> list[dict]:
     results += check_encoding_kernels(dev, rng)
     results += check_attention_layouts(dev)
     results += check_bf16_modes(dev)
+    results += check_conv5_bf16(dev)
     results += check_gemm_kernels(dev)
     for r in results:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
         r["bound_by"] = "operations" if r["bound_ops_ms"] >= r["bound_bytes_ms"] else "bytes"
     return results
+
+
+def check_conv5_bf16(dev: torch.device) -> list[dict]:
+    """The bf16 modes of K5 (forward, dx) and K6 (dW) at every period
+    discriminator's fifth conv of the paired D phase, x (64 p, R_p, 1024) in
+    bf16, and at two shapes whose channels are not multiples of 8 (the
+    gathered copies): against their plain versions and the float32 kernels
+    on the same bf16-valued inputs (``bf16_gate``), a second launch of each
+    bit-equal; at p = 2 and 11 timed in turns with cuDNN's bf16 conv and its
+    input and weight gradients (transposed before the timing). Its own seeds,
+    and torch's generators restored after it."""
+    with torch.random.fork_rng(devices=[dev]):
+        return _check_conv5_bf16(dev)
+
+
+def _check_conv5_bf16(dev: torch.device) -> list[dict]:
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+    from quickvc_tpu_torch.ops.fused_transformer import BF16_TILING
+
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {f"p{p}": (n, rows, c, c)
+              for p, (n, rows, c) in fdc.disc_conv5_shapes(DISC_BATCH, SEGMENT).items()}
+    shapes |= {"(5, 13, 30, 42)": (5, 13, 30, 42), "(4, 12, 33, 17)": (4, 12, 33, 17)}
+    checks, dw_checks, timings, deterministic = {}, {}, {}, True
+    for i, (key, (n, rows, c_in, c_out)) in enumerate(shapes.items()):
+        g = torch.Generator(device=dev).manual_seed(SEED + 60 + i)
+        x = torch.randn(n, rows, c_in, device=dev, generator=g).to(bf)
+        k = (torch.randn(5, c_in, c_out, device=dev, generator=g) / np.sqrt(5 * c_in)).to(bf)
+        b = (0.1 * torch.randn(c_out, device=dev, generator=g)).to(bf)
+        dy = (torch.randn(n, rows, c_out, device=dev, generator=g) / np.sqrt(n * rows)).to(bf)
+        y = fdc.conv5_lrelu_kernel(x, k, b, 0.1)
+        # dym as the backward forms it: bf16(lrelu') from the kernel's output, rounded
+        dym = (dy * torch.where(y > 0, 1.0, 0.1).to(bf)).contiguous()
+        k_flip = k.flip(0).transpose(1, 2).contiguous()
+        dx = fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
+        dw = fdc.conv5_dw_kernel(x, dym)
+        checks[f"{key} y"] = bf16_gate(y, fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1),
+                                       fdc.conv5_lrelu_kernel(x.float(), k.float(), b.float(),
+                                                              0.1))
+        checks[f"{key} dx"] = bf16_gate(dx, fdc.conv5_lrelu_reference_bf16(dym, k_flip, None, 1.0),
+                                        fdc.conv5_lrelu_kernel(dym.float(), k_flip.float(), None,
+                                                               1.0))
+        dw_checks[key] = bf16_gate(dw, fdc.conv5_dw_reference(x, dym),
+                                   fdc.conv5_dw_kernel(x.float(), dym.float()))
+        deterministic &= bool(torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y)
+                              and torch.equal(fdc.conv5_dw_kernel(x, dym), dw))
+        if key in ("p2", "p11"):
+            x_ncr = x.transpose(1, 2).contiguous()        # cuDNN's (N, C, R) layout
+            w_oik = k.permute(2, 1, 0).contiguous()       # (C_out, C_in, 5)
+            dym_ncr = dym.transpose(1, 2).contiguous()
+            flops = 2 * n * rows * 5 * c_in * c_out
+            timings[key] = {
+                "shape": [n, rows, c_in],
+                "forward": turns(lambda: fdc.conv5_lrelu_kernel(x, k, b, 0.1),
+                                 lambda: F.leaky_relu(F.conv1d(x_ncr, w_oik, b, padding=2), 0.1)),
+                "dx": turns(lambda: fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0),
+                            lambda: torch.nn.grad.conv1d_input(x_ncr.shape, w_oik, dym_ncr,
+                                                               padding=2)),
+                "dw": turns(lambda: fdc.conv5_dw_kernel(x, dym),
+                            lambda: torch.nn.grad.conv1d_weight(x_ncr, w_oik.shape, dym_ncr,
+                                                                padding=2)),
+                "plain_ms": cuda_ms(lambda: fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1)),
+                "dx_plain_ms": cuda_ms(
+                    lambda: fdc.conv5_lrelu_reference_bf16(dym, k_flip, None, 1.0)),
+                "dw_plain_ms": cuda_ms(lambda: fdc.conv5_dw_reference(x, dym)),
+                "dw_plan": fdc.dw_plan(n, rows, c_in, c_out, sms, BF16_TILING)._asdict(),
+                # bf16 products; bytes: x and the filter (or dym) in, the output out
+                "bound_ops_ms": flops / BF16_FLOPS * 1e3,
+                "bound_bytes_ms": 2 * (n * rows * (c_in + c_out) + 5 * c_in * c_out)
+                / HBM_BYTES * 1e3}
+            del x_ncr, w_oik, dym_ncr
+        del x, k, b, dy, y, dym, k_flip, dx, dw
+
+    t2 = timings["p2"]
+    k5, k6 = merge_checks(checks), merge_checks(dw_checks)
+    k5["within_tol"] = k5["within_tol"] and deterministic
+    k6["within_tol"] = k6["within_tol"] and deterministic
+    bounds = {key: t2[key] for key in ("bound_ops_ms", "bound_bytes_ms")}
+    source = "quickvc_tpu_torch/csrc/fused_disc_conv.cu"
+    return [dict(name="conv5_lrelu_bf16", tpu_id="K5", source=source,
+                 replaces="quickvc_tpu/ops/fused_disc_conv.py:117", shape=t2["shape"], **k5,
+                 deterministic=deterministic, **t2["forward"], plain_ms=t2["plain_ms"],
+                 dx_ms=t2["dx"]["ms"], dx_device_ms=t2["dx"]["device_ms"],
+                 dx_plain_ms=t2["dx_plain_ms"], dx_library_ms=t2["dx"]["library_ms"],
+                 dx_library_device_ms=t2["dx"]["library_device_ms"], timings=timings,
+                 **bounds),
+            dict(name="conv5_lrelu_dw_bf16", tpu_id="K6", source=source,
+                 replaces="quickvc_tpu/ops/fused_disc_conv.py:156", shape=t2["shape"], **k6,
+                 deterministic=deterministic, **t2["dw"], plain_ms=t2["dw_plain_ms"],
+                 dw_plan=t2["dw_plan"], **bounds)]
 
 
 def check_attention_bf16(dev: torch.device, shapes: dict) -> dict:
@@ -1822,6 +1932,104 @@ def check_disc_fused(dev: torch.device, rng: np.random.Generator) -> dict:
     return out
 
 
+def check_disc_fused_bf16(dev: torch.device) -> dict:
+    """The same paired D phase on bf16 waves (the bf16 training step's D
+    phase): the fused MPD (K5 bf16 10 times and K6 bf16 5 times, nothing else
+    of the port) against the default cuDNN bf16 MPD, relative to the
+    default's bf16 error against its float32 D phase (PERF.md section 2):
+    loss ``|fused - ref| <= max(2 |ref - ref_f32|, 4e-3 |ref_f32|)``, each
+    gradient ``maxrel(fused, ref) <= max(2 maxrel(ref, ref_f32), 2e-2)``;
+    every parameter and gradient float32. Its own seeds, and torch's
+    generators restored after it."""
+    with torch.random.fork_rng(devices=[dev]):
+        return _check_disc_fused_bf16(dev, np.random.default_rng(SEED + 15))
+
+
+def _check_disc_fused_bf16(dev: torch.device, rng: np.random.Generator) -> dict:
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.losses import discriminator_loss
+    from quickvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    bf = torch.bfloat16
+    base = init_random_(MultiPeriodDiscriminator(), SEED + 15).to(dev)
+    fused = MultiPeriodDiscriminator(fused_conv5=True).to(dev)
+    fused.load_state_dict(base.state_dict())
+    y, y_hat = (torch.from_numpy(np.stack([synth_voice(SEGMENT / SR + 1e-3, SR, rng)[:SEGMENT]
+                                           for _ in range(TRAIN_BATCH)])[:, None]).to(dev)
+                for _ in range(2))
+
+    def d_phase(net, dtype):   # as train/step.py runs it: logits to float32
+        logits_r, logits_g, _, _ = net(y.to(dtype), y_hat.to(dtype), pair=True)
+        loss = discriminator_loss([z.float() for z in logits_r],
+                                  [z.float() for z in logits_g])[0]
+        return loss, torch.autograd.grad(loss, list(net.parameters()))
+
+    d_phase(fused, bf)  # cuDNN set-up
+    d_phase(base, bf)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    loss_f, grads_f = d_phase(fused, bf)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    loss_b, grads_b = d_phase(base, bf)
+    loss_32, grads_32 = d_phase(base, torch.float32)
+
+    def maxrel(a, b) -> float:
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp(min=1e-6))
+
+    names = [name for name, _ in fused.named_parameters()]
+    ratios = {name: maxrel(f, b) / max(2 * maxrel(b, b32), 2e-2)
+              for name, f, b, b32 in zip(names, grads_f, grads_b, grads_32)}
+    worst = max(ratios, key=ratios.get)
+    loss_bound = max(2 * abs(loss_b.item() - loss_32.item()), 4e-3 * abs(loss_32.item()))
+    float32 = all(p.dtype == torch.float32 for p in fused.parameters()) and all(
+        g.dtype == torch.float32 for g in grads_f)
+    expected = {name: 0 for name in launches} | {"conv5_lrelu_bf16": 10,
+                                                 "conv5_lrelu_dw_bf16": 5}
+    out = {"batch": list(y.shape), "loss_fused": loss_f.item(), "loss_default": loss_b.item(),
+           "loss_default_f32": loss_32.item(), "loss_bound": loss_bound,
+           "grad_worst": worst, "grad_worst_err_over_bound": ratios[worst],
+           "params_and_grads_float32": float32, "launches": launches,
+           "expected_launches": expected,
+           "fused_d_phase_ms": cuda_ms(lambda: d_phase(fused, bf), iters=5, warmup=1),
+           "default_d_phase_ms": cuda_ms(lambda: d_phase(base, bf), iters=5, warmup=1)}
+    print("disc_fused_bf16_path " + json.dumps(out))
+    require(launches == expected, f"fused bf16 D launches {launches} != {expected}")
+    require(abs(out["loss_fused"] - out["loss_default"]) <= loss_bound,
+            "fused bf16 D loss matches the default bf16 D")
+    require(ratios[worst] <= 1.0, "fused bf16 D gradients match the default bf16 D")
+    require(float32, "every parameter and gradient float32 after the bf16 D phase")
+    return out
+
+
+def run_disc_ab() -> dict:
+    """The A/B script (``python -m quickvc_tpu_torch.scripts.disc_pallas_ab``)
+    at its defaults through its entry point, on its own seeds with torch's
+    generators restored after it: every line finite, K5 and K6 bf16 launched
+    as each line's variant implies (the fused conv's forward once, its
+    filter gradient K5 and K6 once each, ``pallas_l5``'s D gradient K5 twice
+    and K6 once) and no K5/K6 bf16 launch elsewhere."""
+    from quickvc_tpu_torch.scripts import disc_pallas_ab
+
+    t0 = time.time()
+    with torch.random.fork_rng(devices=[torch.device("cuda")]):
+        lines = disc_pallas_ab.main([])
+    implied = {"_fused_fwd": (1, 0), "_fused_grad": (1, 1), "_pallas_l5_grad": (2, 1)}
+    bad = []
+    for line in lines:
+        k5, k6 = next((v for end, v in implied.items() if line["name"].endswith(end)), (0, 0))
+        if not line["finite"] or line["launches"] != {"conv5_lrelu_bf16": k5,
+                                                      "conv5_lrelu_dw_bf16": k6}:
+            bad.append(line["name"])
+    out = {"seconds": time.time() - t0, "lines": len(lines), "bad": bad,
+           "ms": {line["name"]: line["ms"] for line in lines}}
+    print("disc_ab " + json.dumps(out))
+    require(len(lines) == 17 and not bad, f"A/B script lines {bad} off")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 6: one training step on the card against the CPU plain path
 
@@ -2483,6 +2691,8 @@ def main() -> int:
             net_g, hub_pallas, rng_pallas, "pallas_bf16_session", PALLAS_BF16_TICK)
         time_pallas_bf16_session(net_g, hubert, hub_pallas, rng_pallas)
     disc = check_disc_fused(dev, rng)
+    disc16 = check_disc_fused_bf16(dev)
+    run_disc_ab()
     check_train_step_against_cpu(rng)
     check_speaker_lstm_bf16(rng)
 
@@ -2494,6 +2704,8 @@ def main() -> int:
                "wave_to_spec_halo": ("train", train["launches"]),
                "conv5_lrelu": ("disc_fused_path", disc["launches"]),
                "conv5_lrelu_dw": ("disc_fused_path", disc["launches"]),
+               "conv5_lrelu_bf16": ("disc_fused_bf16_path", disc16["launches"]),
+               "conv5_lrelu_dw_bf16": ("disc_fused_bf16_path", disc16["launches"]),
                "extractor_front": ("encode_pallas", encoding["pallas"]["launches"]),
                "transformer_layer": ("encode_pallas_fused_layer",
                                      encoding["pallas_fused_layer"]["launches"]),

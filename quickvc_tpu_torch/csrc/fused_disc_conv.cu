@@ -65,9 +65,14 @@
 //   writes its float32 partial tile to workspace[z] (splits x 5*C_in*C_out
 //   floats), and a second kernel sums the partials in split order 0..s-1
 //   into dW. No atomics: every launch on the same inputs gives the same bits.
+//
+// The bf16 mode of both (qvc_conv5_lrelu_bf16, qvc_conv5_dw_bf16) is the
+// same implicit GEMM on the bf16 tensor-core core of bf16_gemm.cuh; its
+// note is at the end of this file.
 
 #include <cuda_runtime.h>
 
+#include "bf16_gemm.cuh"  // the bf16 mode's fragments and mma
 #include "tf32x3.cuh"
 
 namespace {
@@ -500,5 +505,469 @@ extern "C" int qvc_conv5_dw(const void* x, const void* dym, void* dw, void* work
   const int blocks = (int)((work + 255) / 256 < 4096 ? (work + 255) / 256 : 4096);
   splitk_sum_kernel<<<blocks, 256, 0, s>>>((const float*)workspace, (float*)dw, count, splits,
                                            vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 mode of K5 and K6: the TPU kernels' bf16 branch (their dots drop
+// Precision.HIGHEST for bf16 operands, quickvc_tpu/ops/fused_disc_conv.py
+// :64-65, 88-89). With x, the filter and dym in bf16:
+//
+//   K5:  y  = bf16(lrelu(sum_{dr, c} x[n, r + dr - 2, c] K[dr, c, o] + float(b[o])))
+//   K6:  dW = bf16(sum_{n, r} x[n, r + dr - 2, c] dym[n, r, o])
+//
+// every product of two bf16 values exact in float32, the sums, the bias and
+// the LeakyReLU in float32, and the result rounded to bf16 once (K5 as the
+// TPU kernel's out_shape x.dtype at :126; K6 after its float32 output, :164,
+// 166). dx is K5 on the flipped, transposed bf16 filter with slope 1.
+//
+// What bounds them on this card: operations. At DiscriminatorP(2)'s fifth
+// conv of the paired D phase (x (128, 64, 1024)) each call is 85.9 GFLOP,
+// 0.087 ms at the 989 TFLOP/s dense bf16 rate, against ~44 MB of bf16
+// moved (0.013 ms).
+//
+// Design: the float32 kernel's implicit GEMM, out (M x Nc) = A (M x Kd) @
+// B (Kd x Nc), on the bf16 core (bf16_gemm.cuh): mma.sync.m16n8k16 bf16 with
+// float32 accumulators, 128 x 128 tiles of 4 warps (64 x 64 a warp), two
+// blocks an SM, K walked in tiles of 64 through a ring of 3 cp.async stages.
+// - The core stages both operands k-contiguous. Here only K5's A is:
+//   A[(n, r), (dr, c)] = x[n, r + dr - 2, c], staged As[m][k] (72-value
+//   rows) and read with ldmatrix.x4 as the core reads it. K5's B (the
+//   filter as (5 C_in, C_out)), K6's A (x shifted, [k = (n, r)][m = (dr,
+//   c)]) and K6's B (dym, [k][n]) are contiguous along m or n: they are
+//   staged as they lie, [k][m] or [k][n] in 136-value rows (17 16-byte
+//   units: the 8 rows of an ldmatrix phase land on 8 bank groups), and read
+//   with ldmatrix.x4.trans, as K7's bf16 conv1 reads its weight.
+// - A row whose shifted x row falls outside [0, R) (the SAME padding, the
+//   item edges every R rows) and anything past M, Nc or the block's K range
+//   is zero-filled by the copy (src-size 0). 16-byte copies of 8 values need
+//   C_in % 8 == 0, C_out % 8 == 0 and 16-byte aligned pointers; any other
+//   shape takes the same body with each value gathered on its own and
+//   stored to shared memory by the threads (every channel count the JAX
+//   kernel takes).
+// - K5's epilogue adds the bias, applies the LeakyReLU and rounds to bf16,
+//   storing bf16 pairs. K6 splits its reduction as dw_plan plans it for this
+//   tiling (40 x 8 = 320 tiles on 264 block slots at full width): split z
+//   stores its float32 partial to workspace z and splitk_sum_bf16_kernel
+//   sums the partials in split order and rounds once. No atomics: every
+//   launch on the same inputs gives the same bits.
+
+namespace {
+namespace conv5_bf16 {
+
+using bf16core::bf16_t;
+
+constexpr int BM = bf16core::BM, BN = bf16core::BN, BK = bf16core::BK;
+constexpr int STAGES = bf16core::STAGES, THREADS = bf16core::THREADS;
+constexpr int WARPS_N = bf16core::WARPS_N, MIN_BLOCKS = bf16core::MIN_BLOCKS;
+constexpr int WM = bf16core::WM, WN = bf16core::WN, MT = bf16core::MT, NT = bf16core::NT;
+constexpr int LDMK = BK + 8;   // [m][k] rows (K5's A): 72 values, 9 16-byte units
+constexpr int LDKN = BN + 8;   // [k][m] and [k][n] rows: 136 values, 17 16-byte units
+static_assert(BM == BN, "[k][m] and [k][n] rows share a pitch");
+static_assert((LDMK * 2 / 16) % 2 == 1 && (LDKN * 2 / 16) % 2 == 1, "ldmatrix bank spread");
+
+template <int MODE>
+__host__ __device__ constexpr int a_stage() {
+  return MODE == A_CONV ? BM * LDMK : BK * LDKN;
+}
+constexpr int B_STAGE = BK * LDKN;
+template <int MODE>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * (a_stage<MODE>() + B_STAGE) * (int)sizeof(bf16_t);  // 107,520 / 104,448
+}
+
+// 8 bf16 values as one 16-byte word, the first in the low half
+__device__ __forceinline__ uint4 pack8(const bf16_t (&v)[8]) {
+  return make_uint4(v[0] | (unsigned)v[1] << 16, v[2] | (unsigned)v[3] << 16,
+                    v[4] | (unsigned)v[5] << 16, v[6] | (unsigned)v[7] << 16);
+}
+
+// This thread's copies of one K tile of A and B, 8 values each. A_CONV:
+// A's rows run along m, its 8-value chunks along k; A_DW: As's rows run
+// along k, chunks along m; B's rows along k, chunks along n. A thread's
+// chunk column stays fixed from one K tile to the next. VEC: one 16-byte
+// cp.async a chunk; otherwise each value gathered on its own (any shape).
+template <int MODE, bool VEC>
+struct Loader {
+  static constexpr int A_COLS = (MODE == A_CONV ? BK : BM) / 8;  // chunks a row: 8 or 16
+  static constexpr int A_ROWS = THREADS / A_COLS;                // rows a pass: 16 or 8
+  static constexpr int A_PASSES = (MODE == A_CONV ? BM : BK) / A_ROWS;
+  static constexpr int LDA = MODE == A_CONV ? LDMK : LDKN;
+  static constexpr int B_COLS = BN / 8, B_ROWS = THREADS / B_COLS, B_PASSES = BK / B_ROWS;
+  static_assert(A_PASSES * A_ROWS == (MODE == A_CONV ? BM : BK) && B_PASSES * B_ROWS == BK,
+                "whole passes");
+
+  const bf16_t* __restrict__ x;
+  const bf16_t* __restrict__ b;
+  int R, C, M, Nc, k_end;
+  int a_row0, a_col, b_row0, b_col;
+  int m0, n0, k0;  // tile origin; k0 of the next K tile to load
+  int dr, c;       // A_CONV: (dr, c) of column k0 + a_col; A_DW: of row m0 + a_col
+  int r_step;      // A_DW: BK mod R
+  int r[A_PASSES]; // the r of each row this thread copies (A_CONV: of m; A_DW: of k)
+
+  __device__ __forceinline__ Loader(const bf16_t* x_, const bf16_t* b_, int R_, int C_, int M_,
+                                    int Nc_, int m0_, int n0_, int k_begin, int k_end_)
+      : x(x_), b(b_), R(R_), C(C_), M(M_), Nc(Nc_), k_end(k_end_), m0(m0_), n0(n0_),
+        k0(k_begin) {
+    const int tid = threadIdx.x;
+    a_row0 = tid / A_COLS;
+    a_col = 8 * (tid % A_COLS);
+    b_row0 = tid / B_COLS;
+    b_col = 8 * (tid % B_COLS);
+    if (MODE == A_CONV) {
+      const int k = k0 + a_col;
+      dr = k / C;
+      c = k - dr * C;
+      r_step = 0;
+#pragma unroll
+      for (int i = 0; i < A_PASSES; ++i) {
+        const int m = m0 + a_row0 + i * A_ROWS;
+        r[i] = m < M ? m % R : -(1 << 20);  // a row past M never lands in [0, R)
+      }
+    } else {
+      const int m = m0 + a_col;
+      dr = m < M ? m / C : 1 << 20;  // a column past M never lands in [0, R)
+      c = m < M ? m - dr * C : 0;
+      r_step = BK % R;
+#pragma unroll
+      for (int i = 0; i < A_PASSES; ++i) r[i] = (k0 + a_row0 + i * A_ROWS) % R;
+    }
+  }
+
+  // The next K tile of A and B into As and Bs; advances to the one after.
+  __device__ __forceinline__ void load(bf16_t* As, bf16_t* Bs) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int i = 0; i < A_PASSES; ++i) load_a(As, i);
+#pragma unroll
+      for (int i = 0; i < B_PASSES; ++i) load_b(Bs, i);
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < A_PASSES; ++i) gather_a(As, i);
+#pragma unroll 1
+      for (int i = 0; i < B_PASSES; ++i) gather_b(Bs, i);
+    }
+    advance();
+  }
+
+  __device__ __forceinline__ void load_a(bf16_t* As, int i) {
+    const int row = a_row0 + i * A_ROWS;
+    bool ok;
+    long long src;
+    if constexpr (MODE == A_CONV) {
+      ok = dr < 5 && (unsigned)(r[i] + dr - 2) < (unsigned)R;
+      src = (long long)(m0 + row + dr - 2) * C + c;
+    } else {
+      const int k = k0 + row;
+      ok = k < k_end && (unsigned)(r[i] + dr - 2) < (unsigned)R;
+      src = (long long)(k + dr - 2) * C + c;
+    }
+    cp_async16(reinterpret_cast<float*>(As + row * LDA + a_col),
+               reinterpret_cast<const float*>(ok ? x + src : x), ok);
+  }
+
+  __device__ __forceinline__ void load_b(bf16_t* Bs, int i) {
+    const int row = b_row0 + i * B_ROWS;
+    const int k = k0 + row, n = n0 + b_col;
+    const bool ok = k < k_end && n < Nc;
+    cp_async16(reinterpret_cast<float*>(Bs + row * LDKN + b_col),
+               reinterpret_cast<const float*>(ok ? b + (long long)k * Nc + n : b), ok);
+  }
+
+  // The gathered forms of load_a and load_b: each value's own (dr, c) and
+  // bounds, 8 values stored to shared memory as one 16-byte store.
+  __device__ __forceinline__ void gather_a(bf16_t* As, int i) {
+    const int row = a_row0 + i * A_ROWS;
+    bf16_t v[8];
+    if constexpr (MODE == A_CONV) {
+      const int m = m0 + row;
+      const int rr = m < M ? m % R : -(1 << 20);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = k0 + a_col + e, d = k / C;
+        const bool ok = k < k_end && (unsigned)(rr + d - 2) < (unsigned)R;
+        v[e] = ok ? x[(long long)(m + d - 2) * C + (k - d * C)] : (bf16_t)0;
+      }
+    } else {
+      const int k = k0 + row, rr = k % R;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int m = m0 + a_col + e, d = m / C;
+        const bool ok = k < k_end && m < M && (unsigned)(rr + d - 2) < (unsigned)R;
+        v[e] = ok ? x[(long long)(k + d - 2) * C + (m - d * C)] : (bf16_t)0;
+      }
+    }
+    *reinterpret_cast<uint4*>(As + row * LDA + a_col) = pack8(v);
+  }
+
+  __device__ __forceinline__ void gather_b(bf16_t* Bs, int i) {
+    const int row = b_row0 + i * B_ROWS;
+    const int k = k0 + row;
+    bf16_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int n = n0 + b_col + e;
+      v[e] = k < k_end && n < Nc ? b[(long long)k * Nc + n] : (bf16_t)0;
+    }
+    *reinterpret_cast<uint4*>(Bs + row * LDKN + b_col) = pack8(v);
+  }
+
+  __device__ __forceinline__ void advance() {
+    k0 += BK;
+    if constexpr (!VEC) return;  // the gathers recompute everything from k0
+    if constexpr (MODE == A_CONV) {
+      c += BK;
+      while (c >= C) {
+        c -= C;
+        ++dr;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < A_PASSES; ++i) {
+        r[i] += r_step;
+        if (r[i] >= R) r[i] -= R;
+      }
+    }
+  }
+};
+
+// One BM x BN tile of out = A @ B over the K range [z k_chunk, (z + 1)
+// k_chunk) of block z (blockIdx.z). With one split: K5 (A_CONV) adds the
+// bias (bf16, may be null), applies the LeakyReLU and stores bf16; K6 (A_DW)
+// stores its sums rounded to bf16. With several (K6), block z stores its
+// float32 sums to the workspace out + z M Nc.
+template <int MODE, bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+conv5_bf16_kernel(const bf16_t* __restrict__ x, const bf16_t* __restrict__ bmat,
+                  const bf16_t* __restrict__ bias, void* out, int M, int Nc, int Kd, int R,
+                  int C, int k_chunk, float slope) {
+  constexpr int A_ST = a_stage<MODE>();
+  extern __shared__ __align__(16) unsigned char conv5_bf16_smem[];
+  bf16_t* As = reinterpret_cast<bf16_t*>(conv5_bf16_smem);
+  bf16_t* Bs = As + STAGES * A_ST;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(Kd, k_begin + k_chunk);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  Loader<MODE, VEC> ld(x, bmat, R, C, M, Nc, m0, n0, k_begin, k_end);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) ld.load(As + s * A_ST, Bs + s * B_STAGE);
+    cp_async_commit();
+  }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // ldmatrix row addresses of this lane, in bytes from a stage's start.
+  // A [m][k] (ldmatrix.x4): row wm0 + l % 16, k 8 (l / 16). A [k][m] and B
+  // [k][n] (.trans): matrix j = l / 8 of a fragment is A's (m 8 (j % 2), k
+  // 8 (j / 2)) block and B's (k 8 (j % 2), n 8 (j / 2)) one, so lane l
+  // gives A's k row 8 (l / 16) + l % 8 at m 8 ((l / 8) % 2) and B's k row
+  // 8 ((l / 8) % 2) + l % 8 at n 8 (l / 16).
+  const unsigned a_lane =
+      MODE == A_CONV
+          ? 2u * ((wm0 + (lane & 15)) * LDMK + 8 * (lane >> 4))
+          : 2u * ((8 * (lane >> 4) + (lane & 7)) * LDKN + wm0 + 8 * ((lane >> 3) & 1));
+  const unsigned b_lane = 2u * ((8 * ((lane >> 3) & 1) + (lane & 7)) * LDKN + wn0 + 8 * (lane >> 4));
+  const unsigned as_addr = (unsigned)__cvta_generic_to_shared(As);
+  const unsigned bs_addr = (unsigned)__cvta_generic_to_shared(Bs);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile t has landed (or was stored) for every thread, and
+                      // every warp is done with the slot that the next load refills
+    const int nxt = t + STAGES - 1;
+    if (nxt < n_tiles) ld.load(As + (nxt % STAGES) * A_ST, Bs + (nxt % STAGES) * B_STAGE);
+    cp_async_commit();
+    const int s = t % STAGES;
+    const unsigned at = as_addr + 2u * s * A_ST + a_lane;
+    const unsigned bt = bs_addr + 2u * s * B_STAGE + b_lane;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      unsigned af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (MODE == A_CONV)
+          bf16core::ldmatrix_x4(af[i], at + 2u * (16 * i * LDMK + kk));
+        else
+          bf16core::ldmatrix_x4_trans(af[i], at + 2u * (kk * LDKN + 16 * i));
+      }
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        unsigned bf[4];
+        bf16core::ldmatrix_x4_trans(bf, bt + 2u * (kk * LDKN + 16 * jp));
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          bf16core::mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
+          bf16core::mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool partial = gridDim.z > 1;
+  float* part = static_cast<float*>(out) + (long long)blockIdx.z * M * Nc;
+  bf16_t* y = static_cast<bf16_t*>(out);
+  // acc[i][j]: rows 16 i + g (e 0, 1) and + 8 (e 2, 3), columns 8 j + 2 t4 + {0, 1}
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = n0 + wn0 + 8 * j + 2 * t4;
+    if (col >= Nc) continue;
+    float bv[2] = {0.0f, 0.0f};
+    if (MODE == A_CONV && bias != nullptr) {
+      bv[0] = bf16core::bf16_to_float(bias[col]);
+      if (col + 1 < Nc) bv[1] = bf16core::bf16_to_float(bias[col + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm0 + 16 * i + g + 8 * h;
+        if (row >= M) continue;
+        float v[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+        const long long at = (long long)row * Nc + col;
+        if (partial) {
+          if (VEC) {  // Nc % 8 == 0: the pair is in, 8-byte aligned
+            *reinterpret_cast<float2*>(part + at) = make_float2(v[0], v[1]);
+          } else {
+            part[at] = v[0];
+            if (col + 1 < Nc) part[at + 1] = v[1];
+          }
+          continue;
+        }
+        if (MODE == A_CONV) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] += bv[e];
+            v[e] = v[e] > 0.0f ? v[e] : slope * v[e];
+          }
+        }
+        if (VEC) {
+          *reinterpret_cast<unsigned*>(y + at) = bf16core::pack_bf16(v[0], v[1]);
+        } else {
+          y[at] = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
+          if (col + 1 < Nc) y[at + 1] = __bfloat16_as_ushort(__float2bfloat16_rn(v[1]));
+        }
+      }
+    }
+  }
+}
+
+// out[i] = bf16(sum over z = 0..splits-1, in that order, of ws[z count + i]):
+// K6's partials summed in float32 and rounded once.
+__global__ void __launch_bounds__(256)
+splitk_sum_bf16_kernel(const float* __restrict__ ws, bf16_t* __restrict__ out,
+                       long long count, int splits, bool vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec) {
+    const float4* w4 = reinterpret_cast<const float4*>(ws);
+    const long long n4 = count / 4;
+    for (; i < n4; i += stride) {
+      float4 s = w4[i];
+      for (int z = 1; z < splits; ++z) {
+        const float4 p = w4[z * n4 + i];
+        s.x += p.x;
+        s.y += p.y;
+        s.z += p.z;
+        s.w += p.w;
+      }
+      reinterpret_cast<uint2*>(out)[i] =
+          make_uint2(bf16core::pack_bf16(s.x, s.y), bf16core::pack_bf16(s.z, s.w));
+    }
+  } else {
+    for (; i < count; i += stride) {
+      float s = ws[i];
+      for (int z = 1; z < splits; ++z) s += ws[z * count + i];
+      out[i] = __bfloat16_as_ushort(__float2bfloat16_rn(s));
+    }
+  }
+}
+
+template <int MODE, bool VEC>
+cudaError_t launch(const bf16_t* x, const bf16_t* bmat, const bf16_t* bias, void* out, int M,
+                   int Nc, int Kd, int R, int C, int splits, int k_chunk, float slope,
+                   cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<MODE>();
+  const auto kernel = conv5_bf16_kernel<MODE, VEC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)  // two blocks an SM: 210-215 KB of its shared memory
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Nc + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  kernel<<<grid, THREADS, bytes, stream>>>(x, bmat, bias, out, M, Nc, Kd, R, C, k_chunk, slope);
+  return cudaGetLastError();
+}
+
+// 16-byte copies where the channel counts are multiples of 8 values and
+// the pointers 16-byte aligned, else the gathered copies.
+template <int MODE>
+cudaError_t launch_any(const void* x, const void* bmat, const void* bias, void* out,
+                       const void* y, int M, int Nc, int Kd, int R, int C, int c_in, int c_out,
+                       int splits, int k_chunk, float slope, cudaStream_t stream) {
+  const bool vec = c_in % 8 == 0 && c_out % 8 == 0 && aligned(x, 16) && aligned(bmat, 16) &&
+                   aligned(y, 16);
+  const auto* xb = static_cast<const bf16_t*>(x);
+  const auto* bb = static_cast<const bf16_t*>(bmat);
+  const auto* biasb = static_cast<const bf16_t*>(bias);
+  return vec ? launch<MODE, true>(xb, bb, biasb, out, M, Nc, Kd, R, C, splits, k_chunk, slope,
+                                  stream)
+             : launch<MODE, false>(xb, bb, biasb, out, M, Nc, Kd, R, C, splits, k_chunk, slope,
+                                   stream);
+}
+
+}  // namespace conv5_bf16
+}  // namespace
+
+// K5 at bf16: y (N, R, C_out) bf16 = lrelu(conv5(x (N, R, C_in), w (5, C_in,
+// C_out)) + bias (C_out)), all bf16, float32 sums and activation, rounded
+// once. bias may be null (the dx launch); slope 1 makes the activation the
+// identity.
+extern "C" int qvc_conv5_lrelu_bf16(const void* x, const void* w, const void* bias, void* y,
+                                    int n, int rows, int c_in, int c_out, float slope,
+                                    void* stream) {
+  const int M = n * rows, K = 5 * c_in;
+  return (int)conv5_bf16::launch_any<A_CONV>(x, w, bias, y, y, M, c_out, K, rows, c_in, c_in,
+                                             c_out, 1, K, slope, (cudaStream_t)stream);
+}
+
+// K6 at bf16: dw (5, C_in, C_out) bf16 = the float32 sum over (n, r) of
+// shifted x^T @ dym, rounded once; the reduction cut into `splits` ranges
+// of k_chunk rows (a multiple of the bf16 K tile, every range non-empty:
+// ops/fused_disc_conv.py:dw_plan on BF16_TILING). With more than one split
+// the float32 partials go to workspace (splits x 5*C_in*C_out floats) and a
+// second kernel sums them in split order and rounds.
+extern "C" int qvc_conv5_dw_bf16(const void* x, const void* dym, void* dw, void* workspace,
+                                 int n, int rows, int c_in, int c_out, int splits, int k_chunk,
+                                 void* stream) {
+  const int M = 5 * c_in, K = n * rows;
+  if (!bf16core::valid_plan(K, splits, k_chunk) || (splits > 1 && workspace == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto* s = (cudaStream_t)stream;
+  void* part = splits > 1 ? workspace : dw;
+  const cudaError_t err = conv5_bf16::launch_any<A_DW>(x, dym, nullptr, part, dw, M, c_out, K,
+                                                       rows, c_in, c_in, c_out, splits, k_chunk,
+                                                       1.0f, s);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long count = (long long)M * c_out;
+  const bool vec = count % 4 == 0 && aligned(workspace, 16) && aligned(dw, 8);
+  const long long work = vec ? count / 4 : count;
+  const int blocks = (int)((work + 255) / 256 < 4096 ? (work + 255) / 256 : 4096);
+  conv5_bf16::splitk_sum_bf16_kernel<<<blocks, 256, 0, s>>>(
+      (const float*)workspace, (conv5_bf16::bf16_t*)dw, count, splits, vec);
   return (int)cudaGetLastError();
 }

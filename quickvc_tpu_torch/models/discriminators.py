@@ -16,8 +16,10 @@ the JAX package.
 
 Each conv computes in its input's dtype (float32 parameters cast where
 used, as ``quickvc_tpu/models/discriminators.py:43-49``); the training step
-feeds bf16 waves at ``precision: "bf16"``. K5/K6 take float32 only, so
-``fused_conv5=True`` with a bf16 wave raises ``TypeError`` (ROADMAP A18).
+feeds bf16 waves at ``precision: "bf16"``. The fused fifth conv casts its
+weight-normed kernel and its bias the same way, so a bf16 wave runs K5/K6
+in their bf16 mode and the float32 parameters get float32 gradients back
+through the cast.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from quickvc_tpu_torch.models.layers import (LRELU_SLOPE, WNConv1d, WNConv2d,
+from quickvc_tpu_torch.models.layers import (LRELU_SLOPE, WNConv1d, WNConv2d, cast_like,
                                              get_padding, leaky_relu)
 from quickvc_tpu_torch.ops.fused_disc_conv import conv5_lrelu
 
@@ -58,7 +60,7 @@ class DiscriminatorP(nn.Module):
         b, c, h, w = x.shape
         kernel = conv.weight()[..., 0].permute(2, 1, 0).contiguous()  # (5, C_in, C_out)
         rows = x.permute(0, 3, 2, 1).reshape(b * w, h, c).contiguous()
-        y = conv5_lrelu(rows, kernel, conv.bias, LRELU_SLOPE)
+        y = conv5_lrelu(rows, *cast_like(x, kernel, conv.bias), LRELU_SLOPE)
         return y.reshape(b, w, h, -1).permute(0, 3, 2, 1)
 
     def forward(self, x: torch.Tensor):

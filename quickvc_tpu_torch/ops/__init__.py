@@ -16,7 +16,8 @@ KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_ist
                                int8_mm.BF16_STATS, fused_attention.BF16_STATS,
                                fused_attention.ALIGNED_BF16_STATS,
                                fused_attention.HEADED_BF16_STATS, fused_extractor.BF16_STATS,
-                               fused_transformer.BF16_STATS)}
+                               fused_transformer.BF16_STATS, fused_disc_conv.BF16_STATS,
+                               fused_disc_conv.DW_BF16_STATS)}
 
 
 def reset_launch_counts() -> None:

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "qvc_attention_headed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw": [_P] * 4 + [_I] * 6 + [_P],
+    "qvc_conv5_lrelu_bf16": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
+    "qvc_conv5_dw_bf16": [_P] * 4 + [_I] * 6 + [_P],
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_extractor_front_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_transformer_layer": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
@@ -197,13 +199,8 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
 F32 = (torch.float32,)
 F32_BF16 = (torch.float32, torch.bfloat16)
 # why a float32-only kernel refuses bf16: K1, K3 and K4 have no bf16 mode in
-# JAX either (its bf16 paths cast at their edges); K5/K6 have one, queued in
-# ROADMAP.md under the label named here
+# JAX either (its bf16 paths cast at their edges)
 AT_EDGE = "the JAX kernel computes in float32 too; a bf16 path casts at its edge"
-
-
-def bf16_item(label: str) -> str:
-    return f"its bf16 mode is ROADMAP {label}, not ported yet"
 
 
 def require_dtype(name: str, *tensors: torch.Tensor, dtypes=F32, why: str = "") -> torch.dtype:

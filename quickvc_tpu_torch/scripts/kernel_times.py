@@ -29,7 +29,9 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
   period discriminators p = 2 and 11 in the paired D phase, x (128, 64,
   1024) and (704, 12, 1024), through their kernel wrappers, with cuDNN's
   ``F.conv1d``, ``conv1d_input`` and ``conv1d_weight`` on the same inputs
-  beside them (TF32 off for both cuBLAS and cuDNN);
+  beside them (TF32 off for both cuBLAS and cuDNN); and the same in bf16
+  (``K5_bf16_p2``, ..., ``cudnn_bf16_fwd_p2``, ...: their bf16 mode against
+  cuDNN's bf16 calls);
 - K11 at the int8 probe's shape (16384 x 12288) @ (12288 x 3072), s8 and
   bf16, with ``torch._int_mm``, bf16 ``torch.matmul`` and, where this torch
   has it, ``torch.mm(..., out_dtype=torch.float32)`` (K11's own function)
@@ -48,7 +50,8 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
   batch (32 real||fake pairs of 10,240 samples: paired forward, loss,
   parameter gradients) with its fifth convs on K5/K6 (``D_phase_fused``)
   and on cuDNN (``D_phase_default``), 5 calls each, in CUDA events only
-  (the profiler counts the kernels of autograd's backward ops twice).
+  (the profiler counts the kernels of autograd's backward ops twice); and
+  both on bf16 waves (``D_phase_fused_bf16``, ``D_phase_default_bf16``).
 
 ``--device cpu`` leaves these out. Each entry is the mean of ``--iters``
 calls after ``--warmup``, timed with CUDA events, and
@@ -202,11 +205,24 @@ def conv5_times(ms, dev: torch.device, g: torch.Generator) -> None:
         ms(f"K6_p{p}", lambda: fdc.conv5_dw_kernel(x, dym))
         ms(f"cudnn_dw_p{p}", lambda: torch.nn.grad.conv1d_weight(x_ncr, w_oik.shape, dym_ncr,
                                                                  padding=2))
+        # their bf16 modes beside cuDNN's bf16 calls on the same bf16 inputs
+        xb, kb, bb, dymb, k_flipb, x_ncrb, w_oikb, dym_ncrb = (
+            z.bfloat16() for z in (x, k, b, dym, k_flip, x_ncr, w_oik, dym_ncr))
+        ms(f"K5_bf16_p{p}", lambda: fdc.conv5_lrelu_kernel(xb, kb, bb, 0.1))
+        ms(f"cudnn_bf16_fwd_p{p}",
+           lambda: F.leaky_relu(F.conv1d(x_ncrb, w_oikb, bb, padding=2), 0.1))
+        ms(f"K5_bf16_dx_p{p}", lambda: fdc.conv5_lrelu_kernel(dymb, k_flipb, None, 1.0))
+        ms(f"cudnn_bf16_dx_p{p}", lambda: torch.nn.grad.conv1d_input(x_ncrb.shape, w_oikb,
+                                                                     dym_ncrb, padding=2))
+        ms(f"K6_bf16_p{p}", lambda: fdc.conv5_dw_kernel(xb, dymb))
+        ms(f"cudnn_bf16_dw_p{p}", lambda: torch.nn.grad.conv1d_weight(x_ncrb, w_oikb.shape,
+                                                                      dym_ncrb, padding=2))
 
 
 def disc_phase_times(out: dict, dev: torch.device) -> None:
     """One D phase with the fifth convs fused (K5/K6) and on cuDNN, same
-    seeded weights and waves, into ``out`` (CUDA events)."""
+    seeded weights and waves, into ``out`` (CUDA events); then both on the
+    waves in bf16 (K5/K6's bf16 mode against cuDNN's bf16 convs)."""
     from quickvc_tpu_torch.losses import discriminator_loss
     from quickvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
     from quickvc_tpu_torch.scripts import time_ms
@@ -218,13 +234,15 @@ def disc_phase_times(out: dict, dev: torch.device) -> None:
     g = torch.Generator(device=dev).manual_seed(4)
     y, y_hat = (0.3 * torch.randn(32, 1, 10240, device=dev, generator=g) for _ in range(2))
 
-    def d_phase(net):
-        logits_r, logits_g, _, _ = net(y, y_hat, pair=True)
-        loss = discriminator_loss(logits_r, logits_g)[0]
+    def d_phase(net, dtype=torch.float32):
+        logits_r, logits_g, _, _ = net(y.to(dtype), y_hat.to(dtype), pair=True)
+        loss = discriminator_loss([z.float() for z in logits_r],
+                                  [z.float() for z in logits_g])[0]
         return torch.autograd.grad(loss, list(net.parameters()))
 
     for name, net in (("D_phase_fused", fused), ("D_phase_default", base)):
         out[name] = time_ms(lambda: d_phase(net), dev, 5, 1)
+        out[name + "_bf16"] = time_ms(lambda: d_phase(net, torch.bfloat16), dev, 5, 1)
 
 
 def encoding_times(ms, dev: torch.device, g: torch.Generator, layer, x) -> None:

@@ -4,6 +4,8 @@
   :func:`discriminator_state_dict_from_jax` are the port's own copies of the
   mappings in ``quickvc_tpu/utils/torch_export.py:44-152`` (flax params ->
   reference ``SynthesizerTrn`` / ``MultiPeriodDiscriminator`` state dicts).
+- :func:`disc_variant_state_dict_from_jax` maps the variants of
+  ``scripts/disc_pallas_ab.py`` onto the port's A/B script.
 - :func:`hubert_state_dict_from_jax` inverts ``quickvc_tpu/utils/hubert_port.py:port_hubert``.
 - :func:`load_generator` / :func:`load_discriminator` / :func:`load_hubert`
   read checkpoints and load them with ``strict=True``.
@@ -146,6 +148,29 @@ def discriminator_state_dict_from_jax(params: Mapping[str, Any],
                      transpose=(3, 2, 0, 1), g_rank=4)
         _wn_conv(sd, f"discriminators.{d}.conv_post", p["WNConv2d_5"],
                  transpose=(3, 2, 0, 1), g_rank=4)
+    return _tensors(sd)
+
+
+def disc_variant_state_dict_from_jax(params: Mapping[str, Any],
+                                     mode: str) -> dict[str, torch.Tensor]:
+    """flax ``DiscPVariant`` params of ``scripts/disc_pallas_ab.py`` (numpy
+    leaves) -> the state dict of the port's
+    ``quickvc_tpu_torch.scripts.disc_pallas_ab.DiscPVariant`` in ``mode``:
+    the stack's convs (``WNConv2d_i``, or ``WNConv2dOutScale_i`` for
+    ``outscale``) -> ``convs.i``, the fifth conv of ``pallas_l5`` (``l5_v``,
+    ``l5_g``, ``l5_bias``) -> ``convs.4``, the last ``WNConv2d`` ->
+    ``conv_post``; Conv2d ``v`` (kh, kw, in, out) -> ``weight_v`` (out, in,
+    kh, kw)."""
+    sd: dict[str, np.ndarray] = {}
+    stack = "WNConv2dOutScale" if mode == "outscale" else "WNConv2d"
+    convs = [params[f"{stack}_{i}"] for i in range(4 if mode == "pallas_l5" else 5)]
+    if mode == "pallas_l5":
+        convs.append({"v": params["l5_v"], "g": params["l5_g"], "bias": params["l5_bias"]})
+    posts = sum(k.startswith("WNConv2d_") for k in params)
+    for i, p in enumerate(convs):
+        _wn_conv(sd, f"convs.{i}", p, transpose=(3, 2, 0, 1), g_rank=4)
+    _wn_conv(sd, "conv_post", params[f"WNConv2d_{posts - 1}"], transpose=(3, 2, 0, 1),
+             g_rank=4)
     return _tensors(sd)
 
 

@@ -78,9 +78,9 @@ def test_bf16_body_model_against_float64(t_len):
 
 
 def test_dispatchers_take_the_dtypes_their_kernels_take():
-    """K2 and K7-K10 take float32 and bf16 (the plain versions here) and
-    answer in the input's dtype; K5 refuses bf16 on both devices, naming the
-    ROADMAP item of its bf16 mode; q, k and v of mixed dtypes are refused."""
+    """K2, K5 and K7-K10 take float32 and bf16 (the plain versions here) and
+    answer in the input's dtype; K5 refuses float16; q, k and v of mixed
+    dtypes are refused."""
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import (fused_attention, fused_disc_conv, fused_extractor,
                                        fused_transformer)
@@ -107,9 +107,13 @@ def test_dispatchers_take_the_dtypes_their_kernels_take():
                      torch.zeros(1, 400, dtype=torch.bfloat16), torch.zeros(16, 1, 10),
                      torch.ones(16), torch.zeros(16), torch.zeros(16, 16, 3)),
                  fused_transformer.transformer_layer(xb, layer)]
+        takes.append(fused_disc_conv.conv5_lrelu(
+            xb, torch.zeros(5, 64, 64, dtype=torch.bfloat16),
+            torch.zeros(64, dtype=torch.bfloat16)))
         assert all(z.dtype == torch.bfloat16 for z in takes)
-        with pytest.raises(TypeError, match=r"bfloat16 \(its bf16 mode is ROADMAP A18\b"):
-            fused_disc_conv.conv5_lrelu(xb, torch.zeros(5, 64, 64), torch.zeros(64))
+        with pytest.raises(TypeError, match="float32 or bfloat16, got torch.float16"):
+            fused_disc_conv.conv5_lrelu(x.half(), torch.zeros(5, 64, 64).half(),
+                                        torch.zeros(64).half())
     with pytest.raises(TypeError, match="one dtype"):
         fused_attention.attention(hb, hb.float(), hb, 0.25)
 

@@ -21,7 +21,8 @@ K2's bf16 mode within 8e-3 max|v| of its plain version, its error against
 float64 attention at most 1.5x the plain version's; the bf16 modes of K7,
 K8, K9 and K10 within 1e-2 max|plain| (or two bf16 ulps of it) of their
 plain versions, each kernel's error against its float32 kernel on the same
-bf16-valued inputs at most 1.5x the plain version's.
+bf16-valued inputs at most 1.5x the plain version's; and so are K5's and
+K6's bf16 modes (y, dx, dW), bit-equal from one launch to the next.
 """
 
 import pytest
@@ -111,6 +112,59 @@ def test_conv5_lrelu_kernels(cuda, shape):
         torch.testing.assert_close(ours.grad, ref, atol=1e-4, rtol=1e-3)
     assert torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y.detach())
     assert torch.equal(fdc.conv5_dw_kernel(x, dym.contiguous()), ins[1].grad)
+
+
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("shape,offset", [((3, 37, 24, 40), False), ((6, 64, 256, 128), False),
+                                          ((5, 13, 30, 42), False), ((4, 12, 33, 17), False),
+                                          ((6, 64, 256, 128), True)]
+                         + [(s, False) for s in PERIOD_SHAPES[::4]])
+def test_conv5_lrelu_bf16_kernels(cuda, shape, offset):
+    """K5/K6 in their bf16 mode through the autograd.Function: y, dx, dW and
+    db in bf16, each against its plain version on the same bf16 inputs and
+    dym (the bf16 gates: within 1e-2 max|plain| or two bf16 ulps of it, the
+    error against the float32 kernel on the bf16-valued inputs at most 1.5x
+    the plain version's); launches counted in the bf16 stats only; a second
+    launch of each bit-equal. Channels that are not multiples of 8 take the
+    gathered copies, and so does x 2 bytes past a 16-byte boundary
+    (``offset``); the period shapes split K6 four ways."""
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+
+    n, rows, c_in, c_out = shape
+    bf = torch.bfloat16
+    g = _gen(cuda, c_in + 1)
+    x = torch.randn(n, rows, c_in, device=cuda, generator=g).to(bf)
+    k = (torch.randn(5, c_in, c_out, device=cuda, generator=g) / (5 * c_in) ** 0.5).to(bf)
+    b = (0.1 * torch.randn(c_out, device=cuda, generator=g)).to(bf)
+    dy = (torch.randn(n, rows, c_out, device=cuda, generator=g) / (n * rows) ** 0.5).to(bf)
+    if offset:
+        x = _offset_view(x)
+    ins = [t.detach().requires_grad_() for t in (x, k, b)]   # x keeps its offset
+    counts = (fdc.STATS.launches, fdc.DW_STATS.launches, fdc.BF16_STATS.launches,
+              fdc.DW_BF16_STATS.launches)
+    y = fdc.conv5_lrelu(*ins, 0.1)
+    y.backward(dy)
+    assert (fdc.STATS.launches, fdc.DW_STATS.launches, fdc.BF16_STATS.launches,
+            fdc.DW_BF16_STATS.launches) == (counts[0], counts[1], counts[2] + 2, counts[3] + 1)
+    assert all(t.grad.dtype == bf for t in ins)
+    _bf16_gates(y, fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1),
+                fdc.conv5_lrelu_kernel(x.float(), k.float(), b.float(), 0.1))
+    dym = (dy * torch.where(y > 0, 1.0, 0.1).to(bf)).contiguous()
+    k_flip = k.flip(0).transpose(1, 2).contiguous()
+    _bf16_gates(ins[0].grad, fdc.conv5_lrelu_reference_bf16(dym, k_flip, None, 1.0),
+                fdc.conv5_lrelu_kernel(dym.float(), k_flip.float(), None, 1.0))
+    _bf16_gates(ins[1].grad, fdc.conv5_dw_reference(x, dym),
+                fdc.conv5_dw_kernel(x.float(), dym.float()))
+    assert torch.equal(ins[2].grad, dym.float().sum(dim=(0, 1)).to(bf))
+    assert torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y.detach())
+    assert torch.equal(fdc.conv5_dw_kernel(x, dym), ins[1].grad)
 
 
 @pytest.mark.parametrize("n_fft,hop", [(1280, 320), (2048, 512), (800, 200)])
