@@ -73,6 +73,7 @@
 #include "fused_attention.cuh"
 #include "fused_attention_bf16.cuh"
 #include "tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -417,8 +418,9 @@ extern "C" int qvc_transformer_layer(
 // weight matrices, the scratch qkv, heads, x1 and mid, and out are bf16;
 // the biases and LayerNorm affines, the scratch sum and the workspace
 // float32. It rounds where the TPU kernel rounds (fused_transformer.py:
-// 63-117), every product a bf16 x bf16 -> float32 one on the bf16 GEMM core
-// (bf16_gemm.cuh) and every bias, LayerNorm and GELU in float32:
+// 63-117), every product a bf16 x bf16 -> float32 one on the persistent
+// TMA + wgmma core of wgmma_bf16.cuh and every bias, LayerNorm and GELU in
+// float32:
 //
 //   qkv = bf16(x Win^T + bin)
 //   o_h = bf16(softmax(q_h k_h^T * scale) v_h)   K2's bf16 body (float32
@@ -437,25 +439,27 @@ extern "C" int qvc_transformer_layer(
 //
 // What bounds it on this card: operations. At the encoding batch (16, 300,
 // 768) the 72.3 GFLOP take 0.073 ms at the 989 TFLOP/s dense bf16 rate,
-// against ~29 MB of bf16 weights and activations (0.009 ms).
+// against ~29 MB of bf16 weights and activations (0.009 ms). The GEMMs
+// (67.9 of the 72.3 GFLOP) run on wgmma, the only way to the bf16 rate
+// (mma.sync took them to ~150 TFLOP/s; PERF.md, K8 bf16's row).
 //
 // The same launches as the float32 entry (qvc_transformer_layer_launches);
-// plans hold (splits, k_chunk) of in_proj, out_proj, linear1 and linear2 on
-// the bf16 core's 64-wide k tiles. Needs D = H * 64 <= 1024, F % 8 == 0
-// and 16-byte aligned tensors.
+// plans hold (BN, splits, k_chunk) of in_proj, out_proj, linear1 and
+// linear2 from ops/fused_transformer.py:wgmma_plan. Needs D = H * 64 <=
+// 1024, F % 8 == 0 and 16-byte aligned tensors.
 extern "C" int qvc_transformer_layer_bf16(
     const void* x, const void* w_in, const void* b_in, const void* w_out, const void* b_out,
     const void* ln1_g, const void* ln1_b, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* ln2_g, const void* ln2_b, void* qkv, void* heads, void* sum,
     void* x1, void* mid, void* workspace, void* out, int batch, int T, int D, int H, int F,
-    float scale, int s_in, int kc_in, int s_out, int kc_out, int s_1, int kc_1, int s_2,
-    int kc_2, void* stream) {
+    float scale, int bn_in, int s_in, int kc_in, int bn_out, int s_out, int kc_out, int bn_1,
+    int s_1, int kc_1, int bn_2, int s_2, int kc_2, void* stream) {
   using bf16core::bf16_t;
-  using bf16core::linear_bf16;
+  using wg::linear;
   const cudaStream_t s = (cudaStream_t)stream;
   const int M = batch * T;
-  if (!bf16core::valid_plan(D, s_in, kc_in) || !bf16core::valid_plan(D, s_out, kc_out) ||
-      !bf16core::valid_plan(D, s_1, kc_1) || !bf16core::valid_plan(F, s_2, kc_2) ||
+  if (!wg::valid_plan(D, bn_in, s_in, kc_in) || !wg::valid_plan(D, bn_out, s_out, kc_out) ||
+      !wg::valid_plan(D, bn_1, s_1, kc_1) || !wg::valid_plan(F, bn_2, s_2, kc_2) ||
       (workspace == nullptr && (s_in > 1 || s_out > 1 || s_1 > 1 || s_2 > 1)))
     return (int)cudaErrorInvalidValue;
   const bf16_t* xb = (const bf16_t*)x;
@@ -469,8 +473,8 @@ extern "C" int qvc_transformer_layer_bf16(
   using bf16core::RESIDUAL;
   using bf16core::ROUND;
   cudaError_t err;
-  if ((err = linear_bf16<ROUND>(xb, (const bf16_t*)w_in, (const float*)b_in, nullptr, qkv_b, ws,
-                                M, 3 * D, D, s_in, kc_in, s)))
+  if ((err = linear<ROUND>(xb, (const bf16_t*)w_in, (const float*)b_in, nullptr, qkv_b, ws, M,
+                           3 * D, D, bn_in, s_in, kc_in, s)))
     return (int)err;
   constexpr int HD = 64;  // head dim
   const attn_bf16::Strides qkv_s{(long long)T * 3 * D, HD, 3 * D};
@@ -478,16 +482,16 @@ extern "C" int qvc_transformer_layer_bf16(
   if ((err = attn_bf16::launch<HD>(qkv_b, qkv_b + D, qkv_b + 2 * D, heads_b, batch, T, H, qkv_s,
                                    qkv_s, qkv_s, heads_s, scale, s)))
     return (int)err;
-  if ((err = linear_bf16<RESIDUAL>(heads_b, (const bf16_t*)w_out, (const float*)b_out, xb, sum_f,
-                                   ws, M, D, D, s_out, kc_out, s)))
+  if ((err = linear<RESIDUAL>(heads_b, (const bf16_t*)w_out, (const float*)b_out, xb, sum_f, ws,
+                              M, D, D, bn_out, s_out, kc_out, s)))
     return (int)err;
   if ((err = layer_norm<bf16_t>(sum_f, (const float*)ln1_g, (const float*)ln1_b, x1_b, M, D, s)))
     return (int)err;
-  if ((err = linear_bf16<GELU>(x1_b, (const bf16_t*)w1, (const float*)b1, nullptr, mid_b, ws, M,
-                               F, D, s_1, kc_1, s)))
+  if ((err = linear<GELU>(x1_b, (const bf16_t*)w1, (const float*)b1, nullptr, mid_b, ws, M, F,
+                          D, bn_1, s_1, kc_1, s)))
     return (int)err;
-  if ((err = linear_bf16<RESIDUAL>(mid_b, (const bf16_t*)w2, (const float*)b2, x1_b, sum_f, ws,
-                                   M, D, F, s_2, kc_2, s)))
+  if ((err = linear<RESIDUAL>(mid_b, (const bf16_t*)w2, (const float*)b2, x1_b, sum_f, ws, M, D,
+                              F, bn_2, s_2, kc_2, s)))
     return (int)err;
   return (int)layer_norm<bf16_t>(sum_f, (const float*)ln2_g, (const float*)ln2_b, (bf16_t*)out,
                                  M, D, s);

@@ -13,9 +13,10 @@
 // Only wgmma reaches those rates.
 //
 // Design. A persistent grid, one block an SM, each block of three
-// warpgroups walking 128 x BN tiles of C in a static schedule (Schedule:
-// tile index -> (row, col), a grouped raster of GROUP_M tile rows, so the
-// tiles that run at the same time share B's columns in L2; the host twin is
+// warpgroups walking 128 x BN tiles of C in a static schedule
+// (tma_wgmma.cuh's Schedule with one split: tile index -> (row, col), a
+// grouped raster of GROUP_M tile rows, so the tiles that run at the same
+// time share B's columns in L2; the host twin is
 // ops/int8_mm.py:tile_schedule). Warpgroup 0 is the producer: one thread
 // keeps a ring of STAGES shared-memory stages filled by TMA
 // (cp.async.bulk.tensor, 128-byte swizzle) across tile boundaries, each
@@ -54,13 +55,22 @@
 // tensor maps are encoded on the host (cuTensorMapEncodeTiled, found
 // through cudaGetDriverEntryPoint, so nothing links libcuda) and passed as
 // __grid_constant__ parameters.
+//
+// The schedule, the mbarrier, TMA-load and wgmma helpers, the accumulator
+// fence and the tensor maps are tma_wgmma.cuh's, which K8's bf16 GEMM core
+// (wgmma_bf16.cuh) shares; this file keeps the pre-pass, the TMA stores,
+// the s8 wgmmas and the body with its epilogue.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma_wgmma.cuh"  // the schedule, mbarriers, TMA, wgmma and tensor maps
+
 namespace {
+
+using namespace tmawg;
 
 constexpr int BM = 128;            // rows of C a tile
 constexpr int BK_BYTES = 128;      // bytes of k a stage: one 128-byte swizzle row
@@ -91,68 +101,9 @@ transpose_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int 
       out[(long long)(y + j) * rows + x] = tile[threadIdx.x][threadIdx.y + j];
 }
 
-// ---- the tile schedule --------------------------------------------------------
+using Sched = Schedule<GROUP_M>;   // splits 1: item t -> (0, tile row, tile col)
 
-// Tile t -> (tile row, tile col): groups of GROUP_M tile rows (fewer in the
-// last), walked column by column, the rows of a column one after another.
-struct Schedule {
-  int tiles_m, tiles_n;
-  __host__ __device__ int total() const { return tiles_m * tiles_n; }
-  __host__ __device__ int2 tile(int t) const {
-    const int per_group = GROUP_M * tiles_n;
-    const int g = t / per_group;
-    const int first = g * GROUP_M;
-    const int rows = tiles_m - first < GROUP_M ? tiles_m - first : GROUP_M;
-    const int local = t - g * per_group;
-    return make_int2(first + local % rows, local / rows);
-  }
-};
-
-// ---- PTX helpers ------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed. A wait of
-// 2^35 cycles (~20 s) is a broken pipeline, not a slow one: trap, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (!done && clock64() - t0 > (1LL << 35)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1)
-      : "memory");
-}
+// ---- PTX helpers beyond tma_wgmma.cuh's ---------------------------------------
 
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
                                              int c1) {
@@ -183,14 +134,8 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-// wgmma shared-memory descriptors, 128-byte swizzle (mode 1), start >> 4.
-// K-major: a tile of 128-byte rows of k, 1024 bytes between 8-row groups
-// (leading offset unused).
-__device__ __forceinline__ uint64_t desc_k_major(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-// MN-major: k rows of 64 columns (128 bytes), 1024 bytes between 8-row k
+// wgmma shared-memory descriptor, 128-byte swizzle (mode 1), start >> 4, of
+// an MN-major tile: k rows of 64 columns (128 bytes), 1024 bytes between 8-row k
 // groups (stride offset), ATOM bytes between 64-column atoms (leading offset).
 template <int ATOM>
 __device__ __forceinline__ uint64_t desc_mn_major(const void* p) {
@@ -198,95 +143,26 @@ __device__ __forceinline__ uint64_t desc_mn_major(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Ties the accumulators to the order of the asm statements around them. The
-// wgmmas write them asynchronously, but to the compiler they are plain
-// registers that wgmma.wait_group does not touch: without this it may copy
-// or spill them before the wait has let the last wgmmas finish (nvcc 12.9
-// did, in the bf16 body, and the copies lost the last products).
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_operands(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// the accumulator operands of one wgmma: %0 .. %63, then %64 .. %127 (n256)
-#define REGS_0_63                                                                     \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "  \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define REGS_64_127                                                                   \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
-  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "  \
-  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "  \
-  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "    \
-  "%123, %124, %125, %126, %127"
-#define ACC8(c, d, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), \
-                      c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
-
-#define ACC128(c, d)                                                                   \
-  ACC8(c, d, 0), ACC8(c, d, 8), ACC8(c, d, 16), ACC8(c, d, 24), ACC8(c, d, 32),        \
-      ACC8(c, d, 40), ACC8(c, d, 48), ACC8(c, d, 56), ACC8(c, d, 64), ACC8(c, d, 72),  \
-      ACC8(c, d, 80), ACC8(c, d, 88), ACC8(c, d, 96), ACC8(c, d, 104), ACC8(c, d, 112), \
-      ACC8(c, d, 120)
-#define ACC64(c, d)                                                                    \
-  ACC8(c, d, 0), ACC8(c, d, 8), ACC8(c, d, 16), ACC8(c, d, 24), ACC8(c, d, 32),        \
-      ACC8(c, d, 40), ACC8(c, d, 48), ACC8(c, d, 56)
-
-// bf16 reads B MN-major: the transpose-B immediate (the last operand) is 1
-__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      REGS_0_63 ", " REGS_64_127 "},"
-      " %128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : ACC128("+f", d)
-      : "l"(da), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      REGS_0_63 "},"
-      " %64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : ACC64("+f", d)
-      : "l"(da), "l"(db), "r"(1));
-}
+// s8 reads B^T K-major
 __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      REGS_0_63 ", " REGS_64_127 "},"
+      WG_REGS_0_31 ", " WG_REGS_32_63 ", " WG_REGS_64_95 ", " WG_REGS_96_127 "},"
       " %128, %129, p;\n"
       "}\n"
-      : ACC128("+r", d)
+      : WG_ACC32("+r", d, 0), WG_ACC32("+r", d, 32), WG_ACC32("+r", d, 64),
+        WG_ACC32("+r", d, 96)
       : "l"(da), "l"(db), "r"(1));
 }
 __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      REGS_0_63 "},"
+      WG_REGS_0_31 ", " WG_REGS_32_63 "},"
       " %64, %65, p;\n"
       "}\n"
-      : ACC64("+r", d)
+      : WG_ACC32("+r", d, 0), WG_ACC32("+r", d, 32)
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -301,8 +177,7 @@ struct Bf16 {
   static constexpr CUtensorMapDataType ACC_TMA = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   template <int BN>
   static __device__ __forceinline__ void mma(Acc (&d)[BN / 2], uint64_t da, uint64_t db) {
-    if constexpr (BN == 256) wgmma_bf16_n256(d, da, db);
-    else wgmma_bf16_n128(d, da, db);
+    wgmma_bf16<1>(d, da, db);   // B MN-major: the transpose-B immediate
   }
   static __device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
 };
@@ -341,7 +216,7 @@ constexpr int NO_STORE = 1, NO_LOAD = 2, NO_OPERAND_FENCE = 4;
 // __grid_constant__ parameters.
 template <typename Op, int BN, int PROBE>
 __device__ __forceinline__ void mm_body(const CUtensorMap& map_a, const CUtensorMap& map_b,
-                                        const CUtensorMap& map_c, Schedule sched, int M, int N,
+                                        const CUtensorMap& map_c, Sched sched, int M, int N,
                                         int K) {
   using Acc = typename Op::Acc;
   using R = Ring<BN>;
@@ -373,8 +248,8 @@ __device__ __forceinline__ void mm_body(const CUtensorMap& map_a, const CUtensor
       constexpr int K_ELEMS = BK_BYTES / Op::BYTES;
       int it = 0;
       for (int t = blockIdx.x; t < total; t += gridDim.x) {
-        const int2 tile = sched.tile(t);
-        const int m0 = tile.x * BM, n0 = tile.y * BN;
+        const int3 tile = sched.item(t);
+        const int m0 = tile.y * BM, n0 = tile.z * BN;
         for (int kt = 0; kt < n_k; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
@@ -403,8 +278,8 @@ __device__ __forceinline__ void mm_body(const CUtensorMap& map_a, const CUtensor
     uint8_t* slices = se + c * EPI_BUFS * EPI_BYTES;
     int it = 0, slice = 0;
     for (int tt = blockIdx.x; tt < total; tt += gridDim.x) {
-      const int2 tile = sched.tile(tt);
-      const int m0 = tile.x * BM, n0 = tile.y * BN;
+      const int3 tile = sched.item(tt);
+      const int m0 = tile.y * BM, n0 = tile.z * BN;
       Acc acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = Acc(0);
@@ -480,7 +355,7 @@ template <typename Op, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 mm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b,
-                const __grid_constant__ CUtensorMap map_c, Schedule sched, int M, int N, int K) {
+                const __grid_constant__ CUtensorMap map_c, Sched sched, int M, int N, int K) {
   mm_body<Op, BN, 0>(map_a, map_b, map_c, sched, M, N, K);
 }
 
@@ -491,49 +366,11 @@ template <typename Op, int BN, int PROBE>
 __global__ void __launch_bounds__(THREADS, 1)
 mm_probe_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b,
-                const __grid_constant__ CUtensorMap map_c, Schedule sched, int M, int N, int K) {
+                const __grid_constant__ CUtensorMap map_c, Sched sched, int M, int N, int K) {
   mm_body<Op, BN, PROBE>(map_a, map_b, map_c, sched, M, N, K);
 }
 
 // ---- host side ----------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major (rows, cols) matrix as boxes of box_rows x box_cols elements
-// (box_cols * bytes <= 128), 128-byte swizzled; loads past rows or cols give
-// zeros, stores there are dropped.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base, int rows,
-              int cols, int box_rows, int box_cols) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // blocks: the persistent grid's size, 0 for one block an SM (never more
 // blocks than tiles).
@@ -555,7 +392,7 @@ cudaError_t run(const void* a, const void* b, void* c, int M, int N, int K, int 
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const Schedule sched{(M + BM - 1) / BM, (N + BN - 1) / BN};
+  const Sched sched{(M + BM - 1) / BM, (N + BN - 1) / BN, 1, K};
   if (blocks <= 0) {
     int dev = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess ||

@@ -6,7 +6,8 @@ kernel for a CUDA tensor (or raises); it counts its launches in a
 """
 
 from quickvc_tpu_torch.ops import (fused_attention, fused_disc_conv, fused_extractor,
-                                  fused_istft, fused_mel, fused_transformer, int8_mm)
+                                  fused_istft, fused_mel, fused_transformer, int8_mm,
+                                  lstm_recurrence)
 
 KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_istft.STATS,
                                fused_mel.SPEC_STATS, fused_disc_conv.STATS,
@@ -17,7 +18,8 @@ KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_ist
                                fused_attention.ALIGNED_BF16_STATS,
                                fused_attention.HEADED_BF16_STATS, fused_extractor.BF16_STATS,
                                fused_transformer.BF16_STATS, fused_disc_conv.BF16_STATS,
-                               fused_disc_conv.DW_BF16_STATS)}
+                               fused_disc_conv.DW_BF16_STATS, lstm_recurrence.STATS,
+                               lstm_recurrence.BACKWARD_STATS)}
 
 
 def reset_launch_counts() -> None:

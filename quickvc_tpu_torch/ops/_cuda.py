@@ -34,9 +34,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
-           "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu", "mma_rate.cu")
+           "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu", "mma_rate.cu",
+           "lstm_recurrence.cu")
 HEADERS = ("bf16_gemm.cuh", "fused_attention.cuh", "fused_attention_bf16.cuh",
-           "tf32x3.cuh")  # included by the sources
+           "tf32x3.cuh", "tma_wgmma.cuh", "wgmma_bf16.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,13 +59,15 @@ _SIGNATURES = {
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_extractor_front_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_transformer_layer": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
-    "qvc_transformer_layer_bf16": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
+    "qvc_transformer_layer_bf16": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 12 + [_P],
     "qvc_transformer_layer_launches": [_I] * 4,
     "qvc_mm_s8": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_probe": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_transpose": [_P, _P] + [_I] * 2 + [_P],
     "qvc_mma_tf32_rate": [_P, _I, _I, _P],
+    "qvc_lstm_forward_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "qvc_lstm_backward_bf16": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
                                          require_cuda, require_dtype, stream_ptr)
-from quickvc_tpu_torch.ops.fused_transformer import BF16_TILING, F32_TILING, Tiling
+from quickvc_tpu_torch.ops.fused_transformer import K_TILE, K_TILE_BYTES, TILE_M, TILE_N
 
 K5 = 5
 STATS = KernelStats("conv5_lrelu")        # K5 launches: forward and dx
@@ -53,12 +53,29 @@ DW_STATS = KernelStats("conv5_lrelu_dw")  # K6 launches
 BF16_STATS = KernelStats("conv5_lrelu_bf16")        # K5 bf16 launches: forward and dx
 DW_BF16_STATS = KernelStats("conv5_lrelu_dw_bf16")  # K6 bf16 launches
 
+
+class Tiling(NamedTuple):
+    """A GEMM body's tiling: a block computes a tile_m x tile_n output tile
+    and walks K in tiles of k_tile (the kernel refuses a split edge off
+    them), ``blocks_per_sm`` blocks an SM; ``k_tile_bytes`` is the
+    device-memory traffic the card moves in the time one block takes for
+    one K tile."""
+    tile_m: int
+    tile_n: int
+    k_tile: int
+    blocks_per_sm: int
+    k_tile_bytes: float
+
+
 # The kernels' tilings: the float32 body's (csrc/fused_disc_conv.cu: BM, BN,
-# BK, MIN_BLOCKS) is K8's 256 x 128 x 32 at one block an SM, the bf16 mode's
-# the bf16 core's 128 x 128 x 64 at two (csrc/bf16_gemm.cuh); a block
-# computes a tile_m x tile_n output tile and walks K in tiles of k_tile (the
-# kernel refuses a split edge off them).
-K_TILE = F32_TILING.k_tile
+# BK, MIN_BLOCKS) is K8's 256 x 128 x 32 at one block an SM
+# (ops/fused_transformer.py), the bf16 mode's the bf16 mma.sync core's
+# 128 x 128 x 64 at two (csrc/bf16_gemm.cuh: BM, BN, BK, MIN_BLOCKS). The
+# bf16 core's time a K tile is not measured yet: this takes the data sheet's
+# 989 TFLOP/s dense bf16 rate over 132 SMs, shared by their two blocks, for
+# the tile's 2 x 128 x 128 x 64 flops (0.56 us), at 3.35 TB/s.
+F32_TILING = Tiling(TILE_M, TILE_N, K_TILE, 1, K_TILE_BYTES)
+BF16_TILING = Tiling(128, 128, 64, 2, 3.35e12 * (2 * 128 * 128 * 64) / (989e12 / 132 / 2))
 MAX_SPLITS = 4          # workspace at most 4 x dW (80 MB at 1024 -> 1024)
 MIN_SPLIT_K_TILES = 8   # K tiles a split walks at least
 

@@ -18,9 +18,9 @@ give the same bits on every launch.
 
 A bf16 x takes the layer's bf16 mode (``qvc_transformer_layer_bf16``), as
 the TPU kernel computes a bf16 input: the four weight matrices cast to bf16
-once a call (as the JAX wrapper casts them), the GEMMs on the bf16
-tensor-core core of ``csrc/bf16_gemm.cuh`` (planned on
-:data:`BF16_TILING`), K2's bf16 attention body, float32 biases, LayerNorms
+once a call (as the JAX wrapper casts them), the GEMMs on the persistent
+TMA + ``wgmma`` bf16 core of ``csrc/wgmma_bf16.cuh`` (each planned by
+:func:`wgmma_plan`), K2's bf16 attention body, float32 biases, LayerNorms
 and GELU, rounded to bf16 where the TPU kernel rounds; a bf16 output.
 :data:`STATS` counts float32 calls, :data:`BF16_STATS` bf16 ones.
 """
@@ -44,30 +44,13 @@ HEAD_DIM = 64   # compiled into the attention (HuBERT-base: 768 / 12)
 EPS = 1e-5
 
 
-class Tiling(NamedTuple):
-    """A GEMM body's tiling: a block computes a tile_m x tile_n output tile
-    and walks K in tiles of k_tile (a split edge off them is refused),
-    ``blocks_per_sm`` blocks an SM; ``k_tile_bytes`` is the device-memory
-    traffic the card moves in the time one block takes for one K tile (the
-    plan's unit of cost)."""
-    tile_m: int
-    tile_n: int
-    k_tile: int
-    blocks_per_sm: int
-    k_tile_bytes: float
-
-
-# The float32 GEMMs' tiling (csrc/fused_transformer.cu: BM, BN, BK). K5's
-# tile is the same 256 x 128 x 32 on the same 3xTF32 body, and took 1.318 ms
-# for 2 waves of 160 K tiles (4.1 us a K tile, PERF.md's K5 row), at the
-# H100's 3.35 TB/s.
+# The float32 GEMMs' tiling (csrc/fused_transformer.cu: BM, BN, BK), one block
+# an SM. K5's tile is the same 256 x 128 x 32 on the same 3xTF32 body, and
+# took 1.318 ms for 2 waves of 160 K tiles (4.1 us a K tile, PERF.md's K5
+# row): K_TILE_BYTES is the device-memory traffic the H100's 3.35 TB/s moves
+# in that time, the plan's unit of cost.
 TILE_M, TILE_N, K_TILE = 256, 128, 32
-F32_TILING = Tiling(TILE_M, TILE_N, K_TILE, 1, 3.35e12 * 1.318e-3 / 320)
-# The bf16 core's (csrc/bf16_gemm.cuh: BM, BN, BK, MIN_BLOCKS). Its time a K
-# tile is not measured yet: this takes the data sheet's 989 TFLOP/s dense
-# bf16 rate over 132 SMs, shared by their two blocks, for the tile's 2 x 128
-# x 128 x 64 flops (0.56 us), at 3.35 TB/s.
-BF16_TILING = Tiling(128, 128, 64, 2, 3.35e12 * (2 * 128 * 128 * 64) / (989e12 / 132 / 2))
+K_TILE_BYTES = 3.35e12 * 1.318e-3 / 320
 MAX_SPLITS = 4
 MIN_SPLIT_K_TILES = 4   # K tiles a split walks at least
 
@@ -81,25 +64,23 @@ class LinearPlan(NamedTuple):
     workspace: int
 
 
-def linear_plan(m: int, n: int, k: int, sm_count: int = 132,
-                tiling: Tiling = F32_TILING) -> LinearPlan:
+def linear_plan(m: int, n: int, k: int, sm_count: int = 132) -> LinearPlan:
     """The split count that finishes the GEMM soonest by a model of its time.
 
-    The grid is ceil(M / tile_m) x ceil(N / tile_n) tiles, ``blocks_per_sm``
-    blocks an SM; split s ways it runs ceil(tiles s / (sm_count
-    blocks_per_sm)) waves of blocks that walk ceil(K tiles / s) K tiles
-    each, and its partials cost 2 s M N floats of device-memory traffic
-    (written, then read by the sum), counted in K-tile times
-    (``k_tile_bytes``). The plan takes the s in 1..MAX_SPLITS of least time
-    (ties to the smaller s), each split walking at least MIN_SPLIT_K_TILES K
-    tiles, evened on K-tile edges so that none is empty. At 16 x 300 frames
+    The grid is ceil(M / TILE_M) x ceil(N / TILE_N) tiles, one block an
+    SM; split s ways it runs ceil(tiles s / sm_count) waves of blocks that
+    walk ceil(K tiles / s) K tiles each, and its partials cost 2 s M N
+    floats of device-memory traffic (written, then read by the sum), counted
+    in K-tile times (``K_TILE_BYTES``). The plan takes the s in
+    1..MAX_SPLITS of least time (ties to the smaller s), each split walking
+    at least MIN_SPLIT_K_TILES K tiles, evened on K-tile edges so that none
+    is empty. At 16 x 300 frames
     (M = 4,800) no float32 GEMM splits: the partials would cost more than
     the last wave's idle SMs; at 16 x 250 in_proj splits 2 ways and linear2
     4; a small batch fills the card only split.
     """
-    k_tiles = -(-k // tiling.k_tile)
-    tiles = -(-m // tiling.tile_m) * -(-n // tiling.tile_n)
-    slots = sm_count * tiling.blocks_per_sm
+    k_tiles = -(-k // K_TILE)
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
 
     def even(s: int) -> tuple[int, int]:   # (splits, K tiles a split)
         per = -(-k_tiles // s)
@@ -107,20 +88,98 @@ def linear_plan(m: int, n: int, k: int, sm_count: int = 132,
 
     def cost(s: int) -> float:
         s, per = even(s)
-        traffic = 2 * s * m * n * 4 / tiling.k_tile_bytes if s > 1 else 0.0
-        return -(-tiles * s // slots) * per + traffic
+        traffic = 2 * s * m * n * 4 / K_TILE_BYTES if s > 1 else 0.0
+        return -(-tiles * s // sm_count) * per + traffic
 
     allowed = [s for s in range(1, MAX_SPLITS + 1) if s == 1 or k_tiles >= s * MIN_SPLIT_K_TILES]
     splits, per = even(min(allowed, key=lambda s: (cost(s), s)))
-    return LinearPlan(splits, per * tiling.k_tile, splits * m * n if splits > 1 else 0)
+    return LinearPlan(splits, per * K_TILE, splits * m * n if splits > 1 else 0)
 
 
-def layer_plans(m: int, d: int, f: int, sm_count: int = 132,
-                tiling: Tiling = F32_TILING) -> tuple[LinearPlan, ...]:
+def layer_plans(m: int, d: int, f: int, sm_count: int = 132) -> tuple[LinearPlan, ...]:
     """The plans of in_proj (N 3D, K D), out_proj (D, D), linear1 (F, D) and
     linear2 (D, F) at M = B*T rows, in the order the layer runs them."""
-    return tuple(linear_plan(m, n, k, sm_count, tiling)
+    return tuple(linear_plan(m, n, k, sm_count)
                  for n, k in ((3 * d, d), (d, d), (f, d), (d, f)))
+
+
+# The persistent TMA + wgmma bf16 core (csrc/wgmma_bf16.cuh): 128 x BN tiles,
+# 64-wide k tiles, one block an SM, work items in a grouped raster of
+# WG_GROUP_M tile rows.
+WG_TILE_M, WG_K_TILE, WG_GROUP_M = 128, 64, 8
+WG_TILE_NS = (64, 128, 192, 256)
+BF16_FLOPS, HBM_BYTES = 989e12, 3.35e12   # H100 SXM data sheet
+SPLIT_SUM_SECONDS = 3e-6                  # the split-K sum's launch
+
+
+class WgmmaPlan(NamedTuple):
+    """How one GEMM (M, N, K) runs on the wgmma core: 128 x ``bn`` tiles,
+    split z taking the reduction range [z k_chunk, min((z + 1) k_chunk, K));
+    ``workspace`` floats of partials (0 for one split)."""
+    bn: int
+    splits: int
+    k_chunk: int
+    workspace: int
+
+
+def wgmma_cost(m: int, n: int, k: int, bn: int, splits: int, sm_count: int = 132) -> float:
+    """Modelled seconds of one GEMM on the wgmma core: waves of work items
+    (tiles x splits over one block an SM) times an item's k tiles, each
+    costing its 128 x bn x 64 products at the SM's share of the bf16 rate
+    plus the A tile's (as if 64 more columns: the stage's load and handshake
+    that every k tile pays whatever bn); a split GEMM adds its partials'
+    traffic (written, then read by the sum) and the sum's launch."""
+    k_tiles = -(-k // WG_K_TILE)
+    per = -(-k_tiles // splits)
+    items = -(-m // WG_TILE_M) * -(-n // bn) * splits
+    k_tile = 2 * WG_TILE_M * (bn + 64) * WG_K_TILE / (BF16_FLOPS / 132)
+    split = (2 * splits * m * n * 4 / HBM_BYTES + SPLIT_SUM_SECONDS) if splits > 1 else 0.0
+    return -(-items // sm_count) * per * k_tile + split
+
+
+def wgmma_plan(m: int, n: int, k: int, sm_count: int = 132) -> WgmmaPlan:
+    """The (bn, splits) of least :func:`wgmma_cost` (ties to fewer splits,
+    then the wider tile), each split walking at least MIN_SPLIT_K_TILES k
+    tiles, evened on k-tile edges so that none is empty. At 16 x 300
+    frames every GEMM takes bn 256 unsplit: out_proj and linear2 are one
+    wave of 114 tiles; a small batch takes narrow tiles or splits."""
+    k_tiles = -(-k // WG_K_TILE)
+
+    def even(s: int) -> tuple[int, int]:   # (splits, k tiles a split)
+        per = -(-k_tiles // s)
+        return -(-k_tiles // per), per
+
+    options = [(bn, *even(s)) for bn in WG_TILE_NS for s in range(1, MAX_SPLITS + 1)
+               if s == 1 or k_tiles >= s * MIN_SPLIT_K_TILES]
+    bn, splits, per = min(options, key=lambda o: (wgmma_cost(m, n, k, o[0], o[1], sm_count),
+                                                  o[1], -o[0]))
+    return WgmmaPlan(bn, splits, per * WG_K_TILE, splits * m * n if splits > 1 else 0)
+
+
+def wgmma_layer_plans(m: int, d: int, f: int, sm_count: int = 132) -> tuple[WgmmaPlan, ...]:
+    """:func:`wgmma_plan` of in_proj, out_proj, linear1 and linear2, in turn."""
+    return tuple(wgmma_plan(m, n, k, sm_count)
+                 for n, k in ((3 * d, d), (d, d), (f, d), (d, f)))
+
+
+def wgmma_schedule(m: int, n: int, plan: WgmmaPlan,
+                   sm_count: int = 132) -> list[list[tuple[int, int, int]]]:
+    """The work items (split, tile row, tile col) each block of the
+    persistent grid takes, in order: the host twin of
+    ``csrc/tma_wgmma.cuh:Schedule`` (item t goes to block t mod grid)."""
+    tiles_m, tiles_n = -(-m // WG_TILE_M), -(-n // plan.bn)
+    tiles = tiles_m * tiles_n
+    total = tiles * plan.splits
+    grid = min(sm_count, total)
+
+    def item(t: int) -> tuple[int, int, int]:
+        z, local = divmod(t, tiles)
+        grp, within = divmod(local, WG_GROUP_M * tiles_n)
+        first = grp * WG_GROUP_M
+        rows = min(WG_GROUP_M, tiles_m - first)
+        return z, first + within % rows, within // rows
+
+    return [[item(t) for t in range(b, total, grid)] for b in range(grid)]
 
 
 def _weights(layer) -> list[torch.Tensor]:
@@ -208,8 +267,8 @@ def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
     # the scratch in x's dtype; the float32 sums the LayerNorms read
     qkv, heads, x1, mid = scratch(3 * d), scratch(d), scratch(d), scratch(f)
     total = scratch(d, torch.float32)
-    plans = layer_plans(m, d, f, device_sms(x.device.index or 0),
-                        BF16_TILING if bf16 else F32_TILING)
+    sms = device_sms(x.device.index or 0)
+    plans = wgmma_layer_plans(m, d, f, sms) if bf16 else layer_plans(m, d, f, sms)
     ws_floats = max(p.workspace for p in plans)
     ws = torch.empty(ws_floats, device=x.device, dtype=torch.float32) if ws_floats else None
     out = torch.empty_like(x)
@@ -218,7 +277,7 @@ def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
         x.data_ptr(), *[w.data_ptr() for w in weights], qkv.data_ptr(), heads.data_ptr(),
         total.data_ptr(), x1.data_ptr(), mid.data_ptr(), None if ws is None else ws.data_ptr(),
         out.data_ptr(), b, t, d, h, f, 1.0 / math.sqrt(HEAD_DIM),
-        *[v for p in plans for v in (p.splits, p.k_chunk)], stream_ptr(x)),
+        *[v for p in plans for v in p[:-1]], stream_ptr(x)),
         f"transformer_layer kernel ({x.dtype})")
     (BF16_STATS if bf16 else STATS).count()
     return out

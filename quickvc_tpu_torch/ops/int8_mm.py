@@ -50,7 +50,7 @@ def tile_schedule(m: int, n: int, tile: str, blocks: int) -> list[list[tuple[int
     blocks, block b takes tiles b, b + grid, b + 2 grid, ..., and tile t
     lies in a group of :data:`GROUP_M` tile rows (fewer in the last group),
     walked column by column, the rows of a column one after another. The
-    kernel computes the same (``csrc/int8_mm.cu:Schedule``)."""
+    kernel computes the same (``csrc/tma_wgmma.cuh:Schedule``, one split)."""
     bm, bn = (int(x) for x in tile.split("x"))
     tiles_m, tiles_n = -(-m // bm), -(-n // bn)
     total = tiles_m * tiles_n

@@ -1,7 +1,7 @@
 """The bf16 training step's gradient gate of ``chip_smoke.py`` on other draws.
 
     python -m quickvc_tpu_torch.scripts.bf16_step_gate [--seeds 1 2 3 4 5] [--device cuda]
-        [--card-lstm cudnn|recurrence|f32]
+        [--card-lstm kernel|cudnn|recurrence|f32]
 
 ``chip_smoke.py:check_train_step_against_cpu`` holds one bf16 step on the
 card against the same step on the CPU: each gradient's max-norm relative
@@ -21,8 +21,11 @@ once (what the CPU path and the JAX step compute): one ``bf16_wgrad``
 line a shape.
 
 ``--card-lstm`` picks how the card runs the speaker LSTM at bf16 in this
-probe: ``cudnn`` (the port's path, ``models/encoders.py``), ``recurrence``
-(the CPU's step-by-step JAX recurrence, on the card) or ``f32`` (cuDNN's
+probe: ``kernel`` (the default and the port's path, ``models/encoders.py``:
+the JAX recurrence in the hand-written kernels of
+``ops/lstm_recurrence.py``), ``recurrence`` (the same recurrence in its
+plain step-by-step versions, on the card), ``cudnn`` (cuDNN's bf16 LSTM on
+bf16 weight copies, the path before the kernels) or ``f32`` (cuDNN's
 float32 LSTM on the bf16 mel, its output cast back to bf16), to attribute
 the card's side.
 
@@ -38,6 +41,7 @@ import argparse
 import contextlib
 import copy
 import json
+import warnings
 
 import numpy as np
 import torch
@@ -134,23 +138,45 @@ def maxrel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
 
 
+def cudnn_recurrence(encoder, x: torch.Tensor) -> torch.Tensor:
+    """The last layer's final ``h`` (B, H) of ``encoder``'s LSTM from cuDNN's
+    LSTM in ``x``'s dtype, on the weights cast and the biases summed as the
+    port's bf16 path takes them (``SpeakerEncoder._layer_weights``): the
+    card's path before the recurrence kernels, ``--card-lstm cudnn``."""
+    lstm = encoder.lstm
+    weights = []
+    for layer in range(lstm.num_layers):
+        w_ih, w_hh, b = encoder._layer_weights(layer, x.dtype)
+        weights += [w_ih, w_hh, b, torch.zeros_like(b)]
+    h0 = x.new_zeros(lstm.num_layers, x.shape[0], lstm.hidden_size)
+    with warnings.catch_warnings():   # the copies are not one flat buffer: cuDNN packs them
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        _, h, _ = torch.lstm(x, (h0, h0), weights, True, lstm.num_layers, 0.0,
+                             encoder.training, False, True)
+    return h[-1]
+
+
 @contextlib.contextmanager
 def card_lstm(mode: str):
     """The speaker LSTM's bf16 path on the card, as ``--card-lstm`` picks it."""
     from quickvc_tpu_torch.models.encoders import SpeakerEncoder
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
 
-    saved = SpeakerEncoder._cudnn
+    saved = (SpeakerEncoder._recurrence, lr.lstm_forward_kernel, lr.lstm_backward_kernel)
     if mode == "recurrence":
-        SpeakerEncoder._cudnn = SpeakerEncoder._recurrence
+        lr.lstm_forward_kernel = lr.lstm_forward_reference
+        lr.lstm_backward_kernel = lr.lstm_backward_reference
+    elif mode == "cudnn":
+        SpeakerEncoder._recurrence = cudnn_recurrence
     elif mode == "f32":
-        SpeakerEncoder._cudnn = lambda self, x: self.lstm(x.float())[1][0][-1].to(x.dtype)
+        SpeakerEncoder._recurrence = lambda self, x: self.lstm(x.float())[1][0][-1].to(x.dtype)
     try:
         yield
     finally:
-        SpeakerEncoder._cudnn = saved
+        SpeakerEncoder._recurrence, lr.lstm_forward_kernel, lr.lstm_backward_kernel = saved
 
 
-def probe(seed: int, device: str, lstm: str = "cudnn") -> dict:
+def probe(seed: int, device: str, lstm: str = "kernel") -> dict:
     from quickvc_tpu_torch.train.state import create_train_state
 
     batch, eps_q = draws(seed)
@@ -213,7 +239,8 @@ def main(argv=None) -> list[dict]:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3, 4, 5])
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    p.add_argument("--card-lstm", default="cudnn", choices=("cudnn", "recurrence", "f32"))
+    p.add_argument("--card-lstm", default="kernel",
+                   choices=("kernel", "cudnn", "recurrence", "f32"))
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("bf16_step_gate: no CUDA card (use --device cpu for the CPU side)")

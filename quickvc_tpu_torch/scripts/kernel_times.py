@@ -32,6 +32,17 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
   beside them (TF32 off for both cuBLAS and cuDNN); and the same in bf16
   (``K5_bf16_p2``, ..., ``cudnn_bf16_fwd_p2``, ...: their bf16 mode against
   cuDNN's bf16 calls);
+- in turns (library, kernel, kernel, library: ``_a`` and ``_b``), K8's
+  bf16 mode at (16, 300, 768) beside ``nn.TransformerEncoderLayer`` in
+  bf16 (``K8_bf16``, ``K8_bf16_library``; ``K8_bf16_kernels``: its device
+  time by kernel name), and the speaker LSTM's bf16 recurrence kernels at
+  a layer of the training batch's, gates (32, 512, 4 x 256), beside one
+  layer of cuDNN's bf16 LSTM (``cudnn_lstm_layer``) on its (32, 512, 80)
+  input: the forward (``lstm_bf16``,
+  ``lstm_bf16_library``: cuDNN's forward; ``lstm_bf16_host_us``: the host
+  µs a call of each takes to enqueue) and the backward
+  (``lstm_bf16_backward``, ``lstm_bf16_backward_library``: cuDNN's forward
+  and backward);
 - K11 at the int8 probe's shape (16384 x 12288) @ (12288 x 3072), s8 and
   bf16, with ``torch._int_mm``, bf16 ``torch.matmul`` and, where this torch
   has it, ``torch.mm(..., out_dtype=torch.float32)`` (K11's own function)
@@ -106,6 +117,19 @@ def device_ms(fn, iters: int, between=None, only: str | None = None) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if only is None or only in e.key) / iters / 1e3
+
+
+def device_breakdown(fn, iters: int) -> dict:
+    """Mean device milliseconds a call of ``fn`` spends in each kernel it
+    launches, by the kernel's name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
 
 
 def l2_flush(dev: torch.device):
@@ -277,6 +301,64 @@ def encoding_times(ms, dev: torch.device, g: torch.Generator, layer, x) -> None:
     ms("K8_library", k8_library)
 
 
+def cudnn_lstm_layer(w_ih: torch.Tensor, w_hh: torch.Tensor,
+                     bias: torch.Tensor) -> torch.nn.LSTM:
+    """One layer of cuDNN's LSTM (``nn.LSTM``) in ``w_ih``'s dtype and device
+    with these weights, ``bias`` the two biases summed: the LSTM kernels'
+    library call. The host takes longer to enqueue a call than the card
+    takes to run it, so its events time is the host's and its device time
+    the card's."""
+    lstm = torch.nn.LSTM(w_ih.shape[1], w_hh.shape[1], 1, batch_first=True,
+                         device=w_ih.device, dtype=w_ih.dtype)
+    with torch.no_grad():
+        for param, w in zip(lstm.parameters(), (w_ih, w_hh, bias, torch.zeros_like(bias))):
+            param.copy_(w)
+    return lstm
+
+
+def bf16_turn_times(ms, out: dict, dev: torch.device, g: torch.Generator, layer, x) -> None:
+    """K8's bf16 mode and the LSTM recurrence kernels, each in turns with its
+    library call (see the head note), and K8 bf16's device time by kernel."""
+    from quickvc_tpu_torch.ops import fused_transformer as ft
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+
+    def turns(name: str, kernel, library) -> None:
+        for tag, fn in (("_library_a", library), ("_a", kernel), ("_b", kernel),
+                        ("_library_b", library)):
+            ms(name + tag, fn)
+
+    bf = torch.bfloat16
+    xb = x.to(bf)
+    lib_layer = torch.nn.TransformerEncoderLayer(768, 12, 3072, dropout=0.0, activation="gelu",
+                                                 batch_first=True).to(dev).eval()
+    lib_layer.load_state_dict(layer.state_dict())
+    lib_layer = lib_layer.requires_grad_(False).to(bf)
+
+    def k8_library():
+        with torch.inference_mode():
+            return lib_layer(xb)
+
+    turns("K8_bf16", lambda: ft.transformer_layer(xb, layer), k8_library)
+    out["K8_bf16_kernels"] = device_breakdown(lambda: ft.transformer_layer(xb, layer), 50)
+
+    b, t_len, hsz = 32, 512, 256
+    mel = torch.randn(b, t_len, 80, device=dev, generator=g).to(bf)
+    w_ih = (torch.randn(4 * hsz, 80, device=dev, generator=g) / 16).to(bf)
+    w_hh = (torch.randn(4 * hsz, hsz, device=dev, generator=g) / 16).to(bf)
+    bias = (torch.randn(4 * hsz, device=dev, generator=g) / 16).to(bf)
+    xp = mel @ w_ih.T + bias
+    dh = torch.randn(b, t_len, hsz, device=dev, generator=g).to(bf)
+    _, act, c = lr.lstm_forward_kernel(xp, w_hh)
+    x_in = mel.requires_grad_()
+    cudnn = cudnn_lstm_layer(w_ih, w_hh, bias)
+
+    turns("lstm_bf16", lambda: lr.lstm_forward_kernel(xp, w_hh), lambda: cudnn(x_in)[0])
+    out["lstm_bf16_host_us"] = host_us({"kernel": lambda: lr.lstm_forward_kernel(xp, w_hh),
+                                        "library": lambda: cudnn(x_in)[0]}, 10)
+    turns("lstm_bf16_backward", lambda: lr.lstm_backward_kernel(dh, w_hh, act, c),
+          lambda: torch.autograd.grad(cudnn(x_in)[0], [x_in, *cudnn.parameters()], dh))
+
+
 def mel_times(ms, dev: torch.device, y: torch.Tensor) -> None:
     """K1 at 1280/320 beside its library chain (reflect pad, ``torch.stft``,
     magnitude, mel product, log clamp), and at the other sizes K1's checks
@@ -359,8 +441,9 @@ def mma_tf32_tflops(dev: torch.device, iters: int) -> dict | None:
 
     flops = blocks * 8 * rounds * 8 * 2 * 16 * 8 * 8
     calls = max(iters // 10, 10)
+    device = device_ms(run, calls)   # the profiler has read no kernel at all at times
     return {"events": flops / (time_ms(run, dev, calls, 2) * 1e-3) / 1e12,
-            "device": flops / (device_ms(run, calls) * 1e-3) / 1e12}
+            "device": flops / (device * 1e-3) / 1e12 if device > 0 else None}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -416,6 +499,7 @@ def main(argv: list[str] | None = None) -> dict:
         ms("K4", lambda: fused_mel.wave_to_spec_halo(y4, 1280, 320, 1280))
         del y4
         encoding_times(ms, dev, g, layer, x)
+        bf16_turn_times(ms, out, dev, g, layer, x)
         out["notes"] = gemm_times(ms, dev, g)
         conv5_times(ms, dev, g)
         out["mma_sync_tf32_tflops"] = mma_tf32_tflops(dev, args.iters)

@@ -14,6 +14,8 @@ version's (which rounds the scores and the normalised p to bf16, as the JAX
 package's off-TPU path does), and max |model - plain| <= 8e-3 max|v|.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -156,17 +158,21 @@ def test_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
 def test_build_lists_the_bf16_header():
     """The bf16 headers are hashed into the library's name (an edit rebuilds
     it), the sources that use them include them, and each bf16 entry's C
-    signature is its float32 entry's."""
+    signature is its float32 entry's, but that K8's bf16 entry takes a third
+    plan value, the wgmma core's tile width, for each of its four GEMMs."""
     from quickvc_tpu_torch.ops import _cuda
 
-    assert {"fused_attention_bf16.cuh", "bf16_gemm.cuh"} <= set(_cuda.HEADERS)
+    assert {"fused_attention_bf16.cuh", "bf16_gemm.cuh", "wgmma_bf16.cuh"} <= set(_cuda.HEADERS)
     for source, headers in (("fused_attention.cu", ["fused_attention_bf16.cuh"]),
-                            ("fused_transformer.cu", ["bf16_gemm.cuh",
+                            ("fused_transformer.cu", ["bf16_gemm.cuh", "wgmma_bf16.cuh",
                                                       "fused_attention_bf16.cuh"]),
                             ("fused_extractor.cu", ["bf16_gemm.cuh"])):
         text = (_cuda.CSRC / source).read_text()
         assert all(f'#include "{h}"' in text for h in headers), source
     assert '#include "bf16_gemm.cuh"' in (_cuda.CSRC / "fused_attention_bf16.cuh").read_text()
-    for entry in ("qvc_attention_packed", "qvc_attention_headed", "qvc_extractor_front",
-                  "qvc_transformer_layer"):
+    for entry in ("qvc_attention_packed", "qvc_attention_headed", "qvc_extractor_front"):
         assert _cuda._SIGNATURES[entry + "_bf16"] == _cuda._SIGNATURES[entry]
+    f32, bf = _cuda._SIGNATURES["qvc_transformer_layer"], _cuda._SIGNATURES[
+        "qvc_transformer_layer_bf16"]
+    assert bf[:26] == f32[:26] and bf[-1] == f32[-1]   # pointers, shapes, scale; stream
+    assert (bf[26:-1], f32[26:-1]) == ([ctypes.c_int] * 12, [ctypes.c_int] * 8)

@@ -1,8 +1,9 @@
 """PyTorch port, the bf16 GEMM core (``csrc/bf16_gemm.cuh``) and the bf16
 modes of K7-K10 on the CPU (no JAX): a numpy model of the core's fragment
-layout and K walk, and of K7's bf16 conv1, against float64 products; the
-plan of the core's tiling; the wrappers handing bf16 tensors to the bf16
-entries with the arguments they need.
+layout, and of K7's bf16 conv1, against float64 products; K8's bf16 GEMMs
+(on the wgmma core, modelled in ``test_torch_wgmma_bf16.py``) and their
+plans; the wrappers handing bf16 tensors to the bf16 entries with the
+arguments they need.
 
 The model follows the kernels step by step: operands staged in shared
 memory as the 16-byte copies stage them (rows past M or N and chunks past
@@ -58,82 +59,32 @@ def mma(acc: np.ndarray, a: np.ndarray, b0: np.ndarray, b1: np.ndarray) -> None:
     acc += np.stack([d[G, 2 * T4], d[G, 2 * T4 + 1], d[G + 8, 2 * T4], d[G + 8, 2 * T4 + 1]], 1)
 
 
-# csrc/bf16_gemm.cuh
-BM, BN, BK, WM, WN, LDS = 128, 128, 64, 64, 64, 72
-MT, NT, THREADS = WM // 16, WN // 8, 128
-
-
-def linear_model(a: np.ndarray, w: np.ndarray, splits: int, k_chunk: int) -> np.ndarray:
-    """linear_bf16_kernel's sums of A (M, K) W (N, K)^T, split z of ``splits``
-    over [z k_chunk, (z + 1) k_chunk), then linear_bf16_splitk_kernel's sum in
-    split order (before the epilogue)."""
-    m, k = a.shape
-    n = w.shape[0]
-    parts = np.full((splits, m, n), np.nan, np.float32)
-    tid = np.arange(THREADS)
-    c_row, c_col = tid // (BK // 8), 8 * (tid % (BK // 8))
-    for z in range(splits):
-        k_begin = z * k_chunk
-        k_end = min(k, k_begin + k_chunk)
-        for m0 in range(0, m, BM):
-            for n0 in range(0, n, BN):
-                acc = np.zeros((4, MT, NT, 32, 4), np.float32)
-                for t in range(-(-(k_end - k_begin) // BK)):
-                    stage = []
-                    for src, r0, rows, passes in ((a, m0, m, BM // 16), (w, n0, n, BN // 16)):
-                        s = np.zeros((passes * 16) * LDS, np.float32)
-                        for i in range(passes):   # pass i: rows c_row + 16 i
-                            for th in tid:
-                                r, k0 = c_row[th] + 16 * i, k_begin + t * BK + c_col[th]
-                                if k0 < k_end and r0 + r < rows:
-                                    s[r * LDS + c_col[th]: r * LDS + c_col[th] + 8] = \
-                                        src[r0 + r, k0:k0 + 8]
-                        stage.append(s)
-                    As, Bs = stage
-                    for warp in range(4):
-                        wm0, wn0 = (warp // 2) * WM, (warp % 2) * WN
-                        a_lane = (wm0 + (LANES & 15)) * LDS + 8 * (LANES >> 4)
-                        b_lane = (wn0 + 8 * (LANES >> 4) + (LANES & 7)) * LDS + 8 * ((LANES >> 3) & 1)
-                        for kk in range(0, BK, 16):
-                            af = [ldmatrix_x4(As, a_lane + 16 * i * LDS + kk) for i in range(MT)]
-                            for jp in range(NT // 2):
-                                bf = ldmatrix_x4(Bs, b_lane + 16 * jp * LDS + kk)
-                                for i in range(MT):
-                                    mma(acc[warp, i, 2 * jp], af[i], bf[:, 0], bf[:, 1])
-                                    mma(acc[warp, i, 2 * jp + 1], af[i], bf[:, 2], bf[:, 3])
-                for warp in range(4):   # the epilogue's stores: column pairs of rows g, g + 8
-                    wm0, wn0 = (warp // 2) * WM, (warp % 2) * WN
-                    for j in range(NT):
-                        col = n0 + wn0 + 8 * j + 2 * T4
-                        for i in range(MT):
-                            for h in range(2):
-                                row = m0 + wm0 + 16 * i + G + 8 * h
-                                ok = (col < n) & (row < m)
-                                for e in range(2):
-                                    assert np.isnan(parts[z, row[ok], col[ok] + e]).all()
-                                    parts[z, row[ok], col[ok] + e] = acc[warp, i, j, ok, 2 * h + e]
-    assert not np.isnan(parts).any(), "an output no block wrote"
-    total = parts[0]
-    for z in range(1, splits):
-        total = (total + parts[z]).astype(np.float32)
-    return total
+# csrc/bf16_gemm.cuh: a warp's m16n8k16 tiles
+MT, NT = 4, 8
 
 
 @pytest.mark.parametrize("m,n,k", [(150, 136, 200), (40, 136, 520)])
 def test_linear_core_model_against_float64(m, n, k):
-    """Ragged against the 128 x 128 tiles and the 64-wide k tiles; at (40, 136,
-    520) the bf16 plan splits K two ways (the second split's range is not a
-    whole number of k tiles)."""
+    """K8's bf16 GEMM core (the persistent wgmma core since it left this
+    file's mma.sync linear layer; ``test_torch_wgmma_bf16.py`` models it),
+    ragged against its 128-row tiles and 64-wide k tiles, on its plan and,
+    at (40, 136, 520), split 2 ways (the second split's range not a whole
+    number of k tiles)."""
+    from test_torch_wgmma_bf16 import linear_model
+
     from quickvc_tpu_torch.ops import fused_transformer as ft
 
     rng = np.random.default_rng(m + k)
     a, w = bf16_round(rng.standard_normal((m, k))), bf16_round(rng.standard_normal((n, k)))
-    plan = ft.linear_plan(m, n, k, 132, ft.BF16_TILING)
-    assert plan.splits == (2 if k == 520 else 1)
-    ours = linear_model(a, w, plan.splits, plan.k_chunk)
+    plans = [ft.wgmma_plan(m, n, k)]
+    assert plans[0].splits == 1
+    if k == 520:
+        plans.append(ft.WgmmaPlan(plans[0].bn, 2, 320, 2 * m * n))
     exact = a.astype(np.float64) @ w.astype(np.float64).T
     scale = np.abs(a).astype(np.float64) @ np.abs(w).astype(np.float64).T
-    assert (np.abs(ours - exact) <= 1e-5 * scale).all()
+    for plan in plans:
+        ours = linear_model(a, w, plan)
+        assert (np.abs(ours - exact) <= 1e-5 * scale).all()
 
 
 # csrc/fused_extractor.cu, namespace front_bf16
@@ -206,19 +157,18 @@ def test_front_conv1_model_against_float64(c, n1):
 
 @pytest.mark.parametrize("sm_count", [132, 114])
 def test_bf16_plan_covers_each_output_once(sm_count):
-    """linear_plan on the bf16 tiling: splits on 64-wide k-tile edges that
+    """K8's bf16 plans (``wgmma_plan``): splits on 64-wide k-tile edges that
     cover the reduction once, none empty, at the shapes the layer gives it
     (the live windows' M = N x 80 rows included)."""
     from quickvc_tpu_torch.ops import fused_transformer as ft
 
-    tiling = ft.BF16_TILING
     for m in (37, 160, 300, 4800, 5120):
-        for p, (n, k) in zip(ft.layer_plans(m, 768, 3072, sm_count, tiling),
+        for p, (n, k) in zip(ft.wgmma_layer_plans(m, 768, 3072, sm_count),
                              ((2304, 768), (768, 768), (3072, 768), (768, 3072))):
-            assert 1 <= p.splits <= ft.MAX_SPLITS and p.k_chunk % tiling.k_tile == 0
+            assert 1 <= p.splits <= ft.MAX_SPLITS and p.k_chunk % ft.WG_K_TILE == 0
             assert (p.splits - 1) * p.k_chunk < k <= p.splits * p.k_chunk
             assert p.workspace == (p.splits * m * n if p.splits > 1 else 0)
-    assert all(p.splits == 1 for p in ft.layer_plans(4800, 768, 3072, 132, tiling))
+    assert all(p.splits == 1 for p in ft.wgmma_layer_plans(4800, 768, 3072, 132))
 
 
 def _read(ptr: int, n: int, kind) -> np.ndarray:
@@ -286,8 +236,8 @@ def test_front_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
 def test_layer_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
     """A bf16 hidden state reaches ``qvc_transformer_layer_bf16`` with the
     weight matrices in bf16, the vectors in float32, bf16 scratch but the
-    float32 sums, and the plans of the bf16 tiling; float32 still takes the
-    float32 entry on its own plans."""
+    float32 sums, and the wgmma core's plans (BN, splits, k_chunk); float32
+    still takes the float32 entry on its own plans (splits, k_chunk)."""
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import fused_transformer as ft
 
@@ -299,13 +249,13 @@ def test_layer_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
     def grab(*args):
         m = args[20] * args[21]
         return (_read(args[1], 4, ctypes.c_uint16), _read(args[2], 4, ctypes.c_float),
-                args[20:25], args[26:34], m)
+                args[20:25], args[26:-1], m)
 
     calls = _fake(monkeypatch, ft, {"qvc_transformer_layer_bf16": grab,
                                     "qvc_transformer_layer": grab})
     monkeypatch.setattr(ft, "device_sms", lambda index: 132)
-    for dtype, entry, tiling in ((torch.bfloat16, "qvc_transformer_layer_bf16", ft.BF16_TILING),
-                                 (torch.float32, "qvc_transformer_layer", ft.F32_TILING)):
+    for dtype, entry in ((torch.bfloat16, "qvc_transformer_layer_bf16"),
+                         (torch.float32, "qvc_transformer_layer")):
         x = torch.zeros(2, 37, 768, dtype=dtype)
         before = (ft.STATS.launches, ft.BF16_STATS.launches)
         with torch.no_grad():
@@ -313,8 +263,13 @@ def test_layer_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
         assert out.dtype == dtype and out.shape == x.shape
         name, _, (w_in, b_in, dims, plans, m) = calls[-1]
         assert name == entry and dims == (2, 37, 768, 12, 3072)
-        want = ft.layer_plans(m, 768, 3072, 132, tiling)
-        assert plans == tuple(v for p in want for v in (p.splits, p.k_chunk))
+        if dtype == torch.bfloat16:
+            want = tuple(v for p in ft.wgmma_layer_plans(m, 768, 3072, 132)
+                         for v in (p.bn, p.splits, p.k_chunk))
+        else:
+            want = tuple(v for p in ft.layer_plans(m, 768, 3072, 132)
+                         for v in (p.splits, p.k_chunk))
+        assert plans == want
         np.testing.assert_allclose(b_in, 0.02, rtol=1e-6)   # the float32 in_proj bias
         if dtype == torch.bfloat16:
             np.testing.assert_array_equal(bf16_values(w_in), bf16_round(np.full(4, 0.01)))

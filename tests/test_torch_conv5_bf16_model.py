@@ -31,7 +31,7 @@ from test_torch_bf16_gemm import G, LANES, T4, _fake, _read, bf16_round, ldmatri
 from torch_port_support import bf16_values
 
 from quickvc_tpu_torch.ops import fused_disc_conv as fdc
-from quickvc_tpu_torch.ops.fused_transformer import BF16_TILING
+from quickvc_tpu_torch.ops.fused_disc_conv import BF16_TILING
 
 # csrc/fused_disc_conv.cu, namespace conv5_bf16 (the bf16 core's tiling)
 BM, BN, BK, WM, WN, LDMK, LDKN = 128, 128, 64, 64, 64, 72, 136

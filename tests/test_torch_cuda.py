@@ -22,7 +22,11 @@ float64 attention at most 1.5x the plain version's; the bf16 modes of K7,
 K8, K9 and K10 within 1e-2 max|plain| (or two bf16 ulps of it) of their
 plain versions, each kernel's error against its float32 kernel on the same
 bf16-valued inputs at most 1.5x the plain version's; and so are K5's and
-K6's bf16 modes (y, dx, dW), bit-equal from one launch to the next.
+K6's bf16 modes (y, dx, dW), bit-equal from one launch to the next, K8's
+bf16 mode on the wgmma core, and the speaker LSTM's bf16 recurrence kernels
+(forward h, act and c, backward dgates; the float32 recurrence the
+yardstick), bit-equal from one launch to the next, alone and in a bf16
+speaker encoder.
 """
 
 import pytest
@@ -634,3 +638,99 @@ def test_streaming_and_session_on_card_match_cpu(cuda):
         ticks = fused_istft.STATS.launches - before
         assert ticks == (10 if dev == "cuda" else 0)
     assert np.abs(outs["card"] - outs["cpu"]).max() <= 1e-3 * np.abs(outs["cpu"]).max()
+
+
+@pytest.mark.parametrize("batch,t_len,hidden", [(32, 512, 256), (2, 16, 16), (37, 40, 64)])
+def test_lstm_recurrence_kernels(cuda, batch, t_len, hidden):
+    """The speaker LSTM's bf16 recurrence kernels at the training batch's
+    layer (32, 512, 4 x 256), the small step gate's (2, 16, 4 x 16) and two
+    clusters of a ragged batch, forward (h, act, c) and backward (dgates)
+    against their plain versions on the card by the bf16 gates, the
+    float32 recurrence the yardstick; each bit-equal from one launch to the
+    next, and one launch each a call."""
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+
+    g = _gen(cuda, hidden)
+    xp = torch.randn(batch, t_len, 4 * hidden, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(4 * hidden, hidden, device=cuda, generator=g) / hidden ** 0.5).bfloat16()
+    dh = torch.randn(batch, t_len, hidden, device=cuda, generator=g).bfloat16()
+    before = (lr.STATS.launches, lr.BACKWARD_STATS.launches)
+    ours = lr.lstm_forward_kernel(xp, w)
+    back = lr.lstm_backward_kernel(dh, w, ours[1], ours[2])
+    assert (lr.STATS.launches, lr.BACKWARD_STATS.launches) == (before[0] + 1, before[1] + 1)
+    plain = lr.lstm_forward_reference(xp, w)
+    ref32 = lr.lstm_forward_reference(xp.float(), w.float())
+    for o, p, r in zip(ours, plain, ref32):
+        _bf16_gates(o, p, r)
+    _bf16_gates(back, lr.lstm_backward_reference(dh, w, ours[1], ours[2]),
+                lr.lstm_backward_reference(dh.float(), w.float(), ref32[1], ref32[2]))
+    assert all(torch.equal(a, b) for a, b in zip(ours, lr.lstm_forward_kernel(xp, w)))
+    assert torch.equal(back, lr.lstm_backward_kernel(dh, w, ours[1], ours[2]))
+
+
+def test_lstm_recurrence_kernels_refuse_what_the_plan_does_not_take(cuda):
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lr.lstm_forward_kernel(torch.zeros(2, 4, 4 * 24, device=cuda, dtype=torch.bfloat16),
+                               torch.zeros(4 * 24, 24, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="more than the card's"):
+        lr.lstm_forward_kernel(torch.zeros(32 * 17, 2, 64, device=cuda, dtype=torch.bfloat16),
+                               torch.zeros(64, 16, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        lr.lstm_forward_kernel(torch.zeros(2, 4, 64, device=cuda),
+                               torch.zeros(64, 16, device=cuda))
+
+
+def test_speaker_encoder_bf16_runs_the_lstm_kernels(cuda):
+    """A bf16 speaker encoder on the card (the small step gate's width):
+    one forward and one backward launch a layer, d-vectors and gradients
+    within the bf16 gates of the plain versions on the card."""
+    from quickvc_tpu_torch.models.encoders import SpeakerEncoder
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+    from quickvc_tpu_torch.scripts.bf16_step_gate import card_lstm
+
+    torch.manual_seed(5)
+    enc = SpeakerEncoder(model_hidden_size=16, model_embedding_size=16).to(cuda)
+    mel = torch.randn(2, 16, 80, device=cuda, generator=_gen(cuda, 7)).bfloat16()
+
+    def run():
+        enc.zero_grad(set_to_none=True)
+        d = enc(mel)
+        d.float().square().sum().backward()
+        return [d] + [p.grad.bfloat16() for p in enc.lstm.parameters()]
+
+    before = (lr.STATS.launches, lr.BACKWARD_STATS.launches)
+    ours = run()
+    assert (lr.STATS.launches, lr.BACKWARD_STATS.launches) == (before[0] + 3, before[1] + 3)
+    with card_lstm("recurrence"):
+        plain = run()
+    enc.zero_grad(set_to_none=True)
+    d32 = enc(mel.float())
+    d32.square().sum().backward()
+    ref32 = [d32] + [p.grad for p in enc.lstm.parameters()]
+    for o, p, r in zip(ours, plain, ref32):
+        _bf16_gates(o, p, r)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_transformer_layer_bf16_kernel_on_the_wgmma_core(cuda, batch):
+    """K8's bf16 mode at (1, 300, 768) (linear2 split) and the encoding
+    batch (16, 300, 768): the wgmma core's plans, the bf16 gates, and the
+    same bits from two launches."""
+    from quickvc_tpu_torch.ops import fused_transformer as ft
+
+    layer = _fused_layer(cuda, 300)
+    layer32 = _fused_layer(cuda, 300)
+    with torch.no_grad():
+        for p in layer32.parameters():
+            if p.dim() == 2:
+                p.copy_(p.bfloat16().float())
+    plans = ft.wgmma_layer_plans(batch * 300, 768, 3072)
+    assert any(p.splits > 1 for p in plans) == (batch == 1)
+    x = torch.randn(batch, 300, 768, device=cuda, generator=_gen(cuda, batch)).bfloat16()
+    with torch.inference_mode():
+        ours = ft.transformer_layer(x, layer)
+        _bf16_gates(ours, ft.transformer_layer_reference(x, layer),
+                    ft.transformer_layer_kernel(x.float(), layer32))
+        assert torch.equal(ours, ft.transformer_layer(x, layer))
