@@ -48,7 +48,13 @@
    in bf16 and at two shapes whose channels are not multiples of 8 (two
    launches bit-equal; at p = 2 and 11 timed in turns with cuDNN's bf16
    conv, its input and its weight gradient). K8's bf16 mode runs its GEMMs
-   on the persistent TMA + ``wgmma`` core (``csrc/wgmma_bf16.cuh``).
+   on the persistent TMA + ``wgmma`` core (``csrc/wgmma_bf16.cuh``). The bf16
+   attention of K2, K8, K9 and K10 runs the TMA + ``wgmma`` body at head
+   dims 64 and 128 (the ``mma.sync`` body at 16 and 32): an
+   ``attention_bf16_plans`` line gives, for each path shape, both bodies'
+   plans (CTA rows, key tile, stages, CTAs and waves) with each body's
+   registers and CTAs an SM on the card, and the K2, K9 and K10 bf16 rows
+   their plans and two launches bit-equal.
 3. Drives the conversion path, the CLI ``quickvc_tpu_torch.convert`` with
    ``--device cuda --batch 8``, at the full width of ``configs/quickvc.json``
    plus the full HuBERT-soft, with seeded random weights, on seeded
@@ -89,7 +95,15 @@
    plain path at a small config (same weights, batch and draws), in float32
    and at bf16 (the bf16 step relative to the CPU's bf16 error against its
    float32 step; every parameter float32 after it), and the bf16 speaker
-   LSTM (cuDNN on the card, the JAX recurrence on the CPU) at full width.
+   LSTM at full width on its kernels (the three layers' forward in one
+   launch of the stack kernel, the JAX wavefront; one backward launch a
+   layer) against their plain versions on the card: the encoder's
+   d-vectors and gradients, the stack's h, act and c of every layer, the
+   stack timed against cuDNN's 3-layer bf16 ``nn.LSTM`` forward and a
+   layer's forward and backward kernels against cuDNN's; then the stack at
+   three layers of 640 rows (60 clusters), which the card cannot hold at
+   once, must raise RuntimeError and launch nothing; then the bf16 step
+   gate on seeds 1-5.
 8. Drives offline unit encoding, the CLI ``quickvc_tpu_torch.encode`` with
    ``--batch 16``, at full width (the conversion's random HuBERT-soft) on 32
    seeded synthetic wavs in two 1-s buckets, three times: the default
@@ -181,7 +195,8 @@ TPU_KERNELS = [
     ("K2", "quickvc_tpu/ops/fused_attention.py:113", "fused_attention_packed",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
      "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh (bf16 mma.sync, float32 "
-     "softmax and accumulation)"),
+     "softmax and accumulation), redesigned: TMA + wgmma body, planned grid (mma.sync at "
+     "D 16/32 and on views TMA does not take)"),
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
      "ported: quickvc_tpu_torch/csrc/fused_istft.cu; the JAX head's sizes, n_fft up to 2048; "
      "redesigned: persistent planned grid, host-built tables, loads one step ahead"),
@@ -202,13 +217,16 @@ TPU_KERNELS = [
     ("K8", "quickvc_tpu/ops/fused_transformer.py:155", "fused_transformer_layer",
      "ported: quickvc_tpu_torch/csrc/fused_transformer.cu; redesigned: GEMMs and attention "
      "on 3xTF32 tensor cores; bf16 mode: same file, GEMMs on the persistent TMA + wgmma "
-     "core of quickvc_tpu_torch/csrc/wgmma_bf16.cuh, K2's bf16 attention body"),
+     "core of quickvc_tpu_torch/csrc/wgmma_bf16.cuh, K2's bf16 attention body (TMA + "
+     "wgmma)"),
     ("K9", "quickvc_tpu/ops/fused_attention.py:194", "fused_attention_packed_aligned",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
-     "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh at D = 128"),
+     "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh at D = 128, redesigned: "
+     "TMA + wgmma body"),
     ("K10", "quickvc_tpu/ops/fused_attention.py:231", "fused_attention",
      "ported: quickvc_tpu_torch/csrc/fused_attention.cu; redesigned: 3xTF32 tensor cores; "
-     "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh"),
+     "bf16 mode: quickvc_tpu_torch/csrc/fused_attention_bf16.cuh, redesigned: TMA + wgmma "
+     "body at D 64/128"),
     ("K11", "scripts/int8_matmul_probe.py:85", "pallas_mm",
      "ported: quickvc_tpu_torch/csrc/int8_mm.cu; redesigned: persistent TMA + wgmma, bf16 "
      "without a B^T pre-pass"),
@@ -235,36 +253,38 @@ ENCODE_RUNS = (("faststats", "faststats", False), ("pallas", "pallas", False),
                ("pallas_fused_layer", "pallas", True))   # (name, --hubert-front, fused_layer)
 # the port's __global__ functions, as the profiler names them
 DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_kernel",
-                    "attention_bf16_kernel",
+                    "attention_bf16_kernel", "attention_wgmma_kernel",
                     "polar_istft_kernel",
                     "wave_to_spec_halo_kernel", "conv5_gemm_kernel", "splitk_sum_kernel",
                     "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
                     "row_layer_norm_kernel", "extractor_front_bf16_kernel",
                     "linear_wgmma_kernel", "linear_bf16_splitk_kernel",
                     "conv5_bf16_kernel", "splitk_sum_bf16_kernel",
-                    "mm_wgmma_kernel", "transpose_kernel", "lstm_forward_kernel",
+                    "mm_wgmma_kernel", "transpose_kernel", "lstm_stack_kernel",
                     "lstm_backward_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
-# K2/K8/K9/K10 and K2's bf16 body, K5/K6's implicit GEMM and K6's split-K
-# sum, K7, K8's GEMMs and their split-K sum, K3's both bodies, the bf16
-# modes of K7, K8's GEMMs (the wgmma core) and K5/K6 with K6's bf16 split-K
-# sum, and the LSTM recurrence's two kernels); none may spill
+# K2/K8/K9/K10 and K2's two bf16 bodies, K5/K6's implicit GEMM and K6's
+# split-K sum, K7, K8's GEMMs and their split-K sum, K3's both bodies, the
+# bf16 modes of K7, K8's GEMMs (the wgmma core) and K5/K6 with K6's bf16
+# split-K sum, and the LSTM recurrence's two kernels); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
                "transpose_kernel", "attention_kernel", "attention_bf16_kernel",
+               "attention_wgmma_kernel",
                "conv5_gemm_kernel", "splitk_sum_kernel",
                "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
                "extractor_front_bf16_kernel", "linear_wgmma_kernel",
                "linear_bf16_splitk_kernel", "polar_istft_kernel", "polar_istft_kernel_rt",
-               "conv5_bf16_kernel", "splitk_sum_bf16_kernel", "lstm_forward_kernel",
+               "conv5_bf16_kernel", "splitk_sum_bf16_kernel", "lstm_stack_kernel",
                "lstm_backward_kernel")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "wave_to_spec_halo": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
               "mm_bf16": "redesigned: persistent TMA + wgmma, B read MN-major (no pre-pass)",
               "attention_packed": "redesigned: 3xTF32 tensor cores",
-              "attention_packed_bf16": "ported: bf16 mma.sync, float32 softmax and "
-                                       "accumulation",
+              "attention_packed_bf16": "redesigned: TMA + wgmma body (K/V ring, P in "
+                                       "registers), grid planned to whole waves; mma.sync "
+                                       "body at D 16/32 and unaligned views",
               "attention_packed_aligned": "redesigned: 3xTF32 tensor cores",
               "attention": "redesigned: 3xTF32 tensor cores",
               "conv5_lrelu": "redesigned: 3xTF32 tensor-core implicit GEMM",
@@ -275,11 +295,13 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "extractor_front_bf16": "ported: conv1 on the bf16 mma.sync GEMM core, h "
                                       "produced on chip in bf16",
               "transformer_layer_bf16": "redesigned: GEMMs on the persistent TMA + wgmma bf16 "
-                                        "core, K2's bf16 attention body",
-              "lstm_bf16": "new: replaces no TPU kernel (the JAX package's lax.scan)",
+                                        "core, K2's bf16 attention body (TMA + wgmma)",
+              "lstm_stack_bf16": "new: replaces no TPU kernel (the JAX package's lax.scan); "
+                                 "redesigned: every layer in one launch, the JAX wavefront",
               "lstm_bf16_backward": "new: replaces no TPU kernel (the lax.scan's transpose)",
-              "attention_packed_aligned_bf16": "ported: K2's bf16 body at D = 128",
-              "attention_bf16": "ported: K2's bf16 body on (B, H, T, D)",
+              "attention_packed_aligned_bf16": "redesigned: K2's TMA + wgmma bf16 body at "
+                                               "D = 128",
+              "attention_bf16": "redesigned: K2's TMA + wgmma bf16 body on (B, H, T, D)",
               "conv5_lrelu_bf16": "ported: implicit GEMM on the bf16 mma.sync GEMM core",
               "conv5_lrelu_dw_bf16": "ported: implicit GEMM on the bf16 mma.sync GEMM core, "
                                      "split-K rounded once",
@@ -698,8 +720,9 @@ def check_attention_bf16(dev: torch.device, shapes: dict) -> dict:
     wave windows of 64 streams and a ragged T, against its plain version on
     the same bf16 inputs: max |kernel - plain| <= 8e-3 max|v|, and the
     kernel's max error against float64 attention of those inputs at most
-    1.5x the plain version's (PERF.md section 2); timed in turns with SDPA
-    on the same bf16 (B, H, T, 64) inputs."""
+    1.5x the plain version's (PERF.md section 2), two launches bit-equal;
+    timed in turns with SDPA on the same bf16 (B, H, T, 64) inputs; the
+    plan each shape takes (``bf16_attention_plan``) beside it."""
     import torch.nn.functional as F
 
     from quickvc_tpu_torch.ops import fused_attention as fa
@@ -722,17 +745,22 @@ def check_attention_bf16(dev: torch.device, shapes: dict) -> dict:
         err_k, err_p = (float((x.double() - ref).abs().max()) for x in (ours, plain))
         tol = 8e-3 * float(v.float().abs().max())
         diff = (ours.float() - plain.float()).abs()
+        same = bool(torch.equal(ours, fa.attention_packed_kernel(q, k, v, 12, 0.125)))
+        b, t, _ = q.shape
         return {"max_abs_err": float(diff.max()),
                 "max_rel_err": float((diff / plain.float().abs().clamp(min=1e-12)).max()),
                 "err_f64_kernel": err_k, "err_f64_plain": err_p, "atol": tol, "rtol": 0.0,
-                "dtype": str(ours.dtype),
+                "dtype": str(ours.dtype), "deterministic": same,
+                "plan": fa.bf16_attention_plan(b, 12, t, 64, sms)._asdict(),
                 "within_tol": bool(ours.dtype == torch.bfloat16 and float(diff.max()) <= tol
-                                   and err_k <= 1.5 * err_p)}
+                                   and err_k <= 1.5 * err_p and same)}
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     b, t_u = BATCH, 5 * SR // 320
     k2b_shapes = [(b, t_u), *((LIVE_STREAMS, t) for t in shapes["live_windows"]), (3, 333)]
     checks = {str((n, t, 768)): check(*inputs(n, t, SEED + 40 + i))
               for i, (n, t) in enumerate(k2b_shapes)}
+    deterministic = all(c["deterministic"] for c in checks.values())
     q, k, v = inputs(b, t_u, SEED + 39)
     qh, kh, vh = (z.reshape(b, t_u, 12, 64).transpose(1, 2).contiguous() for z in (q, k, v))
     flops, nbytes = 4 * b * t_u * t_u * 768, 4 * 2 * b * t_u * 768
@@ -740,7 +768,7 @@ def check_attention_bf16(dev: torch.device, shapes: dict) -> dict:
         name="attention_packed_bf16", tpu_id="K2",
         source="quickvc_tpu_torch/csrc/fused_attention_bf16.cuh",
         replaces="quickvc_tpu/ops/fused_attention.py:113", shape=[[b, t_u, 768]] * 3,
-        **merge_checks(checks),
+        **merge_checks(checks), deterministic=deterministic,
         **turns(lambda: fa.attention_packed_kernel(q, k, v, 12, 0.125),
                 lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=0.125)),
         plain_ms=cuda_ms(lambda: fa.attention_packed_reference(q, k, v, 12, 0.125)),
@@ -1160,11 +1188,19 @@ def _check_bf16_modes(dev: torch.device, rng: np.random.Generator) -> list[dict]
                                           fa.attention_reference(*small, 0.25),
                                           fa.attention_kernel(*(z.float() for z in small),
                                                               0.25))}
+    merged = merge_checks(checks)
+    deterministic = bool(torch.equal(fa.attention_kernel(q, k, v, 0.125),
+                                     fa.attention_kernel(q, k, v, 0.125))
+                         and torch.equal(fa.attention_kernel(*small, 0.25),
+                                         fa.attention_kernel(*small, 0.25)))
     results.append(dict(
         name="attention_bf16", tpu_id="K10",
         source="quickvc_tpu_torch/csrc/fused_attention_bf16.cuh",
         replaces="quickvc_tpu/ops/fused_attention.py:231", shape=[[bh, h, t_a, dh]] * 3,
-        **merge_checks(checks),
+        **(merged | {"within_tol": merged["within_tol"] and deterministic}),
+        deterministic=deterministic,
+        plans={"(8, 12, 250, 64)": fa.bf16_attention_plan(bh, h, t_a, dh, sms)._asdict(),
+               "(2, 3, 50, 16)": fa.bf16_attention_plan(2, 3, 50, 16, sms)._asdict()},
         **turns(lambda: fa.attention_kernel(q, k, v, 0.125),
                 lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
         plain_ms=cuda_ms(lambda: fa.attention_reference(q, k, v, 0.125)),
@@ -1178,11 +1214,15 @@ def _check_bf16_modes(dev: torch.device, rng: np.random.Generator) -> list[dict]
                      fa.attention_packed_aligned_kernel(qa.float(), ka.float(), va.float(), 12,
                                                         0.125))
     pad_zero = not bool(out.reshape(bh, t_a, 12, 128)[..., 64:].any())
+    deterministic = bool(torch.equal(out, fa.attention_packed_aligned_kernel(qa, ka, va, 12,
+                                                                             0.125)))
     results.append(dict(
         name="attention_packed_aligned_bf16", tpu_id="K9",
         source="quickvc_tpu_torch/csrc/fused_attention_bf16.cuh",
         replaces="quickvc_tpu/ops/fused_attention.py:194", shape=[[bh, t_a, 12 * 128]] * 3,
-        **(gate | {"within_tol": gate["within_tol"] and pad_zero}), padded_lanes_zero=pad_zero,
+        **(gate | {"within_tol": gate["within_tol"] and pad_zero and deterministic}),
+        padded_lanes_zero=pad_zero, deterministic=deterministic,
+        plan=fa.bf16_attention_plan(bh, 12, t_a, 128, sms)._asdict(),
         **turns(lambda: fa.attention_packed_aligned_kernel(qa, ka, va, 12, 0.125),
                 lambda: F.scaled_dot_product_attention(*heads, scale=0.125)),
         plain_ms=cuda_ms(lambda: fa.attention_packed_aligned_reference(qa, ka, va, 12, 0.125)),
@@ -1831,7 +1871,8 @@ def check_training_bf16(tmp: str, f32: dict) -> dict:
     """The trainer CLI at ``precision: "bf16"`` on the same corpus and config
     (compact transfer, the units shipped as bf16), BF16_TRAIN_STEPS steps with
     eval after update 1: finite losses, no skipped update, K4 once a step, the
-    speaker LSTM's forward and backward kernels once a layer a step, K1 (FFT
+    speaker LSTM's forward kernel once a step (the three layers in one
+    launch) and its backward kernel once a layer a step, K1 (FFT
     route) and K3 twice a held-out item in the float32 eval and nothing else,
     float32 parameters and AdamW moments in the checkpoints; the step
     walls and peak memory printed beside the float32 run's of this call."""
@@ -1853,11 +1894,11 @@ def check_training_bf16(tmp: str, f32: dict) -> dict:
     mel_routes = dict(fused_mel.STATS.routes)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     per_eval = 2 * len(EVAL_SECONDS) * len(range(0, BF16_TRAIN_STEPS, EVAL_INTERVAL))
-    layers = 3   # the speaker LSTM's: one forward and one backward launch each a step
+    layers = 3   # the speaker LSTM's: one stack launch and a backward launch a layer a step
     expected = {name: 0 for name in launches} | {"wave_to_spec_halo": BF16_TRAIN_STEPS,
                                                  "wave_to_mel": per_eval,
                                                  "polar_inverse_stft": per_eval,
-                                                 "lstm_bf16": layers * BF16_TRAIN_STEPS,
+                                                 "lstm_stack_bf16": BF16_TRAIN_STEPS,
                                                  "lstm_bf16_backward": layers * BF16_TRAIN_STEPS}
     dtypes = set()
     for kind in "GD":
@@ -2133,16 +2174,22 @@ def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
 def check_speaker_lstm_bf16() -> tuple[dict, list[dict]]:
     """The bf16 speaker encoder at full width on a training-shaped mel (32,
     512, 80): forward, then the backward of a seeded scalar of the
-    d-vectors, its LSTM recurrence on the two kernels against their plain
+    d-vectors, its LSTM on the kernels (one launch of the stack kernel for
+    the three layers, one backward launch a layer) against the plain
     versions on the card (``ops/lstm_recurrence.py``) by ``bf16_gate``, the
     float32 ``nn.LSTM`` on the same bf16-valued mel the yardstick, for the
     d-vectors and every ``enc_spk.lstm`` gradient; two kernel runs
-    bit-equal. Then each kernel alone at a layer's shapes ((32, 512, 4 x
-    256) gates) against its plain version, timed (CUDA events and device
-    time) beside its plain version and one layer of cuDNN's bf16 LSTM
-    (forward; forward and backward): the two ``kernels`` rows, whose
-    ``library_ms`` is cuDNN's device time. Its own seeds, torch's generators
-    restored after it."""
+    bit-equal. Then the stack kernel alone on the encoder's three layers
+    (h, act and c of every layer against the plain stack; one layer alone
+    against the plain layer), timed (CUDA events and device time) from the
+    mel, layer 0's projection included, in turns with cuDNN's 3-layer bf16
+    ``nn.LSTM`` forward, beside the plain stack and the three per-layer
+    launches with their projections; and the backward kernel at a layer's
+    shapes ((32, 512, 4 x 256) gates) against its plain version, timed like
+    for like (a layer's forward and backward kernels against cuDNN's bf16
+    layer forward and backward) with the backward alone beside it: the two
+    ``kernels`` rows, whose ``library_ms`` is cuDNN's device time. Its own
+    seeds, torch's generators restored after it."""
     with torch.random.fork_rng(devices=[torch.device("cuda")]):
         return _check_speaker_lstm_bf16(np.random.default_rng(SEED + 15))
 
@@ -2153,12 +2200,13 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
     from quickvc_tpu_torch.models.encoders import SpeakerEncoder
     from quickvc_tpu_torch.ops import lstm_recurrence as lr
     from quickvc_tpu_torch.scripts.bf16_step_gate import card_lstm
-    from quickvc_tpu_torch.scripts.kernel_times import cudnn_lstm_layer
+    from quickvc_tpu_torch.scripts.kernel_times import cudnn_lstm, cudnn_lstm_layer
     from quickvc_tpu_torch.utils.weights import init_random_
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     enc = init_random_(SpeakerEncoder(), SEED + 5).to(dev)
     b, t_len, hsz = TRAIN_BATCH, 512, enc.lstm.hidden_size
+    layers = enc.lstm.num_layers
     mel = torch.from_numpy(rng.standard_normal((b, t_len, 80)).astype(np.float32)).to(dev).to(bf)
     weigh = torch.from_numpy(rng.standard_normal((b, 256)).astype(np.float32)).to(dev)
 
@@ -2173,9 +2221,11 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
         return d.detach(), {k: v.grad.detach().clone() for k, v in enc.lstm.named_parameters()}
 
     torch.cuda.synchronize()
+    before = (lr.STATS.launches, lr.BACKWARD_STATS.launches)
     t0 = time.perf_counter()
     d_k, g_k = run("kernel")
     seconds = time.perf_counter() - t0
+    launches = (lr.STATS.launches - before[0], lr.BACKWARD_STATS.launches - before[1])
     d_k2, g_k2 = run("kernel")
     (d_p, g_p), (d_32, g_32) = run("plain"), run("f32")
     deterministic = bool(torch.equal(d_k, d_k2)
@@ -2183,78 +2233,161 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
     gates = {"d_vectors": bf16_gate(d_k, d_p, d_32)} | {
         f"enc_spk.lstm.{k}": bf16_gate(g_k[k].to(bf), g_p[k].to(bf), g_32[k]) for k in g_k}
 
-    # each kernel alone at layer 0's shapes
-    w_ih, w_hh, bias = (z.detach() for z in enc._layer_weights(0, bf))
-    xp = (mel @ w_ih.T + bias).contiguous()
+    # the stack kernel alone on the encoder's three layers
+    w_ih, w_hh, bias = zip(*(tuple(z.detach() for z in enc._layer_weights(layer, bf))
+                             for layer in range(layers)))
+    xp = (mel @ w_ih[0].T + bias[0]).contiguous()
+    stack = lr.lstm_stack_kernel(xp, w_ih[1:], bias[1:], w_hh)
+    plain = lr.lstm_stack_reference(xp, w_ih[1:], bias[1:], w_hh)
+    ref32 = lr.lstm_stack_reference(xp.float(), [w.float() for w in w_ih[1:]],
+                                    [z.float() for z in bias[1:]], [w.float() for w in w_hh])
+    stack_checks = {f"{out}_l{layer}": bf16_gate(k[layer], p[layer], r[layer])
+                    for out, k, p, r in zip(("h", "act", "c"), stack, plain, ref32)
+                    for layer in range(layers)}
+    fwd = lr.lstm_forward_kernel(xp, w_hh[0])     # one layer: a stack of one
+    fwd_plain = lr.lstm_forward_reference(xp, w_hh[0])
+    fwd_32 = lr.lstm_forward_reference(xp.float(), w_hh[0].float())
+    stack_checks |= {f"{out}_layer_alone": bf16_gate(k, p, r) for out, k, p, r
+                     in zip(("h", "act", "c"), fwd, fwd_plain, fwd_32)}
+    stack_same = all(torch.equal(a, z) for a, z in
+                     zip(stack, lr.lstm_stack_kernel(xp, w_ih[1:], bias[1:], w_hh)))
+
+    def layer_chain():
+        """The three layers one launch each, their projections between."""
+        outs, z = [], xp
+        for layer in range(layers):
+            outs.append(lr.lstm_forward_kernel(z, w_hh[layer]))
+            if layer + 1 < layers:
+                z = outs[-1][0] @ w_ih[layer + 1].T + bias[layer + 1]
+        return outs
+
+    chain = layer_chain()
+    chain_equal = all(torch.equal(stack[i][layer], chain[layer][i])
+                      for i in range(3) for layer in range(layers))
+
     dh = torch.from_numpy(rng.standard_normal((b, t_len, hsz)).astype(np.float32)).to(dev).to(bf)
-    fwd = lr.lstm_forward_kernel(xp, w_hh)
-    fwd_plain = lr.lstm_forward_reference(xp, w_hh)
-    fwd_32 = lr.lstm_forward_reference(xp.float(), w_hh.float())
-    bwd = lr.lstm_backward_kernel(dh, w_hh, fwd[1], fwd[2])
-    bwd_plain = lr.lstm_backward_reference(dh, w_hh, fwd[1], fwd[2])
-    bwd_32 = lr.lstm_backward_reference(dh.float(), w_hh.float(), fwd_32[1], fwd_32[2])
-    fwd_gate = merge_checks({out: bf16_gate(k, p, r) for out, k, p, r
-                             in zip(("h", "act", "c"), fwd, fwd_plain, fwd_32)})
+    bwd = lr.lstm_backward_kernel(dh, w_hh[0], fwd[1], fwd[2])
+    bwd_plain = lr.lstm_backward_reference(dh, w_hh[0], fwd[1], fwd[2])
+    bwd_32 = lr.lstm_backward_reference(dh.float(), w_hh[0].float(), fwd_32[1], fwd_32[2])
     bwd_gate = bf16_gate(bwd, bwd_plain, bwd_32)
-    fwd_same = all(torch.equal(a, z) for a, z in zip(fwd, lr.lstm_forward_kernel(xp, w_hh)))
-    bwd_same = bool(torch.equal(bwd, lr.lstm_backward_kernel(dh, w_hh, fwd[1], fwd[2])))
+    bwd_same = bool(torch.equal(bwd, lr.lstm_backward_kernel(dh, w_hh[0], fwd[1], fwd[2])))
 
-    # one layer of cuDNN's bf16 LSTM on the layer's input, the same weights
-    x_in = mel.detach().requires_grad_()
-    cudnn = cudnn_lstm_layer(w_ih, w_hh, bias)
+    # cuDNN's bf16 LSTM, three layers and one, on the same weights
+    mel_in = mel.detach()
+    cudnn3 = cudnn_lstm(w_ih, w_hh, bias)
+    x_in = mel.detach().clone().requires_grad_()
+    cudnn = cudnn_lstm_layer(w_ih[0], w_hh[0], bias[0])
 
-    def cudnn_forward():
-        return cudnn(x_in)[0]
+    def stack_forward():   # from the mel, as the encoder runs it
+        return lr.lstm_stack_kernel(mel_in @ w_ih[0].T + bias[0], w_ih[1:], bias[1:], w_hh)
+
+    def cudnn3_forward():
+        return cudnn3(mel_in)[0]
 
     def cudnn_step():
-        torch.autograd.grad(cudnn_forward(), [x_in, *cudnn.parameters()], dh)
+        torch.autograd.grad(cudnn(x_in)[0], [x_in, *cudnn.parameters()], dh)
 
     def kernel_step():
-        h, act, c = lr.lstm_forward_kernel(xp, w_hh)
-        lr.lstm_backward_kernel(dh, w_hh, act, c)
+        h, act, c = lr.lstm_forward_kernel(xp, w_hh[0])
+        lr.lstm_backward_kernel(dh, w_hh[0], act, c)
 
     # in turns: library, kernel, kernel, library
-    fwd_t = turns(lambda: lr.lstm_forward_kernel(xp, w_hh), cudnn_forward, iters=10)
-    bwd_t = turns(lambda: lr.lstm_backward_kernel(dh, w_hh, fwd[1], fwd[2]), cudnn_step,
-                  iters=10)
+    with torch.no_grad():
+        stack_t = turns(stack_forward, cudnn3_forward, iters=10)
+        chain_ms = cuda_ms(layer_chain, iters=10)
+        stack_plain_ms = cuda_ms(lambda: lr.lstm_stack_reference(xp, w_ih[1:], bias[1:], w_hh),
+                                 iters=2, warmup=1)
     step_t = turns(kernel_step, cudnn_step, iters=10)
+    bwd_t = turns(lambda: lr.lstm_backward_kernel(dh, w_hh[0], fwd[1], fwd[2]), cudnn_step,
+                  iters=10)
+    plan = lr.lstm_stack_plan(b, hsz, layers)
     n_rows, g4 = b * t_len, 4 * hsz
-    flops = 2 * n_rows * g4 * hsz   # each step's h W_hh^T (forward) or dgates W_hh (backward)
+    product = 2 * n_rows * g4 * hsz  # one step product of a layer over the sequence
     common = dict(source="quickvc_tpu_torch/csrc/lstm_recurrence.cu",
-                  replaces="quickvc_tpu/models/encoders.py:89", shape=[[b, t_len, g4], [g4, hsz]],
-                  bound_ops_ms=flops / BF16_FLOPS * 1e3, serial_steps=t_len)
+                  replaces="quickvc_tpu/models/encoders.py:89")
+    stack_merged = merge_checks(stack_checks)
     rows = [
-        dict(name="lstm_bf16", tpu_id=None, **common, **fwd_gate,
-             deterministic=fwd_same, **fwd_t,
-             plain_ms=cuda_ms(lambda: lr.lstm_forward_reference(xp, w_hh), iters=2, warmup=1),
-             library_note="cuDNN's bf16 LSTM layer, forward, device time",
-             # xp and W_hh in; h, c and act out (bf16)
-             bound_bytes_ms=2 * (n_rows * g4 + g4 * hsz + 2 * n_rows * hsz + n_rows * g4)
-             / HBM_BYTES * 1e3),
-        dict(name="lstm_bf16_backward", tpu_id=None, **common, **bwd_gate,
-             deterministic=bwd_same, **bwd_t,
-             plain_ms=cuda_ms(lambda: lr.lstm_backward_reference(dh, w_hh, fwd[1], fwd[2]),
-                              iters=2, warmup=1),
-             library_note="cuDNN's bf16 LSTM layer, forward and backward, device time",
-             # dh_out, act, c and W_hh in; dgates out (bf16)
-             bound_bytes_ms=2 * (2 * n_rows * hsz + 2 * n_rows * g4 + g4 * hsz)
+        dict(name="lstm_stack_bf16", tpu_id=None, **common,
+             shape=[[b, t_len, g4], [layers, g4, hsz]], layers=layers,
+             **(stack_merged | {"within_tol": stack_merged["within_tol"] and stack_same}),
+             deterministic=stack_same, equal_to_layer_chain=chain_equal, **stack_t,
+             three_layer_chain_ms=chain_ms, serial_steps=plan.serial_steps(t_len),
+             plan={"layers": plan.layers, "skew": plan.skew, "clusters": plan.clusters,
+                   "chunk": plan.layer.chunk, "units": plan.layer.units},
+             plain_ms=stack_plain_ms,
+             library_note="cuDNN's 3-layer bf16 nn.LSTM forward, device time; both from the "
+                          "mel, layer 0's projection included",
+             # W_hh products of every layer, W_ih of the deeper ones
+             bound_ops_ms=(2 * layers - 1) * product / BF16_FLOPS * 1e3,
+             # xp0, the weights and biases in; every layer's h, c and act out (bf16)
+             bound_bytes_ms=2 * (n_rows * g4 + (2 * layers - 1) * g4 * hsz + (layers - 1) * g4
+                                 + layers * (2 * n_rows * hsz + n_rows * g4)) / HBM_BYTES * 1e3),
+        dict(name="lstm_bf16_backward", tpu_id=None, **common, shape=[[b, t_len, g4], [g4, hsz]],
+             **(bwd_gate | {"within_tol": bwd_gate["within_tol"] and bwd_same}),
+             deterministic=bwd_same, **step_t, serial_steps=2 * t_len,
+             backward_alone_ms=bwd_t["ms"], backward_alone_device_ms=bwd_t["device_ms"],
+             backward_alone_library_ms=bwd_t["library_device_ms"],
+             plain_ms=cuda_ms(lambda: lr.lstm_backward_reference(
+                 dh, w_hh[0], *lr.lstm_forward_reference(xp, w_hh[0])[1:]), iters=2, warmup=1),
+             library_note="like for like: a layer's forward and backward kernels against "
+                          "cuDNN's bf16 LSTM layer forward and backward, device time; the "
+                          "backward kernel alone in backward_alone_*",
+             bound_ops_ms=2 * product / BF16_FLOPS * 1e3,
+             # forward: xp, W_hh in, h, c, act out; backward: dh_out, act, c, W_hh in,
+             # dgates out (bf16)
+             bound_bytes_ms=2 * (2 * n_rows * g4 + g4 * hsz + 2 * n_rows * hsz
+                                 + 2 * n_rows * hsz + 2 * n_rows * g4 + g4 * hsz)
              / HBM_BYTES * 1e3)]
-    for r, t in zip(rows, (fwd_t, bwd_t)):
-        r["within_tol"] = r["within_tol"] and r["deterministic"]
+    for r, t in zip(rows, (stack_t, step_t)):
         # the host takes longer to enqueue a cuDNN LSTM call than the card
-        # takes to run it (PERF.md section 6): the line holds the kernel
+        # takes to run it (PERF.md section 6): the line holds the kernels
         # against cuDNN's device time, its events time beside it
         r["library_ms"], r["library_events_ms"] = t["library_device_ms"], t["library_ms"]
     # CUDA events: torch.profiler has dropped these cluster kernels' records
     # in a long process (read 0 or half their time)
     out = {"shape": [b, t_len, 80], "hidden": hsz, "gates": gates,
            "deterministic": deterministic, "first_run_seconds": seconds,
-           "layer_step": step_t, "three_layers_forward_backward_ms": 3 * step_t["ms"]}
+           "launches_forward_backward": launches, "layer_step": step_t,
+           "three_layers_forward_ms": stack_t["ms"], "three_layer_chain_ms": chain_ms}
     print("speaker_lstm_bf16_check " + json.dumps(out))
     bad = [k for k, g in gates.items() if not g["within_tol"]]
     require(not bad, f"the bf16 speaker LSTM's kernels against their plain versions: {bad}")
     require(deterministic, "two bf16 speaker-encoder runs on the kernels bit-equal")
+    require(launches == (1, layers), f"the encoder's LSTM launched {launches}, not one stack "
+                                     f"and {layers} backward launches")
     return out, rows
+
+
+def check_lstm_stack_residency() -> dict:
+    """The stack kernel at a batch whose clusters the card cannot hold at
+    once (three layers of 640 rows: 60 clusters of 8 CTAs): the wrapper must
+    raise RuntimeError naming the clusters needed and held, and launch
+    nothing; a launch that could wait forever never starts."""
+    from quickvc_tpu_torch.ops import _cuda
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    b, t_len, hsz, layers = 32 * 20, 64, 256, 3
+    plan = lr.lstm_stack_plan(b, hsz, layers)
+    held = _cuda.library().qvc_lstm_stack_max_clusters(b, t_len, hsz, plan.layer.chunk, layers,
+                                                       plan.skew)
+    xp = torch.zeros(b, t_len, 4 * hsz, device=dev, dtype=bf)
+    w = torch.zeros(4 * hsz, hsz, device=dev, dtype=bf)
+    before = lr.STATS.launches
+    message = None
+    try:
+        lr.lstm_stack_kernel(xp, [w] * (layers - 1), [w[:, 0]] * (layers - 1), [w] * layers)
+    except RuntimeError as e:
+        message = str(e)
+    torch.cuda.synchronize()
+    out = {"batch": b, "layers": layers, "clusters_needed": plan.clusters,
+           "clusters_held": held, "error": message,
+           "launched": lr.STATS.launches - before}
+    print("lstm_stack_residency " + json.dumps(out))
+    require(message is not None and str(plan.clusters) in message and str(held) in message
+            and held < plan.clusters and out["launched"] == 0,
+            f"the stack kernel at {plan.clusters} clusters: {out}")
+    return out
 
 
 def run_bf16_step_gate() -> dict:
@@ -2758,6 +2891,11 @@ def main() -> int:
     spilled = [e for e, r in watched.items()
                if r.get("spill_store_bytes", 0) or r.get("spill_load_bytes", 0)]
     require(not spilled, f"watched kernel bodies spill: {spilled}")
+    # the bf16 attention's plan at each of its path shapes, for both bodies,
+    # with each body's CTAs an SM, registers and shared memory on this card
+    from quickvc_tpu_torch.scripts.kernel_times import attention_bf16_plans
+
+    print("attention_bf16_plans " + json.dumps(attention_bf16_plans(dev)))
 
     kernels = check_kernels(dev, rng)
     bad = [k["name"] for k in kernels if not k["within_tol"]]
@@ -2817,6 +2955,7 @@ def main() -> int:
     run_disc_ab()
     check_train_step_against_cpu(rng)
     _, lstm_rows = check_speaker_lstm_bf16()
+    check_lstm_stack_residency()
     run_bf16_step_gate()
     for r in lstm_rows:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
@@ -2847,7 +2986,7 @@ def main() -> int:
                                                  attention_api["launches_bf16"]),
                "mm_s8": ("int8_probe", probe["launches"]),
                "mm_bf16": ("int8_probe", probe["launches"]),
-               "lstm_bf16": ("train_bf16", train16["launches"]),
+               "lstm_stack_bf16": ("train_bf16", train16["launches"]),
                "lstm_bf16_backward": ("train_bf16", train16["launches"])}
     for k in kernels:
         k["path"], counts = path_of[k["name"]]
@@ -2868,7 +3007,9 @@ def main() -> int:
                       "dense_800_plain_ms", "dense_800_bound_ms", "device_ms_shapes",
                       "l2_cold_device_ms", "err_f64_kernel", "err_f64_plain", "dtype",
                       "err_f32_kernel", "err_f32_plain", "serial_steps", "library_note",
-                      "library_events_ms"):
+                      "library_events_ms", "plan", "plans", "backward_alone_ms",
+                      "backward_alone_device_ms", "backward_alone_library_ms", "layers",
+                      "three_layer_chain_ms", "equal_to_layer_chain"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

@@ -67,32 +67,41 @@ extern "C" int qvc_attention_headed(const void* q, const void* k, const void* v,
 // K2 at bf16, and K9 at bf16 with D = 128: q/k/v (B, T, H*D) bfloat16 with
 // row strides q_ts, k_ts, v_ts and batch strides q_bs, k_bs, v_bs (in values;
 // head h at column h*D) into the packed bfloat16 (B, T, H*D) output o. D is
-// 16, 32, 64 or 128.
+// 16, 32, 64 or 128; (rows, bn, stages) the body and its configuration from
+// ops/fused_attention.py:bf16_attention_plan (rows 0: the mma.sync body).
 extern "C" int qvc_attention_packed_bf16(const void* q, const void* k, const void* v, void* o,
                                          int batch, int T, int H, int D, long long q_bs,
                                          long long q_ts, long long k_bs, long long k_ts,
-                                         long long v_bs, long long v_ts, float scale,
-                                         void* stream) {
+                                         long long v_bs, long long v_ts, float scale, int rows,
+                                         int bn, int stages, void* stream) {
   using attn_bf16::bf16_t;
   const attn_bf16::Strides so{(long long)T * H * D, D, (long long)H * D};
-  return (int)attn_bf16::launch_any(D, (const bf16_t*)q, (const bf16_t*)k, (const bf16_t*)v,
-                                    (bf16_t*)o, batch, T, H, {q_bs, D, q_ts}, {k_bs, D, k_ts},
-                                    {v_bs, D, v_ts}, so, scale, (cudaStream_t)stream);
+  return (int)attn_bf16::launch_any(D, {rows, bn, stages}, (const bf16_t*)q, (const bf16_t*)k,
+                                    (const bf16_t*)v, (bf16_t*)o, batch, T, H, {q_bs, D, q_ts},
+                                    {k_bs, D, k_ts}, {v_bs, D, v_ts}, so, scale,
+                                    (cudaStream_t)stream);
 }
 
 // K10 at bf16: q/k/v (B, H, T, D) bfloat16 through their (batch, head, row)
 // strides (in values) into the contiguous bfloat16 (B, H, T, D) output o.
-// D is 16, 32, 64 or 128.
+// D is 16, 32, 64 or 128; (rows, bn, stages) as for the packed entry.
 extern "C" int qvc_attention_headed_bf16(const void* q, const void* k, const void* v, void* o,
                                          int batch, int H, int T, int D, long long q_bs,
                                          long long q_hs, long long q_ts, long long k_bs,
                                          long long k_hs, long long k_ts, long long v_bs,
-                                         long long v_hs, long long v_ts, float scale,
-                                         void* stream) {
+                                         long long v_hs, long long v_ts, float scale, int rows,
+                                         int bn, int stages, void* stream) {
   using attn_bf16::bf16_t;
   const attn_bf16::Strides so{(long long)H * T * D, (long long)T * D, D};
-  return (int)attn_bf16::launch_any(D, (const bf16_t*)q, (const bf16_t*)k, (const bf16_t*)v,
-                                    (bf16_t*)o, batch, T, H, {q_bs, q_hs, q_ts},
-                                    {k_bs, k_hs, k_ts}, {v_bs, v_hs, v_ts}, so, scale,
-                                    (cudaStream_t)stream);
+  return (int)attn_bf16::launch_any(D, {rows, bn, stages}, (const bf16_t*)q, (const bf16_t*)k,
+                                    (const bf16_t*)v, (bf16_t*)o, batch, T, H,
+                                    {q_bs, q_hs, q_ts}, {k_bs, k_hs, k_ts}, {v_bs, v_hs, v_ts},
+                                    so, scale, (cudaStream_t)stream);
+}
+
+// The bf16 body a plan names at head dim D (rows 0: the mma.sync body): out[0]
+// the CTAs an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// out[1] a thread's registers, out[2] the dynamic shared memory a CTA.
+extern "C" int qvc_attention_bf16_occupancy(int D, int rows, int bn, int stages, int* out) {
+  return (int)attn_bf16::occupancy_any(D, {rows, bn, stages}, out);
 }

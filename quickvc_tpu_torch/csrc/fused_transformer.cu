@@ -445,7 +445,8 @@ extern "C" int qvc_transformer_layer(
 //
 // The same launches as the float32 entry (qvc_transformer_layer_launches);
 // plans hold (BN, splits, k_chunk) of in_proj, out_proj, linear1 and
-// linear2 from ops/fused_transformer.py:wgmma_plan. Needs D = H * 64 <=
+// linear2 from ops/fused_transformer.py:wgmma_plan, and (rows, bn, stages)
+// of the attention from ops/fused_attention.py:bf16_attention_plan. Needs D = H * 64 <=
 // 1024, F % 8 == 0 and 16-byte aligned tensors.
 extern "C" int qvc_transformer_layer_bf16(
     const void* x, const void* w_in, const void* b_in, const void* w_out, const void* b_out,
@@ -453,7 +454,8 @@ extern "C" int qvc_transformer_layer_bf16(
     const void* b2, const void* ln2_g, const void* ln2_b, void* qkv, void* heads, void* sum,
     void* x1, void* mid, void* workspace, void* out, int batch, int T, int D, int H, int F,
     float scale, int bn_in, int s_in, int kc_in, int bn_out, int s_out, int kc_out, int bn_1,
-    int s_1, int kc_1, int bn_2, int s_2, int kc_2, void* stream) {
+    int s_1, int kc_1, int bn_2, int s_2, int kc_2, int attn_rows, int attn_bn, int attn_stages,
+    void* stream) {
   using bf16core::bf16_t;
   using wg::linear;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -479,8 +481,9 @@ extern "C" int qvc_transformer_layer_bf16(
   constexpr int HD = 64;  // head dim
   const attn_bf16::Strides qkv_s{(long long)T * 3 * D, HD, 3 * D};
   const attn_bf16::Strides heads_s{(long long)T * D, HD, D};
-  if ((err = attn_bf16::launch<HD>(qkv_b, qkv_b + D, qkv_b + 2 * D, heads_b, batch, T, H, qkv_s,
-                                   qkv_s, qkv_s, heads_s, scale, s)))
+  if ((err = attn_bf16::launch<HD>({attn_rows, attn_bn, attn_stages}, qkv_b, qkv_b + D,
+                                   qkv_b + 2 * D, heads_b, batch, T, H, qkv_s, qkv_s, qkv_s,
+                                   heads_s, scale, s)))
     return (int)err;
   if ((err = linear<RESIDUAL>(heads_b, (const bf16_t*)w_out, (const float*)b_out, xb, sum_f, ws,
                               M, D, D, bn_out, s_out, kc_out, s)))

@@ -134,15 +134,6 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle (mode 1), start >> 4, of
-// an MN-major tile: k rows of 64 columns (128 bytes), 1024 bytes between 8-row k
-// groups (stride offset), ATOM bytes between 64-column atoms (leading offset).
-template <int ATOM>
-__device__ __forceinline__ uint64_t desc_mn_major(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(ATOM >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
 // s8 reads B^T K-major
 __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(

@@ -5,27 +5,34 @@
 // is exact against at :74-87), which XLA compiles; at bf16 it carries h and
 // c in bf16 and rounds every op of the cell. cuDNN's bf16 LSTM keeps its
 // own precision, and its gradients leave the JAX semantics (fault F2 of
-// ROADMAP.md). So the port runs the JAX recurrence in these two kernels,
-// one launch a layer each (ops/lstm_recurrence.py):
+// ROADMAP.md). So the port runs the JAX recurrence in these two kernels
+// (ops/lstm_recurrence.py): the forward of every layer in one launch, the
+// backward one launch a layer.
 //
-//   forward   xp (B, T, 4H) = x W_ih^T + b, every step (the caller's matmul)
-//             per step: hw = bf16(h_{t-1} W_hh^T)        float32 sum, one rounding
+//   forward   xp_0 (B, T, 4H) = x W_ih,0^T + b_0, every step (the caller's
+//             matmul); for layer l >= 1, per step from layer l-1's new h:
+//                       xp_l,t = bf16(bf16(h_l-1,t W_ih,l^T) + b_l)
+//             (a float32 sum rounded once, then the bias, as the caller's
+//             bf16 matmul and add round); per step of each layer:
+//                       hw = bf16(h_{t-1} W_hh^T)        float32 sum, one rounding
 //                       i, f, g, o = bf16(xp_t + hw)     (gate order of torch)
 //                       si, sf, so = bf16(sigmoid(.)), tg = bf16(tanh(g))
 //                       c_t = bf16(bf16(sf c_{t-1}) + bf16(si tg))
 //                       h_t = bf16(so bf16(tanh(c_t)))
-//             out: h (B, T, H); saved for the backward: act (B, T, 4H) =
-//             (si, sf, tg, so) and c (B, T, H) (saving the activations costs
-//             one 4H-wide store a step, recomputing them the step's product
-//             again, so the forward saves them)
-//   backward  dh_out (B, T, H), the gradient of h; in reverse time:
+//             out: h (L, B, T, H) (the last layer's is the output); saved for
+//             the backward: act (L, B, T, 4H) = (si, sf, tg, so) and c (L, B,
+//             T, H) (saving the activations costs one 4H-wide store a step,
+//             recomputing them the step's product again, so the forward
+//             saves them)
+//   backward  dh_out (B, T, H), the gradient of one layer's h; in reverse time:
 //             dh = bf16(dh_out_t + bf16(dgates_{t+1} W_hh))   (no second term at T-1)
 //             the cell's gradient rounded as torch's autograd of the bf16 ops
 //             rounds on the CPU (each product, each gate's sigmoid/tanh
 //             gradient computed in float32 from bf16 operands and rounded
 //             once, the carried dc = bf16(its two terms))
 //             out: dgates (B, T, 4H), xp's gradient. W_hh's, sum_t dgates_t^T
-//             h_{t-1}, is one large product the wrapper leaves to torch.
+//             h_{t-1}, and the projections' gradients are large products the
+//             wrapper leaves to torch.
 //
 // What bounds them on this card: the serial chain, not operations or
 // bytes. Each step depends on the last through h (forward) or dgates
@@ -35,42 +42,66 @@
 // and the bytes (xp in, h, act and c out: ~84 MB a pass) 0.025 ms at 3.35
 // TB/s. The steps themselves cost a product on a few SMs, a cell, an
 // exchange of the new h (or dgates) between SMs and a barrier each: the
-// chain of 1,536 of them bounds a pass.
+// chain of them bounds a pass.
 //
-// Design. One thread-block cluster of CLUSTER = 8 CTAs runs a chunk of at
-// most 32 batch rows (more rows take more clusters, ops/lstm_recurrence.py:
-// lstm_plan); CTA j owns hidden units [j U, (j + 1) U), U = H / 8.
-// - Forward: CTA j computes the (rows x 4U) gate block of its units each
-//   step, h_{t-1} (rows x H, in its own shared memory) times its 4U rows of
-//   W_hh, on mma.sync.m16n8k16 bf16 (bf16_gemm.cuh's fragment helpers).
-//   Its W_hh rows stay in registers for the whole sequence, as the mma's B
+// Design. A thread-block cluster of CLUSTER = 8 CTAs runs a chunk of at
+// most 32 batch rows of one layer (more rows take more clusters,
+// ops/lstm_recurrence.py:lstm_plan); CTA j owns hidden units [j U, (j + 1)
+// U), U = H / 8.
+// - Forward (lstm_stack_kernel): one launch runs L x ceil(B / chunk)
+//   clusters, cluster (l, k) layer l of chunk k, as the JAX package's
+//   wavefront schedule (quickvc_tpu/models/encoders.py:_wavefront) runs the
+//   layers: layer l works on step t while layer l - 1 is on a later step,
+//   so the serial chain is T + (L - 1) skew steps, not L T. CTA j computes
+//   the (rows x 4U) gate block of its units each step, h_{t-1} (rows x H,
+//   in its own shared memory) times its 4U rows of W_hh, on
+//   mma.sync.m16n8k16 bf16 (bf16_gemm.cuh's fragment helpers). Its W_hh
+//   rows stay in registers for the whole sequence, as the mma's B
 //   fragments: warp w takes the 8-column tiles w and w + 8 of the block,
 //   whose columns interleave the four gates of a unit (column 4u + q), so a
 //   lane and its neighbour hold the four gates of one (row, unit) and one
 //   shuffle gives each lane a whole cell; c stays in that lane's registers.
-//   xp_t arrives by cp.async FORWARD_STAGES - 1 steps ahead. The new h goes
-//   to the output and, through distributed shared memory (mapa +
-//   st.shared::cluster, 16-byte stores where U % 8 == 0), into every CTA's
-//   other h buffer; one cluster barrier ends the step.
-// - Backward: CTA j holds W_hh's columns of its units, (4H x U), in
-//   registers as B fragments; the 4H-long reduction of dgates_{t+1} W_hh is
-//   split over the 8 warps (k-steps w, w + 8, ...) and their float32
-//   partials summed in warp order in shared memory. A thread a (row, unit)
-//   then runs the cell's gradient, dc carried in its registers, writes the
-//   unit's four gate gradients to dgates and into every CTA's dgates buffer
-//   by DSMEM (the buffer's columns grouped by CTA, so a CTA's slice is 8U
-//   contiguous bytes a row), and one cluster barrier ends the step. act, c
-//   and dh_out arrive by cp.async BACKWARD_STAGES - 1 steps ahead.
+//   Layer 0 reads xp_t by cp.async FORWARD_STAGES - 1 steps ahead. A layer
+//   l >= 1 holds its 4U rows of W_ih,l in shared memory (ldmatrix B
+//   fragments) and reads h_l-1,t of the whole chunk from layer l - 1's
+//   output by cp.async, skew - 1 steps ahead, into a ring of skew stages;
+//   both products run in one k loop. The new h goes to the output and,
+//   through distributed shared memory (mapa + st.shared::cluster, 16-byte
+//   stores where U % 8 == 0), into every CTA's other h buffer; one cluster
+//   barrier ends the step.
+// - Hand-over between layers goes through global memory: after the
+//   cluster barrier that ends step t, CTA 0's first thread of cluster (l,
+//   k) stores t + 1 to the counter of (l, k) with st.release.gpu (the
+//   barrier orders every CTA's h stores before it). Before it loads h_l,t
+//   of the layer below, cluster (l + 1, k)'s CTAs wait for that counter
+//   with ld.acquire.gpu, one thread each, then a CTA barrier. A producer
+//   never waits on a consumer (its sequence is whole), so the launch cannot
+//   deadlock if every cluster is resident at once: the host launches with
+//   cudaLaunchKernelEx and the cluster dimension only after
+//   cudaOccupancyMaxActiveClusters says the card holds them all, and a wait
+//   of a second (%globaltimer) traps with a message instead of hanging.
+// - Backward (lstm_backward_kernel): CTA j holds W_hh's columns of its
+//   units, (4H x U), in registers as B fragments; the 4H-long reduction of
+//   dgates_{t+1} W_hh is split over the 8 warps (k-steps w, w + 8, ...) and
+//   their float32 partials summed in warp order in shared memory. A thread
+//   a (row, unit) then runs the cell's gradient, dc carried in its
+//   registers, writes the unit's four gate gradients to dgates and into
+//   every CTA's dgates buffer by DSMEM (the buffer's columns grouped by
+//   CTA, so a CTA's slice is 8U contiguous bytes a row), and one cluster
+//   barrier ends the step. act, c and dh_out arrive by cp.async
+//   BACKWARD_STAGES - 1 steps ahead.
 // - Both double-buffer the exchanged state, so a CTA that runs ahead never
 //   writes a buffer another is still reading: it crosses the barrier that
 //   ends the step only after every CTA has read that buffer.
 //
 // Both kernels take any T, H a multiple of 16 up to 256 and a chunk of up
-// to 32 rows; the C entries refuse anything else.
+// to 32 rows; the forward 1 to MAX_LAYERS layers and a skew of 2 to
+// MAX_SKEW; the C entries refuse anything else.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include "bf16_gemm.cuh"  // ldmatrix, mma.sync bf16, rounding; tf32x3.cuh's cp.async
 
@@ -87,6 +118,8 @@ constexpr int CLUSTER = 8;
 constexpr int THREADS = 256, WARPS = THREADS / 32;
 constexpr int MAX_H = 256, MAX_CHUNK = 32, MAX_MT = MAX_CHUNK / 16;
 constexpr int FORWARD_STAGES = 4, BACKWARD_STAGES = 3;
+constexpr int MAX_LAYERS = 4, MAX_SKEW = 3;  // the forward's layers a launch; the skew's range
+constexpr unsigned long long WAIT_LIMIT_NS = 1000000000ull;  // a hand-over wait of 1 s traps
 constexpr int F_NTW = 2;                   // forward: 8-column tiles a warp (of U / 2 <= 16)
 constexpr int F_KS = MAX_H / 16;           // forward: k-steps of 16 over H
 constexpr int B_NT = MAX_H / CLUSTER / 8;  // backward: 8-unit tiles a CTA (U <= 32)
@@ -94,15 +127,23 @@ constexpr int B_KSW = 4 * MAX_H / 16 / WARPS;  // backward: k-steps a warp (of 4
 constexpr unsigned FULL = 0xffffffffu;
 
 // Shared-memory layouts, in bf16 values unless named; at the largest chunk
-// and H (32, 256) the backward's is 216,064 bytes of the H100's 232,448.
-struct Forward {
-  int rows, ldh, u;  // rows: the chunk padded to 16; ldh: an h row, padded
-  __device__ __host__ Forward(int chunk, int H)
-      : rows((chunk + 15) / 16 * 16), ldh(H + 8), u(H / CLUSTER) {}
+// and H (32, 256) the backward's is 216,064 bytes of the H100's 232,448,
+// the forward's of a deep stack (skew 2) 157,440.
+struct Stack {
+  int rows, ldh, u, skew;  // rows: the chunk padded to 16; ldh: an h row, padded
+  bool deep;               // more than one layer: a W_ih slice and the ring of h_l-1
+  __device__ __host__ Stack(int chunk, int H, int layers, int skew_)
+      : rows((chunk + 15) / 16 * 16), ldh(H + 8), u(H / CLUSTER), skew(skew_),
+        deep(layers > 1) {}
   __device__ __host__ int hbuf() const { return rows * ldh; }          // one h buffer
-  __device__ __host__ int xstage() const { return rows * 4 * u; }      // one step of xp
+  __device__ __host__ int xstage() const { return rows * 4 * u; }      // one step of xp_0
+  __device__ __host__ int ring() const {  // layer 0's xp stages, or a deeper layer's h stages
+    const int x = FORWARD_STAGES * xstage(), h = deep ? skew * hbuf() : 0;
+    return x > h ? x : h;
+  }
+  __device__ __host__ int wih() const { return deep ? 4 * u * ldh : 0; }  // W_ih's 4U rows
   __device__ __host__ int bytes() const {
-    return 2 * (2 * hbuf() + FORWARD_STAGES * xstage() + rows * u);
+    return 2 * (2 * hbuf() + ring() + wih() + rows * u);
   }
 };
 
@@ -145,6 +186,40 @@ __device__ __forceinline__ void st_cluster(unsigned addr, unsigned v) {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the hand-over counters between layers: release by the layer below, acquire by the one above
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// until *cnt >= need (steps of the layer below published); a second of
+// waiting is a broken schedule, not a slow one: trap, so the launch fails
+__device__ __noinline__ void wait_count(const unsigned* cnt, unsigned need, int layer, int chunk) {
+  if (ld_acquire(cnt) >= need) return;
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire(cnt) < need) {
+    if (global_ns() - t0 > WAIT_LIMIT_NS) {
+      printf("lstm_stack_kernel: layer %d, chunk %d waited 1 s for step %u of layer %d\n", layer,
+             chunk, need - 1, layer - 1);
+      __trap();
+    }
+  }
+}
+// cp.async.wait_group n for n in 0 .. 2
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<2>();
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -208,33 +283,46 @@ __device__ __forceinline__ void push_rows(const bf16_t* src, int src_row, bf16_t
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward, every layer in one launch
 
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
-lstm_forward_kernel(const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_hh,
-                    bf16_t* __restrict__ h_out, bf16_t* __restrict__ act,
-                    bf16_t* __restrict__ c_out, int B, int T, int H, int chunk) {
+// One cluster's layer of the stack: layer 0 (DEEP false) reads xp_0 and
+// runs today's one-layer forward; a deeper layer (DEEP true) also projects
+// the layer below's h. Two instances, so that neither carries the other's
+// branches or a run-time ring depth.
+template <bool DEEP>
+__device__ __forceinline__ void stack_layer(
+    const bf16_t* __restrict__ xp0, const bf16_t* __restrict__ w_ih,
+    const bf16_t* __restrict__ bias, const bf16_t* __restrict__ w_hh, bf16_t* __restrict__ h_out,
+    bf16_t* __restrict__ act, bf16_t* __restrict__ c_out, unsigned* __restrict__ counters,
+    int B, int T, int H, int chunk, int layers, int skew, int layer, int kc, int chunks) {
   extern __shared__ __align__(16) unsigned char lstm_smem[];
-  const Forward L(chunk, H);
+  const Stack L(chunk, H, layers, skew);
   const int U = L.u, G4 = 4 * H;
   const int rank = (int)cluster_rank();
-  const int b0 = (blockIdx.x / CLUSTER) * chunk;
+  const bool publish = layer + 1 < layers;
+  const int b0 = kc * chunk;
   const int rows = min(chunk, B - b0);
   const int u0 = rank * U;
   const int mtiles = (rows + 15) / 16;
   const int NT = U / 2, KS = H / 16;  // 8-column tiles of the gate block; k-steps
-  bf16_t* hbuf = reinterpret_cast<bf16_t*>(lstm_smem);          // [2][rows][ldh]
-  bf16_t* xs = hbuf + 2 * L.hbuf();                              // [STAGES][rows][4U]
-  bf16_t* stage_h = xs + FORWARD_STAGES * L.xstage();            // [rows][U]
+  bf16_t* hbuf = reinterpret_cast<bf16_t*>(lstm_smem);  // [2][rows][ldh]
+  bf16_t* ring = hbuf + 2 * L.hbuf();                    // layer 0: [4][rows][4U]; else [skew][rows][ldh]
+  bf16_t* wih_s = ring + L.ring();                       // [4U][ldh], layers >= 1
+  bf16_t* stage_h = wih_s + L.wih();                     // [rows][U]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const long long lay = (long long)B * T * H;             // one layer of h or c
+  bf16_t* h_l = h_out + layer * lay;
+  bf16_t* c_l = c_out + layer * lay;
+  bf16_t* act_l = act + layer * 4 * lay;
 
   // this warp's tiles of W_hh as B fragments: tile nt, column 8 nt + g is
   // gate q = (8 nt + g) % 4 of unit u0 + (8 nt + g) / 4, row q H + unit
+  const bf16_t* whh_l = w_hh + (long long)layer * G4 * H;
   unsigned wf[F_NTW][F_KS][2];
 #pragma unroll
   for (int i = 0; i < F_NTW; ++i) {
     const int nt = warp + WARPS * i, col = 8 * nt + g;
-    const bf16_t* wr = w_hh + (long long)((col % 4) * H + u0 + col / 4) * H;
+    const bf16_t* wr = whh_l + (long long)((col % 4) * H + u0 + col / 4) * H;
 #pragma unroll
     for (int ks = 0; ks < F_KS; ++ks) {
       const bool ok = nt < NT && ks < KS;
@@ -242,17 +330,54 @@ lstm_forward_kernel(const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_
       wf[i][ks][1] = ok ? ld_pair(wr + 16 * ks + 2 * t4 + 8) : 0u;
     }
   }
+  // a layer >= 1: its W_ih rows in the same column order into shared memory
+  // (row r: gate r % 4 of unit u0 + r / 4), the bias of this lane's units
+  float bq[F_NTW][4] = {};
+  if constexpr (DEEP) {
+    const bf16_t* wih_l = w_ih + (long long)(layer - 1) * G4 * H;
+    const int per = H / 8;  // 16-byte chunks a row
+    for (int i = threadIdx.x; i < 4 * U * per; i += THREADS) {
+      const int r = i / per, ch = i % per;
+      cp_async16(reinterpret_cast<float*>(wih_s + r * L.ldh + 8 * ch),
+                 reinterpret_cast<const float*>(wih_l + (long long)((r % 4) * H + u0 + r / 4) * H +
+                                                8 * ch),
+                 true);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < F_NTW; ++i) {
+      const int nt = warp + WARPS * i;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        bq[i][q] = nt < NT ? ld_bf16(bias + (layer - 1) * G4 + q * H + u0 + 2 * nt + t4 / 2) : 0.0f;
+    }
+  }
   for (int i = threadIdx.x; i < 2 * L.hbuf(); i += THREADS) hbuf[i] = 0;
 
-  // xp of step s: four runs of U values a row (one a gate) into stage s % STAGES
-  const bf16_t* xp_rows = xp + (long long)b0 * T * G4 + u0;
-  auto load_x = [&](int s) {
-    copy_runs(xs + (s % FORWARD_STAGES) * L.xstage(), 4 * U, xp_rows + (long long)s * G4,
-              (long long)T * G4, H, rows, 4, U, true);
+  // the input of step s into its ring stage: layer 0 four runs of U values
+  // of xp_0 a row (one a gate); a deeper layer the whole row of h_l-1,s,
+  // once the layer below has published step s (thread 0 waits; a CTA
+  // barrier between that wait and these loads)
+  const int stages = DEEP ? skew : FORWARD_STAGES, ahead = stages - 1;
+  const bf16_t* xp_rows = xp0 + (long long)b0 * T * G4 + u0;
+  const bf16_t* h_below = !DEEP ? nullptr : h_out + (layer - 1) * lay + (long long)b0 * T * H;
+  const unsigned* cnt_below = !DEEP ? nullptr : counters + (layer - 1) * chunks + kc;
+  auto load_in = [&](int s) {
+    if constexpr (!DEEP)
+      copy_runs(ring + (s % stages) * L.xstage(), 4 * U, xp_rows + (long long)s * G4,
+                (long long)T * G4, H, rows, 4, U, true);
+    else
+      copy_runs(ring + (s % stages) * L.hbuf(), L.ldh, h_below + (long long)s * H,
+                (long long)T * H, 0, rows, 1, H, true);
   };
-#pragma unroll
-  for (int s = 0; s < FORWARD_STAGES - 1; ++s) {
-    if (s < T) load_x(s);
+  for (int s = 0; s < ahead; ++s) {
+    if (s < T) {
+      if constexpr (DEEP) {
+        if (threadIdx.x == 0) wait_count(cnt_below, s + 1, layer, kc);
+        __syncthreads();
+      }
+      load_in(s);
+    }
     cp_async_commit();
   }
   cluster_sync();  // every CTA's h buffers zeroed before any is written remotely
@@ -263,34 +388,55 @@ lstm_forward_kernel(const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_
 #pragma unroll
     for (int i = 0; i < F_NTW; ++i) c_reg[mt][i] = 0.0f;
   const bool even = (t4 & 1) == 0;
+  // ldmatrix row addresses of this lane: A (h rows) row lane % 16, columns
+  // 8 (lane / 16); B (W_ih rows) matrix m = lane / 8: tile w (m < 2) or w + 8,
+  // k half m % 2 (the two tiles' b0, b1 fragments in order)
+  const unsigned a_off = 2u * ((lane & 15) * L.ldh + 8 * (lane >> 4));
+  const int b_tile = min((lane & 16) ? warp + WARPS : warp, NT - 1);
+  const unsigned b_lane =
+      smem_addr(wih_s) + 2u * ((8 * b_tile + (lane & 7)) * L.ldh + 8 * ((lane >> 3) & 1));
 
   for (int s = 0; s < T; ++s) {
-    cp_async_wait<FORWARD_STAGES - 2>();
-    __syncthreads();  // step s's xp has landed for every thread
-    if (s + FORWARD_STAGES - 1 < T) load_x(s + FORWARD_STAGES - 1);
+    const int next = s + ahead;
+    if (DEEP && next < T && threadIdx.x == 0) wait_count(cnt_below, next + 1, layer, kc);
+    if constexpr (DEEP)
+      cp_async_wait_upto(ahead - 1);  // step s's input (and W_ih) has landed for this thread
+    else
+      cp_async_wait<FORWARD_STAGES - 2>();
+    __syncthreads();                // ... for every thread; the counter's acquire before the loads
+    if (next < T) load_in(next);
     cp_async_commit();
     const bf16_t* hcur = hbuf + (s & 1) * L.hbuf();
-    const bf16_t* xcur = xs + (s % FORWARD_STAGES) * L.xstage();
+    const bf16_t* in = ring + (s % stages) * (DEEP ? L.hbuf() : L.xstage());
 
-    float acc[MAX_MT][F_NTW][4];
+    // acc: h_{t-1} W_hh^T; accx (layers >= 1): h_l-1,t W_ih^T
+    float acc[MAX_MT][F_NTW][4], accx[MAX_MT][F_NTW][4];
 #pragma unroll
     for (int mt = 0; mt < MAX_MT; ++mt)
 #pragma unroll
       for (int i = 0; i < F_NTW; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.0f;
-    const unsigned a_lane = smem_addr(hcur) + 2u * ((lane & 15) * L.ldh + 8 * (lane >> 4));
+        for (int e = 0; e < 4; ++e) acc[mt][i][e] = accx[mt][i][e] = 0.0f;
+    const unsigned a_h = smem_addr(hcur) + a_off, a_x = smem_addr(in) + a_off;
 #pragma unroll
     for (int ks = 0; ks < F_KS; ++ks) {
       if (ks >= KS) break;
+      unsigned bx[4];
+      if (DEEP && warp < NT) ldmatrix_x4(bx, b_lane + 2u * 16 * ks);
 #pragma unroll
       for (int mt = 0; mt < MAX_MT; ++mt) {
         if (mt >= mtiles) break;
         unsigned af[4];
-        ldmatrix_x4(af, a_lane + 2u * (16 * mt * L.ldh + 16 * ks));
+        ldmatrix_x4(af, a_h + 2u * (16 * mt * L.ldh + 16 * ks));
 #pragma unroll
         for (int i = 0; i < F_NTW; ++i)
           if (warp + WARPS * i < NT) mma_bf16(acc[mt][i], af, wf[i][ks][0], wf[i][ks][1]);
+        if (DEEP && warp < NT) {
+          ldmatrix_x4(af, a_x + 2u * (16 * mt * L.ldh + 16 * ks));
+#pragma unroll
+          for (int i = 0; i < F_NTW; ++i)
+            if (warp + WARPS * i < NT) mma_bf16(accx[mt][i], af, bx[2 * i], bx[2 * i + 1]);
+        }
       }
     }
 
@@ -303,18 +449,35 @@ lstm_forward_kernel(const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_
       for (int i = 0; i < F_NTW; ++i) {
         const int nt = warp + WARPS * i;
         if (nt >= NT) break;
-        const float a0 = acc[mt][i][0], a1 = acc[mt][i][1];
-        const float a2 = acc[mt][i][2], a3 = acc[mt][i][3];
-        const float r0 = __shfl_xor_sync(FULL, even ? a2 : a0, 1);
-        const float r1 = __shfl_xor_sync(FULL, even ? a3 : a1, 1);
-        const float pre[4] = {even ? a0 : r0, even ? a1 : r1, even ? r0 : a2, even ? r1 : a3};
+        float pre[4], xq[4];
+        {
+          const float a0 = acc[mt][i][0], a1 = acc[mt][i][1];
+          const float a2 = acc[mt][i][2], a3 = acc[mt][i][3];
+          const float r0 = __shfl_xor_sync(FULL, even ? a2 : a0, 1);
+          const float r1 = __shfl_xor_sync(FULL, even ? a3 : a1, 1);
+          pre[0] = even ? a0 : r0;
+          pre[1] = even ? a1 : r1;
+          pre[2] = even ? r0 : a2;
+          pre[3] = even ? r1 : a3;
+        }
         const int row = 16 * mt + g + (even ? 0 : 8);
         const int up = 2 * nt + t4 / 2;  // the unit, in this CTA's U
-        const bf16_t* xr = xcur + row * 4 * U + up;
+        if constexpr (!DEEP) {
+          const bf16_t* xr = in + row * 4 * U + up;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xq[q] = ld_bf16(xr + q * U);
+        } else {
+          const float a0 = accx[mt][i][0], a1 = accx[mt][i][1];
+          const float a2 = accx[mt][i][2], a3 = accx[mt][i][3];
+          const float r0 = __shfl_xor_sync(FULL, even ? a2 : a0, 1);
+          const float r1 = __shfl_xor_sync(FULL, even ? a3 : a1, 1);
+          const float px[4] = {even ? a0 : r0, even ? a1 : r1, even ? r0 : a2, even ? r1 : a3};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xq[q] = round_bf16(round_bf16(px[q]) + bq[i][q]);
+        }
         float gate[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          gate[q] = round_bf16(ld_bf16(xr + q * U) + round_bf16(pre[q]));
+        for (int q = 0; q < 4; ++q) gate[q] = round_bf16(xq[q] + round_bf16(pre[q]));
         const float si = round_bf16(sigmoid(gate[0])), sf = round_bf16(sigmoid(gate[1]));
         const float tg = round_bf16(tanhf(gate[2])), so = round_bf16(sigmoid(gate[3]));
         const float c = round_bf16(round_bf16(sf * c_reg[mt][i]) + round_bf16(si * tg));
@@ -322,9 +485,9 @@ lstm_forward_kernel(const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_
         const float h = round_bf16(so * round_bf16(tanhf(c)));
         if (row < rows) {
           const long long at = ((long long)(b0 + row) * T + s) * H + u0 + up;
-          h_out[at] = to_bf16(h);
-          c_out[at] = to_bf16(c);
-          bf16_t* ar = act + ((long long)(b0 + row) * T + s) * G4 + u0 + up;
+          h_l[at] = to_bf16(h);
+          c_l[at] = to_bf16(c);
+          bf16_t* ar = act_l + ((long long)(b0 + row) * T + s) * G4 + u0 + up;
           ar[0] = to_bf16(si);
           ar[H] = to_bf16(sf);
           ar[2 * H] = to_bf16(tg);
@@ -333,12 +496,32 @@ lstm_forward_kernel(const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_
         stage_h[row * U + up] = to_bf16(h);
       }
     }
-    if (s + 1 == T) break;  // nothing reads the last h through the cluster
-    __syncthreads();        // stage_h complete
-    push_rows(stage_h, U, hbuf + ((s + 1) & 1) * L.hbuf() + u0, L.ldh, rows, U);
-    cluster_sync();
+    const bool last = s + 1 == T;
+    if (!last) {
+      __syncthreads();  // stage_h complete
+      push_rows(stage_h, U, hbuf + ((s + 1) & 1) * L.hbuf() + u0, L.ldh, rows, U);
+    }
+    // nothing reads the last h through the cluster; the layer above waits for it
+    if (!last || publish) cluster_sync();
+    if (publish && rank == 0 && threadIdx.x == 0) st_release(counters + layer * chunks + kc, s + 1);
   }
   cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+lstm_stack_kernel(const bf16_t* __restrict__ xp0, const bf16_t* __restrict__ w_ih,
+                  const bf16_t* __restrict__ bias, const bf16_t* __restrict__ w_hh,
+                  bf16_t* __restrict__ h_out, bf16_t* __restrict__ act,
+                  bf16_t* __restrict__ c_out, unsigned* __restrict__ counters, int B, int T,
+                  int H, int chunk, int layers, int skew) {
+  const int chunks = (B + chunk - 1) / chunk;
+  const int cid = blockIdx.x / CLUSTER, layer = cid / chunks, kc = cid % chunks;
+  if (layer == 0)
+    stack_layer<false>(xp0, w_ih, bias, w_hh, h_out, act, c_out, counters, B, T, H, chunk,
+                       layers, skew, layer, kc, chunks);
+  else
+    stack_layer<true>(xp0, w_ih, bias, w_hh, h_out, act, c_out, counters, B, T, H, chunk,
+                      layers, skew, layer, kc, chunks);
 }
 
 // ---------------------------------------------------------------------------
@@ -513,19 +696,76 @@ cudaError_t launch(Kernel kernel, int bytes, int B, int chunk, cudaStream_t stre
   return cudaGetLastError();
 }
 
+// The stack kernel's launch: layers x ceil(B / chunk) clusters of CLUSTER
+// CTAs; *max_clusters the clusters of it the card holds at once.
+struct StackLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  int clusters = 0;
+  cudaError_t prepare(int B, int H, int chunk, int layers, int skew, cudaStream_t stream,
+                      int* max_clusters) {
+    const int bytes = Stack(chunk, H, layers, skew).bytes();
+    cudaError_t err = cudaFuncSetAttribute(
+        lstm_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    clusters = layers * ((B + chunk - 1) / chunk);
+    cfg.gridDim = dim3(clusters * CLUSTER);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaOccupancyMaxActiveClusters(max_clusters, lstm_stack_kernel, &cfg);
+  }
+};
+
+inline bool valid_stack(int B, int T, int H, int chunk, int layers, int skew) {
+  return valid(B, T, H, chunk) && layers >= 1 && layers <= MAX_LAYERS && skew >= 2 &&
+         skew <= MAX_SKEW;
+}
+
 }  // namespace lstm
 }  // namespace
 
-// One layer's forward: h, c (B, T, H) and act (B, T, 4H) from xp (B, T, 4H)
-// and w_hh (4H, H), all bf16, contiguous and 16-byte aligned; batch chunks
-// of `chunk` rows a cluster (ops/lstm_recurrence.py:lstm_plan).
-extern "C" int qvc_lstm_forward_bf16(const void* xp, const void* w_hh, void* h, void* act,
-                                     void* c, int B, int T, int H, int chunk, void* stream) {
+// The forward of `layers` layers: h, c (layers, B, T, H) and act (layers, B,
+// T, 4H) from xp0 (B, T, 4H), w_ih (layers - 1, 4H, H), bias (layers - 1, 4H)
+// and w_hh (layers, 4H, H), all bf16, contiguous and 16-byte aligned;
+// counters (layers, ceil(B / chunk)) unsigned zeros; batch chunks of `chunk`
+// rows a cluster, layer l + 1 at least `skew` steps behind layer l
+// (ops/lstm_recurrence.py:lstm_stack_plan). A deeper stack than the card
+// holds at once is refused with cudaErrorCooperativeLaunchTooLarge.
+extern "C" int qvc_lstm_stack_bf16(const void* xp0, const void* w_ih, const void* bias,
+                                   const void* w_hh, void* h, void* act, void* c, void* counters,
+                                   int B, int T, int H, int chunk, int layers, int skew,
+                                   void* stream) {
   using namespace lstm;
-  if (!valid(B, T, H, chunk)) return (int)cudaErrorInvalidValue;
-  return (int)launch(lstm_forward_kernel, Forward(chunk, H).bytes(), B, chunk,
-                     (cudaStream_t)stream, (const bf16_t*)xp, (const bf16_t*)w_hh, (bf16_t*)h,
-                     (bf16_t*)act, (bf16_t*)c, B, T, H, chunk);
+  if (!valid_stack(B, T, H, chunk, layers, skew)) return (int)cudaErrorInvalidValue;
+  StackLaunch ln;
+  int held = 0;
+  cudaError_t err = ln.prepare(B, H, chunk, layers, skew, (cudaStream_t)stream, &held);
+  if (err != cudaSuccess) return (int)err;
+  if (layers > 1 && held < ln.clusters) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchKernelEx(&ln.cfg, lstm_stack_kernel, (const bf16_t*)xp0, (const bf16_t*)w_ih,
+                           (const bf16_t*)bias, (const bf16_t*)w_hh, (bf16_t*)h, (bf16_t*)act,
+                           (bf16_t*)c, (unsigned*)counters, B, T, H, chunk, layers, skew);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The clusters of the stack kernel's launch at these sizes that the card
+// holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+extern "C" int qvc_lstm_stack_max_clusters(int B, int T, int H, int chunk, int layers,
+                                           int skew) {
+  using namespace lstm;
+  if (!valid_stack(B, T, H, chunk, layers, skew)) return -(int)cudaErrorInvalidValue;
+  StackLaunch ln;
+  int held = 0;
+  const cudaError_t err = ln.prepare(B, H, chunk, layers, skew, nullptr, &held);
+  return err == cudaSuccess ? held : -(int)err;
 }
 
 // One layer's backward: dgates (B, T, 4H) from dh_out (B, T, H), w_hh and the

@@ -1,20 +1,24 @@
-// The TMA + wgmma machinery of the port's persistent GEMM bodies, for
-// sm_90a: K11 (int8_mm.cu) and the bf16 wgmma core (wgmma_bf16.cuh) share
-// it, and keep only their kernel bodies and epilogues. Included by several
-// sources, so everything here has internal linkage.
+// The TMA + wgmma machinery of the port's Hopper bodies, for sm_90a: K11
+// (int8_mm.cu), the bf16 wgmma GEMM core (wgmma_bf16.cuh) and the bf16
+// attention body (fused_attention_bf16.cuh) share it, and keep only their
+// kernel bodies and epilogues. Included by several sources, so everything
+// here has internal linkage.
 //
 // - Schedule: work item t of a persistent grid -> (split, tile row, tile
 //   col), a grouped raster of GROUP_M tile rows, so that the tiles that run
 //   at the same time share the second operand's tiles in L2 (host twins:
 //   ops/int8_mm.py:tile_schedule, ops/fused_transformer.py:wgmma_schedule).
-// - mbarrier and TMA: the producer's loads (cp.async.bulk.tensor, 128-byte
-//   swizzle) signal a stage's "full" barrier with its byte count.
-// - wgmma: descriptors of K-major 128-byte swizzled tiles, fence, commit
-//   and wait, the accumulator fence (fence_operands), the accumulator
-//   operand lists and the bf16 m64nNk16 instructions for N 64 .. 256.
+// - mbarrier and TMA: the producer's loads (cp.async.bulk.tensor of 2-D
+//   and 4-D boxes, 128-byte swizzle) signal a stage's "full" barrier with
+//   its byte count.
+// - wgmma: descriptors of K-major and MN-major 128-byte swizzled tiles,
+//   fence, commit and wait, the accumulator fence (fence_operands), the
+//   accumulator operand lists and the bf16 m64nNk16 instructions: A and B
+//   from shared memory for N 32 .. 256, A from registers for N 64 and 128.
 // - Host: tensor maps encoded by cuTensorMapEncodeTiled, found through
 //   cudaGetDriverEntryPoint (nothing links libcuda), passed to the kernels
-//   as __grid_constant__ parameters.
+//   as __grid_constant__ parameters: row-major matrices, and strided 4-D
+//   views.
 
 #pragma once
 
@@ -89,6 +93,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A box of a 4-D tensor map at coordinates (c0 innermost .. c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------------
 
 // wgmma shared-memory descriptor, 128-byte swizzle (mode 1), start >> 4, of
@@ -96,6 +111,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 // (stride offset; the leading offset unused).
 __device__ __forceinline__ uint64_t desc_k_major(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (mode 1), start >> 4, of
+// an MN-major tile: k rows of 64 columns (128 bytes), 1024 bytes between 8-row k
+// groups (stride offset), ATOM bytes between 64-column atoms (leading offset).
+template <int ATOM>
+__device__ __forceinline__ uint64_t desc_mn_major(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(ATOM >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -141,6 +165,8 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "   \
   "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "     \
   "%123, %124, %125, %126, %127"
+#define WG_REGS_0_15 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 // 8 and 32 accumulators d[i] .. as read-write operands of constraint c
 #define WG_ACC8(c, d, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), \
                          c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
@@ -152,6 +178,14 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
 // TRANS_B 0 (B^T (N, K) as it lies) and MN-major for TRANS_B 1 (B (K, N)).
 // %N, %N+1 are the descriptors and %N+2 the scale-d predicate after the N/2
 // accumulators.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" WG_REGS_0_15 "},"
+               " %16, %17, p, 1, 1, 0, %19;\n}\n"
+               : WG_ACC8("+f", d, 0), WG_ACC8("+f", d, 8)
+               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -185,6 +219,30 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_
                : WG_ACC32("+f", d, 0), WG_ACC32("+f", d, 32), WG_ACC32("+f", d, 64),
                  WG_ACC32("+f", d, 96)
                : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x N) += A (64 x 16) B (16 x N) with A from registers: a[4] is the
+// thread's A fragment, the m16n8k16 layout per warp (warp w of the
+// warpgroup holds rows 16 w .. 16 w + 15: a[0] row lane / 4, k 2 (lane % 4)
+// and + 1; a[1] the row + 8; a[2], a[3] the same at k + 8). B from a
+// descriptor as above.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS_0_31 "},"
+               " {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+               : WG_ACC32("+f", d, 0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B), "r"(1));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS_0_31 ", "
+               WG_REGS_32_63 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+               : WG_ACC32("+f", d, 0), WG_ACC32("+f", d, 32)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B), "r"(1));
 }
 
 // ---- host side -----------------------------------------------------------------
@@ -222,6 +280,32 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int bytes, cons
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A strided 4-D view of `bytes`-byte elements, dims[0] innermost (unit
+// stride) and strides[i] the bytes between steps of dims[i + 1], as boxes of
+// box[0] x .. x box[3] elements (box[0] * bytes <= 128), 128-byte swizzled;
+// loads past a dim's end give zeros. TMA takes a base and strides that are
+// multiples of 16 bytes; anything else is refused here (false).
+inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                        const long long (&dims)[4], const long long (&strides)[3],
+                        const int (&box)[4]) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  cuuint64_t d[4], st[3];
+  cuuint32_t b[4], elem_strides[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    if (strides[i] % 16 != 0 || strides[i] <= 0) return false;
+    st[i] = (cuuint64_t)strides[i];
+  }
+  return encode(map, type, 4, const_cast<void*>(base), d, st, b, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -9,11 +9,13 @@ tolerance of the JAX LSTM. A mel in another dtype (bf16 in training at
 ``precision: "bf16"``) runs the JAX recurrence itself,
 :meth:`SpeakerEncoder._recurrence`, on copies of the weights in that dtype
 with the two biases of a layer summed in float32 and then cast, as the JAX
-package sums them (``quickvc_tpu/models/encoders.py:74-91``): each layer's
-input projection one ``torch.matmul``, its recurrence
-``ops.lstm_recurrence.LSTMRecurrence`` (the plain step-by-step version on
-the CPU, two hand-written kernels, forward and backward, on the card), ``h``
-and ``c`` carried in bf16 and every op of the cell rounded as JAX rounds.
+package sums them (``quickvc_tpu/models/encoders.py:74-91``): layer 0's
+input projection one ``torch.matmul``, the stack ``ops.lstm_recurrence.
+LSTMStack`` (the plain per-layer versions chained on the CPU; on the card
+one launch of the forward kernel for every layer, the JAX package's
+wavefront schedule, with each deeper layer's projection per step, and one
+backward launch a layer), ``h`` and ``c`` carried in bf16 and every op of
+the cell rounded as JAX rounds.
 cuDNN's bf16 LSTM on the same copies, the card's path before the kernels,
 is no path of the port: ``scripts/bf16_step_gate.py --card-lstm cudnn``
 runs it for attribution.
@@ -25,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from quickvc_tpu_torch.models.layers import Linear
-from quickvc_tpu_torch.ops.lstm_recurrence import lstm_recurrence
+from quickvc_tpu_torch.ops.lstm_recurrence import lstm_stack
 
 
 class SpeakerEncoder(nn.Module):
@@ -55,11 +57,11 @@ class SpeakerEncoder(nn.Module):
 
     def _recurrence(self, x: torch.Tensor) -> torch.Tensor:
         """The last layer's final ``h`` (B, H), computed in ``x``'s dtype:
-        per layer the input projection of every step, then the recurrence."""
-        for layer in range(self.lstm.num_layers):
-            w_ih, w_hh, b = self._layer_weights(layer, x.dtype)
-            x = lstm_recurrence(x @ w_ih.T + b, w_hh)       # (B, T, 4H) -> (B, T, H)
-        return x[:, -1]
+        layer 0's input projection of every step, then the stack, each
+        deeper layer projecting the layer below's h as it goes."""
+        w_ih, w_hh, b = zip(*(self._layer_weights(layer, x.dtype)
+                              for layer in range(self.lstm.num_layers)))
+        return lstm_stack(x @ w_ih[0].T + b[0], w_ih[1:], b[1:], w_hh)[:, -1]
 
 
 def partial_slices(total_frames: int, partial_frames: int = 128,

@@ -49,9 +49,10 @@ _SIGNATURES = {
     "qvc_wave_to_spec_halo_dense": [_P, _P] + [_I] * 6 + [_P],
     "qvc_polar_istft": [_P, _P] + [_L] * 6 + [_P, _I, _I, _I, _I, _P, _P, _I, _P],
     "qvc_attention_packed": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
-    "qvc_attention_packed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    "qvc_attention_packed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F] + [_I] * 3 + [_P],
     "qvc_attention_headed": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
-    "qvc_attention_headed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F, _P],
+    "qvc_attention_headed_bf16": [_P] * 4 + [_I] * 4 + [_L] * 9 + [_F] + [_I] * 3 + [_P],
+    "qvc_attention_bf16_occupancy": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     "qvc_conv5_lrelu": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw": [_P] * 4 + [_I] * 6 + [_P],
     "qvc_conv5_lrelu_bf16": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
@@ -59,14 +60,15 @@ _SIGNATURES = {
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_extractor_front_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_transformer_layer": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
-    "qvc_transformer_layer_bf16": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 12 + [_P],
+    "qvc_transformer_layer_bf16": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 15 + [_P],
     "qvc_transformer_layer_launches": [_I] * 4,
     "qvc_mm_s8": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_probe": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
     "qvc_mm_transpose": [_P, _P] + [_I] * 2 + [_P],
     "qvc_mma_tf32_rate": [_P, _I, _I, _P],
-    "qvc_lstm_forward_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "qvc_lstm_stack_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "qvc_lstm_stack_max_clusters": [_I] * 6,
     "qvc_lstm_backward_bf16": [_P] * 5 + [_I] * 4 + [_P],
 }
 

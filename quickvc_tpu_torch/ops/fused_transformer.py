@@ -20,7 +20,8 @@ A bf16 x takes the layer's bf16 mode (``qvc_transformer_layer_bf16``), as
 the TPU kernel computes a bf16 input: the four weight matrices cast to bf16
 once a call (as the JAX wrapper casts them), the GEMMs on the persistent
 TMA + ``wgmma`` bf16 core of ``csrc/wgmma_bf16.cuh`` (each planned by
-:func:`wgmma_plan`), K2's bf16 attention body, float32 biases, LayerNorms
+:func:`wgmma_plan`), K2's bf16 attention body (planned by
+``ops.fused_attention.bf16_attention_plan``), float32 biases, LayerNorms
 and GELU, rounded to bf16 where the TPU kernel rounds; a bf16 output.
 :data:`STATS` counts float32 calls, :data:`BF16_STATS` bf16 ones.
 """
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
                                          refuse_grad, require_cuda, require_device,
                                          require_dtype, stream_ptr)
-from quickvc_tpu_torch.ops.fused_attention import attention_reference
+from quickvc_tpu_torch.ops.fused_attention import attention_reference, bf16_attention_plan
 
 STATS = KernelStats("transformer_layer")
 BF16_STATS = KernelStats("transformer_layer_bf16")
@@ -273,11 +274,13 @@ def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
     ws = torch.empty(ws_floats, device=x.device, dtype=torch.float32) if ws_floats else None
     out = torch.empty_like(x)
     entry = library().qvc_transformer_layer_bf16 if bf16 else library().qvc_transformer_layer
+    # the bf16 attention reads the qkv scratch's aligned column views
+    attn = bf16_attention_plan(b, h, t, HEAD_DIM, sms).c_args() if bf16 else ()
     check(entry(
         x.data_ptr(), *[w.data_ptr() for w in weights], qkv.data_ptr(), heads.data_ptr(),
         total.data_ptr(), x1.data_ptr(), mid.data_ptr(), None if ws is None else ws.data_ptr(),
         out.data_ptr(), b, t, d, h, f, 1.0 / math.sqrt(HEAD_DIM),
-        *[v for p in plans for v in p[:-1]], stream_ptr(x)),
+        *[v for p in plans for v in p[:-1]], *attn, stream_ptr(x)),
         f"transformer_layer kernel ({x.dtype})")
     (BF16_STATS if bf16 else STATS).count()
     return out

@@ -1,15 +1,16 @@
 """The speaker LSTM's bf16 recurrence on the card: two hand-written kernels,
-``csrc/lstm_recurrence.cu``, behind a ``torch.autograd.Function``.
+``csrc/lstm_recurrence.cu``, behind ``torch.autograd.Function``s.
 
 They replace no TPU kernel: the JAX package runs the recurrence as a
 ``lax.scan`` (``quickvc_tpu/models/encoders.py:89-125``, sequential order
 at :74-87), which XLA compiles. At bf16 that scan carries ``h`` and ``c``
 in bf16 and rounds every op of the cell; cuDNN's bf16 LSTM does not, and
 its gradients fail the port's bf16 gate (``ROADMAP.md`` C, F2). So the
-port runs the JAX recurrence itself, one layer a call:
+port runs the JAX recurrence itself:
 
-  xp      (B, T, 4H)  the input projection x W_ih^T + b of every step (the
-                      caller's ``torch.matmul``, as JAX computes it)
+  xp      (B, T, 4H)  a layer's input projection x W_ih^T + b of every step
+                      (layer 0's is the caller's ``torch.matmul``, as JAX
+                      computes it)
   w_hh    (4H, H)
   h       (B, T, H)   the output sequence, h_t = o_t * tanh(c_t)
 
@@ -18,20 +19,28 @@ a float32 sum rounded once, added to xp_t and rounded, sigmoid, tanh and
 each product and sum of the cell in float32 from bf16 operands, rounded to
 bf16, gate order (i, f, g, o).
 
-The backward is the gradient of that recurrence, rounded where torch's
-autograd of those bf16 ops rounds (the carried dh and dc, each gate's
-gradient, each product); dh_{t-1} = dgates_t W_hh a float32 sum rounded
-once. It returns the gate gradients (B, T, 4H), which are xp's gradient;
-W_hh's gradient, sum_t dgates_t^T h_{t-1}, is one large float32 product of
-the saved sequences rounded once, outside the kernel, as are the caller's
-gradients of W_ih, the bias and x (JAX's scan transpose leaves those
-products to XLA).
+:func:`lstm_stack` runs every layer's forward in one launch of the
+forward kernel, the JAX package's wavefront schedule
+(``quickvc_tpu/models/encoders.py:_wavefront``): layer l >= 1 computes its
+projection per step from layer l - 1's new h, rounded as the per-layer
+chain rounds it (``bf16(bf16(h W_ih^T) + b)``), ``skew`` steps behind it
+(:func:`lstm_stack_plan`). :func:`lstm_recurrence` is one layer of it.
 
-:func:`lstm_forward_reference` and :func:`lstm_backward_reference` are the
-plain versions, with the kernels' roundings; a CPU tensor takes them, a
-CUDA tensor launches the kernels or raises. :func:`lstm_plan` is the
-kernels' partition. :data:`STATS` and :data:`BACKWARD_STATS` count
-launches.
+The backward is the gradient of that recurrence, one kernel launch a
+layer, rounded where torch's autograd of those bf16 ops rounds (the carried
+dh and dc, each gate's gradient, each product); dh_{t-1} = dgates_t W_hh a
+float32 sum rounded once. It returns the gate gradients (B, T, 4H), which
+are xp's gradient; W_hh's gradient, sum_t dgates_t^T h_{t-1}, is one large
+float32 product of the saved sequences rounded once, outside the kernel, as
+are the projections' gradients (JAX's scan transpose leaves those products
+to XLA).
+
+:func:`lstm_forward_reference`, :func:`lstm_stack_reference` and
+:func:`lstm_backward_reference` are the plain versions, with the kernels'
+roundings; a CPU tensor takes them, a CUDA tensor launches the kernels or
+raises. :func:`lstm_plan` is the kernels' partition of a layer,
+:func:`lstm_stack_plan` the forward's of a stack. :data:`STATS` (the
+forward kernel, any depth) and :data:`BACKWARD_STATS` count launches.
 """
 
 from __future__ import annotations
@@ -43,12 +52,14 @@ import torch
 from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library, require_cuda,
                                          stream_ptr)
 
-STATS = KernelStats("lstm_bf16")
+STATS = KernelStats("lstm_stack_bf16")
 BACKWARD_STATS = KernelStats("lstm_bf16_backward")
-# csrc/lstm_recurrence.cu: CLUSTER, MAX_H, MAX_CHUNK
+# csrc/lstm_recurrence.cu: CLUSTER, MAX_H, MAX_CHUNK, MAX_LAYERS, MAX_SKEW
 CLUSTER = 8          # CTAs a thread-block cluster
 MAX_HIDDEN = 256     # the kernels hold W_hh's slices in registers up to this width
 MAX_CHUNK = 32       # batch rows a cluster (the backward's gate buffers fill shared memory)
+MAX_LAYERS = 4       # layers a forward launch runs
+SKEW = 2             # steps a layer runs behind the one below (the kernel takes 2 .. 3)
 
 
 class LSTMPlan(NamedTuple):
@@ -79,18 +90,55 @@ def lstm_plan(batch: int, hidden: int, sm_count: int = 132) -> LSTMPlan:
     MAX_HIDDEN (units even, so a CTA's gate columns fill whole 8-wide mma
     tiles) and any B whose clusters fit the card.
     """
+    plan = _chunks(batch, hidden)
+    if plan.clusters * CLUSTER > sm_count:
+        raise ValueError(f"lstm_plan: batch {batch} needs {plan.clusters} clusters of {CLUSTER} "
+                         f"CTAs, more than the card's {sm_count} SMs (at most "
+                         f"{MAX_CHUNK * (sm_count // CLUSTER)} rows)")
+    return plan
+
+
+def _chunks(batch: int, hidden: int) -> LSTMPlan:
     if hidden % 16 or not 16 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"lstm_plan: hidden size must be a multiple of 16 in [16, "
                          f"{MAX_HIDDEN}], got {hidden}")
     if batch < 1:
         raise ValueError(f"lstm_plan: need a batch of at least 1, got {batch}")
     clusters = -(-batch // MAX_CHUNK)
-    chunk = -(-batch // clusters)
-    if clusters * CLUSTER > sm_count:
-        raise ValueError(f"lstm_plan: batch {batch} needs {clusters} clusters of {CLUSTER} "
-                         f"CTAs, more than the card's {sm_count} SMs (at most "
-                         f"{MAX_CHUNK * (sm_count // CLUSTER)} rows)")
-    return LSTMPlan(CLUSTER, hidden // CLUSTER, clusters, chunk)
+    return LSTMPlan(CLUSTER, hidden // CLUSTER, clusters, -(-batch // clusters))
+
+
+class StackPlan(NamedTuple):
+    """How the forward kernel runs ``layers`` layers in one launch: every
+    layer cut as ``layer`` cuts one, cluster (l, k) (launch order l
+    ceil(B / chunk) + k) running layer l of chunk k, each layer at least
+    ``skew`` steps behind the one below; ``clusters`` in all, all resident
+    at once."""
+    layers: int
+    skew: int
+    layer: LSTMPlan
+    clusters: int
+
+    def serial_steps(self, steps: int) -> int:
+        """The chain of steps a launch of T steps waits through: T + (L - 1) skew."""
+        return steps + (self.layers - 1) * self.skew
+
+
+def lstm_stack_plan(batch: int, hidden: int, layers: int) -> StackPlan:
+    """The forward kernel's partition of a (batch, hidden) stack of ``layers``.
+
+    A layer is cut as :func:`lstm_plan` cuts it; the stack takes layers x
+    ceil(B / MAX_CHUNK) clusters. Layer l + 1 reads layer l's h of step t
+    once layer l has published it, loading it SKEW - 1 steps ahead into a
+    ring of SKEW stages, so it runs SKEW steps behind. The clusters wait on
+    each other, so the launch needs them all resident: the wrapper asks the
+    card (``qvc_lstm_stack_max_clusters``) and raises if it holds fewer.
+    """
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"lstm_stack_plan: the kernel runs 1 to {MAX_LAYERS} layers, "
+                         f"got {layers}")
+    layer = _chunks(batch, hidden)
+    return StackPlan(layers, SKEW, layer, layers * layer.clusters)
 
 
 def lstm_forward_reference(xp: torch.Tensor, w_hh: torch.Tensor):
@@ -111,6 +159,19 @@ def lstm_forward_reference(xp: torch.Tensor, w_hh: torch.Tensor):
         cs.append(c)
         acts.append(torch.cat([i, f, g, o], dim=-1))
     return torch.stack(hs, 1), torch.stack(acts, 1), torch.stack(cs, 1)
+
+
+def lstm_stack_reference(xp0: torch.Tensor, w_ih, b, w_hh):
+    """(h, act, c) of every layer, (L, B, T, .), the plain versions chained:
+    layer 0 from xp0, layer l >= 1 from the projection ``h @ w_ih[l - 1].T +
+    b[l - 1]`` of layer l - 1's h in its dtype (the product rounded once,
+    then the bias)."""
+    outs, xp = [], xp0
+    for layer, w in enumerate(w_hh):
+        outs.append(lstm_forward_reference(xp, w))
+        if layer + 1 < len(w_hh):
+            xp = outs[-1][0] @ w_ih[layer].T + b[layer]
+    return tuple(torch.stack(z) for z in zip(*outs))
 
 
 def _sigmoid_grad(dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -150,34 +211,76 @@ def lstm_backward_reference(dh_out: torch.Tensor, w_hh: torch.Tensor, act: torch
     return dgates
 
 
-def _plan(name: str, b: int, steps: int, hidden: int, *tensors: torch.Tensor) -> LSTMPlan:
+def _check(name: str, steps: int, *tensors: torch.Tensor) -> None:
     require_cuda(name, *tensors, dtypes=(torch.bfloat16,),
                  why="the recurrence is the JAX package's bf16 one; float32 runs nn.LSTM")
     if steps < 1:
         raise ValueError(f"{name}: need at least one step, got T={steps}")
     if any(z.data_ptr() % 16 for z in tensors):
         raise ValueError(f"{name}: every tensor must start on a 16-byte boundary")
+
+
+def _plan(name: str, b: int, steps: int, hidden: int, *tensors: torch.Tensor) -> LSTMPlan:
+    _check(name, steps, *tensors)
     return lstm_plan(b, hidden, device_sms(tensors[0].device.index or 0))
 
 
-def lstm_forward_kernel(xp: torch.Tensor, w_hh: torch.Tensor):
-    """Launch the forward kernel on CUDA bf16 xp (B, T, 4H) and w_hh (4H, H):
-    (h, act, c) as :func:`lstm_forward_reference` returns them."""
-    xp, w_hh = xp.contiguous(), w_hh.contiguous()
-    b, steps, g4 = xp.shape
+def lstm_stack_kernel(xp0: torch.Tensor, w_ih, b, w_hh):
+    """Launch the forward kernel on CUDA bf16 xp0 (B, T, 4H), the W_ih (4H, H)
+    and biases (4H,) of layers 1 .. L-1 and the W_hh (4H, H) of every layer:
+    (h, act, c) of every layer as :func:`lstm_stack_reference` returns them.
+    Raises RuntimeError if the card cannot hold every cluster of the launch
+    at once (the layers wait on each other; nothing is launched then)."""
+    layers = len(w_hh)
+    if len(w_ih) != layers - 1 or len(b) != layers - 1:
+        raise ValueError(f"lstm_stack: {layers} layers take {layers - 1} W_ih and biases, got "
+                         f"{len(w_ih)} and {len(b)}")
+    xp0 = xp0.contiguous()
+    batch, steps, g4 = xp0.shape
     hidden = g4 // 4
-    if w_hh.shape != (g4, hidden):
-        raise ValueError(f"lstm_forward: w_hh {tuple(w_hh.shape)} does not match xp "
-                         f"{tuple(xp.shape)} (need (4H, H))")
-    plan = _plan("lstm_forward", b, steps, hidden, xp, w_hh)
-    h = xp.new_empty(b, steps, hidden)
-    act = torch.empty_like(xp)
+    if (any(w.shape != (g4, hidden) for w in (*w_hh, *w_ih))
+            or any(z.shape != (g4,) for z in b)):
+        raise ValueError(f"lstm_stack: W_hh {[tuple(w.shape) for w in w_hh]}, W_ih "
+                         f"{[tuple(w.shape) for w in w_ih]} or biases do not match xp0 "
+                         f"{tuple(xp0.shape)} (need (4H, H) and (4H,))")
+    w_hh = torch.stack(list(w_hh))
+    w_ih, b = (torch.stack(list(z)) if layers > 1 else None for z in (w_ih, b))
+    tensors = [z for z in (xp0, w_hh, w_ih, b) if z is not None]
+    _check("lstm_stack", steps, *tensors)
+    plan = lstm_stack_plan(batch, hidden, layers)
+    chunk = plan.layer.chunk
+    if layers > 1:
+        held = library().qvc_lstm_stack_max_clusters(batch, steps, hidden, chunk, layers,
+                                                      plan.skew)
+        if held < 0:
+            check(-held, "lstm stack occupancy")
+        if held < plan.clusters:
+            raise RuntimeError(
+                f"lstm_stack: {layers} layers of batch {batch} take {plan.clusters} clusters "
+                f"of {CLUSTER} CTAs, all resident at once (each layer waits on the one below), "
+                f"but the card holds {held}")
+    h = xp0.new_empty(layers, batch, steps, hidden)
+    act = xp0.new_empty(layers, batch, steps, g4)
     c = torch.empty_like(h)
-    check(library().qvc_lstm_forward_bf16(
-        xp.data_ptr(), w_hh.data_ptr(), h.data_ptr(), act.data_ptr(), c.data_ptr(),
-        b, steps, hidden, plan.chunk, stream_ptr(xp)), "lstm forward kernel")
+    counters = torch.zeros(layers, plan.layer.clusters, dtype=torch.int32, device=xp0.device)
+    check(library().qvc_lstm_stack_bf16(
+        xp0.data_ptr(), None if w_ih is None else w_ih.data_ptr(),
+        None if b is None else b.data_ptr(), w_hh.data_ptr(), h.data_ptr(), act.data_ptr(),
+        c.data_ptr(), counters.data_ptr(), batch, steps, hidden, chunk, layers, plan.skew,
+        stream_ptr(xp0)), "lstm stack kernel")
     STATS.count()
     return h, act, c
+
+
+def lstm_forward_kernel(xp: torch.Tensor, w_hh: torch.Tensor):
+    """One layer of the forward kernel on CUDA bf16 xp (B, T, 4H) and w_hh
+    (4H, H): (h, act, c) as :func:`lstm_forward_reference` returns them."""
+    b, steps, g4 = xp.shape
+    if w_hh.shape != (g4, g4 // 4):
+        raise ValueError(f"lstm_forward: w_hh {tuple(w_hh.shape)} does not match xp "
+                         f"{tuple(xp.shape)} (need (4H, H))")
+    _plan("lstm_forward", b, steps, g4 // 4, xp, w_hh)
+    return tuple(z[0] for z in lstm_stack_kernel(xp, [], [], [w_hh]))
 
 
 def lstm_backward_kernel(dh_out: torch.Tensor, w_hh: torch.Tensor, act: torch.Tensor,
@@ -199,6 +302,23 @@ def lstm_backward_kernel(dh_out: torch.Tensor, w_hh: torch.Tensor, act: torch.Te
     return dgates
 
 
+def _recurrence_backward(dh: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor,
+                         act: torch.Tensor, c: torch.Tensor, need_dw: bool):
+    """One layer's (dgates, dW_hh) from its output's gradient dh: the plain
+    version on the CPU, the kernel on the card; dW_hh = sum_t dgates_t^T
+    h_{t-1}, one float32 product rounded once (None unless ``need_dw``)."""
+    dh = dh.to(h.dtype)
+    if dh.device.type == "cpu":
+        dgates = lstm_backward_reference(dh, w_hh, act, c)
+    else:
+        dgates = lstm_backward_kernel(dh, w_hh, act, c)
+    dw = None
+    if need_dw:
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        dw = (dgates.flatten(0, 1).float().T @ h_prev.flatten(0, 1).float()).to(h.dtype)
+    return dgates, dw
+
+
 class LSTMRecurrence(torch.autograd.Function):
     """h (B, T, H) = the recurrence of one layer over xp (B, T, 4H) with
     w_hh (4H, H), both bf16: the plain versions on the CPU, the kernels on
@@ -216,18 +336,60 @@ class LSTMRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         w_hh, h, act, c = ctx.saved_tensors
-        if dh.device.type == "cpu":
-            dgates = lstm_backward_reference(dh.to(h.dtype), w_hh, act, c)
-        else:
-            dgates = lstm_backward_kernel(dh.to(h.dtype), w_hh, act, c)
-        dw = None
-        if ctx.needs_input_grad[1]:
-            # sum_t dgates_t^T h_{t-1}: one float32 product, rounded once
-            h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
-            dw = (dgates.flatten(0, 1).float().T @ h_prev.flatten(0, 1).float()).to(h.dtype)
-        return dgates, dw
+        return _recurrence_backward(dh, w_hh, h, act, c, ctx.needs_input_grad[1])
 
 
 def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """One layer's output sequence h (B, T, H), differentiable in xp and w_hh."""
     return LSTMRecurrence.apply(xp, w_hh)
+
+
+class LSTMStack(torch.autograd.Function):
+    """The last layer's h (B, T, H) of a stack over xp0 (B, T, 4H): arguments
+    xp0, then the W_hh of every layer, the W_ih and the biases of layers 1 ..
+    L-1, all bf16. The forward is the plain stack on the CPU, one launch of
+    the forward kernel on the card; it saves every layer's h, act and c. The
+    backward runs layer L-1 .. 0 as :class:`LSTMRecurrence` does, and each
+    projection's gradients (of W_ih, the bias and the layer below's h) as
+    torch's autograd of ``h @ w_ih.T + b`` computes them, so that on the
+    CPU every output and gradient is the per-layer chain's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, xp0, *weights):
+        layers = (len(weights) + 2) // 3
+        w_hh, w_ih, b = weights[:layers], weights[layers:2 * layers - 1], weights[2 * layers - 1:]
+        if xp0.device.type == "cpu":
+            h, act, c = lstm_stack_reference(xp0, w_ih, b, w_hh)
+        else:
+            h, act, c = lstm_stack_kernel(xp0, w_ih, b, w_hh)
+        ctx.layers = layers
+        ctx.save_for_backward(h, act, c, *weights)
+        return h[-1]
+
+    @staticmethod
+    def backward(ctx, dh):
+        h, act, c, *weights = ctx.saved_tensors
+        layers = ctx.layers
+        w_hh, w_ih = weights[:layers], weights[layers:2 * layers - 1]
+        need = ctx.needs_input_grad[1:]
+        d_hh, d_ih, d_b = [None] * layers, [None] * (layers - 1), [None] * (layers - 1)
+        for layer in reversed(range(layers)):
+            dgates, d_hh[layer] = _recurrence_backward(dh, w_hh[layer], h[layer], act[layer],
+                                                       c[layer], need[layer])
+            if layer == 0:
+                break
+            # h_below @ w.T + b: autograd's mm and sum, in its operand order
+            x = h[layer - 1]
+            g2 = dgates.flatten(0, 1)
+            d_ih[layer - 1] = g2.t().mm(x.flatten(0, 1))
+            d_b[layer - 1] = dgates.sum((0, 1))
+            dh = dgates @ w_ih[layer - 1]
+        return (dgates, *d_hh, *d_ih, *d_b)
+
+
+def lstm_stack(xp0: torch.Tensor, w_ih, b, w_hh) -> torch.Tensor:
+    """The last layer's output sequence (B, T, H) of a stack: layer 0's
+    projected input xp0 (B, T, 4H), the W_ih (4H, H) and biases (4H,) of
+    layers 1 .. L-1 and the W_hh (4H, H) of every layer; differentiable in
+    all of them."""
+    return LSTMStack.apply(xp0, *w_hh, *w_ih, *b)

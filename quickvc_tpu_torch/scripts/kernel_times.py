@@ -38,11 +38,25 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
   time by kernel name), and the speaker LSTM's bf16 recurrence kernels at
   a layer of the training batch's, gates (32, 512, 4 x 256), beside one
   layer of cuDNN's bf16 LSTM (``cudnn_lstm_layer``) on its (32, 512, 80)
-  input: the forward (``lstm_bf16``,
-  ``lstm_bf16_library``: cuDNN's forward; ``lstm_bf16_host_us``: the host
-  µs a call of each takes to enqueue) and the backward
-  (``lstm_bf16_backward``, ``lstm_bf16_backward_library``: cuDNN's forward
-  and backward);
+  input: the forward of one layer (``lstm_bf16``, ``lstm_bf16_library``:
+  cuDNN's forward; ``lstm_bf16_host_us``: the host µs a call of each takes
+  to enqueue), the backward alone (``lstm_bf16_backward``,
+  ``lstm_bf16_backward_library``: cuDNN's forward and backward) and like
+  for like, a layer's forward and backward kernels against cuDNN's forward
+  and backward (``lstm_bf16_layer_step``); and the whole three-layer
+  forward from the mel, layer 0's projection included, against cuDNN's
+  3-layer bf16 ``nn.LSTM`` forward (``cudnn_lstm``): one launch of the
+  stack kernel (``lstm_stack_bf16``, where the package has it) and the
+  layers one launch each with their projections between
+  (``lstm_layers_bf16``);
+- in turns, K2, K10 and K9's bf16 modes at (8, 250, 768), (8, 12, 250, 64)
+  and (8, 250, 12*128) beside bf16 SDPA on the same heads
+  (``K2_bf16``, ``K10_bf16``, ``K9_bf16``); where the package has
+  ``bf16_attention_plan``, the plan of each shape the bf16 body runs at
+  (``attention_bf16_plans``: K2's conversion, live and ragged shapes, K9,
+  K10, K8's attention) for the TMA + wgmma body and for the mma.sync body,
+  each with its CTAs an SM, registers and shared memory on the card and
+  the waves those make;
 - K11 at the int8 probe's shape (16384 x 12288) @ (12288 x 3072), s8 and
   bf16, with ``torch._int_mm``, bf16 ``torch.matmul`` and, where this torch
   has it, ``torch.mm(..., out_dtype=torch.float32)`` (K11's own function)
@@ -64,7 +78,8 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
   (the profiler counts the kernels of autograd's backward ops twice); and
   both on bf16 waves (``D_phase_fused_bf16``, ``D_phase_default_bf16``).
 
-``--device cpu`` leaves these out. Each entry is the mean of ``--iters``
+``--device cpu`` leaves these out; ``--only bf16`` runs the bf16 turns
+alone (K2/K9/K10 bf16, K8 bf16 and the LSTM rows), seconds of card time. Each entry is the mean of ``--iters``
 calls after ``--warmup``, timed with CUDA events, and
 under ``device_ms`` the device time of the kernels those calls launched
 (:func:`device_ms`), which leaves out the host's enqueue time: a kernel of
@@ -316,6 +331,73 @@ def cudnn_lstm_layer(w_ih: torch.Tensor, w_hh: torch.Tensor,
     return lstm
 
 
+def cudnn_lstm(w_ih, w_hh, biases) -> torch.nn.LSTM:
+    """cuDNN's multi-layer LSTM (``nn.LSTM``) with these per-layer weights
+    and summed biases, in their dtype and device: the stack's library call."""
+    lstm = torch.nn.LSTM(w_ih[0].shape[1], w_hh[0].shape[1], len(w_hh), batch_first=True,
+                         device=w_hh[0].device, dtype=w_hh[0].dtype)
+    with torch.no_grad():
+        for layer, (wi, wh, b) in enumerate(zip(w_ih, w_hh, biases)):
+            for name, w in (("weight_ih", wi), ("weight_hh", wh), ("bias_ih", b),
+                            ("bias_hh", torch.zeros_like(b))):
+                getattr(lstm, f"{name}_l{layer}").copy_(w)
+    return lstm
+
+
+def in_turns(ms, name: str, kernel, library) -> None:
+    """``kernel`` and ``library`` timed in turns: library, kernel, kernel,
+    library (``name`` + ``_library_a``, ``_a``, ``_b``, ``_library_b``)."""
+    for tag, fn in (("_library_a", library), ("_a", kernel), ("_b", kernel),
+                    ("_library_b", library)):
+        ms(name + tag, fn)
+
+
+# (batch, heads, T, D) of the bf16 attention's calls: K2 at the conversion,
+# the live wave windows and a ragged T; K9; K10 and its small head dim; K8's
+ATTENTION_BF16_SHAPES = {"K2": (8, 12, 250, 64), "K2_live68": (64, 12, 68, 64),
+                         "K2_live80": (64, 12, 80, 64), "K2_ragged": (3, 12, 333, 64),
+                         "K9": (8, 12, 250, 128), "K10": (8, 12, 250, 64),
+                         "K10_d16": (2, 3, 50, 16), "K8": (16, 12, 300, 64)}
+
+
+def attention_bf16_plans(dev: torch.device) -> dict:
+    """Each shape's plan for both bf16 bodies (the TMA + wgmma one where the
+    head dim takes it), with the body's CTAs an SM, registers and shared
+    memory on the card, and the waves of CTAs those give."""
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, (b, h, t, d) in ATTENTION_BF16_SHAPES.items():
+        out[name] = {}
+        for tma in (True, False):
+            plan = fa.bf16_attention_plan(b, h, t, d, sms, tma)
+            occ = fa.attention_bf16_occupancy(d, plan)
+            out[name][plan.body] = plan._asdict() | occ | {
+                "waves_on_card": -(-plan.ctas // (max(occ["ctas_per_sm"], 1) * sms))}
+    return out
+
+
+def attention_bf16_times(ms, out: dict, dev: torch.device, g: torch.Generator) -> None:
+    """K2, K10 and K9's bf16 modes in turns with bf16 SDPA, and the plans."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_attention as fa
+
+    q, k, v = torch.randn(8, 250, 3 * 768, device=dev, generator=g).bfloat16().chunk(3, -1)
+    heads = [z.reshape(8, 250, 12, 64).transpose(1, 2).contiguous() for z in (q, k, v)]
+    xs = [F.pad(z.reshape(8, 250, 12, 64), (0, 64)).reshape(8, 250, 1536) for z in (q, k, v)]
+    padded = [z.reshape(8, 250, 12, 128).transpose(1, 2) for z in xs]
+    in_turns(ms, "K2_bf16", lambda: fa.attention_packed(q, k, v, 12, 0.125),
+             lambda: F.scaled_dot_product_attention(*heads, scale=0.125))
+    in_turns(ms, "K10_bf16", lambda: fa.attention(*heads, 0.125),
+             lambda: F.scaled_dot_product_attention(*heads, scale=0.125))
+    in_turns(ms, "K9_bf16", lambda: fa.attention_packed_aligned(*xs, 12, 0.125),
+             lambda: F.scaled_dot_product_attention(*padded, scale=0.125))
+    if hasattr(fa, "bf16_attention_plan"):
+        out["attention_bf16_plans"] = attention_bf16_plans(dev)
+
+
 def bf16_turn_times(ms, out: dict, dev: torch.device, g: torch.Generator, layer, x) -> None:
     """K8's bf16 mode and the LSTM recurrence kernels, each in turns with its
     library call (see the head note), and K8 bf16's device time by kernel."""
@@ -323,9 +405,7 @@ def bf16_turn_times(ms, out: dict, dev: torch.device, g: torch.Generator, layer,
     from quickvc_tpu_torch.ops import lstm_recurrence as lr
 
     def turns(name: str, kernel, library) -> None:
-        for tag, fn in (("_library_a", library), ("_a", kernel), ("_b", kernel),
-                        ("_library_b", library)):
-            ms(name + tag, fn)
+        in_turns(ms, name, kernel, library)
 
     bf = torch.bfloat16
     xb = x.to(bf)
@@ -355,8 +435,38 @@ def bf16_turn_times(ms, out: dict, dev: torch.device, g: torch.Generator, layer,
     turns("lstm_bf16", lambda: lr.lstm_forward_kernel(xp, w_hh), lambda: cudnn(x_in)[0])
     out["lstm_bf16_host_us"] = host_us({"kernel": lambda: lr.lstm_forward_kernel(xp, w_hh),
                                         "library": lambda: cudnn(x_in)[0]}, 10)
-    turns("lstm_bf16_backward", lambda: lr.lstm_backward_kernel(dh, w_hh, act, c),
-          lambda: torch.autograd.grad(cudnn(x_in)[0], [x_in, *cudnn.parameters()], dh))
+    def cudnn_step():
+        torch.autograd.grad(cudnn(x_in)[0], [x_in, *cudnn.parameters()], dh)
+
+    def kernel_step():
+        _, act_, c_ = lr.lstm_forward_kernel(xp, w_hh)
+        lr.lstm_backward_kernel(dh, w_hh, act_, c_)
+
+    turns("lstm_bf16_backward", lambda: lr.lstm_backward_kernel(dh, w_hh, act, c), cudnn_step)
+    turns("lstm_bf16_layer_step", kernel_step, cudnn_step)
+
+    # the three-layer forward from the mel, layer 0's projection included
+    w_ih = [w_ih] + [(torch.randn(4 * hsz, hsz, device=dev, generator=g) / 16).to(bf)
+                     for _ in range(2)]
+    w_hhs = [w_hh] + [(torch.randn(4 * hsz, hsz, device=dev, generator=g) / 16).to(bf)
+                      for _ in range(2)]
+    biases = [bias] + [(torch.randn(4 * hsz, device=dev, generator=g) / 16).to(bf)
+                       for _ in range(2)]
+    cudnn3 = cudnn_lstm(w_ih, w_hhs, biases)
+    mel_in = mel.detach()
+
+    def layers_forward():
+        z = mel_in
+        for wi, wh, bb in zip(w_ih, w_hhs, biases):
+            z = lr.lstm_forward_kernel(z @ wi.T + bb, wh)[0]
+        return z
+
+    with torch.no_grad():
+        turns("lstm_layers_bf16", layers_forward, lambda: cudnn3(mel_in)[0])
+        if hasattr(lr, "lstm_stack_kernel"):
+            turns("lstm_stack_bf16", lambda: lr.lstm_stack_kernel(
+                mel_in @ w_ih[0].T + biases[0], w_ih[1:], biases[1:], w_hhs),
+                lambda: cudnn3(mel_in)[0])
 
 
 def mel_times(ms, dev: torch.device, y: torch.Tensor) -> None:
@@ -452,6 +562,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--only", choices=("bf16",), default=None,
+                    help="bf16: only the bf16 attention, K8 bf16 and LSTM turns (on the card)")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -477,6 +589,19 @@ def main(argv: list[str] | None = None) -> dict:
         if dev.type == "cuda":
             out["device_ms"][name] = device_ms(fn, args.iters)
 
+    if args.only == "bf16":
+        if dev.type != "cuda":
+            raise SystemExit("kernel_times: --only bf16 times kernels on the card")
+        layer = init_random_(TransformerLayer(use_fused_layer=True), 8).to(dev).eval()
+        layer.requires_grad_(False)
+        x = torch.randn(16, 300, 768, device=dev, generator=g)
+        attention_bf16_times(ms, out, dev, g)
+        bf16_turn_times(ms, out, dev, g, layer, x)
+        out["device"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        print("kernel_times " + json.dumps(out))
+        return out
     mel_times(ms, dev, 0.3 * torch.randn(1, 144000, device=dev, generator=g))
     q, k, v = torch.randn(8, 250, 3 * 768, device=dev, generator=g).chunk(3, -1)
     heads = [z.reshape(8, 250, 12, 64).transpose(1, 2).contiguous() for z in (q, k, v)]
@@ -499,6 +624,7 @@ def main(argv: list[str] | None = None) -> dict:
         ms("K4", lambda: fused_mel.wave_to_spec_halo(y4, 1280, 320, 1280))
         del y4
         encoding_times(ms, dev, g, layer, x)
+        attention_bf16_times(ms, out, dev, g)
         bf16_turn_times(ms, out, dev, g, layer, x)
         out["notes"] = gemm_times(ms, dev, g)
         conv5_times(ms, dev, g)

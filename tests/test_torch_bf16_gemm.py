@@ -192,6 +192,8 @@ def _fake(monkeypatch, module, entries):
 
     monkeypatch.setattr(module, "library", lambda: FakeLib())
     monkeypatch.setattr(module, "stream_ptr", lambda t: 0)
+    if hasattr(module, "device_sms"):
+        monkeypatch.setattr(module, "device_sms", lambda index: 132)
     monkeypatch.setattr(module, "require_cuda",
                         lambda name, *ts, **kw: module.require_dtype(name, *ts, **kw))
     if hasattr(module, "require_device"):
@@ -236,8 +238,9 @@ def test_front_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
 def test_layer_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
     """A bf16 hidden state reaches ``qvc_transformer_layer_bf16`` with the
     weight matrices in bf16, the vectors in float32, bf16 scratch but the
-    float32 sums, and the wgmma core's plans (BN, splits, k_chunk); float32
-    still takes the float32 entry on its own plans (splits, k_chunk)."""
+    float32 sums, the wgmma core's plans (BN, splits, k_chunk) and the bf16
+    attention's (rows, bn, stages); float32 still takes the float32 entry on
+    its own plans (splits, k_chunk)."""
     from quickvc_tpu_torch.models.hubert import TransformerLayer
     from quickvc_tpu_torch.ops import fused_transformer as ft
 
@@ -266,6 +269,7 @@ def test_layer_wrapper_sends_bf16_to_the_bf16_entry(monkeypatch):
         if dtype == torch.bfloat16:
             want = tuple(v for p in ft.wgmma_layer_plans(m, 768, 3072, 132)
                          for v in (p.bn, p.splits, p.k_chunk))
+            want += ft.bf16_attention_plan(2, 12, 37, 64, 132).c_args()
         else:
             want = tuple(v for p in ft.layer_plans(m, 768, 3072, 132)
                          for v in (p.splits, p.k_chunk))
