@@ -45,10 +45,14 @@
    inputs at most 1.5x the plain version's) and timed in turns with cuDNN's
    bf16 chain, ``nn.TransformerEncoderLayer`` in bf16 and bf16 SDPA. So are
    the bf16 modes of K5 (forward, dx) and K6 (dW) at the five period shapes
-   in bf16 and at two shapes whose channels are not multiples of 8 (two
-   launches bit-equal; at p = 2 and 11 timed in turns with cuDNN's bf16
-   conv, its input and its weight gradient). K8's bf16 mode runs its GEMMs
-   on the persistent TMA + ``wgmma`` core (``csrc/wgmma_bf16.cuh``). The bf16
+   in bf16, on their TMA + ``wgmma`` body (``csrc/conv5_wgmma.cu``), and at
+   two shapes whose channels are not multiples of 8, on the ``mma.sync``
+   body (two launches bit-equal, each shape on its body by the counters; at
+   p = 2 and 11 timed in turns with the ``mma.sync`` body on the same inputs
+   and with cuDNN's bf16 conv, its input and its weight gradient, beside
+   each call's plan and the body's registers, spills and blocks an SM).
+   K8's bf16 mode runs its GEMMs on the persistent TMA + ``wgmma`` core
+   (``csrc/wgmma_bf16.cuh``). The bf16
    attention of K2, K8, K9 and K10 runs the TMA + ``wgmma`` body at head
    dims 64 and 128 (the ``mma.sync`` body at 16 and 32): an
    ``attention_bf16_plans`` line gives, for each path shape, both bodies'
@@ -85,8 +89,9 @@
    A/B of ``scripts/disc_pallas_ab.py``): one D-phase forward and backward
    of the full-width MPD at the training batch, held against the default
    cuDNN discriminator; the same on bf16 waves (K5 bf16 10 times, K6 bf16 5
-   times, nothing else of the port) against the default cuDNN bf16
-   discriminator, relative to the default's bf16 error against its float32
+   times, all on the ``wgmma`` body, nothing else of the port; both D
+   phases timed) against the default cuDNN bf16 discriminator, relative to
+   the default's bf16 error against its float32
    D phase; then the port of that A/B script at its defaults
    (``quickvc_tpu_torch.scripts.disc_pallas_ab``: the fifth conv alone at p
    = 2 and 11, three variants of the period discriminator at p = 2, 5, 11,
@@ -205,11 +210,12 @@ TPU_KERNELS = [
      "dense DFT up to n_fft 4096"),
     ("K5", "quickvc_tpu/ops/fused_disc_conv.py:117", "conv5_lrelu forward (and dx)",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores; "
-     "bf16 mode: same file, on the bf16 mma.sync core of quickvc_tpu_torch/csrc/bf16_gemm.cuh"),
+     "bf16 mode: quickvc_tpu_torch/csrc/conv5_wgmma.cu (persistent TMA + wgmma), the bf16 "
+     "mma.sync body of fused_disc_conv.cu for other channel counts"),
     ("K6", "quickvc_tpu/ops/fused_disc_conv.py:156", "conv5_lrelu dW",
      "ported: quickvc_tpu_torch/csrc/fused_disc_conv.cu; redesigned: 3xTF32 tensor cores, "
-     "deterministic split-K; bf16 mode: same file, on the bf16 mma.sync core, split-K rounded "
-     "once"),
+     "deterministic split-K; bf16 mode: quickvc_tpu_torch/csrc/conv5_wgmma.cu (persistent "
+     "TMA + wgmma, planned split-K rounded once), the bf16 mma.sync body for other shapes"),
     ("K7", "quickvc_tpu/ops/fused_extractor.py:187", "fused_extractor_front",
      "ported: quickvc_tpu_torch/csrc/fused_extractor.cu; redesigned: 3xTF32 tensor-core "
      "implicit GEMM, conv0 produced on chip; bf16 mode: same file, on the bf16 mma.sync "
@@ -259,15 +265,16 @@ DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_k
                     "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
                     "row_layer_norm_kernel", "extractor_front_bf16_kernel",
                     "linear_wgmma_kernel", "linear_bf16_splitk_kernel",
-                    "conv5_bf16_kernel", "splitk_sum_bf16_kernel",
+                    "conv5_bf16_kernel", "splitk_sum_bf16_kernel", "conv5_wgmma_kernel",
                     "mm_wgmma_kernel", "transpose_kernel", "lstm_stack_kernel",
                     "lstm_backward_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
 # K2/K8/K9/K10 and K2's two bf16 bodies, K5/K6's implicit GEMM and K6's
 # split-K sum, K7, K8's GEMMs and their split-K sum, K3's both bodies, the
-# bf16 modes of K7, K8's GEMMs (the wgmma core) and K5/K6 with K6's bf16
-# split-K sum, and the LSTM recurrence's two kernels); none may spill
+# bf16 modes of K7, K8's GEMMs (the wgmma core) and K5/K6 (both bodies)
+# with K6's bf16 split-K sum, and the LSTM recurrence's two kernels); none
+# may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
                "transpose_kernel", "attention_kernel", "attention_bf16_kernel",
                "attention_wgmma_kernel",
@@ -275,8 +282,8 @@ PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_k
                "extractor_front_kernel", "linear_kernel", "linear_splitk_kernel",
                "extractor_front_bf16_kernel", "linear_wgmma_kernel",
                "linear_bf16_splitk_kernel", "polar_istft_kernel", "polar_istft_kernel_rt",
-               "conv5_bf16_kernel", "splitk_sum_bf16_kernel", "lstm_stack_kernel",
-               "lstm_backward_kernel")
+               "conv5_bf16_kernel", "splitk_sum_bf16_kernel", "conv5_wgmma_kernel",
+               "lstm_stack_kernel", "lstm_backward_kernel")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "wave_to_spec_halo": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
@@ -302,9 +309,12 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "attention_packed_aligned_bf16": "redesigned: K2's TMA + wgmma bf16 body at "
                                                "D = 128",
               "attention_bf16": "redesigned: K2's TMA + wgmma bf16 body on (B, H, T, D)",
-              "conv5_lrelu_bf16": "ported: implicit GEMM on the bf16 mma.sync GEMM core",
-              "conv5_lrelu_dw_bf16": "ported: implicit GEMM on the bf16 mma.sync GEMM core, "
-                                     "split-K rounded once",
+              "conv5_lrelu_bf16": "redesigned: persistent TMA + wgmma implicit GEMM, shifted "
+                                  "TMA boxes with the item-edge rows zeroed on chip; the "
+                                  "bf16 mma.sync body for other channel counts and views",
+              "conv5_lrelu_dw_bf16": "redesigned: persistent TMA + wgmma implicit GEMM, A read "
+                                     "MN-major, planned split-K rounded once; the bf16 "
+                                     "mma.sync body for other channel counts and views",
               "polar_inverse_stft": "redesigned: persistent planned grid, host-built tables, "
                                     "loads one step ahead"}
 # streaming conversion: 16 sources of 12.1-15.5 s (605-773 frames), 8 in the 13-s
@@ -629,9 +639,14 @@ def check_conv5_bf16(dev: torch.device) -> list[dict]:
     bf16, and at two shapes whose channels are not multiples of 8 (the
     gathered copies): against their plain versions and the float32 kernels
     on the same bf16-valued inputs (``bf16_gate``), a second launch of each
-    bit-equal; at p = 2 and 11 timed in turns with cuDNN's bf16 conv and its
-    input and weight gradients (transposed before the timing). Its own seeds,
-    and torch's generators restored after it."""
+    bit-equal, each on the body the host picks (the TMA + wgmma body at the
+    period shapes, the mma.sync body at the odd ones: read from the
+    counters, a shape on the other body fails); at p = 2 and 11 timed in
+    turns with the mma.sync body (by its entry, on the same inputs) and with
+    cuDNN's bf16 conv and its input and weight gradients (transposed before
+    the timing), with each call's plan and the wgmma body's blocks an SM,
+    registers and local (spill) bytes. Its own seeds, and torch's
+    generators restored after it."""
     with torch.random.fork_rng(devices=[dev]):
         return _check_conv5_bf16(dev)
 
@@ -640,25 +655,34 @@ def _check_conv5_bf16(dev: torch.device) -> list[dict]:
     import torch.nn.functional as F
 
     from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+    from quickvc_tpu_torch.scripts.kernel_times import conv5_dw_mma_sync, conv5_mma_sync
 
     bf = torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = {f"p{p}": (n, rows, c, c)
               for p, (n, rows, c) in fdc.disc_conv5_shapes(DISC_BATCH, SEGMENT).items()}
     shapes |= {"(5, 13, 30, 42)": (5, 13, 30, 42), "(4, 12, 33, 17)": (4, 12, 33, 17)}
-    checks, dw_checks, timings, deterministic = {}, {}, {}, True
+    checks, dw_checks, timings, bodies, deterministic = {}, {}, {}, {}, True
+
+    def on_body(stats, call):   # (output, the body that ran it)
+        before = stats.launches
+        out = call()
+        return out, "wgmma" if stats.launches > before else "mma_sync"
+
     for i, (key, (n, rows, c_in, c_out)) in enumerate(shapes.items()):
         g = torch.Generator(device=dev).manual_seed(SEED + 60 + i)
         x = torch.randn(n, rows, c_in, device=dev, generator=g).to(bf)
         k = (torch.randn(5, c_in, c_out, device=dev, generator=g) / np.sqrt(5 * c_in)).to(bf)
         b = (0.1 * torch.randn(c_out, device=dev, generator=g)).to(bf)
         dy = (torch.randn(n, rows, c_out, device=dev, generator=g) / np.sqrt(n * rows)).to(bf)
-        y = fdc.conv5_lrelu_kernel(x, k, b, 0.1)
+        y, body_y = on_body(fdc.WGMMA_STATS, lambda: fdc.conv5_lrelu_kernel(x, k, b, 0.1))
         # dym as the backward forms it: bf16(lrelu') from the kernel's output, rounded
         dym = (dy * torch.where(y > 0, 1.0, 0.1).to(bf)).contiguous()
         k_flip = k.flip(0).transpose(1, 2).contiguous()
-        dx = fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
-        dw = fdc.conv5_dw_kernel(x, dym)
+        dx, body_dx = on_body(fdc.WGMMA_STATS,
+                              lambda: fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0))
+        dw, body_dw = on_body(fdc.DW_WGMMA_STATS, lambda: fdc.conv5_dw_kernel(x, dym))
+        bodies[key] = {"y": body_y, "dx": body_dx, "dw": body_dw}
         checks[f"{key} y"] = bf16_gate(y, fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1),
                                        fdc.conv5_lrelu_kernel(x.float(), k.float(), b.float(),
                                                               0.1))
@@ -668,12 +692,19 @@ def _check_conv5_bf16(dev: torch.device) -> list[dict]:
         dw_checks[key] = bf16_gate(dw, fdc.conv5_dw_reference(x, dym),
                                    fdc.conv5_dw_kernel(x.float(), dym.float()))
         deterministic &= bool(torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y)
+                              and torch.equal(fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0), dx)
                               and torch.equal(fdc.conv5_dw_kernel(x, dym), dw))
         if key in ("p2", "p11"):
             x_ncr = x.transpose(1, 2).contiguous()        # cuDNN's (N, C, R) layout
             w_oik = k.permute(2, 1, 0).contiguous()       # (C_out, C_in, 5)
             dym_ncr = dym.transpose(1, 2).contiguous()
             flops = 2 * n * rows * 5 * c_in * c_out
+            plans = {"forward": fdc.conv5_wgmma_plan(False, n, rows, c_in, c_out, sms),
+                     "dx": fdc.conv5_wgmma_plan(False, n, rows, c_out, c_in, sms),
+                     "dw": fdc.conv5_wgmma_plan(True, n, rows, c_in, c_out, sms)}
+            k5_mma = lambda: conv5_mma_sync(x, k, b, 0.1)              # noqa: E731
+            dx_mma = lambda: conv5_mma_sync(dym, k_flip, None, 1.0)    # noqa: E731
+            dw_mma = lambda: conv5_dw_mma_sync(x, dym)                 # noqa: E731
             timings[key] = {
                 "shape": [n, rows, c_in],
                 "forward": turns(lambda: fdc.conv5_lrelu_kernel(x, k, b, 0.1),
@@ -684,11 +715,25 @@ def _check_conv5_bf16(dev: torch.device) -> list[dict]:
                 "dw": turns(lambda: fdc.conv5_dw_kernel(x, dym),
                             lambda: torch.nn.grad.conv1d_weight(x_ncr, w_oik.shape, dym_ncr,
                                                                 padding=2)),
+                # the body the wgmma one replaced here, in turns with it (its
+                # "library" keys), and how far apart the two bodies' outputs lie
+                "forward_mma_sync": turns(lambda: fdc.conv5_lrelu_kernel(x, k, b, 0.1), k5_mma),
+                "dx_mma_sync": turns(lambda: fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0),
+                                     dx_mma),
+                "dw_mma_sync": turns(lambda: fdc.conv5_dw_kernel(x, dym), dw_mma),
+                "mma_sync_max_abs_diff": {
+                    "forward": float((k5_mma().float() - y.float()).abs().max()),
+                    "dx": float((dx_mma().float() - dx.float()).abs().max()),
+                    "dw": float((dw_mma().float() - dw.float()).abs().max())},
                 "plain_ms": cuda_ms(lambda: fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1)),
                 "dx_plain_ms": cuda_ms(
                     lambda: fdc.conv5_lrelu_reference_bf16(dym, k_flip, None, 1.0)),
                 "dw_plain_ms": cuda_ms(lambda: fdc.conv5_dw_reference(x, dym)),
-                "dw_plan": fdc.dw_plan(n, rows, c_in, c_out, sms, fdc.BF16_TILING)._asdict(),
+                "plans": {name: plan._asdict() | {"workspace_bytes": 4 * plan.workspace}
+                          | fdc.conv5_wgmma_attributes(name == "dw", plan.bn)
+                          for name, plan in plans.items()},
+                "dw_plan_mma_sync": fdc.dw_plan(n, rows, c_in, c_out, sms,
+                                                fdc.BF16_TILING)._asdict(),
                 # bf16 products; bytes: x and the filter (or dym) in, the output out
                 "bound_ops_ms": flops / BF16_FLOPS * 1e3,
                 "bound_bytes_ms": 2 * (n * rows * (c_in + c_out) + 5 * c_in * c_out)
@@ -696,23 +741,28 @@ def _check_conv5_bf16(dev: torch.device) -> list[dict]:
             del x_ncr, w_oik, dym_ncr
         del x, k, b, dy, y, dym, k_flip, dx, dw
 
+    want = {key: {op: "wgmma" if key.startswith("p") else "mma_sync" for op in ("y", "dx", "dw")}
+            for key in shapes}
+    print("conv5_bf16_bodies " + json.dumps({"bodies": bodies, "expected": want}))
     t2 = timings["p2"]
     k5, k6 = merge_checks(checks), merge_checks(dw_checks)
-    k5["within_tol"] = k5["within_tol"] and deterministic
-    k6["within_tol"] = k6["within_tol"] and deterministic
+    on_body_ok = bodies == want
+    k5["within_tol"] = k5["within_tol"] and deterministic and on_body_ok
+    k6["within_tol"] = k6["within_tol"] and deterministic and on_body_ok
     bounds = {key: t2[key] for key in ("bound_ops_ms", "bound_bytes_ms")}
-    source = "quickvc_tpu_torch/csrc/fused_disc_conv.cu"
+    source = "quickvc_tpu_torch/csrc/conv5_wgmma.cu"
     return [dict(name="conv5_lrelu_bf16", tpu_id="K5", source=source,
                  replaces="quickvc_tpu/ops/fused_disc_conv.py:117", shape=t2["shape"], **k5,
-                 deterministic=deterministic, **t2["forward"], plain_ms=t2["plain_ms"],
-                 dx_ms=t2["dx"]["ms"], dx_device_ms=t2["dx"]["device_ms"],
-                 dx_plain_ms=t2["dx_plain_ms"], dx_library_ms=t2["dx"]["library_ms"],
+                 deterministic=deterministic, bodies=bodies, **t2["forward"],
+                 plain_ms=t2["plain_ms"], dx_ms=t2["dx"]["ms"],
+                 dx_device_ms=t2["dx"]["device_ms"], dx_plain_ms=t2["dx_plain_ms"],
+                 dx_library_ms=t2["dx"]["library_ms"],
                  dx_library_device_ms=t2["dx"]["library_device_ms"], timings=timings,
                  **bounds),
             dict(name="conv5_lrelu_dw_bf16", tpu_id="K6", source=source,
                  replaces="quickvc_tpu/ops/fused_disc_conv.py:156", shape=t2["shape"], **k6,
-                 deterministic=deterministic, **t2["dw"], plain_ms=t2["dw_plain_ms"],
-                 dw_plan=t2["dw_plan"], **bounds)]
+                 deterministic=deterministic, bodies=bodies, **t2["dw"],
+                 plain_ms=t2["dw_plain_ms"], plan=t2["plans"]["dw"], **bounds)]
 
 
 def check_attention_bf16(dev: torch.device, shapes: dict) -> dict:
@@ -1982,8 +2032,9 @@ def check_disc_fused(dev: torch.device, rng: np.random.Generator) -> dict:
 
 def check_disc_fused_bf16(dev: torch.device) -> dict:
     """The same paired D phase on bf16 waves (the bf16 training step's D
-    phase): the fused MPD (K5 bf16 10 times and K6 bf16 5 times, nothing else
-    of the port) against the default cuDNN bf16 MPD, relative to the
+    phase): the fused MPD (K5 bf16 10 times and K6 bf16 5 times, every one on
+    the wgmma body, nothing else of the port) against the default cuDNN bf16
+    MPD (both D phases' times printed side by side), relative to the
     default's bf16 error against its float32 D phase (PERF.md section 2):
     loss ``|fused - ref| <= max(2 |ref - ref_f32|, 4e-3 |ref_f32|)``, each
     gradient ``maxrel(fused, ref) <= max(2 maxrel(ref, ref_f32), 2e-2)``;
@@ -2034,8 +2085,11 @@ def _check_disc_fused_bf16(dev: torch.device, rng: np.random.Generator) -> dict:
     loss_bound = max(2 * abs(loss_b.item() - loss_32.item()), 4e-3 * abs(loss_32.item()))
     float32 = all(p.dtype == torch.float32 for p in fused.parameters()) and all(
         g.dtype == torch.float32 for g in grads_f)
+    # every fifth conv on the wgmma body: its counters read the same 10 and 5
     expected = {name: 0 for name in launches} | {"conv5_lrelu_bf16": 10,
-                                                 "conv5_lrelu_dw_bf16": 5}
+                                                 "conv5_lrelu_dw_bf16": 5,
+                                                 "conv5_lrelu_bf16_wgmma": 10,
+                                                 "conv5_lrelu_dw_bf16_wgmma": 5}
     out = {"batch": list(y.shape), "loss_fused": loss_f.item(), "loss_default": loss_b.item(),
            "loss_default_f32": loss_32.item(), "loss_bound": loss_bound,
            "grad_worst": worst, "grad_worst_err_over_bound": ratios[worst],
@@ -3009,7 +3063,7 @@ def main() -> int:
                       "err_f32_kernel", "err_f32_plain", "serial_steps", "library_note",
                       "library_events_ms", "plan", "plans", "backward_alone_ms",
                       "backward_alone_device_ms", "backward_alone_library_ms", "layers",
-                      "three_layer_chain_ms", "equal_to_layer_chain"):
+                      "three_layer_chain_ms", "equal_to_layer_chain", "bodies"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

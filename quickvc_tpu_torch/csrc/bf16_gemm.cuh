@@ -23,7 +23,8 @@
 // - Split-K: a host plan may cut a reduction into `splits` ranges on k-tile
 //   edges (valid_plan); split z stores its float32 partial tile to
 //   workspace z and linear_bf16_splitk_kernel sums the partials in split
-//   order and applies the epilogue. No atomics: the same inputs give the
+//   order and applies the epilogue (K6's bf16 dW only rounds:
+//   splitk_bf16.cuh). No atomics: the same inputs give the
 //   same bits on every launch.
 // - Epilogues on column pairs (store_pair): the float32 bias, then
 //     ROUND:     round to bf16 (in_proj's qkv);

@@ -66,13 +66,16 @@
 //   floats), and a second kernel sums the partials in split order 0..s-1
 //   into dW. No atomics: every launch on the same inputs gives the same bits.
 //
-// The bf16 mode of both (qvc_conv5_lrelu_bf16, qvc_conv5_dw_bf16) is the
-// same implicit GEMM on the bf16 tensor-core core of bf16_gemm.cuh; its
-// note is at the end of this file.
+// The bf16 mode of both is the same implicit GEMM on bf16 tensor cores: on
+// the persistent TMA + wgmma ring (conv5_wgmma.cu) where C_in is a multiple
+// of 64, C_out of 8 and the tensors 16-byte aligned (every period shape),
+// else on the mma.sync core of bf16_gemm.cuh (qvc_conv5_lrelu_bf16,
+// qvc_conv5_dw_bf16), whose note is at the end of this file.
 
 #include <cuda_runtime.h>
 
 #include "bf16_gemm.cuh"  // the bf16 mode's fragments and mma
+#include "splitk_bf16.cuh"  // its split-K sum
 #include "tf32x3.cuh"
 
 namespace {
@@ -526,6 +529,10 @@ extern "C" int qvc_conv5_dw(const void* x, const void* dym, void* dw, void* work
 // 0.087 ms at the 989 TFLOP/s dense bf16 rate, against ~44 MB of bf16
 // moved (0.013 ms).
 //
+// The host sends the shapes conv5_wgmma.cu takes there
+// (ops/fused_disc_conv.py:takes_wgmma); this body takes every other shape
+// the JAX kernel takes: channels off multiples of 64 or 8, offset views.
+//
 // Design: the float32 kernel's implicit GEMM, out (M x Nc) = A (M x Kd) @
 // B (Kd x Nc), on the bf16 core (bf16_gemm.cuh): mma.sync.m16n8k16 bf16 with
 // float32 accumulators, 128 x 128 tiles of 4 warps (64 x 64 a warp), two
@@ -549,7 +556,7 @@ extern "C" int qvc_conv5_dw(const void* x, const void* dym, void* dw, void* work
 //   storing bf16 pairs. K6 splits its reduction as dw_plan plans it for this
 //   tiling (40 x 8 = 320 tiles on 264 block slots at full width): split z
 //   stores its float32 partial to workspace z and splitk_sum_bf16_kernel
-//   sums the partials in split order and rounds once. No atomics: every
+//   (bf16_gemm.cuh) sums the partials in split order and rounds once. No atomics: every
 //   launch on the same inputs gives the same bits.
 
 namespace {
@@ -865,37 +872,6 @@ conv5_bf16_kernel(const bf16_t* __restrict__ x, const bf16_t* __restrict__ bmat,
   }
 }
 
-// out[i] = bf16(sum over z = 0..splits-1, in that order, of ws[z count + i]):
-// K6's partials summed in float32 and rounded once.
-__global__ void __launch_bounds__(256)
-splitk_sum_bf16_kernel(const float* __restrict__ ws, bf16_t* __restrict__ out,
-                       long long count, int splits, bool vec) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (vec) {
-    const float4* w4 = reinterpret_cast<const float4*>(ws);
-    const long long n4 = count / 4;
-    for (; i < n4; i += stride) {
-      float4 s = w4[i];
-      for (int z = 1; z < splits; ++z) {
-        const float4 p = w4[z * n4 + i];
-        s.x += p.x;
-        s.y += p.y;
-        s.z += p.z;
-        s.w += p.w;
-      }
-      reinterpret_cast<uint2*>(out)[i] =
-          make_uint2(bf16core::pack_bf16(s.x, s.y), bf16core::pack_bf16(s.z, s.w));
-    }
-  } else {
-    for (; i < count; i += stride) {
-      float s = ws[i];
-      for (int z = 1; z < splits; ++z) s += ws[z * count + i];
-      out[i] = __bfloat16_as_ushort(__float2bfloat16_rn(s));
-    }
-  }
-}
-
 template <int MODE, bool VEC>
 cudaError_t launch(const bf16_t* x, const bf16_t* bmat, const bf16_t* bias, void* out, int M,
                    int Nc, int Kd, int R, int C, int splits, int k_chunk, float slope,
@@ -963,11 +939,6 @@ extern "C" int qvc_conv5_dw_bf16(const void* x, const void* dym, void* dw, void*
                                                        rows, c_in, c_in, c_out, splits, k_chunk,
                                                        1.0f, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long count = (long long)M * c_out;
-  const bool vec = count % 4 == 0 && aligned(workspace, 16) && aligned(dw, 8);
-  const long long work = vec ? count / 4 : count;
-  const int blocks = (int)((work + 255) / 256 < 4096 ? (work + 255) / 256 : 4096);
-  conv5_bf16::splitk_sum_bf16_kernel<<<blocks, 256, 0, s>>>(
-      (const float*)workspace, (conv5_bf16::bf16_t*)dw, count, splits, vec);
-  return (int)cudaGetLastError();
+  return (int)bf16core::splitk_sum_bf16((const float*)workspace, (bf16core::bf16_t*)dw,
+                                        (long long)M * c_out, splits, s);
 }

@@ -1,6 +1,7 @@
 // The TMA + wgmma machinery of the port's Hopper bodies, for sm_90a: K11
-// (int8_mm.cu), the bf16 wgmma GEMM core (wgmma_bf16.cuh) and the bf16
-// attention body (fused_attention_bf16.cuh) share it, and keep only their
+// (int8_mm.cu), the bf16 wgmma GEMM core (wgmma_bf16.cuh, which K8's bf16
+// GEMMs and K5/K6's bf16 implicit GEMM run on) and the bf16 attention body
+// (fused_attention_bf16.cuh) share it, and keep only their
 // kernel bodies and epilogues. Included by several sources, so everything
 // here has internal linkage.
 //
@@ -14,7 +15,8 @@
 // - wgmma: descriptors of K-major and MN-major 128-byte swizzled tiles,
 //   fence, commit and wait, the accumulator fence (fence_operands), the
 //   accumulator operand lists and the bf16 m64nNk16 instructions: A and B
-//   from shared memory for N 32 .. 256, A from registers for N 64 and 128.
+//   from shared memory for N 32 .. 256 (either K-major or MN-major: the
+//   transpose immediates), A from registers for N 64 and 128.
 // - Host: tensor maps encoded by cuTensorMapEncodeTiled, found through
 //   cudaGetDriverEntryPoint (nothing links libcuda), passed to the kernels
 //   as __grid_constant__ parameters: row-major matrices, and strided 4-D
@@ -174,51 +176,52 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
                           WG_ACC8(c, d, i + 24)
 
 // d (64 x N) += A (64 x 16) B (16 x N), bf16 from two descriptors, float32
-// sums; N = 2 x the accumulators a thread. A is K-major; B is K-major for
+// sums; N = 2 x the accumulators a thread. A is K-major for TRANS_A 0 (A (M,
+// K) as it lies) and MN-major for TRANS_A 1 (A^T (K, M)); B is K-major for
 // TRANS_B 0 (B^T (N, K) as it lies) and MN-major for TRANS_B 1 (B (K, N)).
 // %N, %N+1 are the descriptors and %N+2 the scale-d predicate after the N/2
-// accumulators.
-template <int TRANS_B>
+// accumulators, then the two transpose immediates.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" WG_REGS_0_15 "},"
-               " %16, %17, p, 1, 1, 0, %19;\n}\n"
+               " %16, %17, p, 1, 1, %20, %19;\n}\n"
                : WG_ACC8("+f", d, 0), WG_ACC8("+f", d, 8)
-               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS_0_31 "},"
-               " %32, %33, p, 1, 1, 0, %35;\n}\n"
+               " %32, %33, p, 1, 1, %36, %35;\n}\n"
                : WG_ACC32("+f", d, 0)
-               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS_0_31 ", "
-               WG_REGS_32_63 "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+               WG_REGS_32_63 "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
                : WG_ACC32("+f", d, 0), WG_ACC32("+f", d, 32)
-               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[96], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" WG_REGS_0_31 ", "
-               WG_REGS_32_63 ", " WG_REGS_64_95 "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+               WG_REGS_32_63 ", " WG_REGS_64_95 "}, %96, %97, p, 1, 1, %100, %99;\n}\n"
                : WG_ACC32("+f", d, 0), WG_ACC32("+f", d, 32), WG_ACC32("+f", d, 64)
-               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
                "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_REGS_0_31 ", "
                WG_REGS_32_63 ", " WG_REGS_64_95 ", " WG_REGS_96_127
-               "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+               "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
                : WG_ACC32("+f", d, 0), WG_ACC32("+f", d, 32), WG_ACC32("+f", d, 64),
                  WG_ACC32("+f", d, 96)
-               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+               : "l"(da), "l"(db), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x N) += A (64 x 16) B (16 x N) with A from registers: a[4] is the

@@ -34,10 +34,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
-           "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu", "mma_rate.cu",
-           "lstm_recurrence.cu")
+           "conv5_wgmma.cu", "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu",
+           "mma_rate.cu", "lstm_recurrence.cu")
 HEADERS = ("bf16_gemm.cuh", "fused_attention.cuh", "fused_attention_bf16.cuh",
-           "tf32x3.cuh", "tma_wgmma.cuh", "wgmma_bf16.cuh")  # included by the sources
+           "splitk_bf16.cuh", "tf32x3.cuh", "tma_wgmma.cuh", "wgmma_bf16.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +57,9 @@ _SIGNATURES = {
     "qvc_conv5_dw": [_P] * 4 + [_I] * 6 + [_P],
     "qvc_conv5_lrelu_bf16": [_P, _P, _P, _P] + [_I] * 4 + [_F, _P],
     "qvc_conv5_dw_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "qvc_conv5_lrelu_bf16_wgmma": [_P, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
+    "qvc_conv5_dw_bf16_wgmma": [_P] * 4 + [_I] * 7 + [_P],
+    "qvc_conv5_wgmma_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_extractor_front_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_transformer_layer": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],

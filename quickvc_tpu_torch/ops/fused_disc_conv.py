@@ -21,11 +21,19 @@ its reduction over the N*R rows into splits (:func:`dw_plan`), each writing
 a float32 partial to a workspace that a second kernel sums in split order:
 the same inputs give the same bits on every launch.
 
-bf16 inputs take the kernels' bf16 mode (``qvc_conv5_lrelu_bf16``,
-``qvc_conv5_dw_bf16``: the same implicit GEMM on the bf16 tensor-core core
-of ``csrc/bf16_gemm.cuh``, planned on ``BF16_TILING``), as the TPU kernel
-computes bf16 operands: products exact in float32, float32 sums, bias and
-LeakyReLU, a bf16 output rounded once. Its backward is the JAX VJP's
+bf16 inputs take the kernels' bf16 mode, as the TPU kernel computes bf16
+operands: products exact in float32, float32 sums, bias and LeakyReLU, a
+bf16 output rounded once. It has two bodies, chosen on the host by shape
+before the launch (:func:`takes_wgmma`): the persistent TMA + ``wgmma``
+implicit GEMM of ``csrc/conv5_wgmma.cu`` (``qvc_conv5_lrelu_bf16_wgmma``,
+``qvc_conv5_dw_bf16_wgmma``, planned by :func:`conv5_wgmma_plan`) for
+C_in a multiple of 64, C_out a multiple of 8 and 16-byte aligned tensors,
+every period shape among them; the ``mma.sync`` implicit GEMM of
+``csrc/fused_disc_conv.cu`` on the core of ``csrc/bf16_gemm.cuh``
+(``qvc_conv5_lrelu_bf16``, ``qvc_conv5_dw_bf16``, planned on
+``BF16_TILING``) for every other shape the JAX kernel takes. A failed
+build or launch raises; neither body stands in for the other. Its
+backward is the JAX VJP's
 (``quickvc_tpu/ops/fused_disc_conv.py:136-166``): dym = dy * bf16(lrelu')
 rounded to bf16, db the float32 sum of dym rounded to bf16, dx K5 on dym
 with the flipped filter, dW K6's float32 sum rounded to bf16 once. At bf16
@@ -33,11 +41,14 @@ the CPU runs the same ``autograd.Function`` with the plain forward
 (:func:`conv5_lrelu_reference_bf16`) and dW (:func:`conv5_dw_reference`) in
 place of the kernels, so both devices round where JAX rounds.
 :data:`STATS`/:data:`DW_STATS` count float32 launches,
-:data:`BF16_STATS`/:data:`DW_BF16_STATS` bf16 ones.
+:data:`BF16_STATS`/:data:`DW_BF16_STATS` bf16 ones (either body), and
+:data:`WGMMA_STATS`/:data:`DW_WGMMA_STATS` those of the bf16 launches that
+ran the ``wgmma`` body.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -45,13 +56,16 @@ import torch.nn.functional as F
 
 from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
                                          require_cuda, require_dtype, stream_ptr)
-from quickvc_tpu_torch.ops.fused_transformer import K_TILE, K_TILE_BYTES, TILE_M, TILE_N
+from quickvc_tpu_torch.ops.fused_transformer import (K_TILE, K_TILE_BYTES, TILE_M, TILE_N,
+                                                    WgmmaPlan, wgmma_plan)
 
 K5 = 5
 STATS = KernelStats("conv5_lrelu")        # K5 launches: forward and dx
 DW_STATS = KernelStats("conv5_lrelu_dw")  # K6 launches
 BF16_STATS = KernelStats("conv5_lrelu_bf16")        # K5 bf16 launches: forward and dx
 DW_BF16_STATS = KernelStats("conv5_lrelu_dw_bf16")  # K6 bf16 launches
+WGMMA_STATS = KernelStats("conv5_lrelu_bf16_wgmma")        # of those, on the wgmma body
+DW_WGMMA_STATS = KernelStats("conv5_lrelu_dw_bf16_wgmma")
 
 
 class Tiling(NamedTuple):
@@ -115,6 +129,50 @@ def dw_plan(n: int, rows: int, c_in: int, c_out: int, sm_count: int = 132,
     per = -(-k_tiles // splits)
     splits = -(-k_tiles // per)
     return DwPlan(splits, per * tiling.k_tile, splits * K5 * c_in * c_out if splits > 1 else 0)
+
+
+def conv5_gemm(dw: bool, n: int, rows: int, c_in: int, c_out: int) -> tuple[int, int, int]:
+    """(M, N, K) of the implicit GEMM: K5 (N R) x C_out over 5 C_in, K6
+    (5 C_in) x C_out over N R."""
+    return (K5 * c_in, c_out, n * rows) if dw else (n * rows, c_out, K5 * c_in)
+
+
+# Device seconds a k tile of the wgmma body took with every SM busy, by tile
+# width: K5 bf16 at p = 2, x (128, 64, 1024), each width's whole waves of 80
+# k tiles (kernel_times.py --only conv5 on an "NVIDIA H100 80GB HBM3,
+# 700.00 W"). The bf16 rate alone, with the A tile as 64 more columns
+# (fused_transformer.wgmma_cost), put bn 128 at 0.42 us and bn 256 at 0.70:
+# the card spends much more on a narrow tile, and chose bn 256 where that
+# model chose bn 128 (K5 at p = 7).
+CONV5_K_TILE_SECONDS = {64: 0.504e-6, 128: 0.658e-6, 192: 0.752e-6, 256: 0.833e-6}
+
+
+def conv5_wgmma_plan(dw: bool, n: int, rows: int, c_in: int, c_out: int,
+                     sm_count: int = 132) -> WgmmaPlan:
+    """The wgmma body's tile width and split (``csrc/conv5_wgmma.cu``): the
+    (bn, splits) of least ``fused_transformer.wgmma_cost`` for the implicit
+    GEMM, which counts waves of 128 x bn work items on one block an SM, each
+    k tile at its time on the card (:data:`CONV5_K_TILE_SECONDS`), and a
+    split's float32 partials (written, then read by the sum). K5 never
+    splits (its epilogue takes the bias and LeakyReLU on the sums). At the
+    period shapes K5 takes bn 256 (256-268 items: two waves, three at p =
+    7; bn 128 timed 1.3-1.6x slower), and K6 bn 256 split 3 ways (480-504
+    items, four waves of a third of the k tiles, 3 x 21 MB of partials),
+    which the card timed 6-7% ahead of bn 192 unsplit at p = 7 and 11 and
+    1% behind at p = 2."""
+    m, nn, k = conv5_gemm(dw, n, rows, c_in, c_out)
+    return wgmma_plan(m, nn, k, sm_count, max_splits=MAX_SPLITS if dw else 1,
+                      k_tile_seconds=CONV5_K_TILE_SECONDS)
+
+
+def takes_wgmma(c_in: int, c_out: int, *tensors: torch.Tensor) -> bool:
+    """Whether the bf16 call goes to the wgmma body: C_in a multiple of 64
+    (a 64-channel box of x lies in one tap), C_out a multiple of 8 (TMA's
+    16-byte rows) and every tensor 16-byte aligned (a bias 4-byte: it is
+    read in pairs). Every period shape does; the gathered shapes (channels
+    off multiples of 8) and offset views take the ``mma.sync`` body."""
+    return (c_in % 64 == 0 and c_out % 8 == 0
+            and all(t.data_ptr() % (4 if t.dim() == 1 else 16) == 0 for t in tensors))
 
 
 def disc_conv5_shapes(batch: int, segment: int, periods=(2, 3, 5, 7, 11),
@@ -186,10 +244,16 @@ def conv5_lrelu_kernel(x: torch.Tensor, kernel: torch.Tensor,
     c_out = kernel.shape[2]
     bf16 = dtype == torch.bfloat16
     y = torch.empty((n, rows, c_out), device=x.device, dtype=dtype)
-    entry = library().qvc_conv5_lrelu_bf16 if bf16 else library().qvc_conv5_lrelu
-    check(entry(x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
-                y.data_ptr(), n, rows, c_in, c_out, float(slope), stream_ptr(x)),
-          "conv5_lrelu kernel")
+    args = (x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr(), n, rows, c_in, c_out, float(slope))
+    if bf16 and takes_wgmma(c_in, c_out, x, kernel, y, *([] if bias is None else [bias])):
+        plan = conv5_wgmma_plan(False, n, rows, c_in, c_out, device_sms(x.device.index or 0))
+        check(library().qvc_conv5_lrelu_bf16_wgmma(*args, plan.bn, stream_ptr(x)),
+              "conv5_lrelu bf16 wgmma kernel")
+        WGMMA_STATS.count()
+    else:
+        entry = library().qvc_conv5_lrelu_bf16 if bf16 else library().qvc_conv5_lrelu
+        check(entry(*args, stream_ptr(x)), "conv5_lrelu kernel")
     (BF16_STATS if bf16 else STATS).count()
     return y
 
@@ -203,18 +267,36 @@ def conv5_dw_kernel(x: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv5_lrelu dW: x {tuple(x.shape)}, dym {tuple(dym.shape)}")
     c_out = dym.shape[2]
     bf16 = dtype == torch.bfloat16
-    plan = dw_plan(n, rows, c_in, c_out, device_sms(x.device.index or 0),
-                   BF16_TILING if bf16 else F32_TILING)
+    sms = device_sms(x.device.index or 0)
     dw = torch.empty((K5, c_in, c_out), device=x.device, dtype=dtype)
+    wgmma = bf16 and takes_wgmma(c_in, c_out, x, dym, dw)
+    plan = (conv5_wgmma_plan(True, n, rows, c_in, c_out, sms) if wgmma
+            else dw_plan(n, rows, c_in, c_out, sms, BF16_TILING if bf16 else F32_TILING))
     ws = (torch.empty(plan.workspace, device=x.device, dtype=torch.float32)
           if plan.workspace else None)
-    entry = library().qvc_conv5_dw_bf16 if bf16 else library().qvc_conv5_dw
-    check(entry(x.data_ptr(), dym.data_ptr(), dw.data_ptr(),
-                None if ws is None else ws.data_ptr(), n, rows, c_in, c_out, plan.splits,
-                plan.k_chunk, stream_ptr(x)),
-          "conv5_lrelu dW kernel")
+    args = (x.data_ptr(), dym.data_ptr(), dw.data_ptr(), None if ws is None else ws.data_ptr(),
+            n, rows, c_in, c_out)
+    if wgmma:
+        check(library().qvc_conv5_dw_bf16_wgmma(*args, plan.bn, plan.splits, plan.k_chunk,
+                                                stream_ptr(x)),
+              "conv5_lrelu dW bf16 wgmma kernel")
+        DW_WGMMA_STATS.count()
+    else:
+        entry = library().qvc_conv5_dw_bf16 if bf16 else library().qvc_conv5_dw
+        check(entry(*args, plan.splits, plan.k_chunk, stream_ptr(x)), "conv5_lrelu dW kernel")
     (DW_BF16_STATS if bf16 else DW_STATS).count()
     return dw
+
+
+def conv5_wgmma_attributes(dw: bool, bn: int) -> dict:
+    """The wgmma body of K5 (``dw`` False) or K6 at ``bn`` as compiled, on the
+    card: blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), a
+    thread's registers at launch and local (spill) bytes, a block's dynamic
+    shared memory (``cudaFuncGetAttributes``)."""
+    out = (ctypes.c_int * 4)()
+    check(library().qvc_conv5_wgmma_attributes(int(dw), bn, out), "conv5 wgmma attributes")
+    return {"blocks_per_sm": out[0], "registers": out[1], "local_bytes": out[2],
+            "smem": out[3]}
 
 
 def _conv(x, kernel, bias, slope):

@@ -123,37 +123,42 @@ class WgmmaPlan(NamedTuple):
     workspace: int
 
 
-def wgmma_cost(m: int, n: int, k: int, bn: int, splits: int, sm_count: int = 132) -> float:
+def wgmma_cost(m: int, n: int, k: int, bn: int, splits: int, sm_count: int = 132,
+               k_tile_seconds: dict[int, float] | None = None) -> float:
     """Modelled seconds of one GEMM on the wgmma core: waves of work items
     (tiles x splits over one block an SM) times an item's k tiles, each
     costing its 128 x bn x 64 products at the SM's share of the bf16 rate
     plus the A tile's (as if 64 more columns: the stage's load and handshake
-    that every k tile pays whatever bn); a split GEMM adds its partials'
+    that every k tile pays whatever bn), or ``k_tile_seconds[bn]`` where a
+    body's k tile was timed on the card; a split GEMM adds its partials'
     traffic (written, then read by the sum) and the sum's launch."""
     k_tiles = -(-k // WG_K_TILE)
     per = -(-k_tiles // splits)
     items = -(-m // WG_TILE_M) * -(-n // bn) * splits
-    k_tile = 2 * WG_TILE_M * (bn + 64) * WG_K_TILE / (BF16_FLOPS / 132)
+    k_tile = (k_tile_seconds[bn] if k_tile_seconds else
+              2 * WG_TILE_M * (bn + 64) * WG_K_TILE / (BF16_FLOPS / 132))
     split = (2 * splits * m * n * 4 / HBM_BYTES + SPLIT_SUM_SECONDS) if splits > 1 else 0.0
     return -(-items // sm_count) * per * k_tile + split
 
 
-def wgmma_plan(m: int, n: int, k: int, sm_count: int = 132) -> WgmmaPlan:
+def wgmma_plan(m: int, n: int, k: int, sm_count: int = 132, max_splits: int = MAX_SPLITS,
+               k_tile_seconds: dict[int, float] | None = None) -> WgmmaPlan:
     """The (bn, splits) of least :func:`wgmma_cost` (ties to fewer splits,
-    then the wider tile), each split walking at least MIN_SPLIT_K_TILES k
-    tiles, evened on k-tile edges so that none is empty. At 16 x 300
-    frames every GEMM takes bn 256 unsplit: out_proj and linear2 are one
-    wave of 114 tiles; a small batch takes narrow tiles or splits."""
+    then the wider tile), at most ``max_splits`` splits, each walking at
+    least MIN_SPLIT_K_TILES k tiles, evened on k-tile edges so that none is
+    empty. At 16 x 300 frames every GEMM takes bn 256 unsplit: out_proj and
+    linear2 are one wave of 114 tiles; a small batch takes narrow tiles or
+    splits."""
     k_tiles = -(-k // WG_K_TILE)
 
     def even(s: int) -> tuple[int, int]:   # (splits, k tiles a split)
         per = -(-k_tiles // s)
         return -(-k_tiles // per), per
 
-    options = [(bn, *even(s)) for bn in WG_TILE_NS for s in range(1, MAX_SPLITS + 1)
+    options = [(bn, *even(s)) for bn in WG_TILE_NS for s in range(1, max_splits + 1)
                if s == 1 or k_tiles >= s * MIN_SPLIT_K_TILES]
-    bn, splits, per = min(options, key=lambda o: (wgmma_cost(m, n, k, o[0], o[1], sm_count),
-                                                  o[1], -o[0]))
+    bn, splits, per = min(options, key=lambda o: (
+        wgmma_cost(m, n, k, o[0], o[1], sm_count, k_tile_seconds), o[1], -o[0]))
     return WgmmaPlan(bn, splits, per * WG_K_TILE, splits * m * n if splits > 1 else 0)
 
 

@@ -30,8 +30,12 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
   1024) and (704, 12, 1024), through their kernel wrappers, with cuDNN's
   ``F.conv1d``, ``conv1d_input`` and ``conv1d_weight`` on the same inputs
   beside them (TF32 off for both cuBLAS and cuDNN); and the same in bf16
-  (``K5_bf16_p2``, ..., ``cudnn_bf16_fwd_p2``, ...: their bf16 mode against
-  cuDNN's bf16 calls);
+  (their bf16 mode, on the TMA + wgmma body, in turns with the mma.sync
+  body it replaced at these shapes, called by its entry, and cuDNN's bf16
+  calls: ``K5_bf16_p2_a``, ``K5_bf16_p2_mma_sync_a``, ``K5_bf16_p2_cudnn_a``,
+  ...; each call's plan with the body's blocks an SM, registers and local
+  bytes, ``conv5_bf16_p2_plans``; the body at every tile width and K6 split
+  2 ways, ``K5_bf16_p2_bn128``, ``K6_bf16_p2_bn192_s2``, ...);
 - in turns (library, kernel, kernel, library: ``_a`` and ``_b``), K8's
   bf16 mode at (16, 300, 768) beside ``nn.TransformerEncoderLayer`` in
   bf16 (``K8_bf16``, ``K8_bf16_library``; ``K8_bf16_kernels``: its device
@@ -74,12 +78,16 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
 - one D phase of the full-width multi-period discriminator at the training
   batch (32 real||fake pairs of 10,240 samples: paired forward, loss,
   parameter gradients) with its fifth convs on K5/K6 (``D_phase_fused``)
-  and on cuDNN (``D_phase_default``), 5 calls each, in CUDA events only
+  and on cuDNN (``D_phase_default``), 20 calls each, in CUDA events only
   (the profiler counts the kernels of autograd's backward ops twice); and
-  both on bf16 waves (``D_phase_fused_bf16``, ``D_phase_default_bf16``).
+  both on bf16 waves (``D_phase_fused_bf16``, ``D_phase_default_bf16``),
+  with the device time of the fused bf16 phase's K5/K6 kernels and split-K
+  sums (``D_phase_fused_bf16_conv5_device_ms``).
 
 ``--device cpu`` leaves these out; ``--only bf16`` runs the bf16 turns
-alone (K2/K9/K10 bf16, K8 bf16 and the LSTM rows), seconds of card time. Each entry is the mean of ``--iters``
+alone (K2/K9/K10 bf16, K8 bf16 and the LSTM rows), seconds of card time;
+``--only conv5`` K5/K6 bf16's turns with the plans' sweep (also at p = 7),
+and the D phases. Each entry is the mean of ``--iters``
 calls after ``--warmup``, timed with CUDA events, and
 under ``device_ms`` the device time of the kernels those calls launched
 (:func:`device_ms`), which leaves out the host's enqueue time: a kernel of
@@ -220,14 +228,17 @@ def istft_times(ms, out: dict, dev: torch.device, g: torch.Generator, iters: int
 CONV5_SHAPES = {2: (128, 64, 1024), 11: (704, 12, 1024)}
 
 
-def conv5_times(ms, dev: torch.device, g: torch.Generator) -> None:
+def conv5_times(ms, dev: torch.device, g: torch.Generator, out: dict | None = None,
+                bf16_only: bool = False, shapes: dict = CONV5_SHAPES) -> None:
     """K5, K5's dx and K6 beside cuDNN at CONV5_SHAPES, inputs scaled so
-    that y, dx and dW are O(1)."""
+    that y, dx and dW are O(1); their bf16 modes in turns with the mma.sync
+    body and cuDNN's bf16 calls (:func:`conv5_bf16_turns`; ``bf16_only``:
+    those alone; ``shapes`` the periods' x)."""
     import torch.nn.functional as F
 
     from quickvc_tpu_torch.ops import fused_disc_conv as fdc
 
-    for p, (n, rows, c) in CONV5_SHAPES.items():
+    for p, (n, rows, c) in shapes.items():
         x = torch.randn(n, rows, c, device=dev, generator=g)
         k = torch.randn(5, c, c, device=dev, generator=g) / c ** 0.5 / 5 ** 0.5
         b = 0.1 * torch.randn(c, device=dev, generator=g)
@@ -236,6 +247,9 @@ def conv5_times(ms, dev: torch.device, g: torch.Generator) -> None:
         x_ncr = x.transpose(1, 2).contiguous()     # cuDNN's (N, C, R)
         w_oik = k.permute(2, 1, 0).contiguous()    # (C_out, C_in, 5)
         dym_ncr = dym.transpose(1, 2).contiguous()
+        conv5_bf16_turns(ms, p, *(z.bfloat16() for z in (x, k, b, dym)), out=out)
+        if bf16_only:
+            continue
         ms(f"K5_p{p}", lambda: fdc.conv5_lrelu_kernel(x, k, b, 0.1))
         ms(f"cudnn_fwd_p{p}", lambda: F.leaky_relu(F.conv1d(x_ncr, w_oik, b, padding=2), 0.1))
         ms(f"K5_dx_p{p}", lambda: fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0))
@@ -244,18 +258,116 @@ def conv5_times(ms, dev: torch.device, g: torch.Generator) -> None:
         ms(f"K6_p{p}", lambda: fdc.conv5_dw_kernel(x, dym))
         ms(f"cudnn_dw_p{p}", lambda: torch.nn.grad.conv1d_weight(x_ncr, w_oik.shape, dym_ncr,
                                                                  padding=2))
-        # their bf16 modes beside cuDNN's bf16 calls on the same bf16 inputs
-        xb, kb, bb, dymb, k_flipb, x_ncrb, w_oikb, dym_ncrb = (
-            z.bfloat16() for z in (x, k, b, dym, k_flip, x_ncr, w_oik, dym_ncr))
-        ms(f"K5_bf16_p{p}", lambda: fdc.conv5_lrelu_kernel(xb, kb, bb, 0.1))
-        ms(f"cudnn_bf16_fwd_p{p}",
-           lambda: F.leaky_relu(F.conv1d(x_ncrb, w_oikb, bb, padding=2), 0.1))
-        ms(f"K5_bf16_dx_p{p}", lambda: fdc.conv5_lrelu_kernel(dymb, k_flipb, None, 1.0))
-        ms(f"cudnn_bf16_dx_p{p}", lambda: torch.nn.grad.conv1d_input(x_ncrb.shape, w_oikb,
-                                                                     dym_ncrb, padding=2))
-        ms(f"K6_bf16_p{p}", lambda: fdc.conv5_dw_kernel(xb, dymb))
-        ms(f"cudnn_bf16_dw_p{p}", lambda: torch.nn.grad.conv1d_weight(x_ncrb, w_oikb.shape,
-                                                                      dym_ncrb, padding=2))
+
+
+def conv5_mma_sync(x: torch.Tensor, kernel: torch.Tensor, bias, slope: float) -> torch.Tensor:
+    """K5 bf16 on the mma.sync body (``csrc/fused_disc_conv.cu``), by its C
+    entry whatever the shape: the wrapper sends the period shapes to the
+    wgmma body, and this is the body it replaced there, for turns on the
+    same inputs. Not counted as a launch of the port."""
+    from quickvc_tpu_torch.ops._cuda import check, library, stream_ptr
+
+    n, rows, c_in = x.shape
+    c_out = kernel.shape[2]
+    y = torch.empty((n, rows, c_out), device=x.device, dtype=x.dtype)
+    check(library().qvc_conv5_lrelu_bf16(
+        x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+        y.data_ptr(), n, rows, c_in, c_out, float(slope), stream_ptr(x)), "conv5 mma.sync")
+    return y
+
+
+def conv5_dw_mma_sync(x: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
+    """K6 bf16 on the mma.sync body by its C entry, split as ``dw_plan`` on
+    ``BF16_TILING`` plans it (see :func:`conv5_mma_sync`)."""
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+    from quickvc_tpu_torch.ops._cuda import check, device_sms, library, stream_ptr
+
+    n, rows, c_in = x.shape
+    c_out = dym.shape[2]
+    plan = fdc.dw_plan(n, rows, c_in, c_out, device_sms(x.device.index or 0), fdc.BF16_TILING)
+    dw = torch.empty((5, c_in, c_out), device=x.device, dtype=x.dtype)
+    ws = torch.empty(max(plan.workspace, 1), device=x.device, dtype=torch.float32)
+    check(library().qvc_conv5_dw_bf16(x.data_ptr(), dym.data_ptr(), dw.data_ptr(),
+                                      ws.data_ptr(), n, rows, c_in, c_out, plan.splits,
+                                      plan.k_chunk, stream_ptr(x)), "conv5 dW mma.sync")
+    return dw
+
+
+def conv5_wgmma_at(dw: bool, bn: int, splits: int, *ins) -> torch.Tensor:
+    """K5 bf16 (``dw`` False: x, filter, bias, slope) or K6 bf16 (x, dym) on
+    the wgmma body by its C entry at a given tile width and split, for the
+    plan's sweep. Not counted as a launch of the port."""
+    from quickvc_tpu_torch.ops._cuda import check, library, stream_ptr
+
+    x = ins[0]
+    n, rows, c_in = x.shape
+    c_out = ins[1].shape[-1]
+    if not dw:
+        kernel, bias, slope = ins[1:]
+        y = torch.empty((n, rows, c_out), device=x.device, dtype=x.dtype)
+        check(library().qvc_conv5_lrelu_bf16_wgmma(
+            x.data_ptr(), kernel.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr(), n, rows, c_in, c_out, float(slope), bn, stream_ptr(x)), "conv5 wgmma")
+        return y
+    k_tiles = -(-n * rows // 64)
+    per = -(-k_tiles // splits)
+    splits = -(-k_tiles // per)
+    out = torch.empty((5, c_in, c_out), device=x.device, dtype=x.dtype)
+    ws = torch.empty(max(splits * 5 * c_in * c_out if splits > 1 else 0, 1), device=x.device,
+                     dtype=torch.float32)
+    check(library().qvc_conv5_dw_bf16_wgmma(x.data_ptr(), ins[1].data_ptr(), out.data_ptr(),
+                                            ws.data_ptr(), n, rows, c_in, c_out, bn, splits,
+                                            per * 64, stream_ptr(x)), "conv5 dW wgmma")
+    return out
+
+
+def conv5_bf16_turns(ms, p: int, x, k, b, dym, out: dict | None = None) -> None:
+    """K5 bf16 (forward, dx) and K6 bf16 at period p through the wrappers,
+    in turns with the mma.sync body and cuDNN's bf16 calls on the same bf16
+    inputs: cuDNN, mma.sync, kernel, kernel, mma.sync, cuDNN (``K5_bf16_p2``
+    + ``_cudnn_a``, ``_mma_sync_a``, ``_a``, ``_b``, ``_mma_sync_b``,
+    ``_cudnn_b``; ``K5_bf16_dx_p2``, ``K6_bf16_p2``). Where the package has
+    the wgmma body, ``out`` gets each call's plan and the body's blocks an
+    SM, registers and local bytes, and ``ms`` the wgmma body at every tile
+    width (``K5_bf16_p2_bn128``, ...) and K6 at 128-256 also split 2, 3 and
+    4 ways (``K6_bf16_p2_bn128_s2``), the plan's sweep."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+
+    k_flip = k.flip(0).transpose(1, 2).contiguous()
+    x_ncr, dym_ncr = x.transpose(1, 2).contiguous(), dym.transpose(1, 2).contiguous()
+    w_oik = k.permute(2, 1, 0).contiguous()
+    calls = {
+        f"K5_bf16_p{p}": (lambda: fdc.conv5_lrelu_kernel(x, k, b, 0.1),
+                          lambda: conv5_mma_sync(x, k, b, 0.1),
+                          lambda: F.leaky_relu(F.conv1d(x_ncr, w_oik, b, padding=2), 0.1)),
+        f"K5_bf16_dx_p{p}": (lambda: fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0),
+                             lambda: conv5_mma_sync(dym, k_flip, None, 1.0),
+                             lambda: torch.nn.grad.conv1d_input(x_ncr.shape, w_oik, dym_ncr,
+                                                                padding=2)),
+        f"K6_bf16_p{p}": (lambda: fdc.conv5_dw_kernel(x, dym),
+                          lambda: conv5_dw_mma_sync(x, dym),
+                          lambda: torch.nn.grad.conv1d_weight(x_ncr, w_oik.shape, dym_ncr,
+                                                              padding=2))}
+    for name, (kernel, mma, cudnn) in calls.items():
+        for tag, fn in (("_cudnn_a", cudnn), ("_mma_sync_a", mma), ("_a", kernel),
+                        ("_b", kernel), ("_mma_sync_b", mma), ("_cudnn_b", cudnn)):
+            ms(name + tag, fn)
+    if not hasattr(fdc, "conv5_wgmma_plan"):
+        return
+    n, rows, c = x.shape
+    plans = {"forward": fdc.conv5_wgmma_plan(False, n, rows, c, c),
+             "dw": fdc.conv5_wgmma_plan(True, n, rows, c, c)}
+    if out is not None:
+        out[f"conv5_bf16_p{p}_plans"] = {
+            key: plan._asdict() | {"workspace_bytes": 4 * plan.workspace}
+            | fdc.conv5_wgmma_attributes(key == "dw", plan.bn) for key, plan in plans.items()}
+    for bn in (64, 128, 192, 256):
+        ms(f"K5_bf16_p{p}_bn{bn}", lambda bn=bn: conv5_wgmma_at(False, bn, 1, x, k, b, 0.1))
+        for s in (1, 2, 3, 4) if bn > 64 else (1,):
+            ms(f"K6_bf16_p{p}_bn{bn}" + (f"_s{s}" if s > 1 else ""),
+               lambda bn=bn, s=s: conv5_wgmma_at(True, bn, s, x, dym))
 
 
 def disc_phase_times(out: dict, dev: torch.device) -> None:
@@ -280,8 +392,12 @@ def disc_phase_times(out: dict, dev: torch.device) -> None:
         return torch.autograd.grad(loss, list(net.parameters()))
 
     for name, net in (("D_phase_fused", fused), ("D_phase_default", base)):
-        out[name] = time_ms(lambda: d_phase(net), dev, 5, 1)
-        out[name + "_bf16"] = time_ms(lambda: d_phase(net, torch.bfloat16), dev, 5, 1)
+        out[name] = time_ms(lambda: d_phase(net), dev, 20, 3)
+        out[name + "_bf16"] = time_ms(lambda: d_phase(net, torch.bfloat16), dev, 20, 3)
+    # the device time of the fused bf16 phase's K5/K6 launches and their split-K sums
+    out["D_phase_fused_bf16_conv5_device_ms"] = sum(
+        device_ms(lambda: d_phase(fused, torch.bfloat16), 5, only=name)
+        for name in ("conv5", "splitk_sum_bf16"))
 
 
 def encoding_times(ms, dev: torch.device, g: torch.Generator, layer, x) -> None:
@@ -562,8 +678,9 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--warmup", type=int, default=5)
-    ap.add_argument("--only", choices=("bf16",), default=None,
-                    help="bf16: only the bf16 attention, K8 bf16 and LSTM turns (on the card)")
+    ap.add_argument("--only", choices=("bf16", "conv5"), default=None,
+                    help="bf16: only the bf16 attention, K8 bf16 and LSTM turns; conv5: only "
+                         "K5/K6 bf16's turns, their plans' sweep and the D phases (on the card)")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -589,9 +706,17 @@ def main(argv: list[str] | None = None) -> dict:
         if dev.type == "cuda":
             out["device_ms"][name] = device_ms(fn, args.iters)
 
+    if args.only and dev.type != "cuda":
+        raise SystemExit(f"kernel_times: --only {args.only} times kernels on the card")
+    if args.only == "conv5":
+        conv5_times(ms, dev, g, out, bf16_only=True, shapes=CONV5_SHAPES | {7: (448, 19, 1024)})
+        disc_phase_times(out, dev)
+        out["device"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        print("kernel_times " + json.dumps(out))
+        return out
     if args.only == "bf16":
-        if dev.type != "cuda":
-            raise SystemExit("kernel_times: --only bf16 times kernels on the card")
         layer = init_random_(TransformerLayer(use_fused_layer=True), 8).to(dev).eval()
         layer.requires_grad_(False)
         x = torch.randn(16, 300, 768, device=dev, generator=g)
@@ -627,7 +752,7 @@ def main(argv: list[str] | None = None) -> dict:
         attention_bf16_times(ms, out, dev, g)
         bf16_turn_times(ms, out, dev, g, layer, x)
         out["notes"] = gemm_times(ms, dev, g)
-        conv5_times(ms, dev, g)
+        conv5_times(ms, dev, g, out)
         out["mma_sync_tf32_tflops"] = mma_tf32_tflops(dev, args.iters)
         disc_phase_times(out, dev)
         out["device"] = subprocess.run(

@@ -22,7 +22,10 @@ float64 attention at most 1.5x the plain version's; the bf16 modes of K7,
 K8, K9 and K10 within 1e-2 max|plain| (or two bf16 ulps of it) of their
 plain versions, each kernel's error against its float32 kernel on the same
 bf16-valued inputs at most 1.5x the plain version's; and so are K5's and
-K6's bf16 modes (y, dx, dW), bit-equal from one launch to the next, K8's
+K6's bf16 modes (y, dx, dW), bit-equal from one launch to the next, on both
+bodies (the TMA + wgmma body at the period shapes, R = 1-3, every tile width
+and K6 split 2 and 3 ways; the mma.sync body at the odd and offset shapes),
+K8's
 bf16 mode on the wgmma core, and the speaker LSTM's bf16 recurrence kernels
 (forward h, act and c, backward dgates; the float32 recurrence the
 yardstick), bit-equal from one launch to the next, alone and in a bf16
@@ -138,7 +141,7 @@ def test_conv5_lrelu_bf16_kernels(cuda, shape, offset):
     the plain version's); launches counted in the bf16 stats only; a second
     launch of each bit-equal. Channels that are not multiples of 8 take the
     gathered copies, and so does x 2 bytes past a 16-byte boundary
-    (``offset``); the period shapes split K6 four ways."""
+    (``offset``); the period shapes run the TMA + wgmma body."""
     from quickvc_tpu_torch.ops import fused_disc_conv as fdc
 
     n, rows, c_in, c_out = shape
@@ -169,6 +172,119 @@ def test_conv5_lrelu_bf16_kernels(cuda, shape, offset):
     assert torch.equal(ins[2].grad, dym.float().sum(dim=(0, 1)).to(bf))
     assert torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y.detach())
     assert torch.equal(fdc.conv5_dw_kernel(x, dym), ins[1].grad)
+
+
+# shapes of the wgmma body of K5/K6 bf16 beyond the period shapes: R = 1, 2
+# and 3 (a row's shifts cross an item edge on both sides), C_out off the
+# tile width (its dx on the mma.sync body), C_in 64 (K6's last tile half past
+# 5 C_in)
+WGMMA_SHAPES = [(96, 1, 128, 72), (70, 2, 256, 200), (45, 3, 64, 1024)]
+
+
+def _conv5_bf16_inputs(dev, shape, seed):
+    """x, filter, bias and dym (as the backward forms it from y) in bf16,
+    scaled so that y, dx and dW are O(1)."""
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+
+    n, rows, c_in, c_out = shape
+    bf = torch.bfloat16
+    g = _gen(dev, seed)
+    x = torch.randn(n, rows, c_in, device=dev, generator=g).to(bf)
+    k = (torch.randn(5, c_in, c_out, device=dev, generator=g) / (5 * c_in) ** 0.5).to(bf)
+    b = (0.1 * torch.randn(c_out, device=dev, generator=g)).to(bf)
+    dy = (torch.randn(n, rows, c_out, device=dev, generator=g) / (n * rows) ** 0.5).to(bf)
+    y = fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1)
+    dym = (dy * torch.where(y > 0, 1.0, 0.1).to(bf)).contiguous()
+    return x, k, b, dym
+
+
+@pytest.mark.parametrize("shape,offset", [(s, False) for s in PERIOD_SHAPES + WGMMA_SHAPES]
+                         + [((5, 13, 30, 42), False), ((4, 12, 33, 17), False),
+                            ((6, 64, 256, 128), True)])
+def test_conv5_bf16_bodies(cuda, shape, offset):
+    """K5 bf16 (y, dx) and K6 bf16 (dW) through their wrappers, each on the
+    body the host picks by shape: the TMA + wgmma body where C_in is a
+    multiple of 64, C_out of 8 and the tensors 16-byte aligned (every period
+    shape, R = 1, 2, 3), the mma.sync body otherwise (channels off multiples
+    of 8, x 2 bytes past a 16-byte boundary). Each against its plain version
+    by the bf16 gates; the wgmma body's counters move for its launches only,
+    the bf16 counters for every one; a second launch bit-equal."""
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+
+    n, rows, c_in, c_out = shape
+    x, k, b, dym = _conv5_bf16_inputs(cuda, shape, 7 * c_in + rows)
+    if offset:
+        x = _offset_view(x)
+    k_flip = k.flip(0).transpose(1, 2).contiguous()
+    on_wgmma = (fdc.takes_wgmma(c_in, c_out, x, k, b), fdc.takes_wgmma(c_out, c_in, dym, k_flip),
+                fdc.takes_wgmma(c_in, c_out, x, dym))
+    if offset:   # dx reads dym and the flipped filter, both aligned
+        assert on_wgmma == (False, True, False)
+    elif shape in PERIOD_SHAPES + WGMMA_SHAPES:   # dx's C_in is C_out
+        assert on_wgmma == (True, c_out % 64 == 0, True)
+    else:
+        assert on_wgmma == (False, False, False)
+    stats = (fdc.BF16_STATS, fdc.DW_BF16_STATS, fdc.WGMMA_STATS, fdc.DW_WGMMA_STATS)
+    before = [s.launches for s in stats]
+    y = fdc.conv5_lrelu_kernel(x, k, b, 0.1)
+    dx = fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0)
+    dw = fdc.conv5_dw_kernel(x, dym)
+    assert [s.launches - b0 for s, b0 in zip(stats, before)] == [
+        2, 1, on_wgmma[0] + on_wgmma[1], on_wgmma[2]]
+    _bf16_gates(y, fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1),
+                fdc.conv5_lrelu_kernel(x.float(), k.float(), b.float(), 0.1))
+    _bf16_gates(dx, fdc.conv5_lrelu_reference_bf16(dym, k_flip, None, 1.0),
+                fdc.conv5_lrelu_kernel(dym.float(), k_flip.float(), None, 1.0))
+    _bf16_gates(dw, fdc.conv5_dw_reference(x, dym), fdc.conv5_dw_kernel(x.float(), dym.float()))
+    assert torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y)
+    assert torch.equal(fdc.conv5_lrelu_kernel(dym, k_flip, None, 1.0), dx)
+    assert torch.equal(fdc.conv5_dw_kernel(x, dym), dw)
+
+
+@pytest.mark.parametrize("bn", [64, 128, 192, 256])
+@pytest.mark.parametrize("splits", [1, 2, 3])
+def test_conv5_bf16_wgmma_every_tile_and_split(cuda, monkeypatch, bn, splits):
+    """Every compiled tile width of the wgmma body, and K6 split 2 and 3 ways
+    (the plan splits no period shape), at (37, 19, 128, 192): 703 rows,
+    ragged against every tile, K6's reduction 11 k tiles, its last split
+    ragged. Held against the plain versions by the bf16 gates; a second
+    launch bit-equal."""
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+    from quickvc_tpu_torch.ops.fused_transformer import WgmmaPlan
+
+    shape = (37, 19, 128, 192)
+    n, rows, c_in, c_out = shape
+    x, k, b, dym = _conv5_bf16_inputs(cuda, shape, bn + splits)
+    k_tiles = -(-n * rows // 64)
+    per = -(-k_tiles // splits)
+
+    def plan(dw, *dims, **kw):
+        if not dw:
+            return WgmmaPlan(bn, 1, 5 * c_in, 0)
+        return WgmmaPlan(bn, splits, per * 64, splits * 5 * c_in * c_out if splits > 1 else 0)
+
+    monkeypatch.setattr(fdc, "conv5_wgmma_plan", plan)
+    before = (fdc.WGMMA_STATS.launches, fdc.DW_WGMMA_STATS.launches)
+    y = fdc.conv5_lrelu_kernel(x, k, b, 0.1)
+    dw = fdc.conv5_dw_kernel(x, dym)
+    assert (fdc.WGMMA_STATS.launches, fdc.DW_WGMMA_STATS.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    _bf16_gates(y, fdc.conv5_lrelu_reference_bf16(x, k, b, 0.1),
+                fdc.conv5_lrelu_kernel(x.float(), k.float(), b.float(), 0.1))
+    _bf16_gates(dw, fdc.conv5_dw_reference(x, dym), fdc.conv5_dw_kernel(x.float(), dym.float()))
+    assert torch.equal(fdc.conv5_lrelu_kernel(x, k, b, 0.1), y)
+    assert torch.equal(fdc.conv5_dw_kernel(x, dym), dw)
+
+
+def test_conv5_bf16_wgmma_attributes(cuda):
+    """Each compiled wgmma body of K5/K6 bf16 fits one block an SM, spills
+    nothing and reads its dynamic shared memory."""
+    from quickvc_tpu_torch.ops import fused_disc_conv as fdc
+
+    for dw in (False, True):
+        for bn in (64, 128, 192, 256):
+            attr = fdc.conv5_wgmma_attributes(dw, bn)
+            assert attr["blocks_per_sm"] == 1 and attr["local_bytes"] == 0, (dw, bn, attr)
 
 
 @pytest.mark.parametrize("n_fft,hop", [(1280, 320), (2048, 512), (800, 200)])
