@@ -101,14 +101,15 @@
    and at bf16 (the bf16 step relative to the CPU's bf16 error against its
    float32 step; every parameter float32 after it), and the bf16 speaker
    LSTM at full width on its kernels (the three layers' forward in one
-   launch of the stack kernel, the JAX wavefront; one backward launch a
-   layer) against their plain versions on the card: the encoder's
-   d-vectors and gradients, the stack's h, act and c of every layer, the
-   stack timed against cuDNN's 3-layer bf16 ``nn.LSTM`` forward and a
-   layer's forward and backward kernels against cuDNN's; then the stack at
-   three layers of 640 rows (60 clusters), which the card cannot hold at
-   once, must raise RuntimeError and launch nothing; then the bf16 step
-   gate on seeds 1-5.
+   launch of the stack kernel, the JAX wavefront; their backward in one
+   launch of the backward stack kernel, the wavefront reversed) against
+   their plain versions on the card: the encoder's d-vectors and
+   gradients, the stack's h, act and c and the backward's dgates of every
+   layer, the stack timed against cuDNN's 3-layer bf16 ``nn.LSTM``
+   forward and the backward stack against the same three layers one
+   launch each and cuDNN's 3-layer backward; then both stacks at three
+   layers of 640 rows, which the card cannot hold at once, must raise
+   RuntimeError and launch nothing; then the bf16 step gate on seeds 1-5.
 8. Drives offline unit encoding, the CLI ``quickvc_tpu_torch.encode`` with
    ``--batch 16``, at full width (the conversion's random HuBERT-soft) on 32
    seeded synthetic wavs in two 1-s buckets, three times: the default
@@ -267,14 +268,14 @@ DEVICE_FUNCTIONS = ("wave_to_mel_kernel", "wave_to_mel_fft_kernel", "attention_k
                     "linear_wgmma_kernel", "linear_bf16_splitk_kernel",
                     "conv5_bf16_kernel", "splitk_sum_bf16_kernel", "conv5_wgmma_kernel",
                     "mm_wgmma_kernel", "transpose_kernel", "lstm_stack_kernel",
-                    "lstm_backward_kernel")
+                    "lstm_stack_backward_kernel", "extractor_front_wgmma_kernel")
 # the entry functions whose ptxas registers and spills the build step prints
 # (K4's both routes, K1's FFT route, K11's bodies, the attention body of
 # K2/K8/K9/K10 and K2's two bf16 bodies, K5/K6's implicit GEMM and K6's
 # split-K sum, K7, K8's GEMMs and their split-K sum, K3's both bodies, the
-# bf16 modes of K7, K8's GEMMs (the wgmma core) and K5/K6 (both bodies)
-# with K6's bf16 split-K sum, and the LSTM recurrence's two kernels); none
-# may spill
+# bf16 modes of K7 (both bodies), K8's GEMMs (the wgmma core) and K5/K6
+# (both bodies) with K6's bf16 split-K sum, and the LSTM recurrence's two
+# stack kernels); none may spill
 PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_kernel",
                "transpose_kernel", "attention_kernel", "attention_bf16_kernel",
                "attention_wgmma_kernel",
@@ -283,7 +284,8 @@ PTXAS_WATCH = ("wave_to_spec_halo_kernel", "wave_to_mel_fft_kernel", "mm_wgmma_k
                "extractor_front_bf16_kernel", "linear_wgmma_kernel",
                "linear_bf16_splitk_kernel", "polar_istft_kernel", "polar_istft_kernel_rt",
                "conv5_bf16_kernel", "splitk_sum_bf16_kernel", "conv5_wgmma_kernel",
-               "lstm_stack_kernel", "lstm_backward_kernel")
+               "lstm_stack_kernel", "lstm_stack_backward_kernel",
+               "extractor_front_wgmma_kernel")
 REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "wave_to_spec_halo": "redesigned: real FFT",
               "mm_s8": "redesigned: persistent TMA + wgmma",
@@ -299,13 +301,17 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
               "extractor_front": "redesigned: 3xTF32 tensor-core implicit GEMM, conv0 "
                                  "produced on chip",
               "transformer_layer": "redesigned: GEMMs on 3xTF32 tensor cores, planned split-K",
-              "extractor_front_bf16": "ported: conv1 on the bf16 mma.sync GEMM core, h "
-                                      "produced on chip in bf16",
+              "extractor_front_bf16": "redesigned: persistent warp-specialised TMA + wgmma "
+                                      "body at C = 512 (a producer warpgroup makes h beside "
+                                      "the wgmma consumers, conv1's weight multicast to a "
+                                      "2-CTA cluster); the bf16 mma.sync body at other widths",
               "transformer_layer_bf16": "redesigned: GEMMs on the persistent TMA + wgmma bf16 "
                                         "core, K2's bf16 attention body (TMA + wgmma)",
               "lstm_stack_bf16": "new: replaces no TPU kernel (the JAX package's lax.scan); "
                                  "redesigned: every layer in one launch, the JAX wavefront",
-              "lstm_bf16_backward": "new: replaces no TPU kernel (the lax.scan's transpose)",
+              "lstm_stack_bf16_backward": "new: replaces no TPU kernel (the lax.scan's "
+                                          "transpose); redesigned: every layer in one launch, "
+                                          "the reverse wavefront",
               "attention_packed_aligned_bf16": "redesigned: K2's TMA + wgmma bf16 body at "
                                                "D = 128",
               "attention_bf16": "redesigned: K2's TMA + wgmma bf16 body on (B, H, T, D)",
@@ -334,8 +340,8 @@ PARITY_FRAMES, PARITY_CHUNK, PARITY_CONTEXT = 600, 16, 96
 # inputs <= BF16_F32_RATIO times the plain version's
 BF16_GATE, BF16_F32_RATIO = 1e-2, 1.5
 # the bf16 wave session with the `pallas` front and fused layers: launches a tick
-PALLAS_BF16_TICK = {"extractor_front_bf16": 1, "transformer_layer_bf16": 12,
-                    "polar_inverse_stft": 1}
+PALLAS_BF16_TICK = {"extractor_front_bf16": 1, "extractor_front_bf16_wgmma": 1,
+                    "transformer_layer_bf16": 12, "polar_inverse_stft": 1}
 LIVE_SPAN = "quickvc_live_ticks"   # profiled span of a few live-session ticks
 
 
@@ -1136,6 +1142,7 @@ def _check_bf16_modes(dev: torch.device, rng: np.random.Generator) -> list[dict]
     from quickvc_tpu_torch.ops import fused_attention as fa
     from quickvc_tpu_torch.ops import fused_extractor as fe
     from quickvc_tpu_torch.ops import fused_transformer as ft
+    from quickvc_tpu_torch.scripts.kernel_times import k7_bf16_library
 
     bf, results = torch.bfloat16, []
     b, t_len, c = ENCODE_BATCH, 6 * SR + 80, 512
@@ -1147,28 +1154,32 @@ def _check_bf16_modes(dev: torch.device, rng: np.random.Generator) -> list[dict]
     beta = 0.1 * torch.randn(c, device=dev, generator=g)
     w1 = torch.randn(c, c, 3, device=dev, generator=g) / np.sqrt(3 * c)
     front = (wav, w0, gamma, beta, w1)
-    w0b, w1b, gb, bb = (z.to(bf) for z in (w0, w1, gamma, beta))
+    w0b, w1b = w0.to(bf), w1.to(bf)
+    k7_library = k7_bf16_library(*front)   # cuDNN's bf16 chain
 
     def k7():
         return fe.extractor_front_kernel(*front)
 
-    def k7_library():   # cuDNN's bf16 conv0 -> GroupNorm -> GELU -> conv1 -> GELU
-        y = F.gelu(F.group_norm(F.conv1d(wav[:, None], w0b, stride=5), c, gb, bb, 1e-5),
-                   approximate="tanh")
-        return F.gelu(F.conv1d(y, w1b, stride=2), approximate="tanh").transpose(1, 2)
-
+    before = fe.WGMMA_STATS.launches
     ours = k7()
-    gate = bf16_gate(ours, fe.extractor_front_reference(*front), fe.extractor_front_kernel(
-        wav.float(), w0b.float(), gamma, beta, w1b.float()))
+    body = "wgmma" if fe.WGMMA_STATS.launches == before + 1 else "mma_sync"
+    plain, ref32 = fe.extractor_front_reference(*front), fe.extractor_front_kernel(
+        wav.float(), w0b.float(), gamma, beta, w1b.float())
+    gate = bf16_gate(ours, plain, ref32)
     deterministic = bool(torch.equal(k7(), ours))
+    del plain, ref32
     n1, tc = fe.front_rows(t_len), (t_len - 10) // 5 + 1
     conv1_flops, conv0_flops = 2 * b * n1 * c * 3 * c, 2 * b * tc * c * 10
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results.append(dict(
         name="extractor_front_bf16", tpu_id="K7",
-        source="quickvc_tpu_torch/csrc/fused_extractor.cu",
+        source=("quickvc_tpu_torch/csrc/extractor_wgmma.cu" if body == "wgmma"
+                else "quickvc_tpu_torch/csrc/fused_extractor.cu"),
         replaces="quickvc_tpu/ops/fused_extractor.py:187", shape=[[b, t_len], [b, n1, c]],
-        **(gate | {"within_tol": gate["within_tol"] and deterministic}),
-        deterministic=deterministic, **turns(k7, k7_library, iters=10),
+        **(gate | {"within_tol": gate["within_tol"] and deterministic and body == "wgmma"}),
+        deterministic=deterministic, body=body,
+        plan=fe.front_wgmma_plan(b, n1, sms)._asdict(),
+        **turns(k7, k7_library, iters=10),
         plain_ms=cuda_ms(lambda: fe.extractor_front_reference(*front), iters=10),
         # conv1 on bf16 tensor cores, conv0 on the float32 FMA units; bytes:
         # the bf16 wave, weights and output, the float32 affine
@@ -1922,7 +1933,7 @@ def check_training_bf16(tmp: str, f32: dict) -> dict:
     (compact transfer, the units shipped as bf16), BF16_TRAIN_STEPS steps with
     eval after update 1: finite losses, no skipped update, K4 once a step, the
     speaker LSTM's forward kernel once a step (the three layers in one
-    launch) and its backward kernel once a layer a step, K1 (FFT
+    launch) and its backward kernel once a step (the same), K1 (FFT
     route) and K3 twice a held-out item in the float32 eval and nothing else,
     float32 parameters and AdamW moments in the checkpoints; the step
     walls and peak memory printed beside the float32 run's of this call."""
@@ -1944,12 +1955,12 @@ def check_training_bf16(tmp: str, f32: dict) -> dict:
     mel_routes = dict(fused_mel.STATS.routes)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     per_eval = 2 * len(EVAL_SECONDS) * len(range(0, BF16_TRAIN_STEPS, EVAL_INTERVAL))
-    layers = 3   # the speaker LSTM's: one stack launch and a backward launch a layer a step
+    # the speaker LSTM's three layers: one stack launch forward and one backward a step
     expected = {name: 0 for name in launches} | {"wave_to_spec_halo": BF16_TRAIN_STEPS,
                                                  "wave_to_mel": per_eval,
                                                  "polar_inverse_stft": per_eval,
                                                  "lstm_stack_bf16": BF16_TRAIN_STEPS,
-                                                 "lstm_bf16_backward": layers * BF16_TRAIN_STEPS}
+                                                 "lstm_stack_bf16_backward": BF16_TRAIN_STEPS}
     dtypes = set()
     for kind in "GD":
         ckpt = torch.load(os.path.join(root, "smoke", f"{kind}_{BF16_TRAIN_STEPS}.pth"),
@@ -2225,25 +2236,100 @@ def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
     return out
 
 
+def lstm_backward_accuracy(dhs, w_ih, w_hh, act: torch.Tensor, c: torch.Tensor) -> dict:
+    """The backward stack kernel's accuracy on a bf16 LSTM stack's act and c
+    (L, B, T, .), the W_ih of layers 1 .. L-1 and the W_hh of every layer,
+    for each output gradient in ``dhs``: every layer's dgates from the stack
+    (one launch), from the three one-layer launches (``lstm_backward_chain``,
+    the schedule before the stack) and from the plain stack backward on the
+    card, each against the same recurrence in float32 and in float64 on the
+    same bf16-valued inputs (``lstm_stack_backward_reference``); and each
+    layer alone, the stack's dgates against the plain backward on the dh the
+    stack handed that layer, against the same witnesses. Held
+    (``within_ratio``): the stack's max and rms errors at most
+    BF16_F32_RATIO times the plain version's, every layer, draw and witness.
+    Measured beside them: max|stack - plain| and max|three launches -
+    plain| with the max|delta| part of PERF.md section 2's bf16 gate, and on
+    the first draw max|plain on the host - plain on the card|, one plain
+    chain whose float32 sums run in two orders."""
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+    from quickvc_tpu_torch.scripts.kernel_times import lstm_backward_chain
+
+    def err(z: torch.Tensor, ref: torch.Tensor) -> dict:
+        d = z.double() - ref.double()
+        return {"max": float(d.abs().max()), "rms": float(d.square().mean().sqrt())}
+
+    def diff(z: torch.Tensor, ref: torch.Tensor) -> float:
+        return float((z.float() - ref.float()).abs().max())
+
+    def held(errors: dict) -> bool:
+        return all(errors["stack"][k] <= BF16_F32_RATIO * errors["plain"][k]
+                   for k in ("max", "rms"))
+
+    layers, witnesses, draws, ok = len(w_hh), (torch.float32, torch.float64), [], True
+    for i, dh in enumerate(dhs):
+        ours, dh_mid = lr.lstm_stack_backward_kernel(dh, w_ih, w_hh, act, c, return_dh=True)
+        chain = lstm_backward_chain(dh, w_ih, w_hh, act, c)
+        plain = lr.lstm_stack_backward_reference(dh, w_ih, w_hh, act, c)
+        refs = {dt: lr.lstm_stack_backward_reference(dh.to(dt), [w.to(dt) for w in w_ih],
+                                                     [w.to(dt) for w in w_hh], act.to(dt),
+                                                     c.to(dt)) for dt in witnesses}
+        draw = {}
+        for layer in range(layers):
+            peak = float(plain[layer].float().abs().max())
+            dh_l = dh if layer + 1 == layers else dh_mid[layer]
+            alone = lr.lstm_backward_reference(dh_l, w_hh[layer], act[layer], c[layer])
+            row = {"stack_minus_plain": diff(ours[layer], plain[layer]),
+                   "three_launches_minus_plain": diff(chain[layer], plain[layer]),
+                   "gate_max_abs": max(BF16_GATE * peak, 2 * bf16_ulp(peak)),
+                   "alone_minus_plain": diff(ours[layer], alone)}
+            for dt in witnesses:
+                name = str(dt).removeprefix("torch.")
+                stack_err = {"stack": err(ours[layer], refs[dt][layer]),
+                             "three_launches": err(chain[layer], refs[dt][layer]),
+                             "plain": err(plain[layer], refs[dt][layer])}
+                one = lr.lstm_backward_reference(dh_l.to(dt), w_hh[layer].to(dt),
+                                                 act[layer].to(dt), c[layer].to(dt))
+                alone_err = {"stack": err(ours[layer], one), "plain": err(alone, one)}
+                ok = ok and held(stack_err) and held(alone_err)
+                row[f"err_{name}"], row[f"alone_err_{name}"] = stack_err, alone_err
+            draw[f"dgates_l{layer}"] = row
+        if i == 0:
+            host = lr.lstm_stack_backward_reference(dh.cpu(), [w.cpu() for w in w_ih],
+                                                    [w.cpu() for w in w_hh], act.cpu(), c.cpu())
+            draw["host_plain_minus_card_plain"] = [diff(host[layer], plain[layer].cpu())
+                                                   for layer in range(layers)]
+        draws.append(draw)
+        del ours, dh_mid, chain, plain, refs
+    return {"draws": draws, "within_ratio": ok}
+
+
 def check_speaker_lstm_bf16() -> tuple[dict, list[dict]]:
     """The bf16 speaker encoder at full width on a training-shaped mel (32,
     512, 80): forward, then the backward of a seeded scalar of the
     d-vectors, its LSTM on the kernels (one launch of the stack kernel for
-    the three layers, one backward launch a layer) against the plain
-    versions on the card (``ops/lstm_recurrence.py``) by ``bf16_gate``, the
-    float32 ``nn.LSTM`` on the same bf16-valued mel the yardstick, for the
-    d-vectors and every ``enc_spk.lstm`` gradient; two kernel runs
-    bit-equal. Then the stack kernel alone on the encoder's three layers
-    (h, act and c of every layer against the plain stack; one layer alone
-    against the plain layer), timed (CUDA events and device time) from the
-    mel, layer 0's projection included, in turns with cuDNN's 3-layer bf16
-    ``nn.LSTM`` forward, beside the plain stack and the three per-layer
-    launches with their projections; and the backward kernel at a layer's
-    shapes ((32, 512, 4 x 256) gates) against its plain version, timed like
-    for like (a layer's forward and backward kernels against cuDNN's bf16
-    layer forward and backward) with the backward alone beside it: the two
-    ``kernels`` rows, whose ``library_ms`` is cuDNN's device time. Its own
-    seeds, torch's generators restored after it."""
+    the three layers' forward, one launch of the backward stack kernel for
+    their backward) against the plain versions on the card
+    (``ops/lstm_recurrence.py``) by ``bf16_gate``, the float32 ``nn.LSTM``
+    on the same bf16-valued mel the yardstick, for the d-vectors and every
+    ``enc_spk.lstm`` gradient; two kernel runs bit-equal. Then the stack
+    kernel alone on the encoder's three layers (h, act and c of every layer
+    against the plain stack; one layer alone against the plain layer),
+    timed (CUDA events and device time) from the mel, layer 0's projection
+    included, in turns with cuDNN's 3-layer bf16 ``nn.LSTM`` forward,
+    beside the plain stack and the three per-layer launches with their
+    projections; and the backward stack kernel on the stack's act and c
+    (each layer's dgates bit-equal to the one-layer kernel on the dh the
+    stack handed that layer, the top's dh_out, each handed-down dh within a
+    bf16 ulp of the float32 product rounded once, the one-layer kernel
+    within the bf16 gate of the plain backward; two launches bit-equal;
+    each layer against the plain backward on its dh, and the whole stack
+    against the plain stack backward beside the three one-layer launches'
+    against it, reported), timed in turns with the three
+    layers' backward one launch each (the torch product between) and with
+    cuDNN's 3-layer bf16 backward alone, beside the plain stack backward:
+    the two ``kernels`` rows, whose ``library_ms`` is cuDNN's device time.
+    Its own seeds, torch's generators restored after it."""
     with torch.random.fork_rng(devices=[torch.device("cuda")]):
         return _check_speaker_lstm_bf16(np.random.default_rng(SEED + 15))
 
@@ -2254,7 +2340,8 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
     from quickvc_tpu_torch.models.encoders import SpeakerEncoder
     from quickvc_tpu_torch.ops import lstm_recurrence as lr
     from quickvc_tpu_torch.scripts.bf16_step_gate import card_lstm
-    from quickvc_tpu_torch.scripts.kernel_times import cudnn_lstm, cudnn_lstm_layer
+    from quickvc_tpu_torch.scripts.kernel_times import (cudnn_backward, cudnn_lstm,
+                                                        lstm_backward_chain)
     from quickvc_tpu_torch.utils.weights import init_random_
 
     dev, bf = torch.device("cuda"), torch.bfloat16
@@ -2319,18 +2406,45 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
     chain_equal = all(torch.equal(stack[i][layer], chain[layer][i])
                       for i in range(3) for layer in range(layers))
 
+    # the backward stack kernel on the encoder's three layers, the stack's
+    # act and c: each layer bit-equal to the one-layer kernel (the per-layer
+    # kernel the stack replaced, bit for bit) on the dh the stack handed it
+    # (dh_out for the top), each handed-down dh within a bf16 ulp of the
+    # float32 product rounded once, the one-layer kernel held against the
+    # plain backward by the bf16 gate as before, two launches bit-equal; its
+    # accuracy on three draws of dh_out (lstm_backward_accuracy)
     dh = torch.from_numpy(rng.standard_normal((b, t_len, hsz)).astype(np.float32)).to(dev).to(bf)
-    bwd = lr.lstm_backward_kernel(dh, w_hh[0], fwd[1], fwd[2])
-    bwd_plain = lr.lstm_backward_reference(dh, w_hh[0], fwd[1], fwd[2])
-    bwd_32 = lr.lstm_backward_reference(dh.float(), w_hh[0].float(), fwd_32[1], fwd_32[2])
-    bwd_gate = bf16_gate(bwd, bwd_plain, bwd_32)
-    bwd_same = bool(torch.equal(bwd, lr.lstm_backward_kernel(dh, w_hh[0], fwd[1], fwd[2])))
+    bwd, dh_mid = lr.lstm_stack_backward_kernel(dh, w_ih[1:], w_hh, stack[1], stack[2],
+                                                return_dh=True)
+    proj_ok, layers_equal = True, True
+    for layer in range(layers):
+        dh_l = dh if layer + 1 == layers else dh_mid[layer]
+        layers_equal = layers_equal and bool(torch.equal(bwd[layer], lr.lstm_backward_kernel(
+            dh_l, w_hh[layer], stack[1][layer], stack[2][layer])))
+        if layer:   # one rounding of a float32 sum, in another order than torch's
+            want = bwd[layer].float() @ w_ih[layer].float()
+            scale = bwd[layer].float().abs() @ w_ih[layer].float().abs()
+            got = dh_mid[layer - 1].float()
+            ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), want.abs()))) - 7)
+            proj_ok = proj_ok and bool(((got - want).abs() <= ulp + 2.0 ** -16 * scale).all())
+    bwd_checks = {}
+    bwd_checks["dgates_layer_alone"] = bf16_gate(   # one layer: a stack of one
+        lr.lstm_backward_kernel(dh, w_hh[0], fwd[1], fwd[2]),
+        lr.lstm_backward_reference(dh, w_hh[0], fwd[1], fwd[2]),
+        lr.lstm_backward_reference(dh.float(), w_hh[0].float(), fwd_32[1], fwd_32[2]))
+    bwd_same = bool(torch.equal(bwd, lr.lstm_stack_backward_kernel(dh, w_ih[1:], w_hh, stack[1],
+                                                                    stack[2])))
+    del bwd, dh_mid
+    more = np.random.default_rng(SEED + 16)   # two more draws, the phases' draws unchanged
+    dhs = [dh] + [torch.from_numpy(more.standard_normal((b, t_len, hsz)).astype(np.float32))
+                  .to(dev).to(bf) for _ in range(2)]
+    accuracy = lstm_backward_accuracy(dhs, w_ih[1:], w_hh, stack[1], stack[2])
 
-    # cuDNN's bf16 LSTM, three layers and one, on the same weights
+    # cuDNN's bf16 LSTM, three layers, on the same weights: its forward, and
+    # its backward alone (the graph kept, the input and weight gradients)
     mel_in = mel.detach()
     cudnn3 = cudnn_lstm(w_ih, w_hh, bias)
-    x_in = mel.detach().clone().requires_grad_()
-    cudnn = cudnn_lstm_layer(w_ih[0], w_hh[0], bias[0])
+    cudnn3_backward = cudnn_backward(cudnn3, mel_in, dh)
 
     def stack_forward():   # from the mel, as the encoder runs it
         return lr.lstm_stack_kernel(mel_in @ w_ih[0].T + bias[0], w_ih[1:], bias[1:], w_hh)
@@ -2338,12 +2452,11 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
     def cudnn3_forward():
         return cudnn3(mel_in)[0]
 
-    def cudnn_step():
-        torch.autograd.grad(cudnn(x_in)[0], [x_in, *cudnn.parameters()], dh)
+    def stack_backward():
+        return lr.lstm_stack_backward_kernel(dh, w_ih[1:], w_hh, stack[1], stack[2])
 
-    def kernel_step():
-        h, act, c = lr.lstm_forward_kernel(xp, w_hh[0])
-        lr.lstm_backward_kernel(dh, w_hh[0], act, c)
+    def backward_chain():   # the three layers one launch each (the schedule before the stack)
+        return lstm_backward_chain(dh, w_ih[1:], w_hh, stack[1], stack[2])
 
     # in turns: library, kernel, kernel, library
     with torch.no_grad():
@@ -2351,15 +2464,18 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
         chain_ms = cuda_ms(layer_chain, iters=10)
         stack_plain_ms = cuda_ms(lambda: lr.lstm_stack_reference(xp, w_ih[1:], bias[1:], w_hh),
                                  iters=2, warmup=1)
-    step_t = turns(kernel_step, cudnn_step, iters=10)
-    bwd_t = turns(lambda: lr.lstm_backward_kernel(dh, w_hh[0], fwd[1], fwd[2]), cudnn_step,
-                  iters=10)
+        bwd_chain_t = turns(stack_backward, backward_chain, iters=10)
+        bwd_plain_ms = cuda_ms(lambda: lr.lstm_stack_backward_reference(
+            dh, w_ih[1:], w_hh, stack[1], stack[2]), iters=1, warmup=1)
+    bwd_t = turns(stack_backward, cudnn3_backward, iters=10)
     plan = lr.lstm_stack_plan(b, hsz, layers)
+    bplan = lr.lstm_stack_backward_plan(b, hsz, layers)
     n_rows, g4 = b * t_len, 4 * hsz
     product = 2 * n_rows * g4 * hsz  # one step product of a layer over the sequence
     common = dict(source="quickvc_tpu_torch/csrc/lstm_recurrence.cu",
                   replaces="quickvc_tpu/models/encoders.py:89")
     stack_merged = merge_checks(stack_checks)
+    bwd_merged = merge_checks(bwd_checks)
     rows = [
         dict(name="lstm_stack_bf16", tpu_id=None, **common,
              shape=[[b, t_len, g4], [layers, g4, hsz]], layers=layers,
@@ -2376,23 +2492,29 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
              # xp0, the weights and biases in; every layer's h, c and act out (bf16)
              bound_bytes_ms=2 * (n_rows * g4 + (2 * layers - 1) * g4 * hsz + (layers - 1) * g4
                                  + layers * (2 * n_rows * hsz + n_rows * g4)) / HBM_BYTES * 1e3),
-        dict(name="lstm_bf16_backward", tpu_id=None, **common, shape=[[b, t_len, g4], [g4, hsz]],
-             **(bwd_gate | {"within_tol": bwd_gate["within_tol"] and bwd_same}),
-             deterministic=bwd_same, **step_t, serial_steps=2 * t_len,
-             backward_alone_ms=bwd_t["ms"], backward_alone_device_ms=bwd_t["device_ms"],
-             backward_alone_library_ms=bwd_t["library_device_ms"],
-             plain_ms=cuda_ms(lambda: lr.lstm_backward_reference(
-                 dh, w_hh[0], *lr.lstm_forward_reference(xp, w_hh[0])[1:]), iters=2, warmup=1),
-             library_note="like for like: a layer's forward and backward kernels against "
-                          "cuDNN's bf16 LSTM layer forward and backward, device time; the "
-                          "backward kernel alone in backward_alone_*",
-             bound_ops_ms=2 * product / BF16_FLOPS * 1e3,
-             # forward: xp, W_hh in, h, c, act out; backward: dh_out, act, c, W_hh in,
-             # dgates out (bf16)
-             bound_bytes_ms=2 * (2 * n_rows * g4 + g4 * hsz + 2 * n_rows * hsz
-                                 + 2 * n_rows * hsz + 2 * n_rows * g4 + g4 * hsz)
-             / HBM_BYTES * 1e3)]
-    for r, t in zip(rows, (stack_t, step_t)):
+        dict(name="lstm_stack_bf16_backward", tpu_id=None, **common,
+             shape=[[layers, b, t_len, g4], [layers, g4, hsz]], layers=layers,
+             **(bwd_merged | {"within_tol": bwd_merged["within_tol"] and bwd_same and proj_ok
+                              and layers_equal and accuracy["within_ratio"]}),
+             deterministic=bwd_same, projections_within_ulp=proj_ok,
+             layers_equal_one_layer_kernel=layers_equal, accuracy=accuracy,
+             **bwd_t, serial_steps=bplan.serial_steps(t_len),
+             plan={"layers": bplan.layers, "skew": bplan.skew, "clusters": bplan.clusters,
+                   "chunk": bplan.layer.chunk, "units": bplan.layer.units,
+                   "shared_bytes": bplan.shared_bytes(True)},
+             three_layer_chain_ms=bwd_chain_t["library_ms"],
+             three_layer_chain_device_ms=bwd_chain_t["library_device_ms"],
+             chain_turns_ms=bwd_chain_t["ms"], chain_turns_device_ms=bwd_chain_t["device_ms"],
+             plain_ms=bwd_plain_ms,
+             library_note="cuDNN's 3-layer bf16 nn.LSTM backward alone (input and weight "
+                          "gradients, the forward's graph kept), device time; "
+                          "three_layer_chain_*: the three layers one launch each",
+             # W_hh products of every layer, W_ih of the upper ones
+             bound_ops_ms=(2 * layers - 1) * product / BF16_FLOPS * 1e3,
+             # dh_out, the weights, every layer's act and c in; dgates out (bf16)
+             bound_bytes_ms=2 * (n_rows * hsz + (2 * layers - 1) * g4 * hsz
+                                 + layers * (2 * n_rows * g4 + n_rows * hsz)) / HBM_BYTES * 1e3)]
+    for r, t in zip(rows, (stack_t, bwd_t)):
         # the host takes longer to enqueue a cuDNN LSTM call than the card
         # takes to run it (PERF.md section 6): the line holds the kernels
         # against cuDNN's device time, its events time beside it
@@ -2401,46 +2523,59 @@ def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]
     # in a long process (read 0 or half their time)
     out = {"shape": [b, t_len, 80], "hidden": hsz, "gates": gates,
            "deterministic": deterministic, "first_run_seconds": seconds,
-           "launches_forward_backward": launches, "layer_step": step_t,
-           "three_layers_forward_ms": stack_t["ms"], "three_layer_chain_ms": chain_ms}
+           "launches_forward_backward": launches, "backward_checks": bwd_checks,
+           "three_layers_forward_ms": stack_t["ms"], "three_layer_chain_ms": chain_ms,
+           "three_layers_backward": bwd_t, "three_layer_backward_chain": bwd_chain_t}
     print("speaker_lstm_bf16_check " + json.dumps(out))
     bad = [k for k, g in gates.items() if not g["within_tol"]]
     require(not bad, f"the bf16 speaker LSTM's kernels against their plain versions: {bad}")
     require(deterministic, "two bf16 speaker-encoder runs on the kernels bit-equal")
-    require(launches == (1, layers), f"the encoder's LSTM launched {launches}, not one stack "
-                                     f"and {layers} backward launches")
+    require(launches == (1, 1), f"the encoder's LSTM launched {launches}, not one forward "
+                                f"and one backward stack launch")
     return out, rows
 
 
 def check_lstm_stack_residency() -> dict:
-    """The stack kernel at a batch whose clusters the card cannot hold at
-    once (three layers of 640 rows: 60 clusters of 8 CTAs): the wrapper must
-    raise RuntimeError naming the clusters needed and held, and launch
-    nothing; a launch that could wait forever never starts."""
+    """The forward and backward stack kernels at a batch whose clusters the
+    card cannot hold at once (three layers of 640 rows: 60 clusters of 8
+    CTAs forward, 120 backward): each wrapper must raise RuntimeError naming
+    the clusters needed and held, and launch nothing; a launch that could
+    wait forever never starts."""
     from quickvc_tpu_torch.ops import _cuda
     from quickvc_tpu_torch.ops import lstm_recurrence as lr
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     b, t_len, hsz, layers = 32 * 20, 64, 256, 3
     plan = lr.lstm_stack_plan(b, hsz, layers)
+    bplan = lr.lstm_stack_backward_plan(b, hsz, layers)
     held = _cuda.library().qvc_lstm_stack_max_clusters(b, t_len, hsz, plan.layer.chunk, layers,
                                                        plan.skew)
+    held_b = _cuda.library().qvc_lstm_stack_backward_max_clusters(b, t_len, hsz,
+                                                                  bplan.layer.chunk, layers)
     xp = torch.zeros(b, t_len, 4 * hsz, device=dev, dtype=bf)
     w = torch.zeros(4 * hsz, hsz, device=dev, dtype=bf)
-    before = lr.STATS.launches
-    message = None
-    try:
-        lr.lstm_stack_kernel(xp, [w] * (layers - 1), [w[:, 0]] * (layers - 1), [w] * layers)
-    except RuntimeError as e:
-        message = str(e)
+    act = torch.zeros(layers, b, t_len, 4 * hsz, device=dev, dtype=bf)
+    c = torch.zeros(layers, b, t_len, hsz, device=dev, dtype=bf)
+    before = (lr.STATS.launches, lr.BACKWARD_STATS.launches)
+    messages = []
+    for launch in (lambda: lr.lstm_stack_kernel(xp, [w] * (layers - 1),
+                                                [w[:, 0]] * (layers - 1), [w] * layers),
+                   lambda: lr.lstm_stack_backward_kernel(c[0], [w] * (layers - 1), [w] * layers,
+                                                         act, c)):
+        try:
+            launch()
+            messages.append(None)
+        except RuntimeError as e:
+            messages.append(str(e))
     torch.cuda.synchronize()
-    out = {"batch": b, "layers": layers, "clusters_needed": plan.clusters,
-           "clusters_held": held, "error": message,
-           "launched": lr.STATS.launches - before}
+    out = {"batch": b, "layers": layers, "clusters_needed": [plan.clusters, bplan.clusters],
+           "clusters_held": [held, held_b], "errors": messages,
+           "launched": [lr.STATS.launches - before[0], lr.BACKWARD_STATS.launches - before[1]]}
     print("lstm_stack_residency " + json.dumps(out))
-    require(message is not None and str(plan.clusters) in message and str(held) in message
-            and held < plan.clusters and out["launched"] == 0,
-            f"the stack kernel at {plan.clusters} clusters: {out}")
+    require(all(m is not None and str(n) in m and str(h) in m and h < n
+                for m, n, h in zip(messages, out["clusters_needed"], out["clusters_held"]))
+            and out["launched"] == [0, 0],
+            f"the stack kernels at {out['clusters_needed']} clusters: {out}")
     return out
 
 
@@ -3041,7 +3176,7 @@ def main() -> int:
                "mm_s8": ("int8_probe", probe["launches"]),
                "mm_bf16": ("int8_probe", probe["launches"]),
                "lstm_stack_bf16": ("train_bf16", train16["launches"]),
-               "lstm_bf16_backward": ("train_bf16", train16["launches"])}
+               "lstm_stack_bf16_backward": ("train_bf16", train16["launches"])}
     for k in kernels:
         k["path"], counts = path_of[k["name"]]
         k["launches"] = counts[k["name"]]
@@ -3063,7 +3198,10 @@ def main() -> int:
                       "err_f32_kernel", "err_f32_plain", "serial_steps", "library_note",
                       "library_events_ms", "plan", "plans", "backward_alone_ms",
                       "backward_alone_device_ms", "backward_alone_library_ms", "layers",
-                      "three_layer_chain_ms", "equal_to_layer_chain", "bodies"):
+                      "three_layer_chain_ms", "equal_to_layer_chain", "bodies", "body",
+                      "three_layer_chain_device_ms", "chain_turns_ms",
+                      "chain_turns_device_ms", "projections_within_ulp",
+                      "layers_equal_one_layer_kernel", "accuracy"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

@@ -7,7 +7,7 @@
 // own precision, and its gradients leave the JAX semantics (fault F2 of
 // ROADMAP.md). So the port runs the JAX recurrence in these two kernels
 // (ops/lstm_recurrence.py): the forward of every layer in one launch, the
-// backward one launch a layer.
+// backward of every layer in another.
 //
 //   forward   xp_0 (B, T, 4H) = x W_ih,0^T + b_0, every step (the caller's
 //             matmul); for layer l >= 1, per step from layer l-1's new h:
@@ -24,15 +24,19 @@
 //             T, H) (saving the activations costs one 4H-wide store a step,
 //             recomputing them the step's product again, so the forward
 //             saves them)
-//   backward  dh_out (B, T, H), the gradient of one layer's h; in reverse time:
-//             dh = bf16(dh_out_t + bf16(dgates_{t+1} W_hh))   (no second term at T-1)
+//   backward  dh_out (B, T, H), the gradient of the top layer's h; a lower
+//             layer's is the projection of the layer above's gate gradients,
+//                       dh_l-1,t = bf16(dgates_l,t W_ih,l)    (float32 sum, one rounding,
+//             as autograd's bf16 mm of the per-layer chain rounds); per layer,
+//             in reverse time:
+//             dh = bf16(dh_t + bf16(dgates_{t+1} W_hh))   (no second term at T-1)
 //             the cell's gradient rounded as torch's autograd of the bf16 ops
 //             rounds on the CPU (each product, each gate's sigmoid/tanh
 //             gradient computed in float32 from bf16 operands and rounded
 //             once, the carried dc = bf16(its two terms))
-//             out: dgates (B, T, 4H), xp's gradient. W_hh's, sum_t dgates_t^T
-//             h_{t-1}, and the projections' gradients are large products the
-//             wrapper leaves to torch.
+//             out: dgates (L, B, T, 4H), each layer's xp gradient. W_hh's, sum_t
+//             dgates_t^T h_{t-1}, and W_ih's and the biases' gradients are large
+//             products the wrapper leaves to torch.
 //
 // What bounds them on this card: the serial chain, not operations or
 // bytes. Each step depends on the last through h (forward) or dgates
@@ -69,10 +73,10 @@
 //   through distributed shared memory (mapa + st.shared::cluster, 16-byte
 //   stores where U % 8 == 0), into every CTA's other h buffer; one cluster
 //   barrier ends the step.
-// - Hand-over between layers goes through global memory: after the
-//   cluster barrier that ends step t, CTA 0's first thread of cluster (l,
-//   k) stores t + 1 to the counter of (l, k) with st.release.gpu (the
-//   barrier orders every CTA's h stores before it). Before it loads h_l,t
+// - Hand-over between layers goes through global memory (the forward's h,
+//   the backward's dh): after the cluster barrier that ends step t, CTA 0's
+//   first thread of cluster (l, k) stores t + 1 to the counter of (l, k) with
+//   st.release.gpu (the barrier orders every CTA's h stores before it). Before it loads h_l,t
 //   of the layer below, cluster (l + 1, k)'s CTAs wait for that counter
 //   with ld.acquire.gpu, one thread each, then a CTA barrier. A producer
 //   never waits on a consumer (its sequence is whole), so the launch cannot
@@ -80,23 +84,39 @@
 //   cudaLaunchKernelEx and the cluster dimension only after
 //   cudaOccupancyMaxActiveClusters says the card holds them all, and a wait
 //   of a second (%globaltimer) traps with a message instead of hanging.
-// - Backward (lstm_backward_kernel): CTA j holds W_hh's columns of its
-//   units, (4H x U), in registers as B fragments; the 4H-long reduction of
-//   dgates_{t+1} W_hh is split over the 8 warps (k-steps w, w + 8, ...) and
-//   their float32 partials summed in warp order in shared memory. A thread
-//   a (row, unit) then runs the cell's gradient, dc carried in its
-//   registers, writes the unit's four gate gradients to dgates and into
-//   every CTA's dgates buffer by DSMEM (the buffer's columns grouped by
+// - Backward (lstm_stack_backward_kernel): one launch runs L x ceil(B /
+//   chunk) clusters, cluster (l, k) layer l of chunk k, in reverse time, the
+//   forward's wavefront run backwards: layer l - 1 runs behind layer l,
+//   which hands it dh_l-1 through global memory. CTA j holds W_hh's columns
+//   of its units, (4H x U), in registers as B fragments; the 4H-long
+//   reduction of dgates_{t+1} W_hh is split over the 8 warps (k-steps w, w +
+//   8, ...) and their float32 partials summed in warp order in shared
+//   memory. A thread a (row, unit) then runs the cell's gradient, dc carried
+//   in its registers, writes the unit's four gate gradients to dgates and
+//   into every CTA's dgates buffer by DSMEM (the buffer's columns grouped by
 //   CTA, so a CTA's slice is 8U contiguous bytes a row), and one cluster
-//   barrier ends the step. act, c and dh_out arrive by cp.async
+//   barrier ends the step. act, c and dh arrive by cp.async
 //   BACKWARD_STAGES - 1 steps ahead.
+//   A layer l >= 1 also projects: after the exchange every CTA holds the
+//   whole chunk's dgates_t, so CTA j computes the layer below's dh_l-1,t of
+//   its units, dgates_t (rows x 4H) times W_ih,l's columns of its units
+//   (4H x U), in the next step's k loop, from the same A fragments as the
+//   recurrence's product; its partials are summed like the recurrence's,
+//   rounded once and stored to dh_mid, and after the cluster barrier CTA 0
+//   releases the step count to the layer below (one more iteration
+//   projects dgates_0). W_ih's slice lies in shared memory (ldmatrix B
+//   fragments), not in registers beside W_hh's 64: so a cluster takes 16
+//   rows, not 32, and its gate buffers leave room for it (Backward:
+//   190,464 bytes at H = 256); a layer of the training batch (B 32) is two
+//   clusters. The lower layer loads dh two steps ahead, so it waits for a
+//   count four steps ahead of its own: T + 4 (L - 1) serial steps.
 // - Both double-buffer the exchanged state, so a CTA that runs ahead never
 //   writes a buffer another is still reading: it crosses the barrier that
 //   ends the step only after every CTA has read that buffer.
 //
-// Both kernels take any T, H a multiple of 16 up to 256 and a chunk of up
-// to 32 rows; the forward 1 to MAX_LAYERS layers and a skew of 2 to
-// MAX_SKEW; the C entries refuse anything else.
+// Both kernels take any T, H a multiple of 16 up to 256 and 1 to MAX_LAYERS
+// layers; the forward a chunk of up to 32 rows and a skew of 2 to MAX_SKEW,
+// the backward a chunk of up to 16 rows; the C entries refuse anything else.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +137,7 @@ using bf16core::round_bf16;
 constexpr int CLUSTER = 8;
 constexpr int THREADS = 256, WARPS = THREADS / 32;
 constexpr int MAX_H = 256, MAX_CHUNK = 32, MAX_MT = MAX_CHUNK / 16;
+constexpr int MAX_BACKWARD_CHUNK = 16;     // the backward's rows a cluster (one 16-row m tile)
 constexpr int FORWARD_STAGES = 4, BACKWARD_STAGES = 3;
 constexpr int MAX_LAYERS = 4, MAX_SKEW = 3;  // the forward's layers a launch; the skew's range
 constexpr unsigned long long WAIT_LIMIT_NS = 1000000000ull;  // a hand-over wait of 1 s traps
@@ -126,9 +147,10 @@ constexpr int B_NT = MAX_H / CLUSTER / 8;  // backward: 8-unit tiles a CTA (U <=
 constexpr int B_KSW = 4 * MAX_H / 16 / WARPS;  // backward: k-steps a warp (of 4H / 16 <= 64)
 constexpr unsigned FULL = 0xffffffffu;
 
-// Shared-memory layouts, in bf16 values unless named; at the largest chunk
-// and H (32, 256) the backward's is 216,064 bytes of the H100's 232,448,
-// the forward's of a deep stack (skew 2) 157,440.
+// Shared-memory layouts, in bf16 values unless named; at H = 256 the
+// forward's of a deep stack (chunk 32, skew 2) is 157,440 bytes of the
+// H100's 232,448, the backward's (chunk 16) 190,464 for a layer >= 1 (W_ih's
+// slice, 66,048, included) and 124,416 for layer 0.
 struct Stack {
   int rows, ldh, u, skew;  // rows: the chunk padded to 16; ldh: an h row, padded
   bool deep;               // more than one layer: a W_ih slice and the ring of h_l-1
@@ -149,14 +171,16 @@ struct Stack {
 
 struct Backward {
   int rows, ldg, u, up;  // ldg: a dgates row, padded; up: U padded to 8
-  __device__ __host__ Backward(int chunk, int H)
+  bool project;          // a layer >= 1: W_ih's slice and the projection's partials
+  __device__ __host__ Backward(int chunk, int H, bool project_)
       : rows((chunk + 15) / 16 * 16), ldg(4 * H + 8), u(H / CLUSTER),
-        up(H / CLUSTER < 8 ? 8 : H / CLUSTER) {}
-  __device__ __host__ int gbuf() const { return rows * ldg; }   // one dgates buffer
-  __device__ __host__ int stage() const { return rows * 7 * u; }  // act 4U, c_t, c_{t-1}, dh_out
+        up(H / CLUSTER < 8 ? 8 : H / CLUSTER), project(project_) {}
+  __device__ __host__ int gbuf() const { return rows * ldg; }      // one dgates buffer
+  __device__ __host__ int red() const { return WARPS * rows * up; }  // one set of partials (float)
+  __device__ __host__ int stage() const { return rows * 7 * u; }   // act 4U, c_t, c_{t-1}, dh
   __device__ __host__ int bytes() const {
-    return 2 * 2 * gbuf() + 4 * WARPS * rows * up + 2 * rows * 4 * u +
-           2 * BACKWARD_STAGES * stage();
+    return 2 * 2 * gbuf() + 4 * (project ? 2 : 1) * red() + 2 * rows * 4 * u +
+           2 * BACKWARD_STAGES * stage() + (project ? 2 * up * ldg : 0);
   }
 };
 
@@ -202,15 +226,16 @@ __device__ __forceinline__ unsigned long long global_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
   return t;
 }
-// until *cnt >= need (steps of the layer below published); a second of
-// waiting is a broken schedule, not a slow one: trap, so the launch fails
-__device__ __noinline__ void wait_count(const unsigned* cnt, unsigned need, int layer, int chunk) {
+// until *cnt >= need (steps of the layer feeding `layer` published); a
+// second of waiting is a broken schedule, not a slow one: trap, so the
+// launch fails
+__device__ __noinline__ void wait_count(const unsigned* cnt, unsigned need, const char* kernel,
+                                        int layer, int chunk) {
   if (ld_acquire(cnt) >= need) return;
   const unsigned long long t0 = global_ns();
   while (ld_acquire(cnt) < need) {
     if (global_ns() - t0 > WAIT_LIMIT_NS) {
-      printf("lstm_stack_kernel: layer %d, chunk %d waited 1 s for step %u of layer %d\n", layer,
-             chunk, need - 1, layer - 1);
+      printf("%s: layer %d, chunk %d waited 1 s for count %u\n", kernel, layer, chunk, need);
       __trap();
     }
   }
@@ -373,7 +398,7 @@ __device__ __forceinline__ void stack_layer(
   for (int s = 0; s < ahead; ++s) {
     if (s < T) {
       if constexpr (DEEP) {
-        if (threadIdx.x == 0) wait_count(cnt_below, s + 1, layer, kc);
+        if (threadIdx.x == 0) wait_count(cnt_below, s + 1, "lstm_stack_kernel", layer, kc);
         __syncthreads();
       }
       load_in(s);
@@ -398,7 +423,8 @@ __device__ __forceinline__ void stack_layer(
 
   for (int s = 0; s < T; ++s) {
     const int next = s + ahead;
-    if (DEEP && next < T && threadIdx.x == 0) wait_count(cnt_below, next + 1, layer, kc);
+    if (DEEP && next < T && threadIdx.x == 0)
+      wait_count(cnt_below, next + 1, "lstm_stack_kernel", layer, kc);
     if constexpr (DEEP)
       cp_async_wait_upto(ahead - 1);  // step s's input (and W_ih) has landed for this thread
     else
@@ -525,188 +551,281 @@ lstm_stack_kernel(const bf16_t* __restrict__ xp0, const bf16_t* __restrict__ w_i
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward, every layer in one launch
 
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
-lstm_backward_kernel(const bf16_t* __restrict__ dh_out, const bf16_t* __restrict__ w_hh,
-                     const bf16_t* __restrict__ act, const bf16_t* __restrict__ c_seq,
-                     bf16_t* __restrict__ dgates, int B, int T, int H, int chunk) {
+// One cluster's layer of the backward stack, in reverse time. PROJECT (a
+// layer l >= 1) also computes the layer below's output gradient from the
+// dgates every CTA holds after the exchange; the top layer reads dh_out,
+// a lower one the projection of the layer above (dh_mid), once published.
+template <bool PROJECT>
+__device__ __forceinline__ void backward_layer(
+    const bf16_t* __restrict__ dh_out, const bf16_t* __restrict__ w_ih,
+    const bf16_t* __restrict__ w_hh, const bf16_t* __restrict__ act,
+    const bf16_t* __restrict__ c_seq, bf16_t* __restrict__ dgates, bf16_t* __restrict__ dh_mid,
+    unsigned* __restrict__ counters, int B, int T, int H, int chunk, int layers, int layer,
+    int kc, int chunks) {
   extern __shared__ __align__(16) unsigned char lstm_smem[];
-  const Backward L(chunk, H);
+  const Backward L(chunk, H, PROJECT);
   const int U = L.u, G4 = 4 * H;
   const int rank = (int)cluster_rank();
-  const int b0 = (blockIdx.x / CLUSTER) * chunk;
+  const int b0 = kc * chunk;
   const int rows = min(chunk, B - b0);
   const int u0 = rank * U;
-  const int mtiles = (rows + 15) / 16;
   const int NT = L.up / 8, KS = G4 / 16;
-  bf16_t* gbuf = reinterpret_cast<bf16_t*>(lstm_smem);                 // [2][rows][ldg]
-  float* red = reinterpret_cast<float*>(gbuf + 2 * L.gbuf());          // [WARPS][rows][up]
-  bf16_t* stage_g = reinterpret_cast<bf16_t*>(red + WARPS * L.rows * L.up);  // [rows][4U]
-  bf16_t* ring = stage_g + L.rows * 4 * U;                             // [STAGES][rows][7U]
+  const bool top = layer + 1 == layers;
+  bf16_t* gbuf = reinterpret_cast<bf16_t*>(lstm_smem);                  // [2][rows][ldg]
+  float* red = reinterpret_cast<float*>(gbuf + 2 * L.gbuf());           // [WARPS][rows][up]
+  float* red_x = red + L.red();                                         // PROJECT: the same
+  bf16_t* stage_g = reinterpret_cast<bf16_t*>(red + (PROJECT ? 2 : 1) * L.red());  // [rows][4U]
+  bf16_t* ring = stage_g + L.rows * 4 * U;                              // [STAGES][rows][7U]
+  bf16_t* wih_s = ring + BACKWARD_STAGES * L.stage();                   // PROJECT: [up][ldg]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const long long lay = (long long)B * T * H;  // one layer of h, c or dh
+  const bf16_t* act_l = act + layer * 4 * lay;
+  const bf16_t* c_l = c_seq + layer * lay;
+  bf16_t* dgates_l = dgates + layer * 4 * lay;
+  // the output gradient this layer reads, and who publishes it
+  const bf16_t* dh_in = top ? dh_out : dh_mid + layer * lay;
+  const unsigned* cnt_in = top ? nullptr : counters + layer * chunks + kc;
+  bf16_t* dh_below = PROJECT ? dh_mid + (layer - 1) * lay : nullptr;
+  unsigned* cnt_out = PROJECT ? counters + (layer - 1) * chunks + kc : nullptr;
 
   // W_hh's columns of this CTA's units as B fragments over the gates buffer's
   // columns k' = 4U jj + 4 u' + q (CTA jj's unit u', gate q: row q H + jj U + u')
-  auto w_at = [&](int k, int n) -> bf16_t {
-    const int jj = k / (4 * U), rest = k % (4 * U);
-    const int row = (rest % 4) * H + jj * U + rest / 4;
-    return n < U ? w_hh[(long long)row * H + u0 + n] : (bf16_t)0;
-  };
+  const bf16_t* whh_l = w_hh + (long long)layer * G4 * H;
+  auto w_row = [&](int k) { return (k % (4 * U) % 4) * H + k / (4 * U) * U + k % (4 * U) / 4; };
   unsigned wf[B_KSW][B_NT][2];
 #pragma unroll
   for (int j = 0; j < B_KSW; ++j) {
     const int ks = warp + WARPS * j;
 #pragma unroll
     for (int nt = 0; nt < B_NT; ++nt) {
-      const bool ok = ks < KS && nt < NT;
       const int k = 16 * ks + 2 * t4, n = 8 * nt + g;
-      wf[j][nt][0] = ok ? pack(w_at(k, n), w_at(k + 1, n)) : 0u;
-      wf[j][nt][1] = ok ? pack(w_at(k + 8, n), w_at(k + 9, n)) : 0u;
+      const bool ok = ks < KS && nt < NT && n < U;
+      auto w_at = [&](int kk) { return ok ? whh_l[(long long)w_row(kk) * H + u0 + n] : (bf16_t)0; };
+      wf[j][nt][0] = pack(w_at(k), w_at(k + 1));
+      wf[j][nt][1] = pack(w_at(k + 8), w_at(k + 9));
+    }
+  }
+  // a layer >= 1: W_ih,l's columns of this CTA's units in shared memory,
+  // unit-major over the same k' (row n, zeros past U), for ldmatrix B fragments
+  if constexpr (PROJECT) {
+    const bf16_t* wih_l = w_ih + (long long)(layer - 1) * G4 * H;
+    for (int i = threadIdx.x; i < G4 * L.up; i += THREADS) {
+      const int k = i / L.up, n = i % L.up;
+      wih_s[n * L.ldg + k] = n < U ? wih_l[(long long)w_row(k) * H + u0 + n] : (bf16_t)0;
     }
   }
   for (int i = threadIdx.x; i < 2 * L.gbuf(); i += THREADS) gbuf[i] = 0;
 
   // step s's saved state, a row of 7U values: act's four gates, c_t,
-  // c_{t-1} (zeros at s = 0), dh_out_t
+  // c_{t-1} (zeros at s = 0), dh_t; a lower layer's dh_t once the layer
+  // above has published it (thread 0 waits; a CTA barrier before the loads)
   const long long row_g4 = (long long)T * G4, row_h = (long long)T * H;
   auto load = [&](int s) {
     bf16_t* st = ring + (s % BACKWARD_STAGES) * L.stage();
     const long long first = (long long)b0 * T + s;
-    copy_runs(st, 7 * U, act + first * G4 + u0, row_g4, H, rows, 4, U, true);
-    copy_runs(st + 4 * U, 7 * U, c_seq + first * H + u0, row_h, 0, rows, 1, U, true);
-    copy_runs(st + 5 * U, 7 * U, c_seq + (s > 0 ? first - 1 : first) * H + u0, row_h, 0, rows,
-              1, U, s > 0);
-    copy_runs(st + 6 * U, 7 * U, dh_out + first * H + u0, row_h, 0, rows, 1, U, true);
+    copy_runs(st, 7 * U, act_l + first * G4 + u0, row_g4, H, rows, 4, U, true);
+    copy_runs(st + 4 * U, 7 * U, c_l + first * H + u0, row_h, 0, rows, 1, U, true);
+    copy_runs(st + 5 * U, 7 * U, c_l + (s > 0 ? first - 1 : first) * H + u0, row_h, 0, rows, 1,
+              U, s > 0);
+    copy_runs(st + 6 * U, 7 * U, dh_in + first * H + u0, row_h, 0, rows, 1, U, true);
+  };
+  // steps T-1 .. s of dh_in published: the layer above's count T - s
+  auto wait_for = [&](int s) {
+    if (!top && threadIdx.x == 0)
+      wait_count(cnt_in, T - s, "lstm_stack_backward_kernel", layer, kc);
   };
 #pragma unroll
   for (int i = 0; i < BACKWARD_STAGES - 1; ++i) {
-    if (T - 1 - i >= 0) load(T - 1 - i);
+    if (T - 1 - i >= 0) {
+      wait_for(T - 1 - i);
+      if (!top) __syncthreads();
+      load(T - 1 - i);
+    }
     cp_async_commit();
   }
-  cluster_sync();  // every CTA's gate buffers zeroed before any is written remotely
+  cluster_sync();  // every CTA's gate buffers zeroed, W_ih staged, before remote writes
 
-  constexpr int CELLS = MAX_CHUNK * (MAX_H / CLUSTER) / THREADS;  // a thread's (row, unit)s
+  constexpr int CELLS = MAX_BACKWARD_CHUNK * (MAX_H / CLUSTER) / THREADS;  // (row, unit)s a thread
   float dc_next[CELLS];
 #pragma unroll
   for (int k = 0; k < CELLS; ++k) dc_next[k] = 0.0f;
+  // ldmatrix row addresses of this lane into W_ih's slice: the 8-unit tiles
+  // 2p and 2p + 1 (the last where NT is odd), k half (lane / 8) % 2
+  unsigned x_lane[(B_NT + 1) / 2];
+#pragma unroll
+  for (int p = 0; p < (B_NT + 1) / 2; ++p) {
+    const int tile = min(2 * p + ((lane >> 4) & 1), NT - 1);
+    x_lane[p] = smem_addr(wih_s) + 2u * ((8 * tile + (lane & 7)) * L.ldg + 8 * ((lane >> 3) & 1));
+  }
 
-  for (int it = 0; it < T; ++it) {
-    const int s = T - 1 - it;
-    cp_async_wait<BACKWARD_STAGES - 2>();
-    __syncthreads();  // step s's state has landed for every thread
-    if (s - (BACKWARD_STAGES - 1) >= 0) load(s - (BACKWARD_STAGES - 1));
-    cp_async_commit();
+  // a projecting layer runs one more iteration: the projection of dgates_0
+  const int iters = T + (PROJECT ? 1 : 0);
+  for (int it = 0; it < iters; ++it) {
+    const int s = T - 1 - it;  // -1 in the projection's last iteration
+    if (s >= 0) {
+      const int next = s - (BACKWARD_STAGES - 1);
+      if (next >= 0) wait_for(next);
+      cp_async_wait<BACKWARD_STAGES - 2>();
+      __syncthreads();  // step s's state has landed for every thread; the count's acquire
+      if (next >= 0) load(next);
+      cp_async_commit();
+    }
 
     if (it > 0) {
-      // this warp's partial of dgates_{s+1} W_hh over its k-steps
+      // this warp's partials over its k-steps of dgates_{s+1} W_hh (the
+      // recurrence) and, for a layer >= 1, of dgates_{s+1} W_ih (the layer
+      // below's dh_{s+1}); one A fragment feeds both
       const bf16_t* gcur = gbuf + ((it - 1) & 1) * L.gbuf();
       const unsigned a_lane = smem_addr(gcur) + 2u * ((lane & 15) * L.ldg + 8 * (lane >> 4));
-      float acc[MAX_MT][B_NT][4];
+      float acc[B_NT][4], accx[B_NT][4];
 #pragma unroll
-      for (int mt = 0; mt < MAX_MT; ++mt)
+      for (int nt = 0; nt < B_NT; ++nt)
 #pragma unroll
-        for (int nt = 0; nt < B_NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) acc[nt][e] = accx[nt][e] = 0.0f;
 #pragma unroll
       for (int j = 0; j < B_KSW; ++j) {
         const int ks = warp + WARPS * j;
         if (ks >= KS) break;
-#pragma unroll
-        for (int mt = 0; mt < MAX_MT; ++mt) {
-          if (mt >= mtiles) break;
-          unsigned af[4];
-          ldmatrix_x4(af, a_lane + 2u * (16 * mt * L.ldg + 16 * ks));
+        unsigned af[4];
+        ldmatrix_x4(af, a_lane + 2u * 16 * ks);
+        if (s >= 0) {
 #pragma unroll
           for (int nt = 0; nt < B_NT; ++nt)
-            if (nt < NT) mma_bf16(acc[mt][nt], af, wf[j][nt][0], wf[j][nt][1]);
+            if (nt < NT) mma_bf16(acc[nt], af, wf[j][nt][0], wf[j][nt][1]);
+        }
+        if constexpr (PROJECT) {
+#pragma unroll
+          for (int p = 0; p < (B_NT + 1) / 2; ++p) {
+            if (2 * p >= NT) break;
+            unsigned bx[4];
+            ldmatrix_x4(bx, x_lane[p] + 2u * 16 * ks);
+            mma_bf16(accx[2 * p], af, bx[0], bx[1]);
+            if (2 * p + 1 < NT) mma_bf16(accx[2 * p + 1], af, bx[2], bx[3]);
+          }
         }
       }
       float* mine = red + warp * L.rows * L.up;
+      float* mine_x = red_x + warp * L.rows * L.up;
 #pragma unroll
-      for (int mt = 0; mt < MAX_MT; ++mt) {
-        if (mt >= mtiles) break;
+      for (int nt = 0; nt < B_NT; ++nt) {
+        if (nt >= NT) break;
 #pragma unroll
-        for (int nt = 0; nt < B_NT; ++nt) {
-          if (nt >= NT) break;
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            *reinterpret_cast<float2*>(mine + (16 * mt + g + 8 * hh) * L.up + 8 * nt + 2 * t4) =
-                make_float2(acc[mt][nt][2 * hh], acc[mt][nt][2 * hh + 1]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int at = (g + 8 * hh) * L.up + 8 * nt + 2 * t4;
+          if (s >= 0)
+            *reinterpret_cast<float2*>(mine + at) =
+                make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+          if (PROJECT)
+            *reinterpret_cast<float2*>(mine_x + at) =
+                make_float2(accx[nt][2 * hh], accx[nt][2 * hh + 1]);
         }
       }
       __syncthreads();
     }
 
-    const bf16_t* st = ring + (s % BACKWARD_STAGES) * L.stage();
+    if (s >= 0) {
+      const bf16_t* st = ring + (s % BACKWARD_STAGES) * L.stage();
 #pragma unroll
-    for (int k = 0; k < CELLS; ++k) {
-      const int cell = threadIdx.x + THREADS * k;
-      const int row = cell / U, up = cell % U;
-      if (row >= rows) break;
-      const bf16_t* sr = st + row * 7 * U + up;
-      const float si = ld_bf16(sr), sf = ld_bf16(sr + U), tg = ld_bf16(sr + 2 * U);
-      const float so = ld_bf16(sr + 3 * U), ct = ld_bf16(sr + 4 * U);
-      const float c_prev = ld_bf16(sr + 5 * U);
-      float dh = ld_bf16(sr + 6 * U);
-      if (it > 0) {
-        float sum = 0.0f;
+      for (int k = 0; k < CELLS; ++k) {
+        const int cell = threadIdx.x + THREADS * k;
+        const int row = cell / U, up = cell % U;
+        if (row >= rows) break;
+        const bf16_t* sr = st + row * 7 * U + up;
+        const float si = ld_bf16(sr), sf = ld_bf16(sr + U), tg = ld_bf16(sr + 2 * U);
+        const float so = ld_bf16(sr + 3 * U), ct = ld_bf16(sr + 4 * U);
+        const float c_prev = ld_bf16(sr + 5 * U);
+        float dh = ld_bf16(sr + 6 * U);
+        if (it > 0) {
+          float sum = 0.0f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) sum += red[(w * L.rows + row) * L.up + up];
-        dh = round_bf16(dh + round_bf16(sum));
-      }
-      const float tc = round_bf16(tanhf(ct));
-      const float d_so = round_bf16(dh * tc), d_tc = round_bf16(dh * so);
-      float dc = round_bf16(d_tc * (1.0f - tc * tc));
-      if (it > 0) dc = round_bf16(dc + dc_next[k]);
-      const float d_sf = round_bf16(dc * c_prev);
-      dc_next[k] = round_bf16(dc * sf);
-      const float d_si = round_bf16(dc * tg), d_tg = round_bf16(dc * si);
-      const bf16_t dg[4] = {to_bf16(d_si * (1.0f - si) * si), to_bf16(d_sf * (1.0f - sf) * sf),
-                            to_bf16(d_tg * (1.0f - tg * tg)), to_bf16(d_so * (1.0f - so) * so)};
-      bf16_t* out = dgates + ((long long)(b0 + row) * T + s) * G4 + u0 + up;
+          for (int w = 0; w < WARPS; ++w) sum += red[(w * L.rows + row) * L.up + up];
+          dh = round_bf16(dh + round_bf16(sum));
+        }
+        const float tc = round_bf16(tanhf(ct));
+        const float d_so = round_bf16(dh * tc), d_tc = round_bf16(dh * so);
+        float dc = round_bf16(d_tc * (1.0f - tc * tc));
+        if (it > 0) dc = round_bf16(dc + dc_next[k]);
+        const float d_sf = round_bf16(dc * c_prev);
+        dc_next[k] = round_bf16(dc * sf);
+        const float d_si = round_bf16(dc * tg), d_tg = round_bf16(dc * si);
+        const bf16_t dg[4] = {to_bf16(d_si * (1.0f - si) * si), to_bf16(d_sf * (1.0f - sf) * sf),
+                              to_bf16(d_tg * (1.0f - tg * tg)), to_bf16(d_so * (1.0f - so) * so)};
+        bf16_t* out = dgates_l + ((long long)(b0 + row) * T + s) * G4 + u0 + up;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        out[q * H] = dg[q];
-        stage_g[row * 4 * U + 4 * up + q] = dg[q];
+        for (int q = 0; q < 4; ++q) {
+          out[q * H] = dg[q];
+          stage_g[row * 4 * U + 4 * up + q] = dg[q];
+        }
       }
     }
-    if (s == 0) break;  // nothing reads dgates_0 through the cluster
-    __syncthreads();    // stage_g complete
-    push_rows(stage_g, 4 * U, gbuf + (it & 1) * L.gbuf() + rank * 4 * U, L.ldg, rows, 4 * U);
+    if (PROJECT && it > 0) {
+      // dh_{l-1, s+1} of this CTA's units: the warps' partials summed in
+      // warp order in float32, rounded once
+#pragma unroll
+      for (int k = 0; k < CELLS; ++k) {
+        const int cell = threadIdx.x + THREADS * k;
+        const int row = cell / U, up = cell % U;
+        if (row >= rows) break;
+        float sum = 0.0f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) sum += red_x[(w * L.rows + row) * L.up + up];
+        dh_below[((long long)(b0 + row) * T + s + 1) * H + u0 + up] = to_bf16(sum);
+      }
+    }
+    if (!PROJECT && s == 0) break;  // nothing reads dgates_0 through the cluster
+    if (s >= 0) {
+      __syncthreads();  // stage_g complete
+      push_rows(stage_g, 4 * U, gbuf + (it & 1) * L.gbuf() + rank * 4 * U, L.ldg, rows, 4 * U);
+    }
     cluster_sync();
+    // dh_{l-1} of steps T-1 .. T-it published (the barrier orders every CTA's stores)
+    if (PROJECT && it > 0 && rank == 0 && threadIdx.x == 0) st_release(cnt_out, it);
   }
   cp_async_wait<0>();
 }
 
-inline bool valid(int B, int T, int H, int chunk) {
+__global__ void __launch_bounds__(THREADS, 1)
+lstm_stack_backward_kernel(const bf16_t* __restrict__ dh_out, const bf16_t* __restrict__ w_ih,
+                           const bf16_t* __restrict__ w_hh, const bf16_t* __restrict__ act,
+                           const bf16_t* __restrict__ c_seq, bf16_t* __restrict__ dgates,
+                           bf16_t* __restrict__ dh_mid, unsigned* __restrict__ counters, int B,
+                           int T, int H, int chunk, int layers) {
+  const int chunks = (B + chunk - 1) / chunk;
+  const int cid = blockIdx.x / CLUSTER, layer = cid / chunks, kc = cid % chunks;
+  if (layer == 0)
+    backward_layer<false>(dh_out, w_ih, w_hh, act, c_seq, dgates, dh_mid, counters, B, T, H,
+                          chunk, layers, layer, kc, chunks);
+  else
+    backward_layer<true>(dh_out, w_ih, w_hh, act, c_seq, dgates, dh_mid, counters, B, T, H,
+                         chunk, layers, layer, kc, chunks);
+}
+
+inline bool valid(int B, int T, int H, int chunk, int max_chunk) {
   return B >= 1 && T >= 1 && H % 16 == 0 && H >= 16 && H <= MAX_H && chunk >= 1 &&
-         chunk <= MAX_CHUNK;
+         chunk <= max_chunk;
+}
+inline bool valid_stack(int B, int T, int H, int chunk, int layers, int skew) {
+  return valid(B, T, H, chunk, MAX_CHUNK) && layers >= 1 && layers <= MAX_LAYERS && skew >= 2 &&
+         skew <= MAX_SKEW;
+}
+inline bool valid_backward(int B, int T, int H, int chunk, int layers) {
+  return valid(B, T, H, chunk, MAX_BACKWARD_CHUNK) && layers >= 1 && layers <= MAX_LAYERS;
 }
 
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int bytes, int B, int chunk, cudaStream_t stream,
-                   Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const int clusters = (B + chunk - 1) / chunk;
-  kernel<<<clusters * CLUSTER, THREADS, bytes, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// The stack kernel's launch: layers x ceil(B / chunk) clusters of CLUSTER
-// CTAs; *max_clusters the clusters of it the card holds at once.
-struct StackLaunch {
+// A stack kernel's launch: layers x ceil(B / chunk) clusters of CLUSTER
+// CTAs with `bytes` of shared memory each; *max_clusters the clusters of it
+// the card holds at once.
+struct ClusterLaunch {
   cudaLaunchConfig_t cfg{};
   cudaLaunchAttribute attr[1];
   int clusters = 0;
-  cudaError_t prepare(int B, int H, int chunk, int layers, int skew, cudaStream_t stream,
-                      int* max_clusters) {
-    const int bytes = Stack(chunk, H, layers, skew).bytes();
-    cudaError_t err = cudaFuncSetAttribute(
-        lstm_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  template <typename Kernel>
+  cudaError_t prepare(Kernel kernel, int bytes, int B, int chunk, int layers,
+                      cudaStream_t stream, int* max_clusters) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     clusters = layers * ((B + chunk - 1) / chunk);
     cfg.gridDim = dim3(clusters * CLUSTER);
@@ -719,14 +838,9 @@ struct StackLaunch {
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    return cudaOccupancyMaxActiveClusters(max_clusters, lstm_stack_kernel, &cfg);
+    return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
   }
 };
-
-inline bool valid_stack(int B, int T, int H, int chunk, int layers, int skew) {
-  return valid(B, T, H, chunk) && layers >= 1 && layers <= MAX_LAYERS && skew >= 2 &&
-         skew <= MAX_SKEW;
-}
 
 }  // namespace lstm
 }  // namespace
@@ -744,9 +858,10 @@ extern "C" int qvc_lstm_stack_bf16(const void* xp0, const void* w_ih, const void
                                    void* stream) {
   using namespace lstm;
   if (!valid_stack(B, T, H, chunk, layers, skew)) return (int)cudaErrorInvalidValue;
-  StackLaunch ln;
+  ClusterLaunch ln;
   int held = 0;
-  cudaError_t err = ln.prepare(B, H, chunk, layers, skew, (cudaStream_t)stream, &held);
+  cudaError_t err = ln.prepare(lstm_stack_kernel, Stack(chunk, H, layers, skew).bytes(), B, chunk,
+                               layers, (cudaStream_t)stream, &held);
   if (err != cudaSuccess) return (int)err;
   if (layers > 1 && held < ln.clusters) return (int)cudaErrorCooperativeLaunchTooLarge;
   err = cudaLaunchKernelEx(&ln.cfg, lstm_stack_kernel, (const bf16_t*)xp0, (const bf16_t*)w_ih,
@@ -762,20 +877,51 @@ extern "C" int qvc_lstm_stack_max_clusters(int B, int T, int H, int chunk, int l
                                            int skew) {
   using namespace lstm;
   if (!valid_stack(B, T, H, chunk, layers, skew)) return -(int)cudaErrorInvalidValue;
-  StackLaunch ln;
+  ClusterLaunch ln;
   int held = 0;
-  const cudaError_t err = ln.prepare(B, H, chunk, layers, skew, nullptr, &held);
+  const cudaError_t err = ln.prepare(lstm_stack_kernel, Stack(chunk, H, layers, skew).bytes(), B,
+                                     chunk, layers, nullptr, &held);
   return err == cudaSuccess ? held : -(int)err;
 }
 
-// One layer's backward: dgates (B, T, 4H) from dh_out (B, T, H), w_hh and the
-// forward's act and c; the same layout rules.
-extern "C" int qvc_lstm_backward_bf16(const void* dh_out, const void* w_hh, const void* act,
-                                      const void* c, void* dgates, int B, int T, int H,
-                                      int chunk, void* stream) {
+// The backward of `layers` layers: dgates (layers, B, T, 4H) from dh_out (B,
+// T, H), the top layer's output gradient, w_ih (layers - 1, 4H, H), w_hh
+// (layers, 4H, H) and the forward's act (layers, B, T, 4H) and c (layers, B,
+// T, H), all bf16, contiguous and 16-byte aligned; dh_mid (layers - 1, B, T,
+// H) bf16 scratch (the lower layers' output gradients, written here) and
+// counters (layers - 1, ceil(B / chunk)) unsigned zeros; null for one layer.
+// Batch chunks of `chunk` <= 16 rows a cluster
+// (ops/lstm_recurrence.py:lstm_stack_backward_plan). A deeper stack than the
+// card holds at once is refused with cudaErrorCooperativeLaunchTooLarge.
+extern "C" int qvc_lstm_stack_backward_bf16(const void* dh_out, const void* w_ih,
+                                            const void* w_hh, const void* act, const void* c,
+                                            void* dgates, void* dh_mid, void* counters, int B,
+                                            int T, int H, int chunk, int layers, void* stream) {
   using namespace lstm;
-  if (!valid(B, T, H, chunk)) return (int)cudaErrorInvalidValue;
-  return (int)launch(lstm_backward_kernel, Backward(chunk, H).bytes(), B, chunk,
-                     (cudaStream_t)stream, (const bf16_t*)dh_out, (const bf16_t*)w_hh,
-                     (const bf16_t*)act, (const bf16_t*)c, (bf16_t*)dgates, B, T, H, chunk);
+  if (!valid_backward(B, T, H, chunk, layers)) return (int)cudaErrorInvalidValue;
+  ClusterLaunch ln;
+  int held = 0;
+  cudaError_t err = ln.prepare(lstm_stack_backward_kernel, Backward(chunk, H, layers > 1).bytes(),
+                               B, chunk, layers, (cudaStream_t)stream, &held);
+  if (err != cudaSuccess) return (int)err;
+  if (layers > 1 && held < ln.clusters) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchKernelEx(&ln.cfg, lstm_stack_backward_kernel, (const bf16_t*)dh_out,
+                           (const bf16_t*)w_ih, (const bf16_t*)w_hh, (const bf16_t*)act,
+                           (const bf16_t*)c, (bf16_t*)dgates, (bf16_t*)dh_mid,
+                           (unsigned*)counters, B, T, H, chunk, layers);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The clusters of the backward stack's launch at these sizes that the card
+// holds at once, or minus a CUDA error.
+extern "C" int qvc_lstm_stack_backward_max_clusters(int B, int T, int H, int chunk, int layers) {
+  using namespace lstm;
+  if (!valid_backward(B, T, H, chunk, layers)) return -(int)cudaErrorInvalidValue;
+  ClusterLaunch ln;
+  int held = 0;
+  const cudaError_t err = ln.prepare(lstm_stack_backward_kernel,
+                                     Backward(chunk, H, layers > 1).bytes(), B, chunk, layers,
+                                     nullptr, &held);
+  return err == cudaSuccess ? held : -(int)err;
 }

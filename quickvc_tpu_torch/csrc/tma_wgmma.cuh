@@ -16,7 +16,10 @@
 //   fence, commit and wait, the accumulator fence (fence_operands), the
 //   accumulator operand lists and the bf16 m64nNk16 instructions: A and B
 //   from shared memory for N 32 .. 256 (either K-major or MN-major: the
-//   transpose immediates), A from registers for N 64 and 128.
+//   transpose immediates), A from registers for N 64, 128 and 256.
+// - Clusters: TMA multicast of a box to every CTA of a cluster mask, a
+//   barrier arrival in another CTA of the cluster (mapa), and the cluster
+//   barrier.
 // - Host: tensor maps encoded by cuTensorMapEncodeTiled, found through
 //   cudaGetDriverEntryPoint (nothing links libcuda), passed to the kernels
 //   as __grid_constant__ parameters: row-major matrices, and strided 4-D
@@ -93,6 +96,44 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1)
       : "memory");
+}
+
+// A 2-D box loaded into the same shared-memory offset of every CTA of the
+// cluster in `mask`, each signalling its own barrier at bar's offset with
+// the box's bytes
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// ---- clusters ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// One arrival on the barrier at bar's offset in CTA `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+
+// Every thread of every CTA of the cluster: shared-memory writes (remote ones
+// too) and barrier inits visible cluster-wide before any thread goes on
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // A box of a 4-D tensor map at coordinates (c0 innermost .. c3)
@@ -245,6 +286,18 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a
                "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS_0_31 ", "
                WG_REGS_32_63 "}, {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
                : WG_ACC32("+f", d, 0), WG_ACC32("+f", d, 32)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B), "r"(1));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %134, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_REGS_0_31 ", "
+               WG_REGS_32_63 ", " WG_REGS_64_95 ", " WG_REGS_96_127
+               "}, {%128, %129, %130, %131}, %132, p, 1, 1, %133;\n}\n"
+               : WG_ACC32("+f", d, 0), WG_ACC32("+f", d, 32), WG_ACC32("+f", d, 64),
+                 WG_ACC32("+f", d, 96)
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B), "r"(1));
 }
 

@@ -19,8 +19,8 @@ KERNELS = {s.name: s for s in (fused_mel.STATS, fused_attention.STATS, fused_ist
                                fused_attention.HEADED_BF16_STATS, fused_extractor.BF16_STATS,
                                fused_transformer.BF16_STATS, fused_disc_conv.BF16_STATS,
                                fused_disc_conv.DW_BF16_STATS, fused_disc_conv.WGMMA_STATS,
-                               fused_disc_conv.DW_WGMMA_STATS, lstm_recurrence.STATS,
-                               lstm_recurrence.BACKWARD_STATS)}
+                               fused_disc_conv.DW_WGMMA_STATS, fused_extractor.WGMMA_STATS,
+                               lstm_recurrence.STATS, lstm_recurrence.BACKWARD_STATS)}
 
 
 def reset_launch_counts() -> None:

@@ -34,8 +34,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_mel.cu", "fused_istft.cu", "fused_attention.cu", "fused_disc_conv.cu",
-           "conv5_wgmma.cu", "fused_extractor.cu", "fused_transformer.cu", "int8_mm.cu",
-           "mma_rate.cu", "lstm_recurrence.cu")
+           "conv5_wgmma.cu", "fused_extractor.cu", "extractor_wgmma.cu", "fused_transformer.cu",
+           "int8_mm.cu", "mma_rate.cu", "lstm_recurrence.cu")
 HEADERS = ("bf16_gemm.cuh", "fused_attention.cuh", "fused_attention_bf16.cuh",
            "splitk_bf16.cuh", "tf32x3.cuh", "tma_wgmma.cuh", "wgmma_bf16.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,6 +62,7 @@ _SIGNATURES = {
     "qvc_conv5_wgmma_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "qvc_extractor_front": [_P] * 6 + [_I] * 4 + [_P],
     "qvc_extractor_front_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "qvc_extractor_front_bf16_wgmma": [_P] * 6 + [_I] * 5 + [_P],
     "qvc_transformer_layer": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 8 + [_P],
     "qvc_transformer_layer_bf16": [_P] * 20 + [_I] * 5 + [_F] + [_I] * 15 + [_P],
     "qvc_transformer_layer_launches": [_I] * 4,
@@ -72,7 +73,8 @@ _SIGNATURES = {
     "qvc_mma_tf32_rate": [_P, _I, _I, _P],
     "qvc_lstm_stack_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "qvc_lstm_stack_max_clusters": [_I] * 6,
-    "qvc_lstm_backward_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "qvc_lstm_stack_backward_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    "qvc_lstm_stack_backward_max_clusters": [_I] * 5,
 }
 
 _lib: ctypes.CDLL | None = None

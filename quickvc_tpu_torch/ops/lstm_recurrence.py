@@ -26,21 +26,28 @@ projection per step from layer l - 1's new h, rounded as the per-layer
 chain rounds it (``bf16(bf16(h W_ih^T) + b)``), ``skew`` steps behind it
 (:func:`lstm_stack_plan`). :func:`lstm_recurrence` is one layer of it.
 
-The backward is the gradient of that recurrence, one kernel launch a
-layer, rounded where torch's autograd of those bf16 ops rounds (the carried
-dh and dc, each gate's gradient, each product); dh_{t-1} = dgates_t W_hh a
-float32 sum rounded once. It returns the gate gradients (B, T, 4H), which
-are xp's gradient; W_hh's gradient, sum_t dgates_t^T h_{t-1}, is one large
-float32 product of the saved sequences rounded once, outside the kernel, as
-are the projections' gradients (JAX's scan transpose leaves those products
-to XLA).
+The backward is the gradient of that recurrence, every layer in one
+launch of the backward kernel (:func:`lstm_stack_backward_kernel`), rounded
+where torch's autograd of those bf16 ops rounds (the carried dh and dc,
+each gate's gradient, each product); dh_{t-1} = dgates_t W_hh a float32 sum
+rounded once. A lower layer's output gradient is the layer above's
+projection ``dgates @ w_ih`` (a float32 sum rounded once, as autograd's bf16
+mm rounds it), which the kernel computes per step and hands down the
+stack, the layer below running behind (:func:`lstm_stack_backward_plan`).
+It returns the gate gradients (L, B, T, 4H), each layer's xp gradient;
+W_hh's gradient, sum_t dgates_t^T h_{t-1}, is one large float32 product of
+the saved sequences rounded once, outside the kernel, as are W_ih's and the
+biases' (JAX's scan transpose leaves those products to XLA).
+:func:`lstm_backward_kernel` is one layer of it.
 
-:func:`lstm_forward_reference`, :func:`lstm_stack_reference` and
-:func:`lstm_backward_reference` are the plain versions, with the kernels'
-roundings; a CPU tensor takes them, a CUDA tensor launches the kernels or
-raises. :func:`lstm_plan` is the kernels' partition of a layer,
-:func:`lstm_stack_plan` the forward's of a stack. :data:`STATS` (the
-forward kernel, any depth) and :data:`BACKWARD_STATS` count launches.
+:func:`lstm_forward_reference`, :func:`lstm_stack_reference`,
+:func:`lstm_backward_reference` and :func:`lstm_stack_backward_reference`
+are the plain versions, with the kernels' roundings; a CPU tensor takes
+them, a CUDA tensor launches the kernels or raises. :func:`lstm_plan` is
+the forward's partition of a layer, :func:`lstm_stack_plan` its partition
+of a stack, :func:`lstm_stack_backward_plan` the backward's.
+:data:`STATS` (the forward kernel) and :data:`BACKWARD_STATS` (the backward
+kernel), any depth, count launches.
 """
 
 from __future__ import annotations
@@ -53,13 +60,18 @@ from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library
                                          stream_ptr)
 
 STATS = KernelStats("lstm_stack_bf16")
-BACKWARD_STATS = KernelStats("lstm_bf16_backward")
-# csrc/lstm_recurrence.cu: CLUSTER, MAX_H, MAX_CHUNK, MAX_LAYERS, MAX_SKEW
+BACKWARD_STATS = KernelStats("lstm_stack_bf16_backward")
+# csrc/lstm_recurrence.cu: CLUSTER, MAX_H, MAX_CHUNK, MAX_BACKWARD_CHUNK, MAX_LAYERS,
+# MAX_SKEW, BACKWARD_STAGES, THREADS, WARPS
 CLUSTER = 8          # CTAs a thread-block cluster
 MAX_HIDDEN = 256     # the kernels hold W_hh's slices in registers up to this width
-MAX_CHUNK = 32       # batch rows a cluster (the backward's gate buffers fill shared memory)
-MAX_LAYERS = 4       # layers a forward launch runs
+MAX_CHUNK = 32       # forward: batch rows a cluster
+MAX_BACKWARD_CHUNK = 16  # backward: batch rows a cluster (W_ih's slice shares shared memory)
+MAX_LAYERS = 4       # layers a launch runs
 SKEW = 2             # steps a layer runs behind the one below (the kernel takes 2 .. 3)
+BACKWARD_STAGES = 3  # backward: its ring of saved state, loaded two steps ahead
+WARPS = 8            # warps a CTA
+SMEM_BYTES = 232_448  # shared memory a CTA may use on an H100
 
 
 class LSTMPlan(NamedTuple):
@@ -80,13 +92,12 @@ class LSTMPlan(NamedTuple):
 
 
 def lstm_plan(batch: int, hidden: int, sm_count: int = 132) -> LSTMPlan:
-    """The kernels' partition of a (batch, hidden) layer.
+    """The forward kernel's partition of a (batch, hidden) layer.
 
     Hidden units split over one cluster of CLUSTER CTAs (CTA j holds the
-    4H/C gate rows of W_hh for its H/C units in the forward, W_hh's H/C
-    columns in the backward); the batch over ceil(B / MAX_CHUNK) clusters
-    of equal chunks (MAX_CHUNK: the backward's two (rows, 4H) gate buffers
-    fill a CTA's shared memory at H = 256). Takes H a multiple of 16 up to
+    4H/C gate rows of W_hh for its H/C units); the batch over ceil(B /
+    MAX_CHUNK) clusters of equal chunks (the backward's chunks are smaller:
+    :func:`lstm_stack_backward_plan`). Takes H a multiple of 16 up to
     MAX_HIDDEN (units even, so a CTA's gate columns fill whole 8-wide mma
     tiles) and any B whose clusters fit the card.
     """
@@ -98,13 +109,13 @@ def lstm_plan(batch: int, hidden: int, sm_count: int = 132) -> LSTMPlan:
     return plan
 
 
-def _chunks(batch: int, hidden: int) -> LSTMPlan:
+def _chunks(batch: int, hidden: int, max_chunk: int = MAX_CHUNK) -> LSTMPlan:
     if hidden % 16 or not 16 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"lstm_plan: hidden size must be a multiple of 16 in [16, "
                          f"{MAX_HIDDEN}], got {hidden}")
     if batch < 1:
         raise ValueError(f"lstm_plan: need a batch of at least 1, got {batch}")
-    clusters = -(-batch // MAX_CHUNK)
+    clusters = -(-batch // max_chunk)
     return LSTMPlan(CLUSTER, hidden // CLUSTER, clusters, -(-batch // clusters))
 
 
@@ -139,6 +150,45 @@ def lstm_stack_plan(batch: int, hidden: int, layers: int) -> StackPlan:
                          f"got {layers}")
     layer = _chunks(batch, hidden)
     return StackPlan(layers, SKEW, layer, layers * layer.clusters)
+
+
+class BackwardPlan(StackPlan):
+    """How the backward kernel runs ``layers`` layers in one launch: as
+    :class:`StackPlan` cuts the forward (chunks of at most
+    MAX_BACKWARD_CHUNK rows), in reverse time, layer l - 1 reading its dh
+    from layer l's projection ``skew`` steps behind it."""
+
+    def shared_bytes(self, project: bool) -> int:
+        """A CTA's shared memory (``csrc/lstm_recurrence.cu:Backward``): two
+        dgates buffers, the warps' float32 partials (twice for a projecting
+        layer >= 1), the staged gate gradients, the ring of saved state and,
+        for a layer >= 1, W_ih's slice."""
+        rows, hsz, u = 16 * -(-self.layer.chunk // 16), self.layer.units * CLUSTER, self.layer.units
+        up, ldg = max(u, 8), 4 * hsz + 8
+        red = WARPS * rows * up
+        return (4 * rows * ldg + 4 * (2 if project else 1) * red + 8 * rows * u
+                + 2 * BACKWARD_STAGES * 7 * rows * u + (2 * up * ldg if project else 0))
+
+
+def lstm_stack_backward_plan(batch: int, hidden: int, layers: int) -> BackwardPlan:
+    """The backward kernel's partition of a (batch, hidden) stack of ``layers``.
+
+    Hidden units split over a cluster of CLUSTER CTAs as the forward splits
+    them (CTA j holds W_hh's columns of its units), the batch over ceil(B /
+    MAX_BACKWARD_CHUNK) clusters of equal chunks: a layer >= 1 also holds
+    W_ih's columns of its units in shared memory, (4H x H / 8) bf16, which
+    fits beside the gate buffers at 16 rows and not at 32. A layer's
+    projection of step t reaches the layer below after the next step's k
+    loop, and the layer below loads it BACKWARD_STAGES - 1 steps ahead: it
+    runs BACKWARD_STAGES + 1 steps behind. The clusters wait on each other,
+    so the wrapper asks the card (``qvc_lstm_stack_backward_max_clusters``)
+    and raises if it holds fewer than a stack of two or more layers needs.
+    """
+    if not 1 <= layers <= MAX_LAYERS:
+        raise ValueError(f"lstm_stack_backward_plan: the kernel runs 1 to {MAX_LAYERS} layers, "
+                         f"got {layers}")
+    plan = _chunks(batch, hidden, MAX_BACKWARD_CHUNK)
+    return BackwardPlan(layers, BACKWARD_STAGES + 1, plan, layers * plan.clusters)
 
 
 def lstm_forward_reference(xp: torch.Tensor, w_hh: torch.Tensor):
@@ -176,14 +226,16 @@ def lstm_stack_reference(xp0: torch.Tensor, w_ih, b, w_hh):
 
 def _sigmoid_grad(dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """torch's sigmoid backward on the CPU at bf16: dy (1 - y) y in float32,
-    rounded once."""
-    return (dy.float() * (1 - y.float()) * y.float()).to(dy.dtype)
+    rounded once (in float64 at float64)."""
+    f = torch.promote_types(dy.dtype, torch.float32)
+    return (dy.to(f) * (1 - y.to(f)) * y.to(f)).to(dy.dtype)
 
 
 def _tanh_grad(dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """torch's tanh backward on the CPU at bf16: dy (1 - y^2) in float32,
-    rounded once."""
-    return (dy.float() * (1 - y.float() * y.float())).to(dy.dtype)
+    rounded once (in float64 at float64)."""
+    f = torch.promote_types(dy.dtype, torch.float32)
+    return (dy.to(f) * (1 - y.to(f) * y.to(f))).to(dy.dtype)
 
 
 def lstm_backward_reference(dh_out: torch.Tensor, w_hh: torch.Tensor, act: torch.Tensor,
@@ -209,6 +261,21 @@ def lstm_backward_reference(dh_out: torch.Tensor, w_hh: torch.Tensor, act: torch
                                   _tanh_grad(d_tg, tg), _sigmoid_grad(d_so, so)], dim=-1)
         dh_rec = dgates[:, s] @ w_hh
     return dgates
+
+
+def lstm_stack_backward_reference(dh_out: torch.Tensor, w_ih, w_hh, act: torch.Tensor,
+                                  c: torch.Tensor) -> torch.Tensor:
+    """Every layer's dgates (L, B, T, 4H) from the top layer's output
+    gradient dh_out (B, T, H), the W_ih of layers 1 .. L-1, the W_hh of
+    every layer and the forward's act and c (L, B, T, .): the plain
+    backward of each layer, top down, a lower layer's dh the product
+    ``dgates @ w_ih`` of the layer above in its dtype (rounded once)."""
+    out, dh = [None] * len(w_hh), dh_out
+    for layer in reversed(range(len(w_hh))):
+        out[layer] = lstm_backward_reference(dh, w_hh[layer], act[layer], c[layer])
+        if layer:
+            dh = out[layer] @ w_ih[layer - 1]
+    return torch.stack(out)
 
 
 def _check(name: str, steps: int, *tensors: torch.Tensor) -> None:
@@ -283,40 +350,85 @@ def lstm_forward_kernel(xp: torch.Tensor, w_hh: torch.Tensor):
     return tuple(z[0] for z in lstm_stack_kernel(xp, [], [], [w_hh]))
 
 
+def lstm_stack_backward_kernel(dh_out: torch.Tensor, w_ih, w_hh, act: torch.Tensor,
+                               c: torch.Tensor, return_dh: bool = False):
+    """Launch the backward kernel once for a whole stack on CUDA bf16
+    tensors: dgates (L, B, T, 4H) as :func:`lstm_stack_backward_reference`
+    returns them; with ``return_dh`` also the lower layers' output
+    gradients (L - 1, B, T, H) the kernel handed down (None for one layer).
+    Raises RuntimeError if the card cannot hold every cluster of a stack of
+    two or more layers at once (nothing is launched then)."""
+    layers = len(w_hh)
+    if len(w_ih) != layers - 1:
+        raise ValueError(f"lstm_stack_backward: {layers} layers take {layers - 1} W_ih, got "
+                         f"{len(w_ih)}")
+    dh_out, act, c = (z.contiguous() for z in (dh_out, act, c))
+    _, batch, steps, hidden = c.shape
+    g4 = 4 * hidden
+    if (c.shape[0] != layers or act.shape != (layers, batch, steps, g4)
+            or dh_out.shape != c.shape[1:]
+            or any(w.shape != (g4, hidden) for w in (*w_hh, *w_ih))):
+        raise ValueError(f"lstm_stack_backward: shapes do not match: dh {tuple(dh_out.shape)}, "
+                         f"act {tuple(act.shape)}, c {tuple(c.shape)}, W_hh "
+                         f"{[tuple(w.shape) for w in w_hh]}, W_ih {[tuple(w.shape) for w in w_ih]}")
+    w_hh = torch.stack(list(w_hh))
+    w_ih = torch.stack(list(w_ih)) if layers > 1 else None
+    tensors = [z for z in (dh_out, w_hh, w_ih, act, c) if z is not None]
+    _check("lstm_stack_backward", steps, *tensors)
+    plan = lstm_stack_backward_plan(batch, hidden, layers)
+    chunk = plan.layer.chunk
+    if layers > 1:
+        held = library().qvc_lstm_stack_backward_max_clusters(batch, steps, hidden, chunk, layers)
+        if held < 0:
+            check(-held, "lstm stack backward occupancy")
+        if held < plan.clusters:
+            raise RuntimeError(
+                f"lstm_stack_backward: {layers} layers of batch {batch} take {plan.clusters} "
+                f"clusters of {CLUSTER} CTAs, all resident at once (each layer waits on the one "
+                f"above), but the card holds {held}")
+    dgates = act.new_empty(act.shape)
+    dh_mid = c.new_empty(layers - 1, batch, steps, hidden) if layers > 1 else None
+    counters = (torch.zeros(layers - 1, plan.layer.clusters, dtype=torch.int32, device=c.device)
+                if layers > 1 else None)
+    check(library().qvc_lstm_stack_backward_bf16(
+        dh_out.data_ptr(), None if w_ih is None else w_ih.data_ptr(), w_hh.data_ptr(),
+        act.data_ptr(), c.data_ptr(), dgates.data_ptr(),
+        None if dh_mid is None else dh_mid.data_ptr(),
+        None if counters is None else counters.data_ptr(), batch, steps, hidden, chunk, layers,
+        stream_ptr(c)), "lstm stack backward kernel")
+    BACKWARD_STATS.count()
+    return (dgates, dh_mid) if return_dh else dgates
+
+
 def lstm_backward_kernel(dh_out: torch.Tensor, w_hh: torch.Tensor, act: torch.Tensor,
                          c: torch.Tensor) -> torch.Tensor:
-    """Launch the backward kernel: dgates (B, T, 4H) as
-    :func:`lstm_backward_reference` returns them."""
-    dh_out, w_hh, act, c = (z.contiguous() for z in (dh_out, w_hh, act, c))
+    """One layer of the backward kernel (a stack of one): dgates (B, T, 4H)
+    as :func:`lstm_backward_reference` returns them."""
     b, steps, hidden = c.shape
     if (dh_out.shape != c.shape or act.shape != (b, steps, 4 * hidden)
             or w_hh.shape != (4 * hidden, hidden)):
         raise ValueError(f"lstm_backward: shapes do not match: dh {tuple(dh_out.shape)}, "
                          f"w_hh {tuple(w_hh.shape)}, act {tuple(act.shape)}, c {tuple(c.shape)}")
-    plan = _plan("lstm_backward", b, steps, hidden, dh_out, w_hh, act, c)
-    dgates = torch.empty_like(act)
-    check(library().qvc_lstm_backward_bf16(
-        dh_out.data_ptr(), w_hh.data_ptr(), act.data_ptr(), c.data_ptr(), dgates.data_ptr(),
-        b, steps, hidden, plan.chunk, stream_ptr(c)), "lstm backward kernel")
-    BACKWARD_STATS.count()
-    return dgates
+    return lstm_stack_backward_kernel(dh_out, [], [w_hh], act[None], c[None])[0]
+
+
+def _weight_grad(dgates: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """dW_hh = sum_t dgates_t^T h_{t-1}: one float32 product rounded once."""
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return (dgates.flatten(0, 1).float().T @ h_prev.flatten(0, 1).float()).to(h.dtype)
 
 
 def _recurrence_backward(dh: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor,
                          act: torch.Tensor, c: torch.Tensor, need_dw: bool):
     """One layer's (dgates, dW_hh) from its output's gradient dh: the plain
-    version on the CPU, the kernel on the card; dW_hh = sum_t dgates_t^T
-    h_{t-1}, one float32 product rounded once (None unless ``need_dw``)."""
+    version on the CPU, the kernel on the card (None for dW_hh unless
+    ``need_dw``)."""
     dh = dh.to(h.dtype)
     if dh.device.type == "cpu":
         dgates = lstm_backward_reference(dh, w_hh, act, c)
     else:
         dgates = lstm_backward_kernel(dh, w_hh, act, c)
-    dw = None
-    if need_dw:
-        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
-        dw = (dgates.flatten(0, 1).float().T @ h_prev.flatten(0, 1).float()).to(h.dtype)
-    return dgates, dw
+    return dgates, _weight_grad(dgates, h) if need_dw else None
 
 
 class LSTMRecurrence(torch.autograd.Function):
@@ -349,10 +461,12 @@ class LSTMStack(torch.autograd.Function):
     xp0, then the W_hh of every layer, the W_ih and the biases of layers 1 ..
     L-1, all bf16. The forward is the plain stack on the CPU, one launch of
     the forward kernel on the card; it saves every layer's h, act and c. The
-    backward runs layer L-1 .. 0 as :class:`LSTMRecurrence` does, and each
-    projection's gradients (of W_ih, the bias and the layer below's h) as
-    torch's autograd of ``h @ w_ih.T + b`` computes them, so that on the
-    CPU every output and gradient is the per-layer chain's, bit for bit."""
+    backward is the plain stack backward on the CPU (layer L-1 .. 0 as
+    :class:`LSTMRecurrence` runs each, the layer below's dh as torch's
+    autograd of ``h @ w_ih.T + b`` computes it), one launch of the backward
+    kernel on the card; W_hh's, W_ih's and the biases' gradients are
+    torch's products of its dgates, so that on the CPU every output and
+    gradient is the per-layer chain's, bit for bit."""
 
     @staticmethod
     def forward(ctx, xp0, *weights):
@@ -372,19 +486,18 @@ class LSTMStack(torch.autograd.Function):
         layers = ctx.layers
         w_hh, w_ih = weights[:layers], weights[layers:2 * layers - 1]
         need = ctx.needs_input_grad[1:]
-        d_hh, d_ih, d_b = [None] * layers, [None] * (layers - 1), [None] * (layers - 1)
-        for layer in reversed(range(layers)):
-            dgates, d_hh[layer] = _recurrence_backward(dh, w_hh[layer], h[layer], act[layer],
-                                                       c[layer], need[layer])
-            if layer == 0:
-                break
-            # h_below @ w.T + b: autograd's mm and sum, in its operand order
-            x = h[layer - 1]
-            g2 = dgates.flatten(0, 1)
-            d_ih[layer - 1] = g2.t().mm(x.flatten(0, 1))
-            d_b[layer - 1] = dgates.sum((0, 1))
-            dh = dgates @ w_ih[layer - 1]
-        return (dgates, *d_hh, *d_ih, *d_b)
+        dh = dh.to(h.dtype)
+        if dh.device.type == "cpu":
+            dgates = lstm_stack_backward_reference(dh, w_ih, w_hh, act, c)
+        else:
+            dgates = lstm_stack_backward_kernel(dh, w_ih, w_hh, act, c)
+        d_hh = [_weight_grad(dgates[layer], h[layer]) if need[layer] else None
+                for layer in range(layers)]
+        # h_below @ w.T + b: autograd's mm and sum, in its operand order
+        d_ih = [dgates[layer].flatten(0, 1).t().mm(h[layer - 1].flatten(0, 1))
+                for layer in range(1, layers)]
+        d_b = [dgates[layer].sum((0, 1)) for layer in range(1, layers)]
+        return (dgates[0], *d_hh, *d_ih, *d_b)
 
 
 def lstm_stack(xp0: torch.Tensor, w_ih, b, w_hh) -> torch.Tensor:

@@ -23,9 +23,9 @@ line a shape.
 ``--card-lstm`` picks how the card runs the speaker LSTM at bf16 in this
 probe: ``kernel`` (the default and the port's path, ``models/encoders.py``:
 the JAX recurrence in the hand-written kernels of
-``ops/lstm_recurrence.py``, every layer's forward in one launch),
-``recurrence`` (the same recurrence in its plain step-by-step versions, the
-plain stack, on the card), ``cudnn`` (cuDNN's bf16 LSTM on
+``ops/lstm_recurrence.py``, every layer's forward in one launch and its
+backward in another), ``recurrence`` (the same recurrence in its plain
+step-by-step versions, the plain stack forward and backward, on the card), ``cudnn`` (cuDNN's bf16 LSTM on
 bf16 weight copies, the path before the kernels) or ``f32`` (cuDNN's
 float32 LSTM on the bf16 mel, its output cast back to bf16), to attribute
 the card's side.
@@ -164,11 +164,12 @@ def card_lstm(mode: str):
     from quickvc_tpu_torch.ops import lstm_recurrence as lr
 
     saved = (SpeakerEncoder._recurrence, lr.lstm_stack_kernel, lr.lstm_forward_kernel,
-             lr.lstm_backward_kernel)
+             lr.lstm_backward_kernel, lr.lstm_stack_backward_kernel)
     if mode == "recurrence":
         lr.lstm_stack_kernel = lr.lstm_stack_reference
         lr.lstm_forward_kernel = lr.lstm_forward_reference
         lr.lstm_backward_kernel = lr.lstm_backward_reference
+        lr.lstm_stack_backward_kernel = lr.lstm_stack_backward_reference
     elif mode == "cudnn":
         SpeakerEncoder._recurrence = cudnn_recurrence
     elif mode == "f32":
@@ -177,7 +178,7 @@ def card_lstm(mode: str):
         yield
     finally:
         (SpeakerEncoder._recurrence, lr.lstm_stack_kernel, lr.lstm_forward_kernel,
-         lr.lstm_backward_kernel) = saved
+         lr.lstm_backward_kernel, lr.lstm_stack_backward_kernel) = saved
 
 
 def probe(seed: int, device: str, lstm: str = "kernel") -> dict:

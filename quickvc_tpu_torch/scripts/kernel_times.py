@@ -87,7 +87,16 @@ inputs from a fixed seed, through the ops' dispatchers. On the card also:
 ``--device cpu`` leaves these out; ``--only bf16`` runs the bf16 turns
 alone (K2/K9/K10 bf16, K8 bf16 and the LSTM rows), seconds of card time;
 ``--only conv5`` K5/K6 bf16's turns with the plans' sweep (also at p = 7),
-and the D phases. Each entry is the mean of ``--iters``
+and the D phases; ``--only lstm`` the speaker LSTM's three-layer bf16
+backward at the training batch, the package's path (one launch of the
+backward stack kernel where it has one) in turns with the three layers one
+launch each (``lstm_backward_a`` against ``lstm_backward_library_a``, ...)
+and with cuDNN's 3-layer bf16 backward (``lstm_backward_cudnn3_*``);
+``--only extractor`` K7's bf16 mode at the encoding batch in turns with
+cuDNN's bf16 chain (``K7_bf16_*``; ``K7_bf16_body`` names the body the
+route ran). With ``--root`` on the parent checkout, ``--only lstm`` and
+``--only extractor`` time the parent's bodies: run parent, change,
+change, parent in one call. Each entry is the mean of ``--iters``
 calls after ``--warmup``, timed with CUDA events, and
 under ``device_ms`` the device time of the kernels those calls launched
 (:func:`device_ms`), which leaves out the host's enqueue time: a kernel of
@@ -460,6 +469,53 @@ def cudnn_lstm(w_ih, w_hh, biases) -> torch.nn.LSTM:
     return lstm
 
 
+def cudnn_backward(lstm: torch.nn.LSTM, x: torch.Tensor, dh: torch.Tensor):
+    """A callable running cuDNN's backward alone of ``lstm`` on input ``x``
+    for the output gradient ``dh``: the input and weight gradients, the
+    forward's graph built once and kept."""
+    x_in = x.detach().clone().requires_grad_()
+    out = lstm(x_in)[0]
+
+    def run():
+        torch.autograd.grad(out, [x_in, *lstm.parameters()], dh, retain_graph=True)
+
+    return run
+
+
+def lstm_backward_chain(dh: torch.Tensor, w_ih, w_hh, act: torch.Tensor,
+                        c: torch.Tensor) -> list[torch.Tensor]:
+    """Every layer's dgates of a bf16 LSTM stack as the port ran them before
+    the backward stack kernel: one launch of the one-layer backward kernel a
+    layer, top down, the layer below's dh the torch product ``dgates @
+    w_ih`` between (``w_ih`` of layers 1 .. L-1, as the stack kernels take
+    them)."""
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+
+    outs, z = [None] * len(w_hh), dh
+    for layer in reversed(range(len(w_hh))):
+        outs[layer] = lr.lstm_backward_kernel(z, w_hh[layer], act[layer], c[layer])
+        if layer:
+            z = outs[layer] @ w_ih[layer - 1]
+    return outs
+
+
+def k7_bf16_library(wav: torch.Tensor, w0, gamma, beta, w1):
+    """A callable running K7's bf16 library call on a bf16 wave: cuDNN's
+    bf16 conv0 -> GroupNorm -> tanh GELU -> conv1 -> tanh GELU, the
+    parameters cast to bf16 once."""
+    import torch.nn.functional as F
+
+    c = w1.shape[0]
+    w0b, w1b, gb, bb = (z.to(torch.bfloat16) for z in (w0, w1, gamma, beta))
+
+    def run():
+        y = F.gelu(F.group_norm(F.conv1d(wav[:, None], w0b, stride=5), c, gb, bb, 1e-5),
+                   approximate="tanh")
+        return F.gelu(F.conv1d(y, w1b, stride=2), approximate="tanh").transpose(1, 2)
+
+    return run
+
+
 def in_turns(ms, name: str, kernel, library) -> None:
     """``kernel`` and ``library`` timed in turns: library, kernel, kernel,
     library (``name`` + ``_library_a``, ``_a``, ``_b``, ``_library_b``)."""
@@ -585,6 +641,62 @@ def bf16_turn_times(ms, out: dict, dev: torch.device, g: torch.Generator, layer,
                 lambda: cudnn3(mel_in)[0])
 
 
+def lstm_backward_turns(ms, out: dict, dev: torch.device, g: torch.Generator) -> None:
+    """The speaker LSTM's three-layer bf16 backward at the training batch
+    (32, 512, 4 x 256), in turns with cuDNN's 3-layer bf16 backward alone
+    (the forward's graph kept; ``cudnn_backward``): ``lstm_backward`` is the
+    package's own path, one launch of the backward stack kernel where the
+    package has it, else ``lstm_backward_chain``, the three layers one
+    launch each with the torch product between (the parent's schedule)."""
+    from quickvc_tpu_torch.ops import lstm_recurrence as lr
+
+    bf, b, t_len, hsz, layers = torch.bfloat16, 32, 512, 256, 3
+    mel = torch.randn(b, t_len, 80, device=dev, generator=g).to(bf)
+    w_ih = [(torch.randn(4 * hsz, 80 if i == 0 else hsz, device=dev, generator=g) / 16).to(bf)
+            for i in range(layers)]
+    w_hh = [(torch.randn(4 * hsz, hsz, device=dev, generator=g) / 16).to(bf)
+            for _ in range(layers)]
+    biases = [(torch.randn(4 * hsz, device=dev, generator=g) / 16).to(bf) for _ in range(layers)]
+    dh = torch.randn(b, t_len, hsz, device=dev, generator=g).to(bf)
+    with torch.no_grad():
+        _, act, c = lr.lstm_stack_kernel(mel @ w_ih[0].T + biases[0], w_ih[1:], biases[1:], w_hh)
+
+    def chain():
+        lstm_backward_chain(dh, w_ih[1:], w_hh, act, c)
+
+    def stack():
+        lr.lstm_stack_backward_kernel(dh, w_ih[1:], w_hh, act, c)
+
+    own = stack if hasattr(lr, "lstm_stack_backward_kernel") else chain
+    out["lstm_backward_path"] = own.__name__
+    with torch.no_grad():
+        in_turns(ms, "lstm_backward", own, chain)
+    in_turns(ms, "lstm_backward_cudnn3", own,
+             cudnn_backward(cudnn_lstm(w_ih, w_hh, biases), mel, dh))
+
+
+def extractor_bf16_turns(ms, out: dict, dev: torch.device, g: torch.Generator) -> None:
+    """K7's bf16 mode at the encoding batch's bf16 wave (16, 96080) ->
+    (16, 9607, 512) in turns with cuDNN's bf16 chain (``k7_bf16_library``:
+    ``K7_bf16_library``); ``K7_bf16_body`` names the body the package's
+    route ran (its ``wgmma`` body's counter, where it has one)."""
+    from quickvc_tpu_torch.ops import fused_extractor as fe
+
+    c = 512
+    wav = (0.3 * torch.randn(16, 96080, device=dev, generator=g)).to(torch.bfloat16)
+    w0 = 0.3 * torch.randn(c, 1, 10, device=dev, generator=g)
+    gamma = 1.0 + 0.1 * torch.randn(c, device=dev, generator=g)
+    beta = 0.1 * torch.randn(c, device=dev, generator=g)
+    w1 = torch.randn(c, c, 3, device=dev, generator=g) / (3 * c) ** 0.5
+    front = (wav, w0, gamma, beta, w1)
+    stats = getattr(fe, "WGMMA_STATS", None)
+    before = stats.launches if stats else 0
+    fe.extractor_front(*front)
+    out["K7_bf16_body"] = "wgmma" if stats and stats.launches > before else "mma_sync"
+    with torch.no_grad():
+        in_turns(ms, "K7_bf16", lambda: fe.extractor_front(*front), k7_bf16_library(*front))
+
+
 def mel_times(ms, dev: torch.device, y: torch.Tensor) -> None:
     """K1 at 1280/320 beside its library chain (reflect pad, ``torch.stft``,
     magnitude, mel product, log clamp), and at the other sizes K1's checks
@@ -678,9 +790,11 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--warmup", type=int, default=5)
-    ap.add_argument("--only", choices=("bf16", "conv5"), default=None,
+    ap.add_argument("--only", choices=("bf16", "conv5", "lstm", "extractor"), default=None,
                     help="bf16: only the bf16 attention, K8 bf16 and LSTM turns; conv5: only "
-                         "K5/K6 bf16's turns, their plans' sweep and the D phases (on the card)")
+                         "K5/K6 bf16's turns, their plans' sweep and the D phases; lstm: only "
+                         "the three-layer LSTM backward's turns; extractor: only K7 bf16's "
+                         "(on the card)")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -711,6 +825,13 @@ def main(argv: list[str] | None = None) -> dict:
     if args.only == "conv5":
         conv5_times(ms, dev, g, out, bf16_only=True, shapes=CONV5_SHAPES | {7: (448, 19, 1024)})
         disc_phase_times(out, dev)
+        out["device"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip()
+        print("kernel_times " + json.dumps(out))
+        return out
+    if args.only in ("lstm", "extractor"):
+        (lstm_backward_turns if args.only == "lstm" else extractor_bf16_turns)(ms, out, dev, g)
         out["device"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True).stdout.strip()

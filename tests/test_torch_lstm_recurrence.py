@@ -442,7 +442,7 @@ class FakeLib:
     def __getattr__(self, name):
         def call(*args):
             self.calls.append((name, args))
-            return self.held if name == "qvc_lstm_stack_max_clusters" else 0
+            return self.held if name.endswith("_max_clusters") else 0
         return call
 
 
@@ -458,9 +458,9 @@ def _fake(monkeypatch, held: int = 16) -> FakeLib:
 
 def test_wrappers_hand_the_kernels_their_plan(monkeypatch):
     """The two per-layer wrappers launch their entries with the shapes and
-    the plan's chunk (read back through a fake library), the forward as a
-    stack of one (no residency query), count each launch, and refuse
-    float32 and a W_hh of another width."""
+    the plan's chunk (read back through a fake library), each as a stack of
+    one (no residency query), count each launch, and refuse float32 and a
+    W_hh of another width."""
     lib = _fake(monkeypatch)
     xp = torch.zeros(40, 5, 4 * 64, dtype=BF)
     w = torch.zeros(4 * 64, 64, dtype=BF)
@@ -473,8 +473,10 @@ def test_wrappers_hand_the_kernels_their_plan(monkeypatch):
     (fwd, fargs), (bwd, bargs) = lib.calls
     assert fwd == "qvc_lstm_stack_bf16" and fargs[8:14] == (40, 5, 64, 20, 1, lr.SKEW)
     assert fargs[:2] == (xp.data_ptr(), None) and fargs[2] is None
-    assert bwd == "qvc_lstm_backward_bf16" and bargs[5:9] == (40, 5, 64, 20)
-    assert bargs[2:5] == (act.data_ptr(), c.data_ptr(), dgates.data_ptr())
+    # the backward as a stack of one: 16-row chunks, no W_ih, scratch or counters
+    assert bwd == "qvc_lstm_stack_backward_bf16" and bargs[8:13] == (40, 5, 64, 14, 1)
+    assert bargs[3:6] == (act.data_ptr(), c.data_ptr(), dgates.data_ptr())
+    assert bargs[1] is None and bargs[6] is None and bargs[7] is None
     with pytest.raises(TypeError, match="bfloat16"):
         lr.lstm_forward_kernel(xp.float(), w.float())
     with pytest.raises(ValueError, match="does not match"):
