@@ -156,6 +156,25 @@
     a HuBERT running the ``pallas`` front and fused layers (K7 bf16 once and
     K8 bf16 12 times a tick, K3), against the CPU's the same way, then at
     N = 64 its step time over 5 ticks in turns with the ``faststats`` one.
+15. The other two decoders of ``configs/quickvc.json``'s widths and the
+    input formats (on seeds of their own): the conversion CLI with a seeded
+    multiband generator (``mb_istft_vits``), batch and ``--streaming``,
+    K3's launches and (rows, frames) recorded and K3 held against its plain
+    version on the inputs the decoder handed it, one batch of ``infer``
+    against the CPU (1e-3 x peak); the trainer with the multiband decoder
+    at bf16 for 4 full-width steps, ``loss/g/subband`` non-zero at every
+    step in its event files and finite but where the guard skipped the
+    update (+inf on a crop of digital silence, as in JAX), its step walls
+    beside the multistream run's; the single-band decoder (``istft_vits``) at full width on one
+    conversion batch, K3 once on 8 rows, against the CPU; FLAC input:
+    ``python -m quickvc_tpu_torch.downsample`` over 48 kHz FLACs (written
+    here, 16-bit verbatim subframes) and over the same samples as s16 WAVs,
+    the 16 kHz outputs bit-equal, then 2 training steps from 16 kHz FLAC
+    entries whose bucket lengths are the exact probe's; the small training
+    step against the CPU with the multiband decoder, in float32 (in two
+    parts: the step with the sub-band term's gradient cut, and that term's
+    gradient on the same bands) and at bf16; and the ``.msgpack`` reader decoding flax's layout with neither
+    ``msgpack`` nor ``flax`` installed.
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -166,6 +185,7 @@ and prints no result. Imports nothing of JAX or ``quickvc_tpu``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -205,7 +225,8 @@ TPU_KERNELS = [
      "D 16/32 and on views TMA does not take)"),
     ("K3", "quickvc_tpu/ops/fused_istft.py:159", "polar_inverse_stft_pallas",
      "ported: quickvc_tpu_torch/csrc/fused_istft.cu; the JAX head's sizes, n_fft up to 2048; "
-     "redesigned: persistent planned grid, host-built tables, loads one step ahead"),
+     "redesigned: persistent planned grid, host-built tables, loads one step ahead; the head "
+     "of all three decoders (multistream, multiband, single-band)"),
     ("K4", "quickvc_tpu/ops/fused_mel.py:177", "wave_to_spec_halo_pallas",
      "ported: quickvc_tpu_torch/csrc/fused_mel.cu; redesigned: real FFT (FFT_SIZES), "
      "dense DFT up to n_fft 4096"),
@@ -327,6 +348,12 @@ REDESIGNED = {"wave_to_mel": "redesigned: real FFT",
 # bucket and 8 in the 16-s one, so each batch of 8 is full
 STREAM_SECONDS = [12.1 + 0.1 * i for i in range(8)] + [15.05 + 0.06 * i for i in range(8)]
 STREAM_CHUNK, STREAM_CONTEXT = 96, 96
+# phase 15: the other two decoders of configs/quickvc.json's widths, FLAC input
+MB_MODEL = {"ms_istft_vits": False, "mb_istft_vits": True}
+ISTFT_MODEL = {"ms_istft_vits": False, "istft_vits": True}
+DOWNSAMPLE_INPUTS = [(1.7, 1), (2.3, 2), (1.1, 1)]   # 48 kHz FLAC/WAV: (seconds, channels)
+FLAC_SECONDS = [4.1 + 0.1 * i for i in range(8)]     # 16 kHz FLAC training entries, one batch
+FLAC_TRAIN_STEPS = 2
 EDGE_FRAMES = 200     # trimmed at each edge before streaming and batch output are compared
 # live sessions: the realtime benchmark up to 64 streams, then a parity session
 LIVE_STREAMS = 64
@@ -1452,13 +1479,13 @@ def make_inputs(tmp: str, rng: np.random.Generator, hpfile: str):
     return cfg, net_g, hubert, [hpfile, ptfile, hubert_pt, txt], n_frames
 
 
-def run_convert(files, outdir: str, device: str = "cuda") -> dict:
+def run_convert(files, outdir: str, device: str = "cuda", extra=()) -> dict:
     from quickvc_tpu_torch import convert
 
     hpfile, ptfile, hubert_pt, txt = files
     return convert.main(["--hpfile", hpfile, "--ptfile", ptfile, "--hubert", hubert_pt,
                          "--txtpath", txt, "--outdir", outdir, "--device", device,
-                         "--batch", str(BATCH)])
+                         "--batch", str(BATCH), *extra])
 
 
 def check_outputs(summary: dict, n_frames: dict) -> None:
@@ -1670,13 +1697,14 @@ def _fields(buf: bytes):
 def read_events(log_dir: str) -> dict:
     """Every event file in ``log_dir``: each TFRecord's two masked CRC-32Cs
     checked; returns {"records", "file_version", "tags": {tag: [kind, sorted
-    steps]}} (kind: scalar, image, audio, histogram)."""
+    steps]}} (kind: scalar, image, audio, histogram), and "values": {tag:
+    {step: value}} of the scalars."""
     import struct
 
     files = sorted(n for n in os.listdir(log_dir) if n.startswith("events.out.tfevents."))
     require(bool(files), f"event files in {log_dir}")
     kinds = {2: "scalar", 4: "image", 5: "histogram", 6: "audio"}
-    out = {"files": len(files), "records": 0, "file_version": [], "tags": {}}
+    out = {"files": len(files), "records": 0, "file_version": [], "tags": {}, "values": {}}
     for name in files:
         with open(os.path.join(log_dir, name), "rb") as f:
             raw = f.read()
@@ -1704,6 +1732,9 @@ def read_events(log_dir: str) -> dict:
                         kind = next(kinds[f] for f in kinds if f in parts)
                         rec = out["tags"].setdefault(tag, [kind, []])
                         rec[1].append(step)
+                        if kind == "scalar" and len(parts.get(2, b"")) == 4:   # simple_value
+                            out["values"].setdefault(tag, {})[step] = struct.unpack(
+                                "<f", parts[2])[0]
         require(i == len(raw), f"{name}: ends on a record boundary")
     for rec in out["tags"].values():
         rec[1] = sorted(set(rec[1]))
@@ -2147,17 +2178,38 @@ def run_disc_ab() -> dict:
 # phase 6: one training step on the card against the CPU plain path
 
 
-def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
-    """A small config, the same weights, compact batch and draws on both, in
-    float32 (losses rtol 2e-4, gradients 2e-3) and at ``precision: "bf16"``,
-    held relative to the bf16 error of the CPU step against its float32 step
-    (PERF.md section 2): losses ``|card - cpu| <= max(2 |cpu - cpu_f32|,
-    4e-3 |cpu_f32|)``, each gradient ``maxrel(card, cpu) <= max(2
+def check_train_step_against_cpu(rng: np.random.Generator, model: dict | None = None,
+                                 label: str = "train_cpu_reference_check",
+                                 offset: int = 0, short: int = 5) -> dict:
+    """A small config (its model updated by ``model``: the multiband decoder
+    adds the sub-band loss; ``offset`` samples of each synthetic wave are
+    skipped, and the second item is ``short`` frames short of the crop), the
+    same weights, compact batch and draws on
+    both, in float32 (losses rtol 2e-4, gradients 2e-3) and at ``precision:
+    "bf16"``, held relative to the bf16 error of the CPU step against its
+    float32 step (PERF.md section 2): losses ``|card - cpu| <= max(2 |cpu -
+    cpu_f32|, 4e-3 |cpu_f32|)``, each gradient ``maxrel(card, cpu) <= max(2
     maxrel(cpu, cpu_f32), 2e-2)``; every parameter float32 afterwards. The
-    posterior noise is bf16-valued, so both precisions draw the same."""
+    posterior noise is bf16-valued, so both precisions draw the same.
+
+    With the sub-band loss, float32 does not determine the step's G
+    gradients to 2e-3: the generated bands' STFT has bins near the float32
+    rounding of the decoder's output, where the log-magnitude's 1/|z| turns
+    the rounding into most of the gradient. So the float32 gradients are
+    held in two parts, each at 2e-3: the step with the sub-band term's value
+    kept and its gradient cut (its losses, D and G gradients), and the
+    term's gradient with respect to the generated bands, card against CPU
+    on the CPU step's own bands. Printed beside them, not held: the whole
+    step's G gradient difference, the CPU step on oneDNN against it on the
+    native convolutions, the smallest bins over each row's maximum, and the
+    term's gradient with float32 magnitudes (the JAX package's arithmetic)
+    against the float64 ones, on each device."""
     import copy
 
     from quickvc_tpu_torch.config import config_from_dict
+    from quickvc_tpu_torch.dsp.stft import magnitude_stft
+    from quickvc_tpu_torch.losses import subband_stft_loss
+    from quickvc_tpu_torch.train import step as step_module
     from quickvc_tpu_torch.train.state import create_train_state
     from quickvc_tpu_torch.train.step import mel_basis, train_step
 
@@ -2168,44 +2220,108 @@ def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
             "model": {"inter_channels": 16, "hidden_channels": 16,
                       "upsample_initial_channel": 32, "gin_channels": 16,
                       "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 3, 5]],
-                      "enc_wn_layers": 2, "flow_wn_layers": 2, "n_flows": 2}})
+                      "enc_wn_layers": 2, "flow_wn_layers": 2, "n_flows": 2} | (model or {})})
 
     frames = 16
-    wave = np.stack([synth_voice(1.0, SR, rng)[: frames * 320 + 960] for _ in range(2)])
+    wave = np.stack([synth_voice(1.0, SR, rng)[offset : offset + frames * 320 + 960]
+                     for _ in range(2)])
     batch = {"unit": torch.from_numpy(rng.standard_normal((2, frames, 256)).astype(np.float32)),
              "wave_s16": torch.from_numpy(np.round(wave * 32767).astype(np.int16)),
-             "n_take": torch.tensor([frames, frames - 5], dtype=torch.int32)}
+             "n_take": torch.tensor([frames, frames - short], dtype=torch.int32)}
     eps_q = torch.from_numpy(rng.standard_normal((2, 16, frames)).astype(np.float32))
     eps_q = eps_q.bfloat16().float()
     ids = torch.tensor([3, 8])
     base = create_train_state(small("f32"), torch.device("cpu"))
-    results, params_f32 = {}, True
-    for precision in ("f32", "bf16"):
+    subband = bool((model or {}).get("mb_istft_vits"))
+    results, params_f32, bands = {}, True, []
+
+    def cut(y_mb, y_hat_mb, *resolutions):   # the term's value, no gradient; keeps its inputs
+        if y_mb.device.type == "cpu":
+            bands[:] = [y_mb.detach(), y_hat_mb.detach()]
+        return subband_stft_loss(y_mb, y_hat_mb, *resolutions).detach()
+
+    both = ("cpu", "cuda")
+    # with the sub-band loss also: its gradient cut, and the CPU step on oneDNN
+    runs = [("f32", "", both), ("bf16", "", both)] + (
+        [("f32", "cut", both), ("f32", "onednn", ("cpu",))] if subband else [])
+    for precision, mode, devices in runs:
         cfg = small(precision)
-        for name in ("cpu", "cuda"):
+        for name in devices:
             dev = torch.device(name)
             state = create_train_state(cfg, dev, copy.deepcopy(base.net_g),
                                        copy.deepcopy(base.net_d))
+            step_module.subband_stft_loss = cut if mode == "cut" else subband_stft_loss
             # the CPU side on torch's native convolutions: oneDNN's float32 weight
             # gradients of the scale discriminator's first convolutions drift by
             # up to 3e-3 of their max, depending on the thread count
-            with torch.backends.mkldnn.flags(enabled=False):
-                results[precision, name] = train_step(
-                    state, {k: v.to(dev) for k, v in batch.items()}, mel_basis(cfg, dev),
-                    eps_q=eps_q.to(dev), ids_slice=ids, debug_grads=True)
+            try:
+                with torch.backends.mkldnn.flags(enabled=mode == "onednn"):
+                    results[precision + mode, name] = train_step(
+                        state, {k: v.to(dev) for k, v in batch.items()}, mel_basis(cfg, dev),
+                        eps_q=eps_q.to(dev), ids_slice=ids, debug_grads=True)
+            finally:
+                step_module.subband_stft_loss = subband_stft_loss
             params_f32 &= all(p.dtype == torch.float32 for net in (state.net_g, state.net_d)
                               for p in net.parameters())
     loss_keys = ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl",
-                 "loss/g/total")
+                 "loss/g/total") + (("loss/g/subband",) if subband else ())
 
     def maxrel(a, b) -> float:
         return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max().clamp(min=1e-6))
 
     ref, ours = results["f32", "cpu"], results["f32", "cuda"]
-    losses = {k: [float(ours[k]), float(ref[k])] for k in loss_keys}
-    grad_err = {which: max(maxrel(ours[f"debug/{which}_grads"][k], v)
+    if subband:
+        require(0 < float(ref["loss/g/subband"]) < float("inf"),
+                f"{label}: a finite, non-zero sub-band loss")
+        require("dec.subband_conv_post.weight_v" in ref["debug/g_grads"],
+                f"{label}: the gradients cover dec.subband_conv_post")
+    def grad_errors(ours, ref) -> dict:
+        return {which: max(maxrel(ours[f"debug/{which}_grads"][k], v)
                            for k, v in ref[f"debug/{which}_grads"].items())
                 for which in ("d", "g")}
+
+    losses = {k: [float(ours[k]), float(ref[k])] for k in loss_keys}
+    grad_err = grad_errors(ours, ref)
+    term_ok, term = True, {}
+    if subband:   # float32 in two parts (see above); the whole step's G error printed
+        term["whole_step_grad_max_rel_err"] = grad_err
+        grad_err = grad_errors(results["f32cut", "cuda"], results["f32cut", "cpu"])
+        t = small("f32").train
+        resolutions = (t.fft_sizes, t.hop_sizes, t.win_lengths)
+
+        def term_grad(dev):
+            y_mb, y_hat = (x.to(dev) for x in bands)
+            y_hat = y_hat.clone().requires_grad_(True)
+            subband_stft_loss(y_mb, y_hat, *resolutions).backward()
+            return y_hat.grad.cpu().double()
+
+        term["grad_max_rel_err"] = maxrel(term_grad("cuda"), term_grad("cpu"))
+        term_ok = term["grad_max_rel_err"] < 2e-3
+        # printed, not held: why float32 cannot hold the whole step's G gradient
+        term["cpu_onednn_vs_native_g"] = grad_errors(results["f32onednn", "cpu"], ref)["g"]
+        y_mb, y_hat = bands
+        t_len = y_mb.shape[-1]
+        gen = y_hat.reshape(-1, y_hat.shape[-1])[:, :t_len]
+        term["band_bins_min_over_max"] = {}
+        for n_fft, hop, win in zip(*resolutions):
+            mag = magnitude_stft(gen, n_fft, hop, win)
+            term["band_bins_min_over_max"][n_fft] = float(
+                (mag / mag.amax(dim=(-2, -1), keepdim=True)).min())
+
+        def term_grad_f32(dev):   # the JAX package's arithmetic: magnitudes in float32
+            x = gen.to(dev).clone().requires_grad_(True)
+            y = y_mb.reshape(-1, t_len).to(dev)
+            loss = 0.0
+            for n_fft, hop, win in zip(*resolutions):
+                xm, ym = (magnitude_stft(z, n_fft, hop, win) for z in (x, y))
+                loss = (loss + torch.linalg.vector_norm(ym - xm) / torch.linalg.vector_norm(ym)
+                        + torch.mean(torch.abs(torch.log(ym) - torch.log(xm))))
+            (loss / len(resolutions)).backward()
+            return x.grad.cpu().double().reshape(y_hat[..., :t_len].shape)
+
+        g64 = term_grad("cpu")[..., :t_len]
+        term["f32_magnitudes_err_vs_f64"] = {dev: maxrel(term_grad_f32(dev), g64)
+                                             for dev in both}
     ref16, ours16 = results["bf16", "cpu"], results["bf16", "cuda"]
     losses16, loss16_ok = {}, True
     for k in loss_keys:
@@ -2226,13 +2342,17 @@ def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
                           "worst_err_over_bound": ratios[worst]}
     out = {"losses_card_cpu": losses, "grad_max_rel_err": grad_err,
            "bf16": {"losses": losses16, "grads": grads16, "params_float32": params_f32}}
-    print("train_cpu_reference_check " + json.dumps(out))
+    if subband:
+        out["subband_term"] = term
+    print(f"{label} " + json.dumps(out))
+    require(term_ok, f"{label}: the sub-band term's gradient on the card matches the CPU's")
     require(all(abs(a - b) <= 1e-5 + 2e-4 * abs(b) for a, b in losses.values()),
-            "training losses on the card match the CPU path")
-    require(max(grad_err.values()) < 2e-3, "training gradients on the card match the CPU path")
-    require(loss16_ok, "bf16 training losses on the card match the CPU path")
-    require(grad16_ok, "bf16 training gradients on the card match the CPU path")
-    require(params_f32, "every parameter stays float32 after a bf16 step")
+            f"{label}: training losses on the card match the CPU path")
+    require(max(grad_err.values()) < 2e-3,
+            f"{label}: training gradients on the card match the CPU path")
+    require(loss16_ok, f"{label}: bf16 training losses on the card match the CPU path")
+    require(grad16_ok, f"{label}: bf16 training gradients on the card match the CPU path")
+    require(params_f32, f"{label}: every parameter stays float32 after a bf16 step")
     return out
 
 
@@ -3046,6 +3166,382 @@ def time_pallas_bf16_session(net_g, hubert, hub_pallas, rng: np.random.Generator
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multiband and single-band decoders, FLAC corpora, .msgpack files
+
+
+def write_config(path: str, base: str, model=None, train=None, data=None) -> str:
+    """``base`` (a config file) with its sections updated, written to ``path``."""
+    with open(base) as f:
+        cfg = json.load(f)
+    for section, update in (("model", model), ("train", train), ("data", data)):
+        cfg[section].update(update or {})
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+class K3Spy:
+    """Inside: every K3 dispatch the decoders make is recorded as (rows,
+    frames, bins), and the first call's inputs are kept (cloned), so K3 can be
+    held against its plain version on what the path handed it."""
+
+    def __enter__(self):
+        from quickvc_tpu_torch.models import decoders
+
+        self.calls, self.first, self._real = [], None, decoders.polar_inverse_stft
+
+        def spy(log_mag, phase, n_fft, hop):
+            self.calls.append([*log_mag.shape, n_fft, hop])
+            if self.first is None:
+                self.first = (log_mag.clone(), phase.clone(), n_fft, hop)
+            return self._real(log_mag, phase, n_fft, hop)
+
+        decoders.polar_inverse_stft = spy
+        return self
+
+    def __exit__(self, *exc):
+        from quickvc_tpu_torch.models import decoders
+
+        decoders.polar_inverse_stft = self._real
+
+    def check(self) -> dict:
+        """K3 on the first call's inputs against its plain version (atol 1e-4, rtol 1e-3)."""
+        from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as istft_plain
+        from quickvc_tpu_torch.ops import fused_istft
+
+        lm, ph, n_fft, hop = self.first
+        return compare(fused_istft.polar_inverse_stft_kernel(lm, ph, n_fft, hop),
+                       istft_plain(lm, ph, n_fft, hop), 1e-4, 1e-3) | {"shape": list(lm.shape)}
+
+
+def seeded_generator(cfg, seed: int):
+    from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    return init_random_(SynthesizerTrn(cfg.spec_channels, cfg.segment_frames, cfg.model), seed)
+
+
+def check_decoder_against_cpu(net, rng: np.random.Generator, name: str) -> dict:
+    """``infer`` of one conversion batch (8 x 100 unit frames, noise 0) on the
+    card, K3 in the head, against the CPU plain path: max-abs <= 1e-3 x peak."""
+    from quickvc_tpu_torch import ops
+
+    units = torch.from_numpy((0.5 * rng.standard_normal((BATCH, 256, 100))).astype(np.float32))
+    g = rng.standard_normal((BATCH, 256)).astype(np.float32)
+    g = torch.from_numpy(g / np.linalg.norm(g, axis=1, keepdims=True))
+
+    def path(dev):
+        with torch.inference_mode():
+            return net.to(dev).infer(units.to(dev), g.to(dev), noise_scale=0.0).cpu()
+
+    ref = path(torch.device("cpu"))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with K3Spy() as spy:
+        ours = path(torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    err = float((ours - ref).abs().max() / ref.abs().max())
+    out = {"decoder": net.model_cfg.decoder_kind, "shape": list(ours.shape),
+           "samples_per_frame": net.dec.samples_per_frame, "k3_calls": spy.calls,
+           "k3_launches": launches["polar_inverse_stft"], "k3_check": spy.check(),
+           "wave_max_abs_over_peak": err, "finite": bool(torch.isfinite(ours).all())}
+    print(f"{name} " + json.dumps(out))
+    expected = {k: 0 for k in launches} | {"polar_inverse_stft": 1}
+    require(launches == expected, f"{name}: launches {launches} != {expected}")
+    require(out["finite"] and err <= 1e-3, f"{name}: the card matches the CPU (1e-3 x peak)")
+    require(out["k3_check"]["within_tol"], f"{name}: K3 matches its plain version")
+    return out
+
+
+def check_mb_conversion(tmp: str, files, n_frames) -> dict:
+    """The conversion CLI with a seeded multiband generator at full width
+    (``configs/quickvc.json`` with ``mb_istft_vits``), the HuBERT and pairs of
+    phase 3, batch and ``--streaming`` (noise 0), the counters zeroed just
+    before each run and read just after: K3 once a batch (once a window
+    streaming), on 4 x 8 rows each, held against its plain version on the
+    inputs the decoder handed it; then one batch against the CPU."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.config import load_config
+
+    _, _, hubert_pt, txt = files
+    hpfile = write_config(os.path.join(tmp, "mb_config.json"),
+                          os.path.join(ROOT, "configs", "quickvc.json"), model=MB_MODEL)
+    cfg = load_config(hpfile)
+    require(cfg.model.decoder_kind == "mb_istft", "the multiband config")
+    net = seeded_generator(cfg, SEED + 19)
+    ptfile = os.path.join(tmp, "G_mb.pth")
+    torch.save({"model": net.state_dict(), "iteration": 0}, ptfile)
+    mb_files = [hpfile, ptfile, hubert_pt, txt]
+    stream_flags = ["--streaming", "--chunk-frames", str(STREAM_CHUNK),
+                    "--context-frames", str(STREAM_CONTEXT), "--noise-scale", "0"]
+    buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)
+    n_batches = sum(-(-n // BATCH) for n in buckets.values())
+    windows = sum(-(-n // BATCH) * -(-(sec * SR // 320) // STREAM_CHUNK)
+                  for sec, n in buckets.items())
+    out = {}
+    for name, extra in (("batch", ["--noise-scale", "0"]), ("streaming", stream_flags)):
+        run_convert(mb_files, os.path.join(tmp, f"mb_{name}_warmup"), extra=extra)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with K3Spy() as spy:
+            summary = run_convert(mb_files, os.path.join(tmp, f"mb_{name}"), extra=extra)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        check_outputs(summary, n_frames)
+        k3 = windows if name == "streaming" else n_batches
+        expected = {k: 0 for k in launches} | {
+            "wave_to_mel": len(TARGET_SECONDS), "attention_packed": 12 * n_batches,
+            "polar_inverse_stft": k3}
+        frames = ([20 * (STREAM_CHUNK + 2 * STREAM_CONTEXT) + 1] if name == "streaming"
+                  else [20 * sec * SR // 320 + 1 for sec in sorted(buckets)])
+        out[name] = {"pairs": summary["pairs"], "audio_s_per_wall_s":
+                     summary["audio_seconds"] / summary["wall_seconds"],
+                     "launches": launches, "expected_launches": expected,
+                     "k3_calls": spy.calls, "k3_check": spy.check()}
+        require(launches == expected, f"MB {name} conversion launches {launches} != {expected}")
+        require(all(c[0] == 4 * BATCH and c[1] in frames and c[2:] == [9, 16, 4]
+                    for c in spy.calls) and len(spy.calls) == k3,
+                f"MB {name}: K3 on {4 * BATCH} rows of {frames} frames, {k3} times")
+        require(out[name]["k3_check"]["within_tol"], f"MB {name}: K3 matches its plain version")
+    print("mb_convert " + json.dumps(out))
+    out["cpu"] = check_decoder_against_cpu(net, np.random.default_rng(SEED + 19),
+                                           "mb_cpu_reference_check")
+    out["hpfile"] = hpfile
+    return out
+
+
+def check_single_band_decoder() -> dict:
+    """The single-band decoder (``istft_vits``) at the full width of
+    ``configs/quickvc.json``, seeded: ``infer`` of one conversion batch on
+    the card, K3 once on 8 rows (20 head frames a unit frame, 4 samples
+    each), held against its plain version and the whole against the CPU."""
+    from quickvc_tpu_torch.config import load_config
+
+    with tempfile.TemporaryDirectory(prefix="qvc_sb_") as tmp:
+        cfg = load_config(write_config(os.path.join(tmp, "sb.json"),
+                                       os.path.join(ROOT, "configs", "quickvc.json"),
+                                       model=ISTFT_MODEL))
+    require(cfg.model.decoder_kind == "istft", "the single-band config")
+    out = check_decoder_against_cpu(seeded_generator(cfg, SEED + 20),
+                                    np.random.default_rng(SEED + 20), "single_band_decoder")
+    require(out["k3_calls"] == [[BATCH, 20 * 100 + 5, 9, 16, 4]],
+            f"single-band K3 calls {out['k3_calls']}")
+    # K3's time on this head at the conversion's 5-s bucket, (8, 20 * 250 + 5, 9)
+    from quickvc_tpu_torch.ops import fused_istft
+
+    spec = 0.5 * torch.randn(BATCH, 18, 20 * 250 + 5, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(SEED + 20))
+    lm, ph = spec.transpose(1, 2)[..., :9], spec.transpose(1, 2)[..., 9:]
+    out["k3_conversion_shape"] = list(lm.shape)
+    out["k3_device_ms"] = device_ms(lambda: fused_istft.polar_inverse_stft_kernel(lm, ph, 16, 4),
+                                    only="polar_istft")
+    print("single_band_k3 " + json.dumps({k: out[k] for k in ("k3_conversion_shape",
+                                                              "k3_device_ms")}))
+    return out
+
+
+def check_mb_training(tmp: str, train: dict, train16: dict) -> dict:
+    """The trainer CLI with the multiband decoder at ``precision: "bf16"``
+    on phase 4's corpus (full width, batch 32, 512-frame crops, eval after
+    update 1): ``loss/g/subband`` non-zero at every step in the event files,
+    K4 and the LSTM stacks once a step, K1 and K3 twice a held-out item; its
+    step walls beside the multistream bf16 run's of this call.
+
+    The sub-band loss takes the log of the target bands' STFT magnitude with
+    no floor, as the JAX package does (``quickvc_tpu/losses.py:45-51``), so
+    a crop whose target is zero over a whole STFT window of a band (digital
+    silence: the corpus's s16 lead-in and lead-out round to zero; or the
+    masked tail past a short item's ``n_take``) gives +inf, and the guard
+    skips that G update, as the JAX step's would. So every
+    step's losses are finite or its update was skipped, and at least one
+    step is finite and not skipped."""
+    from quickvc_tpu_torch import ops
+
+    hpfile = write_config(os.path.join(tmp, "train_config_mb_bf16.json"), train["hpfile"],
+                          model=MB_MODEL, train={"precision": "bf16"})
+    root = os.path.join(tmp, "logs_mb")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    summary = run_train(hpfile, root, BF16_TRAIN_STEPS)
+    launches = ops.launch_counts()
+    per_eval = 2 * len(EVAL_SECONDS)
+    expected = {name: 0 for name in launches} | {
+        "wave_to_spec_halo": BF16_TRAIN_STEPS, "wave_to_mel": per_eval,
+        "polar_inverse_stft": per_eval, "lstm_stack_bf16": BF16_TRAIN_STEPS,
+        "lstm_stack_bf16_backward": BF16_TRAIN_STEPS}
+    events = read_events(os.path.join(root, "smoke"))
+    subband = events["values"].get("loss/g/subband", {})
+    losses = summary["losses"]
+    timed = summary["step_seconds"][TRAIN_WARMUP:]
+    out = {"steps": summary["steps"], "step_seconds": summary["step_seconds"],
+           "mean_step_seconds": float(np.mean(timed)),
+           "ms_bf16_mean_step_seconds": train16["mean_step_seconds"],
+           "subband_loss": subband, "losses_last": losses[-1], "launches": launches,
+           "expected_launches": expected}
+    print("train_mb_bf16 " + json.dumps(out))
+    finite = [bool(all(np.isfinite(v) for v in step.values())
+                   and np.isfinite(subband.get(g, np.nan))) for g, step in enumerate(losses)]
+    out["finite_steps"] = finite
+    print("train_mb_bf16_steps " + json.dumps({"finite": finite,
+                                               "skipped": [s["skipped"] for s in losses]}))
+    require(summary["steps"] == BF16_TRAIN_STEPS == len(losses), "MB bf16 training steps")
+    require(sorted(subband) == list(range(BF16_TRAIN_STEPS))
+            and all(v > 0 for v in subband.values()),
+            f"loss/g/subband non-zero at every step: {subband}")
+    require(all(ok or step["skipped"] for ok, step in zip(finite, losses)),
+            "every MB step finite or its update skipped by the guard")
+    require(any(ok and not step["skipped"] for ok, step in zip(finite, losses)),
+            "a finite MB step that updated")
+    require(launches == expected, f"MB bf16 training launches {launches} != {expected}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _crc16_table() -> tuple[int, ...]:
+    table = []
+    for b in range(256):
+        c = b << 8
+        for _ in range(8):
+            c = ((c << 1) ^ 0x8005) & 0xFFFF if c & 0x8000 else (c << 1) & 0xFFFF
+        table.append(c)
+    return tuple(table)
+
+
+def _crc16(data: bytes) -> int:
+    """FLAC's frame CRC-16 (polynomial 0x8005, MSB first, init 0)."""
+    table, crc = _crc16_table(), 0
+    for b in data:
+        crc = ((crc << 8) & 0xFFFF) ^ table[(crc >> 8) ^ b]
+    return crc
+
+
+def _crc8(data: bytes) -> int:
+    crc = 0
+    for b in data:
+        crc ^= b
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x07) & 0xFF if crc & 0x80 else (crc << 1) & 0xFF
+    return crc
+
+
+def write_flac(path: str, pcm: np.ndarray, sr: int, blocksize: int = 4096) -> None:
+    """(N, C) int16 samples as a FLAC file of 16-bit verbatim subframes,
+    independent channels, CRC-8 and CRC-16 computed, as
+    ``tests/test_native_audio.py:encode_flac`` writes them."""
+    n, c = pcm.shape
+    # STREAMINFO: block sizes (16 + 16 bits), frame sizes unknown (24 + 24), rate
+    # (20), channels - 1 (3), bits - 1 (5), samples a channel (36), MD5 unset
+    info = (blocksize << 92 | blocksize << 76 | sr << 8 | (c - 1) << 5 | 15) << 36 | n
+    out = bytearray(b"fLaC") + bytes([0x80, 0, 0, 34]) + info.to_bytes(18, "big") + bytes(16)
+    for index, start in enumerate(range(0, n, blocksize)):
+        block = pcm[start : start + blocksize]
+        require(index < 128, "FLAC frame numbers here take one byte")
+        head = bytes([0xFF, 0xF8, 0x70, (c - 1) << 4 | 4 << 1, index])
+        head += (len(block) - 1).to_bytes(2, "big")
+        head += bytes([_crc8(head)])
+        body = b"".join(b"\x02" + block[:, ch].astype(">i2").tobytes() for ch in range(c))
+        frame = head + body
+        out += frame + _crc16(frame).to_bytes(2, "big")
+    with open(path, "wb") as f:
+        f.write(out)
+
+
+def check_flac(tmp: str, rng: np.random.Generator, train: dict) -> dict:
+    """FLAC input on the card's machine: ``python -m
+    quickvc_tpu_torch.downsample`` over 48 kHz FLACs and over the same
+    samples as s16 WAVs (16 kHz outputs bit-equal), then the trainer for
+    FLAC_TRAIN_STEPS steps from a list of 16 kHz FLAC entries with unit
+    siblings (bucket lengths equal to the exact probe)."""
+    from quickvc_tpu_torch import downsample, ops
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.data import native
+    from quickvc_tpu_torch.data.dataset import UnitAudioSpecDataset
+    from scipy.io import wavfile
+
+    native.library()   # built at the first read (the dataset's), or here
+    trees = {ext: os.path.join(tmp, f"raw_{ext}") for ext in ("flac", "wav")}
+    for i, (seconds, channels) in enumerate(DOWNSAMPLE_INPUTS):
+        pcm = np.stack([synth_voice(seconds, 48000, rng) for _ in range(channels)], axis=1)
+        pcm = np.round(pcm * 32767).astype(np.int16)
+        for ext, root in trees.items():
+            os.makedirs(os.path.join(root, f"spk{i % 2}"), exist_ok=True)
+            path = os.path.join(root, f"spk{i % 2}", f"utt{i}.{ext}")
+            if ext == "flac":
+                write_flac(path, pcm, 48000)
+            else:
+                wavfile.write(path, 48000, pcm)
+    outs = {}
+    for ext, root in trees.items():
+        proc = subprocess.run([sys.executable, "-m", "quickvc_tpu_torch.downsample",
+                               "--in-dir", root, "--out-dir", root + "_16k",
+                               "--extension", f".{ext}", "--num-workers", "2"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=300)
+        require(proc.returncode == 0, f"downsample over the {ext} tree: {proc.stderr[-2000:]}")
+        outs[ext] = {}
+        for _, dst in downsample.jobs_for(root, root + "_16k", f".{ext}"):
+            with open(dst, "rb") as f:
+                outs[ext][os.path.relpath(dst, root + "_16k")] = f.read()
+    equal = sorted(outs["flac"]) == sorted(outs["wav"]) and all(
+        outs["flac"][k] == outs["wav"][k] for k in outs["flac"])
+
+    # a FLAC training list: 16 kHz s16 FLACs with unit siblings
+    root = os.path.join(tmp, "flac_corpus")
+    os.makedirs(root)
+    paths = []
+    for i, sec in enumerate(FLAC_SECONDS):
+        wav = synth_voice(sec, SR, rng)
+        path = os.path.join(root, f"utt{i}.flac")
+        write_flac(path, np.round(wav * 32767).astype(np.int16)[:, None], SR)
+        np.save(os.path.join(root, f"utt{i}.npy"),
+                (0.5 * rng.standard_normal((len(wav) // 320, 256))).astype(np.float32))
+        paths.append(path)
+    listing = os.path.join(tmp, "flac_train.txt")
+    with open(listing, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    hpfile = write_config(os.path.join(tmp, "flac_config.json"), train["hpfile"],
+                          train={"batch_size": len(FLAC_SECONDS), "eval_interval": 1000},
+                          data={"training_files": listing})
+    lengths = UnitAudioSpecDataset("train", load_config(hpfile), with_spec=False).lengths
+    probed = sorted(native.probe(p)[0] // 320 for p in paths)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    summary = run_train(hpfile, os.path.join(tmp, "logs_flac"), FLAC_TRAIN_STEPS)
+    launches = ops.launch_counts()
+    out = {"downsample_files": len(outs["flac"]),
+           "downsample_bit_equal": equal, "bucket_lengths": sorted(lengths),
+           "probed_frames": probed, "steps": summary["steps"],
+           "losses_last": summary["losses"][-1], "launches": launches}
+    print("flac " + json.dumps(out))
+    require(len(outs["flac"]) == len(DOWNSAMPLE_INPUTS) and equal,
+            "downsample: the FLAC tree's 16 kHz outputs equal the WAV tree's")
+    require(sorted(lengths) == probed, "FLAC bucket lengths are the exact probe's")
+    require(summary["steps"] == FLAC_TRAIN_STEPS
+            and all(np.isfinite(v) for s in summary["losses"] for v in s.values()),
+            "finite losses from FLAC entries")
+    require(launches["wave_to_spec_halo"] == FLAC_TRAIN_STEPS, "K4 once a FLAC step")
+    return out
+
+
+def check_msgpack_reader() -> dict:
+    """The .msgpack reader imports on the card's machine (no msgpack or flax
+    there) and decodes flax's layout: a map holding one float32 ndarray ext."""
+    from quickvc_tpu_torch.utils.msgpack_params import unpackb
+
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    triple = b"\x93\x92\x02\x03\xa7float32\xc4" + bytes([w.nbytes]) + w.tobytes()
+    data = b"\x81\xa1w\xc7" + bytes([len(triple), 1]) + triple
+    got = unpackb(data)["w"]
+    out = {"msgpack_imported": "msgpack" in sys.modules, "flax_imported": "flax" in sys.modules,
+           "decoded": got.tolist()}
+    print("msgpack_reader " + json.dumps(out))
+    require(np.array_equal(got, w) and got.dtype == np.float32, "msgpack ndarray decoded")
+    require(not out["msgpack_imported"] and not out["flax_imported"],
+            "the reader needs neither msgpack nor flax")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3113,6 +3609,10 @@ def main() -> int:
         check_streaming(tmp, rng, files)
         live = check_live_sessions(dev, net_g, hubert, rng)
         check_live_bf16(live["points"])
+        # phase 15, on seeds of its own: the phases before it draw what they drew
+        mb = check_mb_conversion(tmp, files, n_frames)
+        check_mb_training(tmp, train, train16)
+        check_flac(tmp, np.random.default_rng(SEED + 21), train)
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
     expected = {name: 0 for name in launches} | {
@@ -3143,6 +3643,13 @@ def main() -> int:
     disc16 = check_disc_fused_bf16(dev)
     run_disc_ab()
     check_train_step_against_cpu(rng)
+    # the target from past the synthetic lead-in, whose s16 samples round to
+    # zero, and no masked tail: over either the sub-band loss is +inf
+    # (check_mb_training says why), so its terms would compare nothing
+    check_train_step_against_cpu(np.random.default_rng(SEED + 22), MB_MODEL,
+                                 "train_mb_cpu_reference_check", offset=int(0.2 * SR), short=0)
+    single_band = check_single_band_decoder()
+    check_msgpack_reader()
     _, lstm_rows = check_speaker_lstm_bf16()
     check_lstm_stack_residency()
     run_bf16_step_gate()
@@ -3177,6 +3684,15 @@ def main() -> int:
                "mm_bf16": ("int8_probe", probe["launches"]),
                "lstm_stack_bf16": ("train_bf16", train16["launches"]),
                "lstm_stack_bf16_backward": ("train_bf16", train16["launches"])}
+    # K3 on the other two decoders' heads: launches and (rows, frames) of each path
+    next(k for k in kernels if k["name"] == "polar_inverse_stft")["heads"] = {
+        f"mb_{name}": {"launches": mb[name]["launches"]["polar_inverse_stft"],
+                       "calls": mb[name]["k3_calls"], "check": mb[name]["k3_check"]}
+        for name in ("batch", "streaming")} | {
+        "single_band": {"launches": single_band["k3_launches"],
+                        "calls": single_band["k3_calls"], "check": single_band["k3_check"],
+                        "device_ms": single_band["k3_device_ms"],
+                        "device_ms_shape": single_band["k3_conversion_shape"]}}
     for k in kernels:
         k["path"], counts = path_of[k["name"]]
         k["launches"] = counts[k["name"]]
@@ -3201,7 +3717,7 @@ def main() -> int:
                       "three_layer_chain_ms", "equal_to_layer_chain", "bodies", "body",
                       "three_layer_chain_device_ms", "chain_turns_ms",
                       "chain_turns_device_ms", "projections_within_ulp",
-                      "layers_equal_one_layer_kernel", "accuracy"):
+                      "layers_equal_one_layer_kernel", "accuracy", "heads"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))

@@ -21,7 +21,8 @@ receptive field, so the output equals the batch path's away from the edges.
 
 Runs on the card unless ``--device cpu`` is given; asking for CUDA on a
 machine without a card raises. ``--ptfile`` is a reference-layout
-``G_*.pth`` and ``--hubert`` a bshall ``hubert-soft.pt``.
+``G_*.pth`` and ``--hubert`` a bshall ``hubert-soft.pt``, or either the JAX
+package's ``.msgpack`` parameter file (``scripts/export_params.py``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
-"""Host audio I/O: WAV read/write, resampling, silence trimming (numpy/scipy).
+"""Host audio I/O: WAV and FLAC reads, WAV writes, resampling, silence
+trimming, peak normalisation (numpy/scipy and the native decoder).
 
 The port's own copy of ``quickvc_tpu/data/audio_io.py``: ``read_wav`` gives
-float32 in [-1, 1], ``resample`` is polyphase, ``trim_silence`` follows
-``librosa.effects.trim`` (frame RMS against ``top_db`` below the peak,
-frame 2048 / hop 512), ``write_wav`` writes float32 like reference
-``convert.py:84-86``.
+float32 in [-1, 1] through scipy; ``read_audio`` reads FLAC through the
+native decoder (:mod:`quickvc_tpu_torch.data.native`), and WAV through it
+too, with scipy for a WAV subformat the decoder refuses; ``resample`` is
+polyphase, ``trim_silence`` follows ``librosa.effects.trim`` (frame RMS
+against ``top_db`` below the peak, frame 2048 / hop 512), ``write_wav``
+writes float32 like reference ``convert.py:84-86`` and ``write_wav_int16``
+the preprocessing step's 16-bit PCM.
 """
 
 from __future__ import annotations
@@ -31,9 +35,31 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     return x, int(sr)
 
 
+def read_audio(path: str) -> tuple[np.ndarray, int]:
+    """Read WAV or FLAC -> (float32 mono samples in [-1, 1], sample_rate).
+
+    FLAC needs the native decoder: if it cannot be built, that is an error.
+    A WAV whose subformat the decoder refuses is read by :func:`read_wav`.
+    """
+    from quickvc_tpu_torch.data import native
+
+    if path.lower().endswith(".flac"):
+        return native.read_audio(path)
+    try:
+        return native.read_audio(path)
+    except IOError:
+        return read_wav(path)
+
+
 def write_wav(path: str, x: np.ndarray, sr: int) -> None:
     """Write float32 samples."""
     wavfile.write(path, sr, x.astype(np.float32))
+
+
+def write_wav_int16(path: str, x: np.ndarray, sr: int) -> None:
+    """Write 16-bit PCM (the preprocessing step's output format)."""
+    x = np.clip(x, -1.0, 1.0)
+    wavfile.write(path, sr, (x * 32767.0).astype(np.int16))
 
 
 def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
@@ -69,3 +95,9 @@ def trim_silence(
     start = int(frames[0]) * hop_length
     end = min(len(x), int(frames[-1] + 1) * hop_length)
     return x[start:end], (start, end)
+
+
+def peak_normalize(x: np.ndarray, peak: float = 0.95) -> np.ndarray:
+    """Scale so max |x| == peak (the preprocessing step)."""
+    m = np.abs(x).max()
+    return x if m == 0 else (x / m * peak).astype(np.float32)

@@ -2,8 +2,9 @@
 sampler, fixed-shape collate and a prefetching loader on threads or processes.
 
 The port's own copy of ``quickvc_tpu/data/dataset.py:38-624`` (reference
-``data_utils_new_new.py``). Each utterance is a 16 kHz s16 wav
-with its HuBERT-soft units in a sibling ``.npy`` of shape (frames, 256).
+``data_utils_new_new.py``). Each utterance is a 16 kHz s16 wav, or any file
+the native decoder reads (FLAC), with its HuBERT-soft units in a sibling
+``.npy`` of shape (frames, 256).
 ``collate_batch`` makes the same crop draws in both wire formats:
 
 - ``transfer='full'``: unit (B, L, 256), spec (B, L, 641), wave (B, L*hop, 1),
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 
 from quickvc_tpu_torch.config import QuickVCConfig
-from quickvc_tpu_torch.data.audio_io import read_wav
+from quickvc_tpu_torch.data import native
+from quickvc_tpu_torch.data.audio_io import read_audio
 from quickvc_tpu_torch.dsp.stft import wave_to_spec
 from quickvc_tpu_torch.utils import bf16
 
@@ -46,13 +48,14 @@ BUCKET_BOUNDARIES = [32, 40, 50, 60, 70, 80, 90, 100, 110, 120, 160, 200, 230,
 
 
 def load_filepaths(list_path: str, mode: str = "train") -> list[str]:
-    """Wav paths of a dataset spec: a ``*.txt`` file list (first ``|`` field
-    per line), or a ``<root>/<speaker>/<utt>.wav`` directory whose last
+    """Audio paths of a dataset spec: a ``*.txt`` file list (first ``|`` field
+    per line), or a ``<root>/<speaker>/<utt>.{wav,flac}`` directory whose last
     utterance per speaker is held out for eval."""
     if list_path.endswith(".txt"):
         with open(list_path, encoding="utf-8") as f:
             return [line.strip().split("|")[0] for line in f if line.strip()]
-    paths = sorted(glob.glob(os.path.join(list_path, "**", "*.wav"), recursive=True))
+    paths = sorted(p for ext in ("wav", "flac")
+                   for p in glob.glob(os.path.join(list_path, "**", f"*.{ext}"), recursive=True))
     by_spk: dict[str, list[str]] = {}
     for p in paths:
         by_spk.setdefault(os.path.basename(os.path.dirname(p)), []).append(p)
@@ -83,17 +86,23 @@ class UnitAudioSpecDataset:
         self.lengths = [self._estimate_frames(p) for p in self.audiopaths]
 
     def _estimate_frames(self, path: str) -> int:
-        """Frames from the s16 wav's size (the reference's heuristic)."""
-        if not path.lower().endswith(".wav"):
-            raise NotImplementedError(f"{path}: the port reads s16 wav corpora only")
-        return os.path.getsize(path) // (2 * self.cfg.data.hop_length)
+        """Bucket length in spectrogram frames: a ``.wav``'s from its size (the
+        reference's s16 heuristic, exact for the preprocessing step's output);
+        any other entry's (FLAC) from the exact frame count in its header,
+        since a compressed file's size is no sample count
+        (``quickvc_tpu/data/dataset.py:131-153``)."""
+        hop = self.cfg.data.hop_length
+        if path.lower().endswith(".wav"):
+            return os.path.getsize(path) // (2 * hop)
+        samples, _ = native.probe(path)
+        return samples // hop
 
     def __len__(self) -> int:
         return len(self.audiopaths)
 
     def __getitem__(self, index: int) -> dict[str, np.ndarray]:
         path = self.audiopaths[index]
-        wav, sr = read_wav(path)
+        wav, sr = read_audio(path)
         if sr != self.cfg.data.sampling_rate:
             raise ValueError(f"{path}: {sr} Hz, config says {self.cfg.data.sampling_rate}")
         unit = np.load(_sibling(path, ".npy")).astype(np.float32, copy=False)

@@ -55,6 +55,26 @@ def wave_to_spec_halo(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int)
     return torch.sqrt(z.real * z.real + z.imag * z.imag + 1e-6)
 
 
+def magnitude_stft(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int) -> torch.Tensor:
+    """Centred magnitude STFT of the sub-band loss: (..., T) -> (..., Frame, Freq).
+
+    ``quickvc_tpu/dsp/stft.py:magnitude_stft`` (torchaudio's ``Spectrogram``
+    with ``power=1``): reflect-pad ``n_fft // 2`` on both sides, Hann(win)
+    zero-padded to ``n_fft`` at offset ``(n_fft - win) // 2``, plain ``|z|``.
+    Odd ``n_fft`` (683, 171 in the shipped resolutions) frame and transform
+    like the JAX version. Differentiable; float32 (float64 stays float64, the
+    tests' oracle).
+    """
+    pad = n_fft // 2
+    lead = y.shape[:-1]
+    y = y if y.dtype == torch.float64 else y.float()
+    y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")[:, 0]
+    frames = y.unfold(-1, n_fft, hop_size)                # (N, Frame, n_fft)
+    w = torch.as_tensor(padded_window(n_fft, win_size), device=y.device, dtype=y.dtype)
+    mag = torch.fft.rfft(frames * w, dim=-1).abs()
+    return mag.reshape(*lead, *mag.shape[-2:])
+
+
 def spec_to_mel(spec: torch.Tensor, mel_basis: torch.Tensor) -> torch.Tensor:
     """(..., Frame, Freq) x (Mel, Freq) -> log-mel (..., Frame, Mel)."""
     return torch.log(torch.clamp(spec @ mel_basis.T, min=1e-5))

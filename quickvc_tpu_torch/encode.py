@@ -15,7 +15,8 @@ front as kernel K7; every layer's attention core is kernel K2, or with the
 Python entry point's ``fused_layer=True`` each whole layer is kernel K8.
 
 Runs on the card unless ``--device cpu`` is given; asking for CUDA on a
-machine without a card raises. ``--hubert`` is a bshall ``hubert-soft.pt``.
+machine without a card raises. ``--hubert`` is a bshall ``hubert-soft.pt``
+or the JAX package's HuBERT ``.msgpack`` (``scripts/export_params.py``).
 """
 
 from __future__ import annotations

@@ -30,7 +30,9 @@ must already be. ``dtype`` is the step's compute dtype: float32 by default;
 (``scripts/realtime_bench.py:65-77``): units (from the window, or from
 HuBERT-soft run on the bf16 wave window and cast to float32 first) and the
 d-vectors cast to bf16 into ``infer`` at the session's noise; the audio
-comes back float32.
+comes back float32. Every decoder runs; one that does not write
+``hop_length`` samples a unit frame is refused
+(:func:`quickvc_tpu_torch.infer.streaming.check_frame_rate`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quickvc_tpu_torch.infer.streaming import check_frame_rate
 from quickvc_tpu_torch.utils.device import resolve_device
 
 
@@ -55,6 +58,7 @@ class RealtimeSession:
                  dtype: torch.dtype = torch.float32):
         if chunk < 1 or left < 0 or right < 0:
             raise ValueError("chunk >= 1, contexts >= 0 required")
+        check_frame_rate(net, hop_length)
         self.device = resolve_device(device)
         self.net = self._on_device(net)
         self.g_vec = torch.as_tensor(g_vec, dtype=torch.float32, device=self.device)

@@ -10,12 +10,26 @@ enc_p's 16-layer WaveNet +-32, the 4 x 4 flow couplings +-32, the decoder
 ~+-10). Memory stays O(chunk) whatever the utterance length. Where the JAX
 package scans one compiled program over the windows, this is a Python loop:
 one ``infer`` (one K3 launch) per window for the whole batch.
+
+Every decoder runs here (multistream, multiband, single-band), as in the
+JAX package; the windows are cut at ``hop_length`` output samples a unit
+frame, so a model whose decoder writes another number a frame (the
+single-band decoder at ``upsample_rates`` [5, 4] writes 80) is refused by
+:func:`check_frame_rate`, where the JAX package would cut misaligned windows.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def check_frame_rate(net, hop_length: int) -> None:
+    """Raise ValueError unless ``net``'s decoder writes ``hop_length`` samples a unit frame."""
+    got = net.dec.samples_per_frame
+    if got != hop_length:
+        raise ValueError(f"the decoder writes {got} samples a unit frame, not hop_length "
+                         f"{hop_length}: windows cut at the hop would be misaligned")
 
 
 def streaming_infer(net, unit: torch.Tensor, g_vec: torch.Tensor, hop_length: int = 320,
@@ -30,6 +44,7 @@ def streaming_infer(net, unit: torch.Tensor, g_vec: torch.Tensor, hop_length: in
     """
     if chunk < 1 or context < 0:
         raise ValueError("chunk >= 1 and context >= 0 required")
+    check_frame_rate(net, hop_length)
     b, _, f = unit.shape
     n_chunks = -(-f // chunk)
     # layout: [context | units, zero-padded to whole chunks | context]

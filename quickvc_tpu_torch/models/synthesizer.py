@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from quickvc_tpu_torch.config import ModelConfig
-from quickvc_tpu_torch.models.decoders import MultistreamISTFTGenerator
+from quickvc_tpu_torch.models.decoders import build_decoder
 from quickvc_tpu_torch.models.encoders import SpeakerEncoder
 from quickvc_tpu_torch.models.modules import CondNormalWN, ResidualCouplingBlock
 from quickvc_tpu_torch.ops.slicing import rand_slice_segments, slice_segments
@@ -29,10 +29,7 @@ class SynthesizerTrn(nn.Module):
     def __init__(self, spec_channels: int, segment_size: int, model: ModelConfig):
         super().__init__()
         m = model
-        if m.decoder_kind != "ms_istft":
-            raise NotImplementedError(
-                f"decoder {m.decoder_kind!r}: the port has the multistream "
-                "iSTFT decoder only")
+        self.model_cfg = m   # what a JAX parameter tree needs to map onto this module
         self.segment_size = segment_size
         self.enc_p = CondNormalWN(m.unit_channels, m.inter_channels, m.hidden_channels,
                                   5, 1, m.enc_wn_layers)
@@ -42,17 +39,16 @@ class SynthesizerTrn(nn.Module):
                                           m.flow_wn_layers, m.n_flows, m.gin_channels)
         self.enc_spk = SpeakerEncoder(model_hidden_size=m.gin_channels,
                                       model_embedding_size=m.gin_channels)
-        self.dec = MultistreamISTFTGenerator(
-            m.inter_channels, m.resblock_kernel_sizes, m.resblock_dilation_sizes,
-            m.upsample_rates, m.upsample_initial_channel, m.upsample_kernel_sizes,
-            m.gen_istft_n_fft, m.gen_istft_hop_size, m.subbands, m.gin_channels)
+        self.dec = build_decoder(m)   # by m.decoder_kind: ms_istft, mb_istft or istft
 
     def forward(self, unit: torch.Tensor, spec: torch.Tensor, mel: torch.Tensor,
                 generator: torch.Generator | None = None,
                 eps_q: torch.Tensor | None = None,
                 ids_slice: torch.Tensor | None = None):
-        """Training forward. Returns (y_hat (B, 1, 320*seg), the streams before
-        the learned post filter (B, subbands, 320*seg), ids_slice (B,),
+        """Training forward. Returns (y_hat (B, 1, 320*seg), the decoder's
+        second output (the MS streams before the learned post filter (B,
+        subbands, 320*seg), the MB bands before the PQMF synthesis (B,
+        subbands, 80*seg), None for the single-band decoder), ids_slice (B,),
         (z, z_p, m_p, logs_p, m_q, logs_q)).
 
         ``generator`` draws the posterior noise and the slice starts;

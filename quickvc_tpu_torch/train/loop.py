@@ -172,8 +172,9 @@ def _initial_state(cfg: QuickVCConfig, device: torch.device,
                    init_torch: tuple[str, str | None] | None, log):
     """The newest checkpoint pair in ``model_dir`` (a resume, with its
     optimizers); else the reference-layout ``init_torch`` pair (G, D or
-    None) with fresh optimizers and the step counter at G's ``iteration``;
-    else seeded random weights."""
+    None; G may be the JAX package's ``.msgpack``, which holds no step) with
+    fresh optimizers and the step counter at G's ``iteration``; else seeded
+    random weights."""
     resumed = latest_step(cfg.model_dir)
     if resumed is not None:
         state = create_train_state(cfg, device)
@@ -193,8 +194,9 @@ def _initial_state(cfg: QuickVCConfig, device: torch.device,
     if d_path is not None:
         load_discriminator(d_path, net_d)
     state = create_train_state(cfg, device, net_g, net_d)
-    ckpt = torch.load(g_path, map_location="cpu", weights_only=True)
-    state.step = int(ckpt.get("iteration") or 0) if isinstance(ckpt, dict) else 0
+    if not g_path.endswith(".msgpack"):
+        ckpt = torch.load(g_path, map_location="cpu", weights_only=True)
+        state.step = int(ckpt.get("iteration") or 0) if isinstance(ckpt, dict) else 0
     log.info("Warm-started from torch checkpoint %s%s at iteration %d (fresh optimizers)",
              g_path, f" + {d_path}" if d_path else " (D from scratch)", state.step)
     return state
@@ -379,8 +381,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--init-from-torch", type=str, nargs="+", default=None,
                    metavar=("G.pth", "D.pth"),
                    help="warm-start from reference-layout checkpoints (fresh "
-                        "optimizers, the step counter at G's iteration); a "
-                        "checkpoint pair in the model directory wins (a resume)")
+                        "optimizers, the step counter at G's iteration; G may be "
+                        "the JAX package's .msgpack, step 0); a checkpoint pair "
+                        "in the model directory wins (a resume)")
     args = p.parse_args(argv)
     if args.init_from_torch and len(args.init_from_torch) > 2:
         p.error("--init-from-torch takes G.pth [D.pth]")

@@ -11,7 +11,11 @@ Port of ``quickvc_tpu/train/step.py:134-357`` (reference ``train.py:117-162``):
 3. D phase: MPD(y, y_hat.detach()) paired; LSGAN loss; AdamW step of D.
 4. G phase against the updated D, real and fake apart: LSGAN + feature
    matching + 45 * mel-L1 (``y_hat``'s mel by the differentiable
-   :func:`quickvc_tpu_torch.dsp.stft.wave_to_mel`) + KL; AdamW step of G.
+   :func:`quickvc_tpu_torch.dsp.stft.wave_to_mel`) + KL, and with
+   ``model.mb_istft_vits`` the sub-band MR-STFT loss of the decoder's
+   pre-synthesis bands against the PQMF analysis of the target segment
+   (``quickvc_tpu/train/step.py:124-125, 281-286``; ``train.fft_sizes``,
+   ``hop_sizes``, ``win_lengths``); AdamW step of G.
 
 Precision (``train.precision``, ``quickvc_tpu/train/step.py:123-131,
 186-215, 247-270``): at ``"bf16"`` the generator takes unit, spec and mel in
@@ -33,9 +37,11 @@ import contextlib
 
 import torch
 
+from quickvc_tpu_torch.dsp import pqmf
 from quickvc_tpu_torch.dsp.mel import mel_filterbank
 from quickvc_tpu_torch.dsp.stft import spec_to_mel, wave_to_mel
-from quickvc_tpu_torch.losses import discriminator_loss, feature_loss, generator_loss, kl_loss
+from quickvc_tpu_torch.losses import (discriminator_loss, feature_loss, generator_loss, kl_loss,
+                                      subband_stft_loss)
 from quickvc_tpu_torch.ops.fused_mel import wave_to_spec_halo
 from quickvc_tpu_torch.ops.slicing import slice_segments
 from quickvc_tpu_torch.train.state import TrainState
@@ -118,7 +124,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
     with torch.profiler.record_function(STEP_SPAN):
         unit, spec, wave = decode_batch(batch, cfg)
         mel = spec_to_mel(spec, basis)                                  # (B, F, 80)
-        y_hat, _, ids, latents = net_g(
+        y_hat, y_hat_mb, ids, latents = net_g(
             unit.transpose(1, 2).to(dt), spec.transpose(1, 2).to(dt),
             mel.transpose(1, 2).to(dt), generator, eps_q, ids_slice)
         z, z_p, m_p, logs_p, m_q, logs_q = (t.float() for t in latents)
@@ -147,7 +153,14 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
         loss_kl = cfg.train.c_kl * kl_loss(z_p, logs_q, m_p, logs_p)
         loss_fm = feature_loss(fmap_r, fmap_g)
         loss_gen, gen_losses = generator_loss(logits_g)
-        loss_g_total = loss_gen + loss_fm + loss_mel + loss_kl
+        t = cfg.train
+        if cfg.model.mb_istft_vits:
+            y_mb = pqmf.analysis(y_seg, cfg.model.subbands)              # (B, s, T / s)
+            loss_sub = subband_stft_loss(y_mb, y_hat_mb, t.fft_sizes, t.hop_sizes,
+                                         t.win_lengths)
+        else:
+            loss_sub = torch.zeros((), device=loss_mel.device)
+        loss_g_total = loss_gen + loss_fm + loss_mel + loss_kl + loss_sub
         g_names, g_params = zip(*net_g.named_parameters())
         g_grads = torch.autograd.grad(loss_g_total, g_params, allow_unused=True)
         g_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(g_params, g_grads)]
@@ -158,7 +171,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
     metrics = {
         "loss/g/total": loss_g_total, "loss/g/gen": loss_gen, "loss/g/fm": loss_fm,
         "loss/g/mel": loss_mel, "loss/g/kl": loss_kl,
-        "loss/g/subband": torch.zeros((), device=loss_mel.device),
+        "loss/g/subband": loss_sub,
         "loss/g": gen_losses, "img/mel_gen": y_hat_mel[0], "img/mel_org": y_mel[0],
         "loss/d/total": loss_disc, "loss/d/r": losses_d_r, "loss/d/g": losses_d_g,
         "img/mel_all": mel[0],

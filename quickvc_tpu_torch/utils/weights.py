@@ -1,4 +1,4 @@
-"""Carrying weights into the port: JAX parameter trees, reference ``.pth``, bshall ``.pt``.
+"""Carrying weights into the port: JAX trees and ``.msgpack``, reference ``.pth``, bshall ``.pt``.
 
 - :func:`generator_state_dict_from_jax` and
   :func:`discriminator_state_dict_from_jax` are the port's own copies of the
@@ -8,7 +8,8 @@
   ``scripts/disc_pallas_ab.py`` onto the port's A/B script.
 - :func:`hubert_state_dict_from_jax` inverts ``quickvc_tpu/utils/hubert_port.py:port_hubert``.
 - :func:`load_generator` / :func:`load_discriminator` / :func:`load_hubert`
-  read checkpoints and load them with ``strict=True``.
+  read checkpoints (G and HuBERT also as the JAX package's ``.msgpack``
+  parameter files) and load them with ``strict=True``.
 - :func:`init_random_` gives a module seeded random weights.
 
 Layouts: flax ``kernel``/``v`` (k, in, out) <-> torch Conv1d ``weight`` (out,
@@ -26,6 +27,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+
+from quickvc_tpu_torch.utils.msgpack_params import load_params
 
 # --------------------------------------------------------------------------
 # JAX generator params -> reference SynthesizerTrn state dict
@@ -87,13 +90,18 @@ def _updown_filter(subbands: int) -> np.ndarray:
 
 
 def _tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.array(v, np.float32, copy=True)) for k, v in sd.items()}
+    # C-order copies: np.array keeps a transposed view's order, and a CPU
+    # convolution's sums depend on its weight's strides, so a mapped tree gave
+    # outputs a float32 ulp away from the same weights loaded from a .pth
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C")) for k, v in sd.items()}
 
 
 def generator_state_dict_from_jax(params: Mapping[str, Any], model_cfg) -> dict[str, torch.Tensor]:
-    """flax ``SynthesizerTrn`` params (numpy leaves) -> the port's state dict."""
-    if model_cfg.decoder_kind != "ms_istft":
-        raise NotImplementedError("the port has the multistream decoder only")
+    """flax ``SynthesizerTrn`` params (numpy leaves) -> the port's state dict,
+    for each decoder (``quickvc_tpu/utils/torch_export.py:127-133``):
+    ``dec.conv_post`` for ``istft``, ``dec.subband_conv_post`` for both
+    sub-band decoders, and for ``ms_istft`` also ``dec.multistream_conv_post``
+    and its constant ``dec.updown_filter``."""
     sd: dict[str, np.ndarray] = {}
     _cond_normal(sd, "enc_q", params["enc_q"])
     _cond_normal(sd, "enc_p", params["enc_p"])
@@ -124,9 +132,13 @@ def generator_state_dict_from_jax(params: Mapping[str, Any], model_cfg) -> dict[
             for m in range(len(model_cfg.resblock_dilation_sizes[j])):
                 _wn_conv(sd, f"{rp}.convs1.{m}", rb[f"conv1_{m}"])
                 _wn_conv(sd, f"{rp}.convs2.{m}", rb[f"conv2_{m}"])
-    _wn_conv(sd, "dec.subband_conv_post", dec["head"]["subband_conv_post"])
-    _wn_conv(sd, "dec.multistream_conv_post", dec["multistream_conv_post"])
-    sd["dec.updown_filter"] = _updown_filter(model_cfg.subbands)
+    if model_cfg.decoder_kind == "istft":
+        _wn_conv(sd, "dec.conv_post", dec["conv_post"])
+    else:
+        _wn_conv(sd, "dec.subband_conv_post", dec["head"]["subband_conv_post"])
+    if model_cfg.decoder_kind == "ms_istft":
+        _wn_conv(sd, "dec.multistream_conv_post", dec["multistream_conv_post"])
+        sd["dec.updown_filter"] = _updown_filter(model_cfg.subbands)
     return _tensors(sd)
 
 
@@ -286,19 +298,30 @@ def validate_hubert_sd(sd: Mapping[str, Any], num_layers: int = 12) -> None:
 
 
 def load_generator(path: str, model: nn.Module) -> None:
-    """Load a reference ``G_*.pth`` (``{"model": sd, ...}`` or a bare sd) strictly.
+    """Load a generator strictly: a reference ``G_*.pth`` (``{"model": sd,
+    ...}`` or a bare sd), or the JAX package's ``.msgpack`` parameter file
+    (``scripts/export_params.py``), mapped by
+    :func:`generator_state_dict_from_jax` for ``model.model_cfg``.
 
-    The reference's decoder carries two constant buffers: torchaudio's
-    ``InverseSpectrogram`` Hann window (the port's head builds its own) is
-    dropped, and ``dec.updown_filter``, which exports from the JAX package
-    lack, is filled in. The checkpoint's tensors are assigned, so the model
-    may be built on the ``meta`` device without initializing anything.
+    The reference's decoders carry constant buffers: torchaudio's
+    ``InverseSpectrogram`` Hann window and a PQMF module's filters (the
+    port's head and :mod:`quickvc_tpu_torch.dsp.pqmf` build their own) are
+    dropped, and the multistream decoder's ``dec.updown_filter``, which
+    exports from the JAX package lack, is filled in. The tensors are
+    assigned, so the model may be built on the ``meta`` device without
+    initializing anything.
     """
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
+    if str(path).endswith(".msgpack"):
+        sd = generator_state_dict_from_jax(load_params(path), model.model_cfg)
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
     sd = {k: v for k, v in sd.items()
-          if not (k.startswith("dec.") and k.endswith("stft.window"))}
-    sd.setdefault("dec.updown_filter", torch.from_numpy(_updown_filter(model.dec.subbands)))
+          if not (k.startswith("dec.") and k.endswith("stft.window"))
+          and not k.startswith("dec.pqmf.")}
+    if hasattr(model.dec, "updown_filter"):
+        sd.setdefault("dec.updown_filter",
+                      torch.from_numpy(_updown_filter(model.dec.subbands)))
     model.load_state_dict(sd, strict=True, assign=True)
 
 
@@ -310,14 +333,19 @@ def load_discriminator(path: str, model: nn.Module) -> None:
 
 
 def load_hubert(path: str, model: nn.Module) -> None:
-    """Load a bshall ``hubert-soft.pt`` (``{"hubert": sd}`` or a bare sd) strictly.
+    """Load a bshall ``hubert-soft.pt`` (``{"hubert": sd}`` or a bare sd), or
+    the JAX package's HuBERT ``.msgpack`` (``scripts/export_params.py
+    --hubert-out``, mapped by :func:`hubert_state_dict_from_jax`), strictly.
 
     Checks the key contract first, strips a ``module.`` prefix (checkpoints
     saved from DataParallel) and the training-only entries. The tensors are
     assigned, as in :func:`load_generator`.
     """
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("hubert", ckpt) if isinstance(ckpt, dict) else ckpt
+    if str(path).endswith(".msgpack"):
+        sd = hubert_state_dict_from_jax(load_params(path))
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        sd = ckpt.get("hubert", ckpt) if isinstance(ckpt, dict) else ckpt
     sd = {k: v for k, v in sd.items() if hasattr(v, "shape")}
     validate_hubert_sd(sd, num_layers=len(model.encoder.layers))
     sd = {k.replace("module.", ""): v for k, v in sd.items()}

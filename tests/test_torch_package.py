@@ -27,8 +27,10 @@ def test_cli_cuda_without_card_raises(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import neither JAX nor
-    quickvc_tpu, nor tensorboard, tensorboardX, matplotlib, protobuf, soundfile
-    or ml_dtypes (the card's machine has no ml_dtypes: bf16 rides as uint16 bits)."""
+    quickvc_tpu, nor tensorboard, tensorboardX, matplotlib, protobuf, soundfile,
+    ml_dtypes or msgpack (the card's machine has neither ml_dtypes nor msgpack:
+    bf16 rides as uint16 bits, and the .msgpack parameter files are decoded in
+    pure Python)."""
     code = """
 import importlib, pkgutil, runpy, sys
 import quickvc_tpu_torch
@@ -37,10 +39,12 @@ for m in pkgutil.walk_packages(quickvc_tpu_torch.__path__, "quickvc_tpu_torch.")
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "quickvc_tpu",
                                                      "tensorboard", "tensorboardX", "matplotlib",
-                                                     "soundfile", "ml_dtypes")
+                                                     "soundfile", "ml_dtypes", "msgpack")
        or n.startswith("google.protobuf")]
 new = ["quickvc_tpu_torch." + m for m in ("infer.streaming", "infer.realtime", "ops.int8_mm",
-                                         "scripts.int8_matmul_probe", "scripts.realtime_bench")]
+                                         "scripts.int8_matmul_probe", "scripts.realtime_bench",
+                                         "data.native", "utils.msgpack_params", "dsp.pqmf",
+                                         "downsample")]
 bad += [m + " not imported" for m in new if m not in sys.modules]
 print(len([n for n in sys.modules if n.startswith("quickvc_tpu_torch.")]), bad)
 sys.exit(1 if bad else 0)
@@ -50,6 +54,28 @@ sys.exit(1 if bad else 0)
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 20
+
+
+def test_importing_the_decoders_builds_and_loads_nothing():
+    """Importing the native audio binding, the .msgpack reader and every module
+    that uses them starts no compiler and loads no shared library."""
+    code = """
+import ctypes, subprocess
+import numpy, scipy.io.wavfile, torch   # their own imports probe the machine
+def refuse(*a, **k):
+    raise AssertionError(f"called at import: {a[:1]}")
+subprocess.run = subprocess.Popen = ctypes.CDLL = refuse
+import quickvc_tpu_torch.data.native as native
+import quickvc_tpu_torch.utils.msgpack_params
+import quickvc_tpu_torch.data.audio_io, quickvc_tpu_torch.data.dataset
+import quickvc_tpu_torch.downsample, quickvc_tpu_torch.utils.weights
+assert native._lib is None
+print("ok")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
 def test_kernel_build_dir(tmp_path, monkeypatch):

@@ -1,6 +1,7 @@
 """PyTorch port, training slice, the whole step on a full-format batch
 (``unit``/``spec``/``wave``) against JAX ``make_train_step(debug_grads=True)``
-at the tiny config, float32; the update guard; and the trainer CLI on the
+at the tiny config, float32, with the multistream decoder and with the
+multiband one (its sub-band STFT loss); the update guard; and the trainer CLI on the
 CPU: two steps, a resume to three, and the last generator checkpoint
 loading into the converter with ``strict=True``.
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_train_support import check_step_parity, configs, jax_step, make_batch, port_step
+from torch_train_support import MB, check_step_parity, configs, jax_step, make_batch, port_step
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -29,6 +30,18 @@ def full_case():
 
 def test_full_batch_step_matches_jax(full_case):
     check_step_parity(full_case, port_step(full_case))
+
+
+def test_multiband_step_matches_jax():
+    """The multiband decoder's step: its PQMF-synthesised wave through D and
+    the mel loss, and the sub-band MR-STFT loss of its pre-synthesis bands
+    against the PQMF analysis of the target slice, non-zero, in the G total
+    and its gradients (``dec.subband_conv_post`` among them)."""
+    case = jax_step(compact=False, model=MB)
+    ours = port_step(case)
+    assert float(case["metrics"]["loss/g/subband"]) > 0
+    assert "dec.subband_conv_post.weight_v" in ours[2]["debug/g_grads"]
+    check_step_parity(case, ours)
 
 
 def test_guard_skips_a_poisoned_step():

@@ -52,8 +52,13 @@ def random_params(module, seed: int, *init_args, scale: float = 0.1):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def tiny_generator(seed: int = 0):
-    """(JAX SynthesizerTrn, seeded numpy params, port SynthesizerTrn) at TINY_MODEL."""
+DECODER_FLAGS = {"ms": {}, "mb": dict(ms_istft_vits=False, mb_istft_vits=True),
+                 "istft": dict(ms_istft_vits=False, istft_vits=True)}
+
+
+def tiny_generator(seed: int = 0, decoder: str = "ms", spec_channels: int = SPEC_CH, **model):
+    """(JAX SynthesizerTrn, seeded numpy params, port SynthesizerTrn) at TINY_MODEL
+    updated by ``model``, with the ``decoder`` ("ms", "mb" or "istft")."""
     import jax
     import jax.numpy as jnp
 
@@ -62,14 +67,15 @@ def tiny_generator(seed: int = 0):
     from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
     from quickvc_tpu_torch.utils.weights import generator_state_dict_from_jax
 
-    jmc = JaxModelConfig(**TINY_MODEL)
-    net = JaxSynth(spec_channels=SPEC_CH, segment_size=8, model=jmc)
+    kw = dict(TINY_MODEL, **model, **DECODER_FLAGS[decoder])
+    jmc = JaxModelConfig(**kw)
+    net = JaxSynth(spec_channels=spec_channels, segment_size=8, model=jmc)
     f, key = 24, jax.random.PRNGKey(0)
     params = random_params(net, seed, {"params": key, "sample": key, "slice": key},
                            jnp.zeros((1, f, jmc.unit_channels)),
-                           jnp.zeros((1, f, SPEC_CH)), jnp.zeros((1, f, 80)))
-    mc = ModelConfig(**TINY_MODEL)
-    port = SynthesizerTrn(SPEC_CH, 8, mc)
+                           jnp.zeros((1, f, spec_channels)), jnp.zeros((1, f, 80)))
+    mc = ModelConfig(**kw)
+    port = SynthesizerTrn(spec_channels, 8, mc)
     port.load_state_dict(generator_state_dict_from_jax(params, mc), strict=True)
     return net, params, port.eval()
 

@@ -28,12 +28,15 @@ TINY = dict(
 FRAMES = 16
 
 
-def configs(**train):
-    """(JAX config, port config) of the tiny model, same values."""
+MB = dict(ms_istft_vits=False, mb_istft_vits=True)   # the multiband decoder, sub-band loss on
+
+
+def configs(model: dict | None = None, **train):
+    """(JAX config, port config) of the tiny model updated by ``model``, same values."""
     from quickvc_tpu.config import config_from_dict as jax_config
     from quickvc_tpu_torch.config import config_from_dict
 
-    d = {"train": dict(TINY["train"], **train), "model": dict(TINY["model"])}
+    d = {"train": dict(TINY["train"], **train), "model": dict(TINY["model"], **(model or {}))}
     return jax_config(d), config_from_dict(d)
 
 
@@ -64,15 +67,16 @@ def port_state(jcfg, cfg, g_params, d_params):
     return create_train_state(cfg, torch.device("cpu"), net_g, net_d)
 
 
-def jax_step(compact: bool, seed: int = 0):
-    """One JAX step (debug grads) on a seeded batch; returns a dict with the
-    configs, params before, batch, JAX metrics/state after and the draws."""
+def jax_step(compact: bool, seed: int = 0, model: dict | None = None):
+    """One JAX step (debug grads) on a seeded batch, the tiny model updated by
+    ``model``; returns a dict with the configs, params before, batch, JAX
+    metrics/state after and the draws."""
     from quickvc_tpu.dsp.mel import mel_filterbank
     from quickvc_tpu.dsp.stft import spec_to_mel, wave_to_spec_halo
     from quickvc_tpu.train import make_train_step
     from quickvc_tpu.train.state import TrainState, build_models, make_optimizer
 
-    jcfg, cfg = configs()
+    jcfg, cfg = configs(model)
     net_g, net_d = build_models(jcfg)
     key = jax.random.PRNGKey(0)
     f = FRAMES
@@ -151,7 +155,7 @@ def check_step_parity(case, ours) -> None:
     d_before, state, metrics = ours
     jm = case["metrics"]
     for key in ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl",
-                "loss/g/total", "grad_norm/d", "grad_norm/g"):
+                "loss/g/subband", "loss/g/total", "grad_norm/d", "grad_norm/g"):
         np.testing.assert_allclose(float(metrics[key]), float(jm[key]), rtol=2e-4, atol=1e-5,
                                    err_msg=key)
     for key in ("loss/g", "loss/d/r", "loss/d/g", "img/mel_gen", "img/mel_org", "img/mel_all"):
@@ -163,7 +167,7 @@ def check_step_parity(case, ours) -> None:
     err, where = max_rel_err(metrics["debug/d_grads"], d_golden)
     assert err < 2e-3, f"D grads diverge: rel {err} at {where}"
     g_golden = generator_state_dict_from_jax(jm["debug/g_grads"], case["cfg"].model)
-    g_golden.pop("dec.updown_filter")  # a buffer, not a parameter
+    g_golden.pop("dec.updown_filter", None)  # the multistream decoder's buffer, not a parameter
     err, where = max_rel_err(metrics["debug/g_grads"], g_golden)
     assert err < 2e-3, f"G grads diverge: rel {err} at {where}"
 
