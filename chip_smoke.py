@@ -175,6 +175,22 @@
     parts: the step with the sub-band term's gradient cut, and that term's
     gradient on the same bands) and at bf16; and the ``.msgpack`` reader decoding flax's layout with neither
     ``msgpack`` nor ``flax`` installed.
+16. Data-parallel training across processes, on phase 4's corpus and
+    config: (a) the trainer CLI under ``torchrun --nproc-per-node 1 ...
+    --distributed`` (NCCL) for 3 full-width steps at batch 32, its
+    ``G_3.pth`` and ``D_3.pth`` bit-equal to the plain trainer's 3 steps,
+    both run on cuDNN's deterministic algorithms, the step walls of both
+    (and of the plain trainer as users run it, cuDNN free to pick its
+    algorithms); (b) two gloo ranks sharing the card (spawned processes),
+    16 rows each of one batch of 32: 2 float32 steps and one each of the
+    bf16 reduce, ZeRO-1 and ``split_prior``, the ranks' parameters
+    bit-equal after every step, K4 once a step on each rank, the reduced
+    gradients against one process on the 32 rows with the same draws (and
+    one rank's own unreduced gradients failing the same gate), the bf16
+    mean bit-equal to ``round_bf16(a + b) / 2``; (c) NCCL
+    across the cards where there are two or more (the collectives' bytes
+    and CUDA-event times from ``quickvc_tpu_torch.scripts.dp_collectives``,
+    the trainer's step walls), else one line saying why it did not run.
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -185,6 +201,7 @@ and prints no result. Imports nothing of JAX or ``quickvc_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -2455,8 +2472,6 @@ def check_speaker_lstm_bf16() -> tuple[dict, list[dict]]:
 
 
 def _check_speaker_lstm_bf16(rng: np.random.Generator) -> tuple[dict, list[dict]]:
-    import contextlib
-
     from quickvc_tpu_torch.models.encoders import SpeakerEncoder
     from quickvc_tpu_torch.ops import lstm_recurrence as lr
     from quickvc_tpu_torch.scripts.bf16_step_gate import card_lstm
@@ -3542,6 +3557,349 @@ def check_msgpack_reader() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data-parallel training across processes
+
+DP_STEPS = 3                         # (a): the trainer under torchrun and the plain one
+DP_RANKS = 2                         # (b): gloo ranks sharing the card
+DP_RANK_BATCH = TRAIN_BATCH // DP_RANKS
+# (b): (name, train config update, steps); each from the seeded weights
+DP_VARIANTS = (("f32", {}, 2), ("bf16_reduce", {"grad_reduce_dtype": "bf16"}, 1),
+               ("zero1", {"zero_opt_state": True}, 1), ("split_prior", {"split_prior": True}, 1))
+DP_LOSSES = ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl",
+             "loss/g/total")
+
+
+def step_walls(log_path: str) -> list[float]:
+    """The step walls a trainer's text log reports, in order."""
+    import re
+
+    with open(log_path) as f:
+        return [float(x) for x in re.findall(r" step \d+ lr \S+ \|.*\((\S+) s\)", f.read())]
+
+
+def torchrun(nproc: int, args: list[str], timeout: float = 600) -> tuple[float, str]:
+    """``torchrun --standalone --nproc-per-node nproc ARGS`` from the checkout
+    (ARGS: ``-m module ...``, or ``--no-python`` and a command); returns
+    (seconds, stdout). Fails the run on a non-zero exit."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"torchrun {' '.join(args[:2])} exited "
+            f"{proc.returncode}: {proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    return seconds, proc.stdout
+
+
+# the trainer CLI on cuDNN's deterministic algorithms, for a run that is held
+# bit for bit against another (the CLI itself leaves cuDNN free to pick them)
+DETERMINISTIC_TRAINER = [
+    "--no-python", sys.executable, "-c",
+    "import sys, torch; torch.backends.cudnn.deterministic = True; "
+    "from quickvc_tpu_torch.train.loop import main; main(sys.argv[1:])"]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block: with the others two
+    runs of the same step may sum in another order and differ in the last
+    bits (a full-width float32 step: 330 of 466 G tensors, PERF.md)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def check_dp_world1(tmp: str, hpfile: str) -> dict:
+    """(a) The trainer CLI under ``torchrun --nproc-per-node 1 ... --distributed``
+    (NCCL, cuda:0) for DP_STEPS full-width steps at batch 32, and the plain
+    trainer for as many in this process, both on cuDNN's deterministic
+    algorithms: their ``G_3.pth`` and ``D_3.pth`` bit-equal, the step walls
+    of both printed; beside them the plain trainer as users run it, cuDNN
+    free to pick its algorithms (printed, not held: its step walls, and
+    whether its weights equal the deterministic run's)."""
+    hp = write_config(os.path.join(tmp, "dp_config.json"), hpfile, train={"eval_interval": 0})
+    root = os.path.join(tmp, "logs_dp")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the torchrun child trains on the same card
+    seconds, _ = torchrun(1, [*DETERMINISTIC_TRAINER, "-c", hp, "-m", "smoke", "-mr",
+                              os.path.join(root, "nccl"), "--max-steps", str(DP_STEPS),
+                              "--distributed"])
+    with cudnn_deterministic():
+        plain = run_train(hp, os.path.join(root, "plain"), DP_STEPS)
+    free = run_train(hp, os.path.join(root, "free"), DP_STEPS)
+    files = {run: {k: os.path.join(root, run, "smoke", f"{k}_{DP_STEPS}.pth") for k in "GD"}
+             for run in ("nccl", "plain", "free")}
+    equal, free_equal = {}, {}
+    for k in "GD":
+        with open(files["nccl"][k], "rb") as a, open(files["plain"][k], "rb") as b:
+            equal[k] = a.read() == b.read()
+        free_equal[k] = all(torch.equal(v, torch.load(files["free"][k], weights_only=True)[
+            "model"][n]) for n, v in torch.load(files["plain"][k], weights_only=True)[
+            "model"].items())
+    out = {"steps": DP_STEPS, "batch": TRAIN_BATCH, "torchrun_seconds": seconds,
+           "nccl_step_seconds": step_walls(os.path.join(root, "nccl", "smoke", "train.log")),
+           "plain_step_seconds": plain["step_seconds"],
+           "cudnn_free_step_seconds": free["step_seconds"],
+           "checkpoints_bit_equal": equal, "cudnn_free_weights_bit_equal": free_equal}
+    print("dp_world1_nccl " + json.dumps(out))
+    require(len(out["nccl_step_seconds"]) == DP_STEPS, "the torchrun trainer logged every step")
+    require(all(equal.values()), f"torchrun's checkpoints equal the plain trainer's: {equal}")
+    return out
+
+
+def _dp_rank(rank: int, tmp: str) -> None:
+    """One of phase 16 (b)'s gloo ranks, a spawned process on card 0: each
+    variant of DP_VARIANTS from the seeded weights on this rank's rows, the
+    first step with the case's draws, later ones with the trainer's per-rank
+    generator; after every step the hash of its parameters, the step wall
+    and K4's launches. Writes ``dp_rank{rank}.pt``; rank 0 also the first
+    float32 step's reduced gradients."""
+    import hashlib
+
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.parallel.shard_step import rank_seed
+    from quickvc_tpu_torch.scripts.dp_collectives import bf16_mean_check
+    from quickvc_tpu_torch.train.state import create_train_state
+    from quickvc_tpu_torch.train.step import mel_basis, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # as the one-process reference runs: what the gate allows is then the
+    # reduction's, not cuDNN's choice of algorithm
+    torch.backends.cudnn.deterministic = True
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                                         rank=rank, world_size=DP_RANKS)
+    try:
+        case = torch.load(os.path.join(tmp, "dp_case.pt"), weights_only=False)
+        rows = slice(rank * DP_RANK_BATCH, (rank + 1) * DP_RANK_BATCH)
+        batch = {k: torch.from_numpy(v[rows].copy()).to(dev) for k, v in case["batch"].items()}
+        eps_q = torch.from_numpy(case["eps_q"][rows].copy()).to(dev)
+        ids = torch.from_numpy(case["ids"][rows].copy()).to(dev)
+        out = {"variants": {}}
+        for name, train, steps in DP_VARIANTS:
+            cfg = load_config(case["hpfile"])
+            for k, v in train.items():
+                setattr(cfg.train, k, v)
+            state = create_train_state(cfg, dev)
+            basis = mel_basis(cfg, dev)
+            gen = torch.Generator(device=dev)
+            rec = {"hashes": [], "wave_to_spec_halo": [], "step_seconds": [], "losses": []}
+            for s in range(steps):
+                first = s == 0
+                gen.manual_seed(rank_seed(cfg.train.seed * 1_000_003 + s, rank))
+                debug = first and name == "f32"
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                m = train_step(state, batch, basis, generator=gen,
+                               eps_q=eps_q if first else None, ids_slice=ids if first else None,
+                               debug_grads=debug)
+                torch.cuda.synchronize()
+                rec["step_seconds"].append(time.perf_counter() - t0)
+                rec["wave_to_spec_halo"].append(ops.launch_counts()["wave_to_spec_halo"])
+                rec["losses"].append({k: float(m[k]) for k in DP_LOSSES})
+                h = hashlib.sha256()
+                for p in list(state.net_g.parameters()) + list(state.net_d.parameters()):
+                    h.update(p.detach().cpu().numpy().tobytes())
+                rec["hashes"].append(h.hexdigest())
+                if debug and rank == 0:
+                    torch.save({k: ({n: g.cpu() for n, g in v.items()} if k.startswith("debug/")
+                                    else v.cpu()) for k, v in m.items()},
+                               os.path.join(tmp, "dp_step.pt"))
+            out["variants"][name] = rec
+        out["bf16_mean"] = bf16_mean_check(dev)
+        torch.save(out, os.path.join(tmp, f"dp_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def check_dp_gloo_ranks(tmp: str, hpfile: str) -> dict:
+    """(b) Two gloo ranks sharing the card (spawned processes), DP_RANK_BATCH
+    rows each of one full-width batch of 32 from phase 4's corpus: 2 float32
+    data-parallel steps and 1 step each of the bf16 reduce, ZeRO-1 and
+    split_prior. The ranks' parameters bit-equal after every step; K4 once
+    a step on each rank; the first float32 step's reduced gradients and
+    losses against one process on the whole batch of 32 with the same draws,
+    both on cuDNN's deterministic algorithms (losses rtol 2e-4 / atol 1e-5,
+    gradients max rel 2e-3 (PERF.md section 2) beyond twice what moving the
+    posterior noise by 1e-6 of itself moves the one process's gradient: at
+    full width a float32 change of the generator's activations that small
+    flips leaky ReLUs at their kink, and the decoder's gradients move by up
+    to ~1e-2 with it (PERF.md section 6), so summing 16 rows twice instead
+    of 32 once is held to that); as a control, rank 0's own gradients on its
+    16 rows, unreduced, must fail that gate in G and in D; the bf16 mean
+    over the two ranks bit-equal to round_bf16(a + b) / 2."""
+    import torch.multiprocessing as mp
+
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.data.dataset import (BUCKET_BOUNDARIES, BucketSampler, DataLoader,
+                                                UnitAudioSpecDataset)
+    from quickvc_tpu_torch.train.state import create_train_state
+    from quickvc_tpu_torch.train.step import mel_basis, train_step
+
+    cfg = load_config(hpfile)
+    ds = UnitAudioSpecDataset("train", cfg, with_spec=False)
+    loader = DataLoader(ds, BucketSampler(ds.lengths, TRAIN_BATCH, BUCKET_BOUNDARIES), cfg,
+                        num_workers=4, seed=cfg.train.seed)
+    try:
+        batch = {k: v.copy() for k, v in next(iter(loader)).items()}
+    finally:
+        loader.close()
+    frames = batch["unit"].shape[1]
+    rng = np.random.default_rng(SEED + 23)
+    case = {"hpfile": hpfile, "batch": batch,
+            "eps_q": rng.standard_normal((TRAIN_BATCH, cfg.model.inter_channels, frames)
+                                         ).astype(np.float32),
+            "ids": rng.integers(0, frames - cfg.segment_frames + 1, TRAIN_BATCH)}
+    dp_tmp = os.path.join(tmp, "dp_ranks")
+    os.makedirs(dp_tmp)
+    torch.save(case, os.path.join(dp_tmp, "dp_case.pt"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_rank, args=(dp_tmp,), nprocs=DP_RANKS, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            require(time.perf_counter() - t0 < 600, "phase 16 (b): the gloo ranks finished")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    ranks_seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(dp_tmp, f"dp_rank{r}.pt"), weights_only=False)
+             for r in range(DP_RANKS)]
+
+    # one process on the whole batch, the same weights and draws; then twice
+    # more with the posterior noise moved by 1e-6 of itself
+    import copy
+
+    dev = torch.device("cuda")
+    base = create_train_state(cfg, dev)
+    eps_q = torch.from_numpy(case["eps_q"]).to(dev)
+
+    def one_process(eps, rows=slice(None)):
+        state = create_train_state(cfg, dev, copy.deepcopy(base.net_g),
+                                   copy.deepcopy(base.net_d))
+        with cudnn_deterministic():
+            return train_step(state, {k: torch.from_numpy(v[rows].copy()).to(dev)
+                                      for k, v in batch.items()},
+                              mel_basis(cfg, dev), eps_q=eps[rows],
+                              ids_slice=torch.from_numpy(case["ids"][rows]).to(dev),
+                              debug_grads=True)
+
+    def maxrel(a, b) -> float:
+        return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max().clamp(min=1e-12))
+
+    m = one_process(eps_q)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    moved = [one_process(eps_q * (1 + 1e-6 * torch.randn(eps_q.shape, device=dev,
+                                                           generator=gen))) for _ in range(2)]
+    # the control: rank 0's own gradients, not reduced (a rank's dropped), which
+    # the gate must refuse
+    local = one_process(eps_q, slice(0, DP_RANK_BATCH))
+    dp = torch.load(os.path.join(dp_tmp, "dp_step.pt"), weights_only=False)
+    losses = {k: [float(dp[k]), float(m[k])] for k in DP_LOSSES}
+    grad_err, grads_ok, control_refused = {}, True, True
+    for which in ("debug/d_grads", "debug/g_grads"):
+        ratios, errs, sens, control = {}, {}, {}, {}
+        for n, g in m[which].items():
+            errs[n] = maxrel(dp[which][n], g)
+            sens[n] = max(maxrel(x[which][n], g) for x in moved)
+            ratios[n] = errs[n] / (2e-3 + 2 * sens[n])
+            control[n] = maxrel(local[which][n], g) / (2e-3 + 2 * sens[n])
+        worst, touchy = max(ratios, key=ratios.get), max(sens, key=sens.get)
+        grads_ok &= ratios[worst] < 1
+        control_refused &= max(control.values()) >= 1
+        grad_err[which] = {"max_rel_err": max(errs.values()), "at": max(errs, key=errs.get),
+                           "worst_err_over_gate": ratios[worst], "worst_at": worst,
+                           "worst_err": errs[worst], "worst_sensitivity": sens[worst],
+                           "max_sensitivity": sens[touchy], "most_sensitive": touchy,
+                           "tensors": len(errs),
+                           "control_worst_err_over_gate": max(control.values()),
+                           "control_tensors_refused": sum(v >= 1 for v in control.values())}
+    variants = {}
+    for name, _, steps in DP_VARIANTS:
+        r0, r1 = (r["variants"][name] for r in ranks)
+        variants[name] = {"steps": steps, "ranks_bit_equal": r0["hashes"] == r1["hashes"],
+                          "wave_to_spec_halo": [r0["wave_to_spec_halo"], r1["wave_to_spec_halo"]],
+                          "step_seconds": [r0["step_seconds"], r1["step_seconds"]],
+                          "losses_rank0": r0["losses"]}
+    out = {"ranks": DP_RANKS, "rows_a_rank": DP_RANK_BATCH, "ranks_seconds": ranks_seconds,
+           "variants": variants, "dp_vs_one_process": {"losses": losses, "grads": grad_err},
+           "bf16_mean": [r["bf16_mean"] for r in ranks]}
+    print("dp_gloo_ranks " + json.dumps(out))
+    for name, v in variants.items():
+        require(v["ranks_bit_equal"], f"phase 16 (b) {name}: the ranks' parameters bit-equal")
+        require(v["wave_to_spec_halo"] == [[1] * v["steps"]] * DP_RANKS,
+                f"phase 16 (b) {name}: K4 once a step on each rank")
+        require(all(np.isfinite(x) for step in v["losses_rank0"] for x in step.values()),
+                f"phase 16 (b) {name}: finite losses")
+    require(all(abs(a - b) <= 1e-5 + 2e-4 * abs(b) for a, b in losses.values()),
+            "phase 16 (b): the data-parallel losses match one process on the batch of 32")
+    require(grads_ok, "phase 16 (b): the reduced gradients match one process on the batch "
+            "of 32 (2e-3 beyond what a 1e-6 change of the posterior noise moves them)")
+    require(control_refused, "phase 16 (b): the gate refuses one rank's unreduced gradients "
+            "(G's and D's)")
+    require(all(r["bit_equal_to_round_bf16_sum_over_2"] for r in out["bf16_mean"]),
+            "phase 16 (b): the bf16 mean over two gloo ranks is round_bf16(a + b) / 2")
+    return out
+
+
+def check_nccl_cards(tmp: str, hpfile: str) -> dict:
+    """(c) NCCL across the cards of this machine, where there are two or
+    more: ``quickvc_tpu_torch.scripts.dp_collectives`` (the all-reduce's
+    bytes and CUDA-event time per network, float32, bf16 and ZeRO-1; the
+    bf16 mean bit-exact at two ranks, its error against float32 at more) at
+    two ranks and at every card, and the trainer CLI for DP_STEPS steps at
+    batch 32 a card with its step walls. On one card it prints why it did
+    not run; that is no pass."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        out = {"cards": n, "skipped": "one card: NCCL across cards needs two or more; "
+                                     "not run, so not passed"}
+        print("dp_nccl_cards " + json.dumps(out))
+        return out
+    out = {"cards": n, "collectives": {}}
+    for ranks in sorted({2, n}):
+        _, stdout = torchrun(ranks, ["-m", "quickvc_tpu_torch.scripts.dp_collectives"])
+        line = [ln for ln in stdout.splitlines() if ln.startswith("dp_collectives ")]
+        require(len(line) == 1, f"dp_collectives printed its line at {ranks} ranks")
+        out["collectives"][ranks] = json.loads(line[0].split(" ", 1)[1])
+    hp = write_config(os.path.join(tmp, "dp_cards_config.json"), hpfile,
+                      train={"eval_interval": 0})
+    run_dir = os.path.join(tmp, "logs_dp_cards", "smoke")
+    seconds, _ = torchrun(n, ["-m", "quickvc_tpu_torch.train", "-c", hp, "-m", "smoke", "-mr",
+                              os.path.dirname(run_dir), "--max-steps", str(DP_STEPS),
+                              "--distributed"])
+    out["trainer"] = {"steps": DP_STEPS, "batch_a_card": TRAIN_BATCH, "torchrun_seconds": seconds,
+                      "step_seconds": {r: step_walls(os.path.join(
+                          run_dir, "train.log" if r == 0 else f"train.rank{r}.log"))
+                          for r in range(n)}}
+    print("dp_nccl_cards " + json.dumps(out))
+    require(out["collectives"][2]["bf16_mean"]["bit_equal_to_round_bf16_sum_over_2"],
+            "phase 16 (c): the bf16 mean over two NCCL ranks is round_bf16(a + b) / 2")
+    require(all(len(w) == DP_STEPS for w in out["trainer"]["step_seconds"].values()),
+            "phase 16 (c): every rank logged every step")
+    return out
+
+
+def check_data_parallel(tmp: str, hpfile: str) -> dict:
+    """Phase 16: (a), (b) and (c) on phase 4's corpus and config."""
+    return {"world1_nccl": check_dp_world1(tmp, hpfile),
+            "gloo_ranks": check_dp_gloo_ranks(tmp, hpfile),
+            "nccl_cards": check_nccl_cards(tmp, hpfile)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3613,6 +3971,8 @@ def main() -> int:
         mb = check_mb_conversion(tmp, files, n_frames)
         check_mb_training(tmp, train, train16)
         check_flac(tmp, np.random.default_rng(SEED + 21), train)
+        # phase 16: data parallel; its draws from seeds of its own
+        check_data_parallel(tmp, train["hpfile"])
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
     expected = {name: 0 for name in launches} | {

@@ -23,7 +23,11 @@ def _filter_kwargs(cls, d: dict[str, Any]) -> dict[str, Any]:
 
 @dataclass
 class TrainConfig:
-    """Training hyperparameters (reference ``utils.py:20-38``)."""
+    """Training hyperparameters (reference ``utils.py:20-38``) and the JAX
+    trainer's fields. The port's trainer reads every JAX field but two:
+    ``num_hosts``, which no JAX module reads either (the launcher's
+    ``WORLD_SIZE`` sets the number of processes), and ``data_axis``, the
+    name of JAX's mesh axis."""
 
     log_interval: int = 20
     eval_interval: int = 1000
@@ -43,9 +47,7 @@ class TrainConfig:
     hop_sizes: tuple[int, ...] = (30, 60, 10)
     win_lengths: tuple[int, ...] = (150, 300, 60)
     window: str = "hann_window"
-    # Fields of the JAX trainer (quickvc_tpu/config.py documents them); the
-    # port's trainer refuses the values it has not ported
-    # (train/state.py:check_supported).
+    # Fields of the JAX trainer (quickvc_tpu/config.py documents them)
     precision: str = "bf16"
     num_hosts: int = 1
     data_axis: str = "data"

@@ -126,13 +126,21 @@ class UnitAudioSpecDataset:
 
 class BucketSampler:
     """Length-bucketed batches with epoch-seeded shuffles (reference
-    ``DistributedBucketSampler`` semantics, one replica)."""
+    ``DistributedBucketSampler`` semantics; ``quickvc_tpu/data/dataset.py:
+    189-258``). With ``num_replicas`` ranks each bucket is padded to a
+    multiple of ``batch_size * num_replicas`` items, every global batch of
+    that many is split among the ranks by stride, and rank ``rank`` yields its
+    ``batch_size`` items of each: the ranks draw the same shuffles and stay in
+    lockstep, one batch each per step."""
 
     def __init__(self, lengths: Sequence[int], batch_size: int,
-                 boundaries: Sequence[int], shuffle: bool = True):
+                 boundaries: Sequence[int], shuffle: bool = True,
+                 num_replicas: int = 1, rank: int = 0):
         self.batch_size = batch_size
         self.boundaries = list(boundaries)
         self.shuffle = shuffle
+        self.num_replicas = num_replicas
+        self.rank = rank
         self.epoch = 0
         buckets: list[list[int]] = [[] for _ in range(len(self.boundaries) - 1)]
         for i, length in enumerate(lengths):
@@ -142,8 +150,9 @@ class BucketSampler:
         keep = [j for j, b in enumerate(buckets) if b]
         self.buckets = [buckets[j] for j in keep]
         self.bucket_lo = [self.boundaries[j] for j in keep]  # items have len > lo
-        self.num_samples_per_bucket = [
-            len(b) + (batch_size - len(b) % batch_size) % batch_size for b in self.buckets]
+        total = batch_size * num_replicas
+        self.num_samples_per_bucket = [len(b) + (total - len(b) % total) % total
+                                       for b in self.buckets]
 
     def _bisect(self, x: int) -> int:
         lo, hi = 0, len(self.boundaries) - 1
@@ -164,19 +173,22 @@ class BucketSampler:
         """Yields (bucket_index, item_indices)."""
         g = np.random.default_rng(self.epoch)
         batches: list[tuple[int, list[int]]] = []
+        total = self.batch_size * self.num_replicas
         for k, bucket in enumerate(self.buckets):
             ids = list(g.permutation(len(bucket))) if self.shuffle else list(range(len(bucket)))
             rem = self.num_samples_per_bucket[k] - len(bucket)
             ids = ids + ids * (rem // len(bucket)) + ids[: rem % len(bucket)]
-            for j in range(len(ids) // self.batch_size):
-                chunk = ids[j * self.batch_size : (j + 1) * self.batch_size]
-                batches.append((k, [bucket[i] for i in chunk]))
+            for j in range(len(ids) // total):
+                chunk = ids[j * total : (j + 1) * total]
+                mine = chunk[self.rank :: self.num_replicas][: self.batch_size]
+                batches.append((k, [bucket[i] for i in mine]))
         if self.shuffle:
             batches = [batches[i] for i in g.permutation(len(batches))]
         return iter(batches)
 
     def __len__(self) -> int:
-        return sum(n // self.batch_size for n in self.num_samples_per_bucket)
+        return sum(n // (self.batch_size * self.num_replicas)
+                   for n in self.num_samples_per_bucket)
 
 
 def bf16_wire(cfg: QuickVCConfig) -> bool:

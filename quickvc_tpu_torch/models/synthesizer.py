@@ -56,8 +56,22 @@ class SynthesizerTrn(nn.Module):
         (tests inject the JAX package's). The prior's own sample is unused
         in training, so enc_p runs at noise 0.
         """
+        m_p, logs_p = self.prior_stats(unit)
+        o, o_mb, ids_slice, (z, z_p, m_q, logs_q) = self.forward_posterior(
+            spec, mel, generator, eps_q, ids_slice)
+        return o, o_mb, ids_slice, (z, z_p, m_p, logs_p, m_q, logs_q)
+
+    def forward_posterior(self, spec: torch.Tensor, mel: torch.Tensor,
+                          generator: torch.Generator | None = None,
+                          eps_q: torch.Tensor | None = None,
+                          ids_slice: torch.Tensor | None = None):
+        """The training forward without the prior encoder
+        (``quickvc_tpu/models/synthesizer.py:61-80``): everything the D phase
+        takes (speaker embedding, posterior sample, flow, sliced decode).
+        Returns (y_hat, the decoder's second output, ids_slice, (z, z_p, m_q,
+        logs_q)); draws what :meth:`forward` draws, since ``enc_p`` draws
+        nothing in training."""
         g = self.enc_spk(mel.transpose(1, 2))[:, :, None]
-        _, m_p, logs_p = self.enc_p(unit, noise_scale=0.0)
         z, m_q, logs_q = self.enc_q(spec, g, generator=generator, eps=eps_q)
         z_p = self.flow(z, g)
         if ids_slice is None:
@@ -65,7 +79,12 @@ class SynthesizerTrn(nn.Module):
         else:
             z_slice = slice_segments(z, ids_slice, self.segment_size)
         o, o_mb = self.dec(z_slice, g, differentiable=True)
-        return o, o_mb, ids_slice, (z, z_p, m_p, logs_p, m_q, logs_q)
+        return o, o_mb, ids_slice, (z, z_p, m_q, logs_q)
+
+    def prior_stats(self, unit: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The prior encoder's (m_p, logs_p) of units (B, unit_channels, F)."""
+        _, m_p, logs_p = self.enc_p(unit, noise_scale=0.0)
+        return m_p, logs_p
 
     def infer(self, unit: torch.Tensor, g_vec: torch.Tensor, noise_scale: float = 1.0,
               generator: torch.Generator | None = None) -> torch.Tensor:

@@ -182,6 +182,24 @@ def device_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def on_tensor_device(launch):
+    """Run a kernel's launcher with its first argument's card as the current
+    device. The C side launches on the current device and sizes its grids
+    from it (``cudaGetDevice``), so a ``cuda:1`` tensor in a process whose
+    current device is card 0 would otherwise hand card 1's pointers to a
+    launch on card 0."""
+
+    @functools.wraps(launch)
+    def wrapper(*args, **kwargs):
+        t = args[0]
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            with torch.cuda.device(t.device):
+                return launch(*args, **kwargs)
+        return launch(*args, **kwargs)
+
+    return wrapper
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

@@ -31,7 +31,8 @@ from typing import NamedTuple
 import torch
 
 from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
-                                         refuse_grad, require_cuda, require_dtype, stream_ptr)
+                                         on_tensor_device, refuse_grad, require_cuda,
+                                         require_dtype, stream_ptr)
 
 STATS = KernelStats("attention_packed")                  # K2, float32
 BF16_STATS = KernelStats("attention_packed_bf16")        # K2, bfloat16
@@ -191,6 +192,7 @@ def _require_same(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                          f"the last dim, got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
 
 
+@on_tensor_device
 def attention_packed_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             num_heads: int, scale: float) -> torch.Tensor:
     """Launch K2 on float32 or bfloat16 CUDA (B, T, H*D) views whose last dim is
@@ -226,6 +228,7 @@ def _packed_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: i
     return bf16_attention_plan(b, num_heads, t, d, device_sms(q.device.index or 0), tma)
 
 
+@on_tensor_device
 def attention_packed_aligned_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     num_heads: int, scale: float,
                                     head_pad: int = HEAD_PAD) -> torch.Tensor:
@@ -255,6 +258,7 @@ def attention_packed_aligned_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.T
     return out
 
 
+@on_tensor_device
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float) -> torch.Tensor:
     """Launch K10 on float32 or bfloat16 CUDA (B, H, T, D) views whose last dim

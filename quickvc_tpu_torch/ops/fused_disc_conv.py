@@ -55,7 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
-                                         require_cuda, require_dtype, stream_ptr)
+                                         on_tensor_device, require_cuda, require_dtype,
+                                         stream_ptr)
 from quickvc_tpu_torch.ops.fused_transformer import (K_TILE, K_TILE_BYTES, TILE_M, TILE_N,
                                                     WgmmaPlan, wgmma_plan)
 
@@ -230,6 +231,7 @@ def _require(name: str, *tensors: torch.Tensor) -> torch.dtype:
     return dtype
 
 
+@on_tensor_device
 def conv5_lrelu_kernel(x: torch.Tensor, kernel: torch.Tensor,
                        bias: torch.Tensor | None, slope: float) -> torch.Tensor:
     """Launch K5: x (N, R, C_in), kernel (5, C_in, C_out), bias (C_out) or None,
@@ -258,6 +260,7 @@ def conv5_lrelu_kernel(x: torch.Tensor, kernel: torch.Tensor,
     return y
 
 
+@on_tensor_device
 def conv5_dw_kernel(x: torch.Tensor, dym: torch.Tensor) -> torch.Tensor:
     """Launch K6: x (N, R, C_in), dym (N, R, C_out) -> dW (5, C_in, C_out), all
     float32 or all bf16 (its bf16 mode: float32 sums, dW rounded once)."""

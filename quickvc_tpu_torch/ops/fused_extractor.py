@@ -47,8 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
-                                         refuse_grad, require_cuda, require_device, require_dtype,
-                                         stream_ptr)
+                                         on_tensor_device, refuse_grad, require_cuda,
+                                         require_device, require_dtype, stream_ptr)
 
 STATS = KernelStats("extractor_front")
 BF16_STATS = KernelStats("extractor_front_bf16")
@@ -170,6 +170,7 @@ def front_h_offset(row: int, c: int) -> int:
     return row * 128 + (((c >> 3) ^ (row & 7)) << 4) + ((c & 7) << 1)
 
 
+@on_tensor_device
 def extractor_front_kernel(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
                            beta: torch.Tensor, w1: torch.Tensor,
                            eps: float = 1e-5) -> torch.Tensor:

@@ -22,7 +22,7 @@ from quickvc_tpu_torch.dsp.istft import _inverse_dft_matrices, _ola_envelope
 from quickvc_tpu_torch.dsp.istft import polar_inverse_stft as polar_inverse_stft_plain
 from quickvc_tpu_torch.dsp.stft import hann_window
 from quickvc_tpu_torch.ops._cuda import (AT_EDGE, KernelStats, check, device_sms, library,
-                                         refuse_grad, require_cuda, stream_ptr)
+                                         on_tensor_device, refuse_grad, require_cuda, stream_ptr)
 
 STATS = KernelStats("polar_inverse_stft")
 # the (n_fft, hop) with a body of its own (configs/quickvc.json decoder)
@@ -172,6 +172,7 @@ def _spectra(log_mag: torch.Tensor, phase: torch.Tensor, n_fft: int) -> tuple[in
     return shape[0], shape[1]
 
 
+@on_tensor_device
 def polar_inverse_stft_kernel(log_mag: torch.Tensor, phase: torch.Tensor,
                               n_fft: int, hop: int) -> torch.Tensor:
     """Launch K3: (rows, F, n_fft//2+1) x2 float32 CUDA, any strides ->

@@ -28,8 +28,8 @@ from quickvc_tpu_torch.dsp.mel import mel_filterbank
 from quickvc_tpu_torch.dsp.stft import padded_window
 from quickvc_tpu_torch.dsp.stft import wave_to_mel as wave_to_mel_plain
 from quickvc_tpu_torch.dsp.stft import wave_to_spec_halo as wave_to_spec_halo_plain
-from quickvc_tpu_torch.ops._cuda import (AT_EDGE, KernelStats, check, library, refuse_grad,
-                                         require_cuda, stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (AT_EDGE, KernelStats, check, library, on_tensor_device,
+                                         refuse_grad, require_cuda, stream_ptr)
 
 STATS = KernelStats("wave_to_mel")
 SPEC_STATS = KernelStats("wave_to_spec_halo")
@@ -87,6 +87,7 @@ def mel_route(n_fft: int, hop: int) -> str:
     return _route("wave_to_mel", n_fft, hop)
 
 
+@on_tensor_device
 def wave_to_mel_kernel(y: torch.Tensor, sr: int, n_fft: int, hop: int, win: int,
                        n_mels: int, fmin: float = 0.0,
                        fmax: float | None = None) -> torch.Tensor:
@@ -192,6 +193,7 @@ def _device_spec_table(device: torch.device, n_fft: int, win: int) -> torch.Tens
     return torch.as_tensor(spec_fft_table(n_fft, win), device=device)
 
 
+@on_tensor_device
 def wave_to_spec_halo_kernel(y: torch.Tensor, n_fft: int, hop: int,
                              win: int) -> torch.Tensor:
     """Launch K4: (B, T + n_fft - hop) float32 CUDA -> (B, T//hop, n_fft//2+1),

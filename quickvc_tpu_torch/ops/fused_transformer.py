@@ -35,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from quickvc_tpu_torch.ops._cuda import (F32_BF16, KernelStats, check, device_sms, library,
-                                         refuse_grad, require_cuda, require_device,
-                                         require_dtype, stream_ptr)
+                                         on_tensor_device, refuse_grad, require_cuda,
+                                         require_device, require_dtype, stream_ptr)
 from quickvc_tpu_torch.ops.fused_attention import attention_reference, bf16_attention_plan
 
 STATS = KernelStats("transformer_layer")
@@ -244,6 +244,7 @@ def transformer_layer_reference_bf16(x: torch.Tensor, layer) -> torch.Tensor:
     return _layer_norm(x1.float() + linear(mid, w2, b2), g2.float(), be2.float()).to(bf16)
 
 
+@on_tensor_device
 def transformer_layer_kernel(x: torch.Tensor, layer) -> torch.Tensor:
     """Launch K8 on a float32 CUDA (B, T, H*64) tensor and the layer's float32
     weights, or its bf16 mode on a bf16 one (the weight matrices cast to bf16

@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from quickvc_tpu_torch.ops._cuda import KernelStats, check, library, refuse_grad, stream_ptr
+from quickvc_tpu_torch.ops._cuda import (KernelStats, check, library, on_tensor_device,
+                                         refuse_grad, stream_ptr)
 
 S8_STATS = KernelStats("mm_s8")
 BF16_STATS = KernelStats("mm_bf16")
@@ -64,6 +65,7 @@ def tile_schedule(m: int, n: int, tile: str, blocks: int) -> list[list[tuple[int
     return [[origin(t) for t in range(b, total, grid)] for b in range(grid)]
 
 
+@on_tensor_device
 def transpose_b(b: torch.Tensor) -> torch.Tensor:
     """K11's s8 pre-pass alone: contiguous CUDA (K, N) int8 -> B^T (N, K)."""
     if b.device.type != "cuda" or b.dtype != torch.int8 or b.dim() != 2 or not b.is_contiguous():
@@ -96,6 +98,7 @@ def _operands(a: torch.Tensor, b: torch.Tensor):
     return fn, out, transpose_b(b) if a.dtype == torch.int8 else b, stats
 
 
+@on_tensor_device
 def mm_kernel(a: torch.Tensor, b: torch.Tensor, tile: str = DEFAULT_TILE) -> torch.Tensor:
     """Launch K11 on contiguous CUDA (M, K) and (K, N) of one type, int8 or
     bf16, with K a multiple of 64 (int8) or 32 (bf16) and N of 8."""
@@ -117,6 +120,7 @@ def mm_kernel(a: torch.Tensor, b: torch.Tensor, tile: str = DEFAULT_TILE) -> tor
 _PROBES = {"product": 0, "no_store": 1, "no_load": 3, "no_operand_fence": 4}
 
 
+@on_tensor_device
 def _mm_probe(a: torch.Tensor, b: torch.Tensor, probe: str, blocks: int = 0) -> torch.Tensor:
     """One of :data:`_PROBES` on ``mm_kernel``'s operands (``scripts/kernel_times.py``),
     on a persistent grid of ``blocks`` blocks (0: one an SM). Counts no launch:

@@ -56,8 +56,8 @@ from typing import NamedTuple
 
 import torch
 
-from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library, require_cuda,
-                                         stream_ptr)
+from quickvc_tpu_torch.ops._cuda import (KernelStats, check, device_sms, library,
+                                         on_tensor_device, require_cuda, stream_ptr)
 
 STATS = KernelStats("lstm_stack_bf16")
 BACKWARD_STATS = KernelStats("lstm_stack_bf16_backward")
@@ -292,6 +292,7 @@ def _plan(name: str, b: int, steps: int, hidden: int, *tensors: torch.Tensor) ->
     return lstm_plan(b, hidden, device_sms(tensors[0].device.index or 0))
 
 
+@on_tensor_device
 def lstm_stack_kernel(xp0: torch.Tensor, w_ih, b, w_hh):
     """Launch the forward kernel on CUDA bf16 xp0 (B, T, 4H), the W_ih (4H, H)
     and biases (4H,) of layers 1 .. L-1 and the W_hh (4H, H) of every layer:
@@ -339,6 +340,7 @@ def lstm_stack_kernel(xp0: torch.Tensor, w_ih, b, w_hh):
     return h, act, c
 
 
+@on_tensor_device
 def lstm_forward_kernel(xp: torch.Tensor, w_hh: torch.Tensor):
     """One layer of the forward kernel on CUDA bf16 xp (B, T, 4H) and w_hh
     (4H, H): (h, act, c) as :func:`lstm_forward_reference` returns them."""
@@ -350,6 +352,7 @@ def lstm_forward_kernel(xp: torch.Tensor, w_hh: torch.Tensor):
     return tuple(z[0] for z in lstm_stack_kernel(xp, [], [], [w_hh]))
 
 
+@on_tensor_device
 def lstm_stack_backward_kernel(dh_out: torch.Tensor, w_ih, w_hh, act: torch.Tensor,
                                c: torch.Tensor, return_dh: bool = False):
     """Launch the backward kernel once for a whole stack on CUDA bf16
@@ -400,6 +403,7 @@ def lstm_stack_backward_kernel(dh_out: torch.Tensor, w_ih, w_hh, act: torch.Tens
     return (dgates, dh_mid) if return_dh else dgates
 
 
+@on_tensor_device
 def lstm_backward_kernel(dh_out: torch.Tensor, w_hh: torch.Tensor, act: torch.Tensor,
                          c: torch.Tensor) -> torch.Tensor:
     """One layer of the backward kernel (a stack of one): dgates (B, T, 4H)

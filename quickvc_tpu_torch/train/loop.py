@@ -3,6 +3,7 @@
     python -m quickvc_tpu_torch.train -c configs/quickvc.json -m NAME -mr ./logs
         [--max-steps N] [--device cuda|cpu] [--init-from-torch G.pth [D.pth]]
         [--export-torch-every N]
+    torchrun --nproc-per-node N -m quickvc_tpu_torch.train --distributed ...
 
 Port of ``quickvc_tpu/train/loop.py`` and ``train.py`` (reference
 ``train.py``): epochs over the length-bucketed loader (thread or process
@@ -16,15 +17,33 @@ a watchdog on the step walls; reconstruction and conversion eval on
 checkpoints, the newest ``train.ckpt_max_to_keep`` of them kept. A run
 resumes from the newest pair in ``model_dir``, mid-epoch included (the
 loader skips the batches already trained on), and a resumed run takes the
-same updates as an uninterrupted one. Past ``train.max_host_rss_gb`` the
-run checkpoints and exits with code 75, which ``scripts/supervise_train.py
--- python -m quickvc_tpu_torch.train ...`` answers with a relaunch.
+same updates as an uninterrupted one: bit for bit on the CPU; on the card
+cuDNN's convolution algorithms may sum in another order from one run to
+the next, so there the two agree to float32 rounding. Past
+``train.max_host_rss_gb`` the run checkpoints and exits with code 75, which
+``scripts/supervise_train.py -- python -m quickvc_tpu_torch.train ...``
+answers with a relaunch.
 
 ``train.precision`` sets the step's compute dtype (``train/step.py``); the
 eval runs in float32 whatever it is, as the JAX loop's does, and
 checkpoints hold float32 parameters and moments either way.
 
-Runs on the card unless ``--device cpu`` is given; CUDA without a card raises.
+Data parallel (``--distributed``, ``quickvc_tpu/train/loop.py:60-160``):
+one process per card, started by ``torchrun``, each training on its own
+``train.batch_size`` rows (the global batch is ``batch_size`` times the
+number of processes; the sampler splits each global batch among the ranks)
+and reducing the gradients over NCCL (:mod:`quickvc_tpu_torch.parallel`).
+Every rank starts from rank 0's weights. Rank 0 writes ``train.log``,
+rank r > 0 ``train.rank{r}.log``; TensorBoard events, the eval, checkpoints,
+exports and their pruning are rank 0's alone, and the ranks meet at a
+barrier after each save. Past ``train.max_host_rss_gb`` a multi-process run
+only warns: one rank exiting alone would stall the others in their next
+collective, so restarts belong to the launcher. With several processes
+(``WORLD_SIZE`` > 1) and no ``--distributed`` the trainer raises rather
+than train that many independent copies.
+
+Runs on the card unless ``--device cpu`` is given (gloo on the CPU); CUDA
+without a card raises.
 """
 
 from __future__ import annotations
@@ -44,7 +63,10 @@ from quickvc_tpu_torch.dsp.stft import spec_to_mel
 from quickvc_tpu_torch.models.encoders import embed_utterance
 from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
 from quickvc_tpu_torch.ops.fused_mel import wave_to_mel
-from quickvc_tpu_torch.train.state import (build_models, check_supported, create_train_state,
+from quickvc_tpu_torch.parallel import mesh
+from quickvc_tpu_torch.parallel.shard_step import rank_seed
+from quickvc_tpu_torch.train.state import (build_models, create_train_state,
+                                           load_optimizer_state_dict, optimizer_state_dict,
                                            set_epoch)
 from quickvc_tpu_torch.train.step import mel_basis, train_step
 from quickvc_tpu_torch.train.telemetry import (RESTART_EXIT_CODE, HostMemoryRestart,
@@ -178,9 +200,11 @@ def _initial_state(cfg: QuickVCConfig, device: torch.device,
     resumed = latest_step(cfg.model_dir)
     if resumed is not None:
         state = create_train_state(cfg, device)
-        for kind, net, optim in (("G", state.net_g, state.optim_g),
-                                 ("D", state.net_d, state.optim_d)):
-            load_checkpoint(os.path.join(cfg.model_dir, f"{kind}_{resumed}.pth"), net, optim)
+        for kind in "gd":
+            net = state.nets(kind)[0]
+            _, opt_sd = load_checkpoint(
+                os.path.join(cfg.model_dir, f"{kind.upper()}_{resumed}.pth"), net)
+            load_optimizer_state_dict(state, kind, opt_sd)
         state.step = resumed
         log.info("Resumed from checkpoint at step %d", resumed)
         return state
@@ -231,11 +255,13 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
     the newest ``ckpt_max_to_keep`` are deleted. The last step of
     ``max_steps``, and a host-memory restart, checkpoint too.
     """
-    check_supported(cfg)
-    log = get_logger(cfg.model_dir)
+    t = cfg.train
+    rank, world = mesh.rank(), mesh.world_size()
+    log = get_logger(cfg.model_dir, "train.log" if rank == 0 else f"train.rank{rank}.log")
     train_ds = UnitAudioSpecDataset("train", cfg, with_spec=cfg.train.transfer != "compact")
     eval_ds = UnitAudioSpecDataset("eval", cfg)
-    sampler = BucketSampler(train_ds.lengths, cfg.train.batch_size, BUCKET_BOUNDARIES)
+    sampler = BucketSampler(train_ds.lengths, cfg.train.batch_size, BUCKET_BOUNDARIES,
+                            num_replicas=world, rank=rank)
     loader = DataLoader(train_ds, sampler, cfg, num_workers=cfg.train.loader_workers,
                         seed=cfg.train.seed, prefetch=cfg.train.prefetch_batches,
                         mode=cfg.train.loader_mode)
@@ -244,23 +270,34 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
                          f"length bucket ({BUCKET_BOUNDARIES[0]}-"
                          f"{BUCKET_BOUNDARIES[-1]} frames)")
     state = _initial_state(cfg, device, init_torch, log)
-    log.info("Generator params: %.2fM | Discriminator params: %.2fM on %s",
+    # rank 0's weights on every rank; the ranks' first collective, made while
+    # they are still in lockstep
+    mesh.broadcast_from_rank0(state.net_g)
+    mesh.broadcast_from_rank0(state.net_d)
+    log.info("Generator params: %.2fM | Discriminator params: %.2fM on %s (rank %d of %d)",
              sum(p.numel() for p in state.net_g.parameters()) / 1e6,
-             sum(p.numel() for p in state.net_d.parameters()) / 1e6, device)
+             sum(p.numel() for p in state.net_d.parameters()) / 1e6, device, rank, world)
+    if t.max_host_rss_gb > 0 and world > 1:
+        log.warning("train.max_host_rss_gb is single-process only (a lone rank exiting "
+                    "would wedge the collective); RSS is still logged, but restarts belong "
+                    "to the external launcher in multi-process runs")
 
-    t = cfg.train
     export_every = t.export_torch_every
 
     def save(lr: float, epoch: int) -> None:
         paths = tuple(os.path.join(cfg.model_dir, f"{k}_{state.step}.pth") for k in "GD")
         if out["checkpoint"] == paths:
             return  # this step's pair is already written
-        save_checkpoint(paths[0], state.net_g, state.optim_g, lr, epoch)
-        save_checkpoint(paths[1], state.net_d, state.optim_d, lr, epoch)
+        # every rank: under ZeRO-1 the moments are gathered (a collective)
+        opt_g, opt_d = optimizer_state_dict(state, "g"), optimizer_state_dict(state, "d")
+        if rank == 0:
+            save_checkpoint(paths[0], state.net_g, opt_g, lr, epoch)
+            save_checkpoint(paths[1], state.net_d, opt_d, lr, epoch)
+            log.info("saved %s", " and ".join(paths))
+            prune_checkpoints(cfg.model_dir, t.ckpt_max_to_keep,
+                              keep=lambda n: bool(export_every) and (n - 1) % export_every == 0)
+        mesh.barrier()
         out["checkpoint"] = paths
-        log.info("saved %s", " and ".join(paths))
-        prune_checkpoints(cfg.model_dir, t.ckpt_max_to_keep,
-                          keep=lambda n: bool(export_every) and (n - 1) % export_every == 0)
 
     basis = mel_basis(cfg, device)
     gen = torch.Generator(device=device)
@@ -271,8 +308,8 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
            "evals": [], "checkpoint": None}
     if max_steps is not None and state.step >= max_steps:
         return out
-    writer = Summarizer(cfg.model_dir)
-    writer_eval = Summarizer(os.path.join(cfg.model_dir, "eval"))
+    writer = Summarizer(cfg.model_dir) if rank == 0 else None
+    writer_eval = Summarizer(os.path.join(cfg.model_dir, "eval")) if rank == 0 else None
     walls = StepWallTracker()
     # warns while no step completes (a hung card or loader); stopped in the
     # finally, so it never outlives the run
@@ -289,7 +326,7 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
                 # a copy: process workers' arrays live in shared memory they reuse
                 batch = {k: _upload(v, device) for k, v in host_batch.items()}
                 del host_batch
-                gen.manual_seed(t.seed * 1_000_003 + g)  # resumable draws
+                gen.manual_seed(rank_seed(t.seed * 1_000_003 + g, rank))  # resumable draws
                 m = train_step(state, batch, basis, generator=gen)
                 scalars = {k: float(m[f"loss/{k}"])
                            for k in ("g/total", "d/total", "g/mel", "g/kl")}
@@ -323,34 +360,37 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
                              "(%.3f s)", epoch, state.step, lr, scalars["g/total"],
                              scalars["d/total"], scalars["g/mel"], scalars["g/kl"],
                              out["step_seconds"][-1])
-                    host, imgs = _host_metrics(m)
                     rss = host_rss_gb()
-                    writer.scalars(g, host | walls.summary() | {"host/rss_gb": rss})
-                    writer.images(g, {
-                        "slice/mel_org": plot_spectrogram(imgs["img/mel_org"].T),
-                        "slice/mel_gen": plot_spectrogram(imgs["img/mel_gen"].T),
-                        "all/mel": plot_spectrogram(imgs["img/mel_all"].T)})
-                    writer.flush()
+                    if writer is not None:
+                        host, imgs = _host_metrics(m)
+                        writer.scalars(g, host | walls.summary() | {"host/rss_gb": rss})
+                        writer.images(g, {
+                            "slice/mel_org": plot_spectrogram(imgs["img/mel_org"].T),
+                            "slice/mel_gen": plot_spectrogram(imgs["img/mel_gen"].T),
+                            "all/mel": plot_spectrogram(imgs["img/mel_all"].T)})
+                        writer.flush()
                     out["log_seconds"].append(time.perf_counter() - tl)
-                    if 0 < t.max_host_rss_gb < rss:
+                    if world == 1 and 0 < t.max_host_rss_gb < rss:
                         save(lr, epoch)
                         log.warning("host RSS %.2f GB > limit %.2f GB: checkpointed at step "
                                     "%d, requesting restart", rss, t.max_host_rss_gb,
                                     state.step)
                         raise HostMemoryRestart(rss, t.max_host_rss_gb, state.step)
                 if t.eval_interval and g % t.eval_interval == 0:
-                    te = time.perf_counter()
-                    ev = evaluate(g, cfg, state.net_g, eval_ds, basis, writer_eval)
-                    out["evals"].append({"step": g, "seconds": time.perf_counter() - te}
-                                        | ev["scalars"])
-                    if ev["scalars"]:
-                        log.info("eval after update %d (TensorBoard step %d) | mel_l1 %.4f",
-                                 state.step, g, ev["scalars"]["eval/mel_l1"])
+                    if rank == 0:
+                        te = time.perf_counter()
+                        ev = evaluate(g, cfg, state.net_g, eval_ds, basis, writer_eval)
+                        out["evals"].append({"step": g, "seconds": time.perf_counter() - te}
+                                            | ev["scalars"])
+                        if ev["scalars"]:
+                            log.info("eval after update %d (TensorBoard step %d) | mel_l1 "
+                                     "%.4f", state.step, g, ev["scalars"]["eval/mel_l1"])
                     save(lr, epoch)
                 if export_every and g % export_every == 0:
                     save(lr, epoch)
-                    log.info("exported reference-layout G_%d.pth/D_%d.pth", state.step,
-                             state.step)
+                    if rank == 0:
+                        log.info("exported reference-layout G_%d.pth/D_%d.pth", state.step,
+                                 state.step)
                 if max_steps is not None and state.step >= max_steps:
                     save(lr, epoch)
                     return out
@@ -362,8 +402,9 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
     finally:
         wd_stop.set()
         loader.close()
-        writer.close()
-        writer_eval.close()
+        if writer is not None:
+            writer.close()
+            writer_eval.close()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -374,6 +415,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-steps", type=int, default=None,
                    help="stop (and checkpoint) after N steps in all")
     p.add_argument("--device", type=str, default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel over the processes a launcher started "
+                        "(torchrun --nproc-per-node N ...): NCCL on the cards "
+                        "(cuda:LOCAL_RANK), gloo with --device cpu")
     p.add_argument("--export-torch-every", type=int, default=None, metavar="N",
                    help="also checkpoint after every update whose prior count is a "
                         "multiple of N (kept by the pruning); overrides "
@@ -392,6 +437,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if mesh.launcher_world_size() > 1 and not args.distributed:
+        raise RuntimeError(
+            f"WORLD_SIZE={mesh.launcher_world_size()}: a launcher started several "
+            "processes; pass --distributed so that they train one model together "
+            "(without it each would train its own copy)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # float32 products in float32: cuDNN convolutions would otherwise run in TF32
@@ -403,6 +453,9 @@ def main(argv=None) -> dict:
     init_torch = None
     if args.init_from_torch:
         init_torch = (args.init_from_torch[0], (args.init_from_torch[1:] or [None])[0])
+    created = False
+    if args.distributed:
+        device, created = mesh.init_process_group(device.type)
     try:
         return run(cfg, device, args.max_steps, init_torch)
     except HostMemoryRestart as e:
@@ -410,3 +463,6 @@ def main(argv=None) -> dict:
         # relaunches on this code, and the run resumes where it stopped
         print(f"restart requested: {e}", flush=True)
         raise SystemExit(RESTART_EXIT_CODE) from e
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()

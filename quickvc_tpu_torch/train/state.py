@@ -2,13 +2,19 @@
 
 Port of ``quickvc_tpu/train/state.py:39-52`` (reference ``train.py:57-75``):
 ``AdamW(lr, betas, eps, weight_decay=0.01)`` for each network and
-``ExponentialLR(gamma=lr_decay)`` stepped once per epoch. Options of the
-JAX trainer that the port does not have yet raise at start.
+``ExponentialLR(gamma=lr_decay)`` stepped once per epoch.
+
+With ``train.zero_opt_state`` (ZeRO-1, ``quickvc_tpu/parallel/mesh.py:
+zero1_state_sharding``) each network's AdamW holds one flat parameter, this
+rank's shard of the network's flattened parameters
+(:class:`quickvc_tpu_torch.parallel.mesh.Zero1Partition`), so it keeps about
+1/n of the replicated optimizer's moments. :func:`optimizer_state_dict` and
+:func:`load_optimizer_state_dict` convert between that and plain AdamW's
+layout (one entry per parameter), the layout checkpoints keep.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import torch
@@ -16,6 +22,8 @@ import torch
 from quickvc_tpu_torch.config import QuickVCConfig
 from quickvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
 from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
+from quickvc_tpu_torch.parallel.mesh import Zero1Partition, zero1_partition
+from quickvc_tpu_torch.parallel.shard_step import all_gather
 from quickvc_tpu_torch.utils.weights import init_random_
 
 
@@ -29,24 +37,14 @@ class TrainState:
     sched_g: torch.optim.lr_scheduler.ExponentialLR
     sched_d: torch.optim.lr_scheduler.ExponentialLR
     step: int = 0  # optimizer steps taken (skipped updates included)
+    zero_g: Zero1Partition | None = None   # ZeRO-1: this rank's part of G's moments
+    zero_d: Zero1Partition | None = None
 
-
-def check_supported(cfg: QuickVCConfig) -> None:
-    """Raise NotImplementedError for JAX-trainer options the port lacks."""
-    t = cfg.train
-    missing = [
-        (t.split_prior, "train.split_prior=true", 12),
-        (t.zero_opt_state, "train.zero_opt_state=true (ZeRO-1 moments)", 12),
-        (t.grad_reduce_dtype != "f32",
-         f"train.grad_reduce_dtype={t.grad_reduce_dtype!r}", 12),
-        (t.num_hosts > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1,
-         "more than one training process", 12),
-    ]
-    for bad, what, item in missing:
-        if bad:
-            raise NotImplementedError(
-                f"{what}: not ported yet (ROADMAP queue A step {item}); the "
-                "port trains in one process")
+    def nets(self, kind: str):
+        """(network, optimizer, ZeRO-1 partition or None) of "g" or "d"."""
+        if kind == "g":
+            return self.net_g, self.optim_g, self.zero_g
+        return self.net_d, self.optim_d, self.zero_d
 
 
 def make_optimizer(params, cfg: QuickVCConfig) -> torch.optim.AdamW:
@@ -63,18 +61,58 @@ def build_models(cfg: QuickVCConfig) -> tuple[SynthesizerTrn, MultiPeriodDiscrim
 def create_train_state(cfg: QuickVCConfig, device: torch.device,
                        net_g: SynthesizerTrn | None = None,
                        net_d: MultiPeriodDiscriminator | None = None) -> TrainState:
-    """Models (seeded random weights unless given), optimizers, schedules."""
+    """Models (seeded random weights unless given), optimizers, schedules;
+    under ``train.zero_opt_state`` each optimizer over this rank's shard."""
     if net_g is None or net_d is None:
         net_g, net_d = build_models(cfg)
         init_random_(net_g, cfg.train.seed)
         init_random_(net_d, cfg.train.seed + 1)
     net_g, net_d = net_g.to(device).train(), net_d.to(device).train()
-    optim_g = make_optimizer(net_g.parameters(), cfg)
-    optim_d = make_optimizer(net_d.parameters(), cfg)
+    parts, optims = [], []
+    for net in (net_g, net_d):
+        params = list(net.parameters())
+        part = zero1_partition(params) if cfg.train.zero_opt_state else None
+        parts.append(part)
+        optims.append(make_optimizer(
+            params if part is None else [torch.nn.Parameter(part.take(params).detach())], cfg))
     gamma = cfg.train.lr_decay
-    return TrainState(cfg, net_g, net_d, optim_g, optim_d,
-                      torch.optim.lr_scheduler.ExponentialLR(optim_g, gamma),
-                      torch.optim.lr_scheduler.ExponentialLR(optim_d, gamma))
+    return TrainState(cfg, net_g, net_d, *optims,
+                      torch.optim.lr_scheduler.ExponentialLR(optims[0], gamma),
+                      torch.optim.lr_scheduler.ExponentialLR(optims[1], gamma),
+                      zero_g=parts[0], zero_d=parts[1])
+
+
+def optimizer_state_dict(state: TrainState, kind: str) -> dict:
+    """The optimizer's ``state_dict`` in plain AdamW's layout, one entry per
+    parameter of the network ("g" or "d"). Under ZeRO-1 every rank's moments
+    are gathered first: a collective, so every rank calls it."""
+    net, optim, part = state.nets(kind)
+    sd = optim.state_dict()
+    if part is None:
+        return sd
+    params = list(net.parameters())
+    group = dict(sd["param_groups"][0], params=list(range(len(params))))
+    shard = sd["state"].get(0)
+    if shard is None:   # no update taken yet
+        return {"state": {}, "param_groups": [group]}
+    full = {k: part.split(all_gather(part, v), params) for k, v in shard.items() if k != "step"}
+    return {"state": {i: {k: v.clone() if k == "step" else full[k][i].clone()
+                          for k, v in shard.items()} for i in range(len(params))},
+            "param_groups": [group]}
+
+
+def load_optimizer_state_dict(state: TrainState, kind: str, sd: dict) -> None:
+    """Load a plain-layout optimizer ``state_dict`` (a checkpoint's); under
+    ZeRO-1 this rank keeps its shard of the moments."""
+    _, optim, part = state.nets(kind)
+    if part is None:
+        optim.load_state_dict(sd)
+        return
+    st, n = sd["state"], len(part.sizes)
+    shard = {0: {k: v if k == "step" else part.take([st[i][k] for i in range(n)])
+                 for k, v in st[0].items()}} if st else {}
+    optim.load_state_dict({"state": shard,
+                           "param_groups": [dict(sd["param_groups"][0], params=[0])]})
 
 
 def set_epoch(state: TrainState, epoch: int) -> None:

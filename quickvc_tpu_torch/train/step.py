@@ -29,6 +29,22 @@ The guard: a non-finite gradient or loss, or ``|loss| >= guard_loss_max``,
 skips that network's optimizer step, so its params and moments stay as they
 were. The step returns the JAX step's metric names as float32 tensors;
 reading them syncs with the card.
+
+Across processes (``quickvc_tpu/train/step.py:94-110, 244-256, 302-351``;
+:mod:`quickvc_tpu_torch.parallel.shard_step`): D's gradients are reduced
+over the ranks before D's guard and update, G's before G's, and the loss
+scalars before each guard, so every rank takes the same update. With
+``train.grad_reduce_dtype: "bf16"`` the gradients' mean is taken in bf16.
+With ``train.zero_opt_state`` a network's gradients arrive as this rank's
+ZeRO-1 shard of their mean (a reduce-scatter), AdamW updates that shard,
+and an all-gather returns the whole network to every rank.
+
+``train.split_prior`` (``quickvc_tpu/train/step.py:183-200, 244-256``): the
+generator's forward runs without the prior encoder
+(:meth:`SynthesizerTrn.forward_posterior`); D's gradient reduce is issued
+asynchronously, the prior (:meth:`SynthesizerTrn.prior_stats`) runs its
+forward while it is in flight, then D's guard and update wait for it. The
+results equal the unsplit step's on the same draws.
 """
 
 from __future__ import annotations
@@ -44,10 +60,15 @@ from quickvc_tpu_torch.losses import (discriminator_loss, feature_loss, generato
                                       subband_stft_loss)
 from quickvc_tpu_torch.ops.fused_mel import wave_to_spec_halo
 from quickvc_tpu_torch.ops.slicing import slice_segments
+from quickvc_tpu_torch.parallel.mesh import Zero1Partition
+from quickvc_tpu_torch.parallel.shard_step import (all_gather, grad_reduce, grad_reduce_scatter,
+                                                   scalar_reduce, shard_stats)
 from quickvc_tpu_torch.train.state import TrainState
 
 STEP_SPAN = "quickvc_train_step"
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}   # train.precision -> compute dtype
+G_METRICS = ("loss/g/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl",
+             "loss/g/subband", "loss/g", "img/mel_gen", "img/mel_org")
 
 
 def mel_basis(cfg, device: torch.device) -> torch.Tensor:
@@ -73,13 +94,14 @@ def decode_batch(batch: dict[str, torch.Tensor], cfg):
     return unit, spec, wave
 
 
-def _guard_ok(grads, loss: torch.Tensor, cfg) -> bool:
-    """True unless the update must be skipped (quickvc_tpu/train/step.py:45-78)."""
+def _guard_ok(leaf_sums: torch.Tensor, loss: torch.Tensor, cfg) -> bool:
+    """True unless the update must be skipped (quickvc_tpu/train/step.py:45-78);
+    ``leaf_sums`` holds each gradient's sum."""
     ok = torch.isfinite(loss)
     if cfg.train.guard_loss_max > 0:
         ok = ok & (loss.abs() < cfg.train.guard_loss_max)
     if cfg.train.guard_nonfinite:
-        ok = ok & torch.isfinite(torch.stack([g.sum() for g in grads])).all()
+        ok = ok & torch.isfinite(leaf_sums).all()
     return bool(ok)
 
 
@@ -94,6 +116,62 @@ def _apply(optim: torch.optim.Optimizer, params, grads, ok: bool) -> None:
         optim.step()
     for p in params:
         p.grad = None
+
+
+@torch.no_grad()
+def _apply_zero(optim: torch.optim.Optimizer, part: Zero1Partition, params,
+                grad_shard: torch.Tensor, ok: bool) -> None:
+    """ZeRO-1: AdamW on this rank's shard of the flattened parameters (read
+    from the network, so a load or broadcast is always seen), then every
+    rank's shard gathered back into the network. A skip is global."""
+    if not ok:
+        return
+    shard = optim.param_groups[0]["params"][0]
+    shard.copy_(part.take(params))
+    shard.grad = grad_shard
+    optim.step()
+    shard.grad = None
+    for p, v in zip(params, part.split(all_gather(part, shard), params)):
+        p.copy_(v)
+
+
+class _Update:
+    """One network's way from its local gradients to its update: the
+    cross-rank reduce (started by :meth:`start`, finished by :meth:`finish`),
+    the guard's per-gradient sums, the gradient norm and the optimizer step,
+    replicated or ZeRO-1."""
+
+    def __init__(self, state: TrainState, kind: str):
+        net, self.optim, self.part = state.nets(kind)
+        self.names, self.params = zip(*net.named_parameters())
+        self.reduce_dtype = DTYPES[state.cfg.train.grad_reduce_dtype]
+
+    def start(self, grads, async_op: bool = False):
+        if self.part is not None:
+            return grad_reduce_scatter(self.part, grads, async_op)
+        return grad_reduce(grads, self.reduce_dtype, async_op)
+
+    def finish(self, wait, loss: torch.Tensor, cfg, guard: bool):
+        """(reduced gradients or shard, ok, norm)."""
+        reduced = wait()
+        if self.part is not None:
+            sums, norms = shard_stats(self.part, reduced)
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            sums = torch.stack([g.sum() for g in reduced]) if guard else None
+            norm = _global_norm(reduced)
+        return reduced, (_guard_ok(sums, loss, cfg) if guard else True), norm
+
+    def apply(self, reduced, ok: bool) -> None:
+        if self.part is not None:
+            _apply_zero(self.optim, self.part, self.params, reduced, ok)
+        else:
+            _apply(self.optim, self.params, reduced, ok)
+
+    def debug(self, reduced) -> dict[str, torch.Tensor]:
+        if self.part is not None:
+            reduced = self.part.split(all_gather(self.part, reduced), self.params)
+        return dict(zip(self.names, reduced))
 
 
 @contextlib.contextmanager
@@ -118,17 +196,25 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
     (name -> gradient)."""
     cfg = state.cfg
     net_g, net_d = state.net_g, state.net_d
+    t = cfg.train
     hop, seg_frames = cfg.data.hop_length, cfg.segment_frames
-    guard = cfg.train.guard_nonfinite or cfg.train.guard_loss_max > 0
-    dt = DTYPES[cfg.train.precision]
+    guard = t.guard_nonfinite or t.guard_loss_max > 0
+    dt = DTYPES[t.precision]
+    upd_d, upd_g = _Update(state, "d"), _Update(state, "g")
     with torch.profiler.record_function(STEP_SPAN):
         unit, spec, wave = decode_batch(batch, cfg)
         mel = spec_to_mel(spec, basis)                                  # (B, F, 80)
-        y_hat, y_hat_mb, ids, latents = net_g(
-            unit.transpose(1, 2).to(dt), spec.transpose(1, 2).to(dt),
-            mel.transpose(1, 2).to(dt), generator, eps_q, ids_slice)
-        z, z_p, m_p, logs_p, m_q, logs_q = (t.float() for t in latents)
-        y_seg = slice_segments(wave[:, None], ids * hop, cfg.train.segment_size)
+        unit_in = unit.transpose(1, 2).to(dt)
+        spec_in, mel_in = spec.transpose(1, 2).to(dt), mel.transpose(1, 2).to(dt)
+        if t.split_prior:
+            y_hat, y_hat_mb, ids, posterior = net_g.forward_posterior(
+                spec_in, mel_in, generator, eps_q, ids_slice)
+            z, z_p, m_q, logs_q = (x.float() for x in posterior)
+        else:
+            y_hat, y_hat_mb, ids, latents = net_g(unit_in, spec_in, mel_in, generator, eps_q,
+                                                  ids_slice)
+            z, z_p, m_p, logs_p, m_q, logs_q = (x.float() for x in latents)
+        y_seg = slice_segments(wave[:, None], ids * hop, t.segment_size)
 
         def disc(y_fake, pair):
             logits_r, logits_g, fmap_r, fmap_g = net_d(y_seg.to(dt), y_fake.to(dt), pair=pair)
@@ -136,12 +222,17 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
                     fmap_r, fmap_g)
 
         # ---- D phase ----
-        d_names, d_params = zip(*net_d.named_parameters())
         logits_r, logits_g, _, _ = disc(y_hat.detach(), True)
         loss_disc, losses_d_r, losses_d_g = discriminator_loss(logits_r, logits_g)
-        d_grads = torch.autograd.grad(loss_disc, d_params)
-        d_ok = _guard_ok(d_grads, loss_disc, cfg) if guard else True
-        _apply(state.optim_d, d_params, d_grads, d_ok)
+        d_grads = torch.autograd.grad(loss_disc, upd_d.params)
+        wait_d = upd_d.start(d_grads, async_op=t.split_prior)
+        if t.split_prior:
+            # the prior's forward while D's gradient reduce is in flight
+            m_p, logs_p = (x.float() for x in net_g.prior_stats(unit_in))
+        # reduced before the guard: every rank must take the same decision
+        loss_disc, losses_d_r, losses_d_g = scalar_reduce([loss_disc, losses_d_r, losses_d_g])
+        d_grads, d_ok, d_norm = upd_d.finish(wait_d, loss_disc, cfg, guard)
+        upd_d.apply(d_grads, d_ok)
 
         # ---- G phase, against the updated D ----
         with _frozen(net_d):
@@ -149,11 +240,10 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
         d = cfg.data
         y_hat_mel = wave_to_mel(y_hat[:, 0], basis, d.filter_length, hop, d.win_length)
         y_mel = slice_segments(mel.transpose(1, 2), ids, seg_frames).transpose(1, 2)
-        loss_mel = cfg.train.c_mel * torch.mean(torch.abs(y_mel - y_hat_mel))
-        loss_kl = cfg.train.c_kl * kl_loss(z_p, logs_q, m_p, logs_p)
+        loss_mel = t.c_mel * torch.mean(torch.abs(y_mel - y_hat_mel))
+        loss_kl = t.c_kl * kl_loss(z_p, logs_q, m_p, logs_p)
         loss_fm = feature_loss(fmap_r, fmap_g)
         loss_gen, gen_losses = generator_loss(logits_g)
-        t = cfg.train
         if cfg.model.mb_istft_vits:
             y_mb = pqmf.analysis(y_seg, cfg.model.subbands)              # (B, s, T / s)
             loss_sub = subband_stft_loss(y_mb, y_hat_mb, t.fft_sizes, t.hop_sizes,
@@ -161,27 +251,28 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
         else:
             loss_sub = torch.zeros((), device=loss_mel.device)
         loss_g_total = loss_gen + loss_fm + loss_mel + loss_kl + loss_sub
-        g_names, g_params = zip(*net_g.named_parameters())
-        g_grads = torch.autograd.grad(loss_g_total, g_params, allow_unused=True)
-        g_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(g_params, g_grads)]
-        g_ok = _guard_ok(g_grads, loss_g_total, cfg) if guard else True
-        _apply(state.optim_g, g_params, g_grads, g_ok)
+        g_grads = torch.autograd.grad(loss_g_total, upd_g.params, allow_unused=True)
+        g_grads = [torch.zeros_like(p) if g is None else g
+                   for p, g in zip(upd_g.params, g_grads)]
+        wait_g = upd_g.start(g_grads)
+        g_metrics = {
+            "loss/g/total": loss_g_total, "loss/g/gen": loss_gen, "loss/g/fm": loss_fm,
+            "loss/g/mel": loss_mel, "loss/g/kl": loss_kl, "loss/g/subband": loss_sub,
+            "loss/g": gen_losses, "img/mel_gen": y_hat_mel[0], "img/mel_org": y_mel[0],
+            "img/mel_all": mel[0]}
+        g_metrics = dict(zip(g_metrics, scalar_reduce(list(g_metrics.values()))))
+        g_grads, g_ok, g_norm = upd_g.finish(wait_g, g_metrics["loss/g/total"], cfg, guard)
+        upd_g.apply(g_grads, g_ok)
     state.step += 1
 
-    metrics = {
-        "loss/g/total": loss_g_total, "loss/g/gen": loss_gen, "loss/g/fm": loss_fm,
-        "loss/g/mel": loss_mel, "loss/g/kl": loss_kl,
-        "loss/g/subband": loss_sub,
-        "loss/g": gen_losses, "img/mel_gen": y_hat_mel[0], "img/mel_org": y_mel[0],
+    metrics = {k: g_metrics[k] for k in G_METRICS} | {
         "loss/d/total": loss_disc, "loss/d/r": losses_d_r, "loss/d/g": losses_d_g,
-        "img/mel_all": mel[0],
-        "grad_norm/d": _global_norm(d_grads), "grad_norm/g": _global_norm(g_grads),
-    }
+        "img/mel_all": g_metrics["img/mel_all"], "grad_norm/d": d_norm, "grad_norm/g": g_norm}
     metrics = {k: v.detach().float() for k, v in metrics.items()}
     if guard:
         metrics["guard/d_skipped"] = torch.tensor(0.0 if d_ok else 1.0)
         metrics["guard/g_skipped"] = torch.tensor(0.0 if g_ok else 1.0)
     if debug_grads:
-        metrics["debug/d_grads"] = dict(zip(d_names, d_grads))
-        metrics["debug/g_grads"] = dict(zip(g_names, g_grads))
+        metrics["debug/d_grads"] = upd_d.debug(d_grads)
+        metrics["debug/g_grads"] = upd_g.debug(g_grads)
     return metrics

@@ -3,7 +3,12 @@
 ``G_{step}.pth`` and ``D_{step}.pth`` each hold ``{"model": state_dict,
 "iteration": epoch, "optimizer": AdamW state_dict, "learning_rate": lr}``;
 ``step`` in the name is the number of training steps taken. A generator
-checkpoint loads into the converter with ``strict=True``.
+checkpoint loads into the converter with ``strict=True``, and the optimizer
+entry into a plain ``AdamW`` over the network's parameters: the trainer
+hands it over in that layout whether it keeps ZeRO-1 shards or not
+(:func:`quickvc_tpu_torch.train.state.optimizer_state_dict`). In a
+data-parallel run rank 0 alone writes the files and every rank reads the
+same pair on resume.
 """
 
 from __future__ import annotations
@@ -14,24 +19,21 @@ import re
 import torch
 
 
-def save_checkpoint(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+def save_checkpoint(path: str, model: torch.nn.Module, optimizer_state: dict,
                     learning_rate: float, iteration: int) -> None:
     tmp = path + ".tmp"
     torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                "iteration": int(iteration), "optimizer": optimizer.state_dict(),
+                "iteration": int(iteration), "optimizer": optimizer_state,
                 "learning_rate": float(learning_rate)}, tmp)
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer | None = None) -> int:
-    """Copy a checkpoint's weights (strictly) and optimizer state into live
-    objects on any device; returns its ``iteration``."""
+def load_checkpoint(path: str, model: torch.nn.Module) -> tuple[int, dict]:
+    """Copy a checkpoint's weights (strictly) into a live model on any
+    device; returns its ``iteration`` and its optimizer ``state_dict``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["model"], strict=True)
-    if optimizer is not None:
-        optimizer.load_state_dict(ckpt["optimizer"])
-    return int(ckpt["iteration"])
+    return int(ckpt["iteration"]), ckpt["optimizer"]
 
 
 def latest_step(model_dir: str) -> int | None:

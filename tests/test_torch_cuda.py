@@ -10,7 +10,7 @@ table-driven body, and at F = 2, F = 3, a ragged F and a live tick on the
 compiled one, bit-equal from one launch to the next and strided to
 contiguous), the halo spectrogram atol/rtol 2e-4 (the JAX gate) at
 n_fft/hop 1280/320 and 1024/256 (real FFT) and 800/200 and 1536/384 (dense
-DFT), the k=5 conv and its
+DFT), and on a second card that is not the current device, the k=5 conv and its
 gradients atol 1e-4 / rtol 1e-3 (also at the five period discriminators'
 full-width shapes, and bit-equal from one launch to the next), the
 extractor front atol 5e-4 / rtol 1e-3 (the JAX gate), the transformer layer and the K9/K10 attention layouts atol
@@ -65,6 +65,23 @@ def test_wave_to_spec_halo_kernel(cuda, n_fft, hop):
     assert fused_mel.SPEC_STATS.launches == before + 1
     assert ours.shape == (3, 37, n_fft // 2 + 1)
     torch.testing.assert_close(ours, plain(y, n_fft, hop, n_fft), atol=2e-4, rtol=2e-4)
+
+
+def test_wave_to_spec_halo_kernel_on_a_card_that_is_not_current(cuda):
+    """K4 on cuda:1 while cuda:0 is the current device: the dispatcher enters
+    the tensor's card, so the launch lands where its pointers live."""
+    from quickvc_tpu_torch.dsp.stft import wave_to_spec_halo as plain
+    from quickvc_tpu_torch.ops import fused_mel
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (one card is always the current device)")
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        y = 0.3 * torch.randn(3, 37 * 320 + 960, device=other, generator=_gen(other, 2))
+        ours = fused_mel.wave_to_spec_halo(y, 1280, 320, 1280)
+        assert torch.cuda.current_device() == 0
+    assert ours.device == other
+    torch.testing.assert_close(ours, plain(y, 1280, 320, 1280), atol=2e-4, rtol=2e-4)
 
 
 def test_wave_to_spec_halo_kernel_refuses_other_sizes(cuda):

@@ -118,20 +118,6 @@ def test_trainer_cli_trains_resumes_and_converts(tmp_path):
     assert wave.shape == (1, 1, 3200) and torch.isfinite(wave).all()
 
 
-@pytest.mark.parametrize("option", [
-    {"split_prior": True}, {"zero_opt_state": True},
-    {"grad_reduce_dtype": "bf16"}, {"num_hosts": 2}])
-def test_unported_trainer_options_raise(tmp_path, option):
-    """Each JAX-trainer option the port lacks stops the trainer at start,
-    naming its ROADMAP item; none is ignored."""
-    from quickvc_tpu_torch.train import loop
-
-    _, cfg = configs(**option)
-    cfg.model_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A step 12\b"):
-        loop.run(cfg, torch.device("cpu"), max_steps=1)
-
-
 def test_trainer_cuda_without_card_raises(tmp_path):
     from quickvc_tpu_torch.train import loop
 
