@@ -191,6 +191,26 @@
     across the cards where there are two or more (the collectives' bytes
     and CUDA-event times from ``quickvc_tpu_torch.scripts.dp_collectives``,
     the trainer's step walls), else one line saying why it did not run.
+17. On phase 4's corpus: (a) a full-width step at float32 and at bf16 timed
+    in turns with cuDNN free and on deterministic algorithms (the trainer's
+    ``--deterministic``), K4 and the LSTM stacks bit-equal from launch to
+    launch on them, then the trainer CLI with ``--deterministic`` for 4
+    straight steps against 2 steps and a resume in a new process to 4, at
+    each precision, ``G_4.pth`` and ``D_4.pth`` byte-equal; (b) the
+    multiband model on two gloo ranks sharing the card at a float32 reduce
+    against one process on the batch of 32 by (16 b)'s gate (the sub-band
+    loss's spectral convergence one ratio over both ranks' rows), the gate
+    refusing rank 0's unreduced gradients; (c) tensor parallelism at
+    ``configs/quickvc_tp.json`` (upsample 4096; batch 64 cut to 8): a 1 x 2
+    (data, model) mesh of two gloo ranks on card 0, with two cards also NCCL
+    at 1 x 2 and with four 2 x 2, each against the replicated one-process
+    steps on deterministic cuDNN (float32: losses rtol 2e-4, gradients by
+    (16 b)'s gate on TP_DRAWS draws, which must refuse the replicated
+    gradients of half the rows; bf16 by PERF.md section 2's rules) and its sharded ``infer``
+    against the whole one (1e-3 x peak); K4 once a step on every rank, the
+    LSTM stacks once a bf16 step, K3 once in every rank's ``infer``; bytes
+    a rank against replicated, peak memory, step walls and the model-axis
+    collectives.
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -391,6 +411,17 @@ LIVE_SPAN = "quickvc_live_ticks"   # profiled span of a few live-session ticks
 
 class CheckFailed(Exception):
     """A check of the smoke run failed; the run exits non-zero."""
+
+
+PHASE_SECONDS: dict[str, float] = {}   # phase -> seconds of wall, printed as phase_seconds
+_LAST_MARK = [time.perf_counter()]
+
+
+def mark(phase: str) -> None:
+    """Add the seconds since the last mark to ``phase``'s wall."""
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _LAST_MARK[0]
+    _LAST_MARK[0] = now
 
 
 def require(cond: bool, what: str) -> None:
@@ -3570,6 +3601,20 @@ DP_LOSSES = ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl
              "loss/g/total")
 
 
+def first_batch(cfg, rows: int) -> dict[str, np.ndarray]:
+    """The first batch of ``rows`` the trainer's loader gives for ``cfg``'s corpus."""
+    from quickvc_tpu_torch.data.dataset import (BUCKET_BOUNDARIES, BucketSampler, DataLoader,
+                                                UnitAudioSpecDataset)
+
+    ds = UnitAudioSpecDataset("train", cfg, with_spec=False)
+    loader = DataLoader(ds, BucketSampler(ds.lengths, rows, BUCKET_BOUNDARIES), cfg,
+                        num_workers=4, seed=cfg.train.seed)
+    try:
+        return {k: v.copy() for k, v in next(iter(loader)).items()}
+    finally:
+        loader.close()
+
+
 def step_walls(log_path: str) -> list[float]:
     """The step walls a trainer's text log reports, in order."""
     import re
@@ -3651,9 +3696,9 @@ def check_dp_world1(tmp: str, hpfile: str) -> dict:
     return out
 
 
-def _dp_rank(rank: int, tmp: str) -> None:
+def _dp_rank(rank: int, tmp: str, variants=DP_VARIANTS) -> None:
     """One of phase 16 (b)'s gloo ranks, a spawned process on card 0: each
-    variant of DP_VARIANTS from the seeded weights on this rank's rows, the
+    variant of ``variants`` from the seeded weights on this rank's rows, the
     first step with the case's draws, later ones with the trainer's per-rank
     generator; after every step the hash of its parameters, the step wall
     and K4's launches. Writes ``dp_rank{rank}.pt``; rank 0 also the first
@@ -3684,7 +3729,7 @@ def _dp_rank(rank: int, tmp: str) -> None:
         eps_q = torch.from_numpy(case["eps_q"][rows].copy()).to(dev)
         ids = torch.from_numpy(case["ids"][rows].copy()).to(dev)
         out = {"variants": {}}
-        for name, train, steps in DP_VARIANTS:
+        for name, train, steps in variants:
             cfg = load_config(case["hpfile"])
             for k, v in train.items():
                 setattr(cfg.train, k, v)
@@ -3705,7 +3750,7 @@ def _dp_rank(rank: int, tmp: str) -> None:
                 torch.cuda.synchronize()
                 rec["step_seconds"].append(time.perf_counter() - t0)
                 rec["wave_to_spec_halo"].append(ops.launch_counts()["wave_to_spec_halo"])
-                rec["losses"].append({k: float(m[k]) for k in DP_LOSSES})
+                rec["losses"].append({k: float(m[k]) for k in case["losses"]})
                 h = hashlib.sha256()
                 for p in list(state.net_g.parameters()) + list(state.net_d.parameters()):
                     h.update(p.detach().cpu().numpy().tobytes())
@@ -3721,7 +3766,8 @@ def _dp_rank(rank: int, tmp: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def check_dp_gloo_ranks(tmp: str, hpfile: str) -> dict:
+def check_dp_gloo_ranks(tmp: str, hpfile: str, variants=DP_VARIANTS, label="dp_gloo_ranks",
+                        losses=DP_LOSSES, margin: int = 0) -> dict:
     """(b) Two gloo ranks sharing the card (spawned processes), DP_RANK_BATCH
     rows each of one full-width batch of 32 from phase 4's corpus: 2 float32
     data-parallel steps and 1 step each of the bf16 reduce, ZeRO-1 and
@@ -3736,40 +3782,36 @@ def check_dp_gloo_ranks(tmp: str, hpfile: str) -> dict:
     to ~1e-2 with it (PERF.md section 6), so summing 16 rows twice instead
     of 32 once is held to that); as a control, rank 0's own gradients on its
     16 rows, unreduced, must fail that gate in G and in D; the bf16 mean
-    over the two ranks bit-equal to round_bf16(a + b) / 2."""
+    over the two ranks bit-equal to round_bf16(a + b) / 2. ``variants``,
+    ``losses`` and the line's ``label`` default to phase 16's; the slice
+    starts keep ``margin`` frames from the crop's edges (phase 17 (b): the
+    multiband model's sub-band loss is +inf on the corpus's digital
+    silence)."""
     import torch.multiprocessing as mp
 
     from quickvc_tpu_torch.config import load_config
-    from quickvc_tpu_torch.data.dataset import (BUCKET_BOUNDARIES, BucketSampler, DataLoader,
-                                                UnitAudioSpecDataset)
     from quickvc_tpu_torch.train.state import create_train_state
     from quickvc_tpu_torch.train.step import mel_basis, train_step
 
     cfg = load_config(hpfile)
-    ds = UnitAudioSpecDataset("train", cfg, with_spec=False)
-    loader = DataLoader(ds, BucketSampler(ds.lengths, TRAIN_BATCH, BUCKET_BOUNDARIES), cfg,
-                        num_workers=4, seed=cfg.train.seed)
-    try:
-        batch = {k: v.copy() for k, v in next(iter(loader)).items()}
-    finally:
-        loader.close()
+    batch = first_batch(cfg, TRAIN_BATCH)
     frames = batch["unit"].shape[1]
     rng = np.random.default_rng(SEED + 23)
-    case = {"hpfile": hpfile, "batch": batch,
+    case = {"hpfile": hpfile, "batch": batch, "losses": losses,
             "eps_q": rng.standard_normal((TRAIN_BATCH, cfg.model.inter_channels, frames)
                                          ).astype(np.float32),
-            "ids": rng.integers(0, frames - cfg.segment_frames + 1, TRAIN_BATCH)}
-    dp_tmp = os.path.join(tmp, "dp_ranks")
+            "ids": rng.integers(margin, frames - cfg.segment_frames + 1 - margin, TRAIN_BATCH)}
+    dp_tmp = os.path.join(tmp, label)
     os.makedirs(dp_tmp)
     torch.save(case, os.path.join(dp_tmp, "dp_case.pt"))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()   # the ranks share the card with this process
     t0 = time.perf_counter()
-    ctx = mp.start_processes(_dp_rank, args=(dp_tmp,), nprocs=DP_RANKS, join=False,
+    ctx = mp.start_processes(_dp_rank, args=(dp_tmp, variants), nprocs=DP_RANKS, join=False,
                              start_method="spawn")
     try:
         while not ctx.join(timeout=1.0):
-            require(time.perf_counter() - t0 < 600, "phase 16 (b): the gloo ranks finished")
+            require(time.perf_counter() - t0 < 600, f"{label}: the gloo ranks finished")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -3808,7 +3850,13 @@ def check_dp_gloo_ranks(tmp: str, hpfile: str) -> dict:
     # the gate must refuse
     local = one_process(eps_q, slice(0, DP_RANK_BATCH))
     dp = torch.load(os.path.join(dp_tmp, "dp_step.pt"), weights_only=False)
-    losses = {k: [float(dp[k]), float(m[k])] for k in DP_LOSSES}
+    compared = {k: [float(dp[k]), float(m[k])] for k in losses}
+    if "loss/g/subband" in losses:
+        # what the reduce took before the ratio went global: the ranks' own ratios, averaged
+        second = one_process(eps_q, slice(DP_RANK_BATCH, TRAIN_BATCH))
+        compared["rank_local_mean_subband"] = [
+            (float(local["loss/g/subband"]) + float(second["loss/g/subband"])) / 2,
+            float(m["loss/g/subband"])]
     grad_err, grads_ok, control_refused = {}, True, True
     for which in ("debug/d_grads", "debug/g_grads"):
         ratios, errs, sens, control = {}, {}, {}, {}
@@ -3827,31 +3875,32 @@ def check_dp_gloo_ranks(tmp: str, hpfile: str) -> dict:
                            "tensors": len(errs),
                            "control_worst_err_over_gate": max(control.values()),
                            "control_tensors_refused": sum(v >= 1 for v in control.values())}
-    variants = {}
-    for name, _, steps in DP_VARIANTS:
+    by_name = {}
+    for name, _, steps in variants:
         r0, r1 = (r["variants"][name] for r in ranks)
-        variants[name] = {"steps": steps, "ranks_bit_equal": r0["hashes"] == r1["hashes"],
+        by_name[name] = {"steps": steps, "ranks_bit_equal": r0["hashes"] == r1["hashes"],
                           "wave_to_spec_halo": [r0["wave_to_spec_halo"], r1["wave_to_spec_halo"]],
                           "step_seconds": [r0["step_seconds"], r1["step_seconds"]],
                           "losses_rank0": r0["losses"]}
     out = {"ranks": DP_RANKS, "rows_a_rank": DP_RANK_BATCH, "ranks_seconds": ranks_seconds,
-           "variants": variants, "dp_vs_one_process": {"losses": losses, "grads": grad_err},
+           "variants": by_name, "dp_vs_one_process": {"losses": compared, "grads": grad_err},
            "bf16_mean": [r["bf16_mean"] for r in ranks]}
-    print("dp_gloo_ranks " + json.dumps(out))
-    for name, v in variants.items():
-        require(v["ranks_bit_equal"], f"phase 16 (b) {name}: the ranks' parameters bit-equal")
+    print(f"{label} " + json.dumps(out))
+    losses = {k: compared[k] for k in losses}
+    for name, v in by_name.items():
+        require(v["ranks_bit_equal"], f"{label} {name}: the ranks' parameters bit-equal")
         require(v["wave_to_spec_halo"] == [[1] * v["steps"]] * DP_RANKS,
-                f"phase 16 (b) {name}: K4 once a step on each rank")
+                f"{label} {name}: K4 once a step on each rank")
         require(all(np.isfinite(x) for step in v["losses_rank0"] for x in step.values()),
-                f"phase 16 (b) {name}: finite losses")
+                f"{label} {name}: finite losses")
     require(all(abs(a - b) <= 1e-5 + 2e-4 * abs(b) for a, b in losses.values()),
-            "phase 16 (b): the data-parallel losses match one process on the batch of 32")
-    require(grads_ok, "phase 16 (b): the reduced gradients match one process on the batch "
+            f"{label}: the data-parallel losses match one process on the batch of 32")
+    require(grads_ok, f"{label}: the reduced gradients match one process on the batch "
             "of 32 (2e-3 beyond what a 1e-6 change of the posterior noise moves them)")
-    require(control_refused, "phase 16 (b): the gate refuses one rank's unreduced gradients "
+    require(control_refused, f"{label}: the gate refuses one rank's unreduced gradients "
             "(G's and D's)")
     require(all(r["bit_equal_to_round_bf16_sum_over_2"] for r in out["bf16_mean"]),
-            "phase 16 (b): the bf16 mean over two gloo ranks is round_bf16(a + b) / 2")
+            f"{label}: the bf16 mean over two gloo ranks is round_bf16(a + b) / 2")
     return out
 
 
@@ -3900,6 +3949,676 @@ def check_data_parallel(tmp: str, hpfile: str) -> dict:
             "nccl_cards": check_nccl_cards(tmp, hpfile)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: a bit-exact resume on the card, the sub-band loss under float32
+# data parallelism, tensor parallelism at configs/quickvc_tp.json
+
+F4_STEPS, F4_SPLIT = 4, 2      # (a): 4 straight steps against 2 + a resume + 2
+# (a): timed steps, in turns: cuDNN free, deterministic algorithms, and cuDNN
+# free with the reflect pads as F.pad (the port before --deterministic)
+F4_TURNS = ("free", "det", "fpad", "fpad", "det", "free", "free", "det", "fpad")
+F3_MARGIN = 16                 # (b): slice starts this many frames off the crop's edges
+F3_LOSSES = DP_LOSSES + ("loss/g/subband",)
+# (c): configs/quickvc_tp.json's batch of 64 cut to 8 rows: three copies of
+# the 4096-wide model share the card, and gloo stages every model-axis
+# collective through host memory (at 16 rows a float32 TP step took 11.7-16.6 s on
+# an H100)
+TP_BATCH = 8
+TP_MIN_CHANNELS = 256
+TP_INFER_SHAPE = (2, 64)       # (c): infer's rows and unit frames
+# (c): draws of the moved posterior noise behind each gradient's sensitivity.
+# A gradient's largest move comes from a few leaky ReLUs flipping at their
+# kink, and which flip depends on the draw. At batch 8 on an H100, with 2
+# draws the TP step's float32 difference in dec.resblocks.1.convs1.0.weight_v
+# stood at 2.5x its gate (that gradient's 2-draw move 0.073 of its 8-draw
+# one); from the third draw on no gradient was past its gate, and from the
+# fourth to the eighth the worst stayed at 0.49 of it (PERF.md)
+TP_DRAWS = 4
+# (c): faults planted in the tensor-parallel layers on the 1 x 2 gloo mesh,
+# which the gates must refuse: the float32 step's gradient gate the first,
+# infer's bound the second (infer's transposed convs take seeded biases of
+# TP_UPS_BIAS: init_random_ zeroes every bias, and with it this fault)
+TP_STEP_FAULT = "copy_without_all_reduce"
+TP_INFER_FAULT = "row_bias_before_sum"
+TP_UPS_BIAS = 0.1
+
+
+@contextlib.contextmanager
+def planted_fault(name: str):
+    """Inside, a tensor-parallel layer is wrong in one place:
+    "copy_without_all_reduce": ``Copy``'s backward leaves out the other model
+    ranks' parts of a column-parallel layer's input gradient;
+    "row_bias_before_sum": a row-parallel transposed conv adds its bias to
+    each rank's partial output, so the sum over the ranks holds it model
+    times."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.models.layers import conv
+    from quickvc_tpu_torch.parallel import tp_layers
+
+    if name == "copy_without_all_reduce":
+        owner, attr = tp_layers.Copy, "backward"
+        fault = staticmethod(lambda ctx, g: (g, None))
+    elif name == "row_bias_before_sum":
+        owner, attr = tp_layers._RowParallel, "forward"
+        real = owner.forward
+
+        def fault(self, x):
+            if not self.tp_weight_sharded:
+                return real(self, x)
+            axis = self.tp_axis
+            bias = tp_layers.Gather.apply(self.bias, 0, axis) if self.tp_bias_sharded else (
+                self.bias)
+            part = conv(F.conv_transpose1d, tp_layers.Scatter.apply(x, 1, axis), self.weight(),
+                        bias, self.stride, self.padding, self.output_padding)
+            return tp_layers.ReduceSum.apply(part, axis).to(x.dtype)
+    else:
+        raise ValueError(name)
+    saved = owner.__dict__[attr]
+    setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)
+
+
+def bias_ups_(net) -> None:
+    """Seeded biases of TP_UPS_BIAS's scale on G's transposed convs, the same
+    on every device (drawn on the CPU)."""
+    from quickvc_tpu_torch.models.layers import WNConvTranspose1d
+
+    gen = torch.Generator().manual_seed(SEED + 28)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, WNConvTranspose1d):
+                m.bias.copy_(TP_UPS_BIAS * torch.randn(m.bias.shape, generator=gen))
+
+
+@contextlib.contextmanager
+def torch_reflect_pad():
+    """Inside, the step's reflect pads are ``F.pad(mode="reflect")``, as the
+    port had them before ``dsp.stft.reflect_pad`` (whose flip/cat backward
+    has a deterministic version on the card)."""
+    import torch.nn.functional as F
+
+    from quickvc_tpu_torch.dsp import stft
+    from quickvc_tpu_torch.models import discriminators, layers
+
+    users = (stft, layers, discriminators)
+    real = [m.reflect_pad for m in users]
+    for m in users:
+        m.reflect_pad = lambda y, left, right: F.pad(y, (left, right), mode="reflect")
+    try:
+        yield
+    finally:
+        for m, f in zip(users, real):
+            m.reflect_pad = f
+
+
+def _step_turns(hpfile: str) -> dict:
+    """A full-width step of ``hpfile``'s precision timed in turns with
+    cuDNN free, on deterministic algorithms (the trainer's
+    ``--deterministic``) and with cuDNN free and ``F.pad``'s reflect pads
+    (``torch_reflect_pad``), each mode warmed up once first; then, on the
+    deterministic algorithms, the port's own kernels of the step launched
+    twice on the same inputs: K4 on the batch and, at bf16, the speaker
+    LSTM's forward and backward stacks (the encoder on the batch's mel)."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.dsp.stft import spec_to_mel
+    from quickvc_tpu_torch.train.loop import _upload, deterministic_algorithms
+    from quickvc_tpu_torch.train.state import create_train_state
+    from quickvc_tpu_torch.train.step import decode_batch, mel_basis, train_step
+
+    cfg = load_config(hpfile)
+    dev = torch.device("cuda")
+    batch = {k: _upload(v, dev) for k, v in first_batch(cfg, TRAIN_BATCH).items()}
+    state = create_train_state(cfg, dev)
+    basis = mel_basis(cfg, dev)
+    gen = torch.Generator(device=dev)
+
+    def step(mode: str) -> float:
+        pads = torch_reflect_pad() if mode == "fpad" else contextlib.nullcontext()
+        with deterministic_algorithms(mode == "det"), pads:
+            gen.manual_seed(cfg.train.seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, batch, basis, generator=gen)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    walls = {mode: [] for mode in F4_TURNS}
+    for mode in walls:
+        step(mode)
+    for mode in F4_TURNS:
+        walls[mode].append(step(mode))
+    mean = {k: float(np.mean(v)) for k, v in walls.items()}
+    out = {"turns": list(F4_TURNS), "step_seconds": walls, "mean_step_seconds": mean,
+           "deterministic_cost": mean["det"] / mean["free"] - 1,
+           "reflect_pad_cost": mean["free"] / mean["fpad"] - 1}
+    with deterministic_algorithms(True):
+        ops.reset_launch_counts()
+        specs = [decode_batch(batch, cfg)[1] for _ in range(2)]
+        out["k4_bit_equal"] = bool(torch.equal(*specs))
+        if cfg.train.precision == "bf16":
+            enc = state.net_g.enc_spk
+            mel = spec_to_mel(specs[0], basis).bfloat16()
+
+            def lstm():
+                d = enc(mel)
+                return [d, *torch.autograd.grad(d.float().square().sum(),
+                                                 list(enc.lstm.parameters()))]
+
+            a, b = lstm(), lstm()
+            out["lstm_bit_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
+        out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    return out
+
+
+def _f4_job(out_path: str, hpfiles: dict, root: str, part: str) -> None:
+    """Phase 17 (a) in a process of its own, started with
+    ``CUBLAS_WORKSPACE_CONFIG`` set (as the CLI sets it before anything
+    touches the card): part "first" times the steps in turns and runs the
+    trainer CLI with ``--deterministic`` for F4_STEPS straight steps and for
+    F4_SPLIT, at each precision; part "resume" (a new process) resumes the
+    split runs to F4_STEPS. Writes its walls to ``out_path``."""
+    sys.path.insert(0, ROOT)
+    from quickvc_tpu_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    runs = ((("straight", F4_STEPS), ("resumed", F4_SPLIT)) if part == "first"
+            else (("resumed", F4_STEPS),))
+    for precision, hp in hpfiles.items():
+        if part == "first":
+            out[f"{precision}_turns"] = _step_turns(hp)
+        for name, steps in runs:
+            s = loop.main(["-c", hp, "-m", name, "-mr", os.path.join(root, precision),
+                           "--max-steps", str(steps), "--device", "cuda", "--deterministic"])
+            out[f"{precision}_{name}_{steps}"] = {"steps": s["steps"],
+                                                  "step_seconds": s["step_seconds"]}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def check_deterministic_resume(tmp: str, hpfile: str) -> dict:
+    """(a) F4: a full-width step (phase 4's config, batch 32) at float32 and
+    at bf16, timed in turns with cuDNN free and on deterministic algorithms;
+    K4 and, at bf16, the LSTM stacks bit-equal from one launch to the next;
+    then the trainer CLI with ``--deterministic``: F4_STEPS straight steps
+    against F4_SPLIT steps and a resume in a new process to F4_STEPS, at
+    each precision, ``G_4.pth`` and ``D_4.pth`` byte-equal."""
+    hps = {p: write_config(os.path.join(tmp, f"f4_{p}.json"), hpfile,
+                           train={"precision": p, "eval_interval": 0}) for p in ("f32", "bf16")}
+    root = os.path.join(tmp, "logs_f4")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the job trains on the same card
+    results, t0 = {}, time.perf_counter()
+    for part in ("first", "resume"):
+        path = os.path.join(tmp, f"f4_{part}.json")
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke._f4_job({path!r}, {hps!r}, "
+                                   f"{root!r}, {part!r})"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0, f"phase 17 (a) {part} exited {proc.returncode}: "
+                f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+        with open(path) as f:
+            results |= json.load(f)
+    equal = {}
+    for p in hps:
+        for k in "GD":
+            a, b = (os.path.join(root, p, run, f"{k}_{F4_STEPS}.pth")
+                    for run in ("straight", "resumed"))
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                equal[f"{p}_{k}"] = fa.read() == fb.read()
+    out = {"seconds": time.perf_counter() - t0, "checkpoints_byte_equal": equal} | results
+    print("deterministic_resume " + json.dumps(out))
+    require(all(equal.values()), f"phase 17 (a): --deterministic resumed runs byte-equal to "
+            f"straight ones: {equal}")
+    for p in hps:
+        turns = results[f"{p}_turns"]
+        require(turns["k4_bit_equal"], f"phase 17 (a) {p}: K4 bit-equal from launch to launch")
+        require(p != "bf16" or turns["lstm_bit_equal"],
+                "phase 17 (a): the LSTM stacks bit-equal from launch to launch")
+    return out
+
+
+def check_f3_subband(tmp: str, hpfile: str) -> dict:
+    """(b) F3: the multiband model (full width, phase 4's corpus) on two gloo
+    ranks sharing the card, float32 reduce, against one process on the
+    batch of 32 by phase 16 (b)'s gate, whose control (rank 0's unreduced
+    gradients) it must refuse; the sub-band loss among the losses, and
+    beside it the mean of the ranks' own ratios (what the reduce took
+    before), printed."""
+    hp = write_config(os.path.join(tmp, "f3_mb_config.json"), hpfile, model=MB_MODEL,
+                      train={"eval_interval": 0})
+    return check_dp_gloo_ranks(tmp, hp, variants=(("f32", {}, 1),), label="f3_mb_gloo_ranks",
+                               losses=F3_LOSSES, margin=F3_MARGIN)
+
+
+def _tp_rank(rank: int, tmp: str, world: int, data: int, model: int, backend: str,
+             faults: bool) -> None:
+    """One rank of phase 17 (c), a spawned process: gloo on card 0, or NCCL
+    on card ``rank``. For each precision: the (data, model) TP state of the
+    case's config from the seeded weights; a step on this data index's rows
+    with the case's draws (rank 0 saves the metrics and gathered gradients);
+    at the config's own bf16 a second step with the trainer's draws (seeded
+    by the data index) for its wall, its model-axis collectives and the
+    launches; the bytes this rank holds and its peak memory; the hash of its
+    replicated parameters. Then ``infer`` of the sharded G, its transposed
+    convs' biases seeded (rank 0 saves the wave). With ``faults``, the
+    float32 step again from the same weights with TP_STEP_FAULT planted,
+    and ``infer`` again with TP_INFER_FAULT (rank 0 saves both)."""
+    import copy
+    import hashlib
+
+    sys.path.insert(0, ROOT)
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.parallel import tp, tp_layers
+    from quickvc_tpu_torch.train.state import build_models, create_train_state
+    from quickvc_tpu_torch.train.step import mel_basis, train_step
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True   # as the replicated reference runs
+    card = rank if backend == "nccl" else 0
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(card))
+    torch.cuda.set_device(card)
+    dev = torch.device("cuda", card)
+    torch.distributed.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                                         rank=rank, world_size=world)
+    try:
+        case = torch.load(os.path.join(tmp, "tp_case.pt"), weights_only=False)
+        mesh = tp.mesh_2d(data, model)
+        rows = tp.batch_rows(mesh, case["eps_q"].shape[0])
+        batch = {k: torch.from_numpy(v[rows].copy()).to(dev) for k, v in case["batch"].items()}
+        eps_q = torch.from_numpy(case["eps_q"][rows].copy()).to(dev)
+        ids = torch.from_numpy(case["ids"][rows].copy()).to(dev)
+        cfg = load_config(case["hpfile"])
+        whole = dict(zip("gd", build_models(cfg)))
+        init_random_(whole["g"], cfg.train.seed)
+        init_random_(whole["d"], cfg.train.seed + 1)
+        out = {"mesh": [mesh.data_rank, mesh.model_rank], "card": card, "steps": {}}
+        for precision in ("f32", "bf16"):
+            cfg.train.precision = precision
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = create_train_state(cfg, dev, copy.deepcopy(whole["g"]),
+                                       copy.deepcopy(whole["d"]), tp=(mesh, TP_MIN_CHANNELS))
+            basis = mel_basis(cfg, dev)
+            rec = {}
+            params = [p for net in (state.net_g, state.net_d) for p in net.parameters()]
+            start = [p.detach().cpu() for p in params] if faults and precision == "f32" else []
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(state, batch, basis, eps_q=eps_q, ids_slice=ids, debug_grads=True)
+            torch.cuda.synchronize()
+            rec["checked_step_seconds"] = time.perf_counter() - t0
+            rec["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+            if rank == 0:
+                torch.save({k: ({n: g.cpu() for n, g in v.items()} if k.startswith("debug/")
+                                else v.cpu()) for k, v in m.items()},
+                           os.path.join(tmp, f"tp_{precision}.pt"))
+            del m
+            if precision == "bf16":
+                gen = torch.Generator(device=dev).manual_seed(
+                    tp.step_seed(cfg.train.seed * 1_000_003 + 1, mesh))
+                ops.reset_launch_counts()
+                tp_layers.reset_stats()
+                torch.cuda.synchronize()
+                torch.distributed.barrier()   # rank 0 was saving: start the wall together
+                t0 = time.perf_counter()
+                m = train_step(state, batch, basis, generator=gen)
+                torch.cuda.synchronize()
+                rec["step_seconds"] = time.perf_counter() - t0
+                rec["collectives"] = {k: dict(v) for k, v in tp_layers.STATS.items()}
+                rec["launches_second"] = {k: v for k, v in ops.launch_counts().items() if v}
+                rec["losses_second"] = {k: float(m[k]) for k in DP_LOSSES}
+                del m
+            rec["bytes"] = {k: tp.local_bytes(*state.nets(k)[:2]) for k in "gd"}
+            rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+            h = hashlib.sha256()
+            for net in (state.net_g, state.net_d):
+                for n, p in net.named_parameters():
+                    if net.tp_layout[n] is None:
+                        h.update(p.detach().cpu().numpy().tobytes())
+            rec["replicated_hash"] = h.hexdigest()
+            if start:   # the first step again from its weights (held on the host), faulted
+                with torch.no_grad():
+                    for p, v in zip(params, start):
+                        p.copy_(v)
+                del start
+                with planted_fault(TP_STEP_FAULT):
+                    m = train_step(state, batch, basis, eps_q=eps_q, ids_slice=ids,
+                                   debug_grads=True)
+                if rank == 0:
+                    torch.save({k: {n: g.cpu() for n, g in v.items()} for k, v in m.items()
+                                if k.startswith("debug/")}, os.path.join(tmp, "tp_fault.pt"))
+                del m
+            out["steps"][precision] = rec
+            del state, params
+            torch.cuda.empty_cache()
+        net = whole["g"].to(dev).eval()
+        bias_ups_(net)
+        tp_layers.shard_modules_(net, tp.param_layout(net, model, TP_MIN_CHANNELS),
+                                 mesh.model_axis)
+
+        def infer():
+            with torch.inference_mode():
+                return net.infer(case["infer_unit"].to(dev), case["infer_g"].to(dev),
+                                 noise_scale=0.667,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED + 26))
+
+        ops.reset_launch_counts()
+        y = infer()
+        out["infer_launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+        if rank == 0:
+            torch.save(y.cpu(), os.path.join(tmp, "tp_infer.pt"))
+        if faults:
+            with planted_fault(TP_INFER_FAULT):
+                y = infer()
+            if rank == 0:
+                torch.save(y.cpu(), os.path.join(tmp, "tp_infer_fault.pt"))
+        torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _tp_reference(case: dict, cfg) -> dict:
+    """The replicated one-process steps and ``infer`` of phase 17 (c), on
+    deterministic cuDNN, from the seeded weights: float32 on the batch with
+    the case's draws (its losses and gradients, on the host), TP_DRAWS times
+    more with the posterior noise moved by 1e-6 of itself (each gradient's
+    largest relative move: its sensitivity), on the first half of the rows
+    (the control), and at bf16."""
+    import copy
+
+    from quickvc_tpu_torch.train.state import build_models, create_train_state
+    from quickvc_tpu_torch.train.step import mel_basis, train_step
+    from quickvc_tpu_torch.utils.weights import init_random_
+
+    dev = torch.device("cuda")
+    whole = dict(zip("gd", build_models(cfg)))
+    init_random_(whole["g"], cfg.train.seed)
+    init_random_(whole["d"], cfg.train.seed + 1)
+    whole = {k: v.to(dev) for k, v in whole.items()}   # each run starts from a copy on the card
+    eps_q = torch.from_numpy(case["eps_q"]).to(dev)
+    walls = {}
+
+    def run(label: str, precision: str, eps: torch.Tensor, rows=slice(None)) -> dict:
+        cfg.train.precision = precision
+        state = create_train_state(cfg, dev, copy.deepcopy(whole["g"]), copy.deepcopy(whole["d"]))
+        batch = {k: torch.from_numpy(v[rows].copy()).to(dev) for k, v in case["batch"].items()}
+        with cudnn_deterministic():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(state, batch, mel_basis(cfg, dev), eps_q=eps[rows],
+                           ids_slice=torch.from_numpy(case["ids"][rows].copy()).to(dev),
+                           debug_grads=True)
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+        out = {k: ({n: g.cpu() for n, g in v.items()} if k.startswith("debug/") else v.cpu())
+               for k, v in m.items()}
+        del state, m
+        torch.cuda.empty_cache()
+        return out
+
+    def maxrel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+
+    ref = {"f32": run("f32", "f32", eps_q)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    sens = {which: dict.fromkeys(ref["f32"][which], 0.0)
+            for which in ("debug/d_grads", "debug/g_grads")}
+    for i in range(TP_DRAWS):
+        moved = run(f"f32_moved_{i}", "f32", eps_q * (1 + 1e-6 * torch.randn(
+            eps_q.shape, device=dev, generator=gen)))
+        for which, s in sens.items():
+            for n, g in ref["f32"][which].items():
+                s[n] = max(s[n], maxrel(moved[which][n], g))
+        del moved
+    half = run("f32_half_rows", "f32", eps_q, slice(0, TP_BATCH // 2))
+    control = {which: {n: maxrel(half[which][n], g) for n, g in ref["f32"][which].items()}
+               for which in sens}
+    del half
+    ref["bf16"] = run("bf16", "bf16", eps_q)
+    cfg.train.precision = "f32"
+    net = whole["g"].eval()
+    bias_ups_(net)
+    with torch.inference_mode():
+        y = net.infer(case["infer_unit"].to(dev), case["infer_g"].to(dev), noise_scale=0.667,
+                      generator=torch.Generator(device=dev).manual_seed(SEED + 26)).cpu()
+    params = {k: sum(p.numel() * p.element_size() for p in whole[k].parameters()) for k in "gd"}
+    del net, whole
+    torch.cuda.empty_cache()
+    return {"steps": ref, "sensitivity": sens, "control": control, "infer": y, "walls": walls,
+            "param_bytes": params}
+
+
+def _compare_tp(ref: dict, tp_m: dict, tp_infer: torch.Tensor) -> dict:
+    """Phase 17 (c)'s gates for one TP run: the float32 step against the
+    replicated one (losses rtol 2e-4 / atol 1e-5; each gradient's max rel
+    error under 2e-3 + 2x its sensitivity, and the control refused by that
+    gate in G and in D), the bf16 step by PERF.md section 2's bf16 rules
+    against the replicated bf16 and float32 steps, ``infer`` within 1e-3 x
+    peak."""
+    def maxrel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+
+    r32, r16 = ref["steps"]["f32"], ref["steps"]["bf16"]
+    out = {"f32": {"losses": {k: [float(tp_m["f32"][k]), float(r32[k])] for k in DP_LOSSES},
+                   "grads": {}},
+           "bf16": {"losses": {}, "grads": {}}}
+    out["f32"]["losses_ok"] = all(abs(a - b) <= 1e-5 + 2e-4 * abs(b)
+                                  for a, b in out["f32"]["losses"].values())
+    ok32, refused, ok16 = True, True, True
+    for which in ("debug/d_grads", "debug/g_grads"):
+        ratios, control = {}, {}
+        for n, g in r32[which].items():
+            gate = 2e-3 + 2 * ref["sensitivity"][which][n]
+            ratios[n] = maxrel(tp_m["f32"][which][n], g) / gate
+            control[n] = ref["control"][which][n] / gate
+        worst = max(ratios, key=ratios.get)
+        ok32 &= ratios[worst] < 1
+        refused &= max(control.values()) >= 1
+        out["f32"]["grads"][which] = {
+            "worst_err_over_gate": ratios[worst], "worst_at": worst,
+            "worst_sensitivity": ref["sensitivity"][which][worst], "tensors": len(ratios),
+            "control_worst_err_over_gate": max(control.values()),
+            "control_tensors_refused": sum(v >= 1 for v in control.values())}
+        bf_ratios = {n: maxrel(tp_m["bf16"][which][n], g)
+                     / max(2 * maxrel(g, r32[which][n]), 2e-2)
+                     for n, g in r16[which].items()}
+        worst16 = max(bf_ratios, key=bf_ratios.get)
+        ok16 &= bf_ratios[worst16] <= 1
+        out["bf16"]["grads"][which] = {"worst_err_over_bound": bf_ratios[worst16],
+                                       "worst_at": worst16}
+    for k in DP_LOSSES:
+        a, b, b32 = float(tp_m["bf16"][k]), float(r16[k]), float(r32[k])
+        bound = max(2 * abs(b - b32), 4e-3 * abs(b32))
+        out["bf16"]["losses"][k] = [a, b, b32, bound]
+        ok16 &= abs(a - b) <= bound
+    peak = float(ref["infer"].abs().max())
+    out["infer"] = {"max_abs_err": float((tp_infer - ref["infer"]).abs().max()), "peak": peak,
+                    "shape": list(tp_infer.shape)}
+    out["ok"] = {"f32_losses": out["f32"]["losses_ok"], "f32_grads": ok32,
+                 "control_refused": refused, "bf16": ok16,
+                 "infer": out["infer"]["max_abs_err"] <= 1e-3 * peak}
+    return out
+
+
+def _fault_checks(ref: dict, run: dict) -> dict:
+    """The planted faults against phase 17 (c)'s gates: each gradient of
+    the float32 step with TP_STEP_FAULT over its gate (2e-3 + 2x its
+    sensitivity; a non-finite error counts as past it), and ``infer`` with
+    TP_INFER_FAULT against infer's bound (1e-3 x peak)."""
+    def over_gate(a, b, sens) -> float:
+        err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+        return err / (2e-3 + 2 * sens) if np.isfinite(err) else float("inf")
+
+    out = {"step_fault": TP_STEP_FAULT, "infer_fault": TP_INFER_FAULT}
+    for which in ("debug/d_grads", "debug/g_grads"):
+        ratios = {n: over_gate(run["fault"][which][n], g, ref["sensitivity"][which][n])
+                  for n, g in ref["steps"]["f32"][which].items()}
+        worst = max(ratios, key=ratios.get)
+        out[which] = {"worst_err_over_gate": ratios[worst], "worst_at": worst,
+                      "tensors_refused": sum(v >= 1 for v in ratios.values()),
+                      "tensors": len(ratios)}
+    peak = float(ref["infer"].abs().max())
+    out["infer_max_abs_err"] = float((run["infer_fault"] - ref["infer"]).abs().max())
+    out["infer_err_over_bound"] = out["infer_max_abs_err"] / (1e-3 * peak)
+    out["ok"] = {"step_fault_refused": any(out[w]["tensors_refused"] for w in
+                                           ("debug/d_grads", "debug/g_grads")),
+                 "infer_fault_refused": out["infer_err_over_bound"] > 1}
+    return out
+
+
+def _run_tp(tmp: str, case: dict, backend: str, data: int, model: int,
+            faults: bool = False) -> dict:
+    """Phase 17 (c)'s ranks on one (data, model) mesh: their records and
+    rank 0's saved step metrics and infer wave, and with ``faults`` the
+    faulted step's gradients and infer wave."""
+    import torch.multiprocessing as mp
+
+    world = data * model
+    run_tmp = os.path.join(tmp, f"tp_{backend}_{data}x{model}")
+    os.makedirs(run_tmp)
+    torch.save(case, os.path.join(run_tmp, "tp_case.pt"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_tp_rank, args=(run_tmp, world, data, model, backend, faults),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            require(time.perf_counter() - t0 < 900, f"phase 17 (c) {backend} {data}x{model}: "
+                    "the ranks finished")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    ranks = [torch.load(os.path.join(run_tmp, f"tp_rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    metrics = {p: torch.load(os.path.join(run_tmp, f"tp_{p}.pt"), weights_only=False)
+               for p in ("f32", "bf16")}
+    out = {"seconds": time.perf_counter() - t0, "ranks": ranks, "metrics": metrics}
+    for k, f in (("infer", "tp_infer.pt"), ("fault", "tp_fault.pt"),
+                 ("infer_fault", "tp_infer_fault.pt"))[: 1 + 2 * faults]:
+        out[k] = torch.load(os.path.join(run_tmp, f), weights_only=False)
+    return out
+
+
+def check_tensor_parallel(tmp: str, hpfile: str) -> dict:
+    """(c) Tensor parallelism at ``configs/quickvc_tp.json`` (upsample 4096,
+    bf16; its batch cut to TP_BATCH rows of phase 4's corpus): two gloo ranks
+    on card 0 as a 1 x 2 (data, model) mesh; with two cards or more also
+    NCCL at 1 x 2, and 2 x 2 on four. Each run's float32 step, bf16 step and
+    ``infer`` against the replicated ones (``_compare_tp``), on the gloo mesh
+    the planted faults refused by the same gates (``_fault_checks``); the model
+    ranks' replicated parameters bit-equal (after one float32 step and two
+    bf16 steps, the second drawing from the data index's seed); K4 once a step
+    on every rank, at bf16 the LSTM stacks once a step, K3 once in every
+    rank's ``infer``; the bytes of parameters and moments a rank against
+    replicated, its peak memory, step walls and model-axis collectives."""
+    from quickvc_tpu_torch.config import load_config
+
+    with open(hpfile) as f:
+        data_section = json.load(f)["data"]
+    hp = write_config(os.path.join(tmp, "tp_config.json"),
+                      os.path.join(ROOT, "configs", "quickvc_tp.json"),
+                      train={"batch_size": TP_BATCH, "precision": "f32", "max_speclen": 512,
+                             "transfer": "compact", "loader_workers": 4, "log_interval": 1,
+                             "eval_interval": 0},
+                      data={k: data_section[k] for k in ("training_files", "validation_files")})
+    cfg = load_config(hp)
+    batch = first_batch(cfg, TP_BATCH)
+    frames = batch["unit"].shape[1]
+    rng = np.random.default_rng(SEED + 25)
+    rows, unit_frames = TP_INFER_SHAPE
+    g_vec = rng.standard_normal((rows, cfg.model.gin_channels)).astype(np.float32)
+    case = {"hpfile": hp, "batch": batch,
+            "eps_q": rng.standard_normal((TP_BATCH, cfg.model.inter_channels, frames)
+                                         ).astype(np.float32),
+            "ids": rng.integers(0, frames - cfg.segment_frames + 1, TP_BATCH),
+            "infer_unit": torch.from_numpy(0.5 * rng.standard_normal(
+                (rows, cfg.model.unit_channels, unit_frames)).astype(np.float32)),
+            "infer_g": torch.from_numpy(g_vec / np.linalg.norm(g_vec, axis=1, keepdims=True))}
+    t0 = time.perf_counter()
+    ref = _tp_reference(case, cfg)
+    ref_seconds = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    meshes = [("gloo", 1, 2)] + [("nccl", 1, 2)] * (cards >= 2) + [("nccl", 2, 2)] * (cards >= 4)
+    out = {"config": "configs/quickvc_tp.json", "batch": TP_BATCH, "cut": f"batch 64 -> {TP_BATCH}",
+           "min_channels": TP_MIN_CHANNELS, "reference_seconds": ref_seconds,
+           "reference_walls": ref["walls"], "replicated_param_bytes": ref["param_bytes"],
+           "runs": {}}
+    launches = {}
+    for backend, data, model in meshes:
+        faults = (backend, data, model) == meshes[0]
+        run = _run_tp(tmp, case, backend, data, model, faults)
+        name = f"{backend}_{data}x{model}"
+        checks = _compare_tp(ref, run["metrics"], run["infer"])
+        if faults:
+            checks["planted_faults"] = _fault_checks(ref, run)
+            checks["ok"] |= checks["planted_faults"]["ok"]
+        ranks = run["ranks"]
+        rec = {"seconds": run["seconds"], "checks": checks, "ranks": {}}
+        for r in ranks:
+            rec["ranks"][r["mesh"][0] * model + r["mesh"][1]] = {
+                "card": r["card"], "infer_launches": r["infer_launches"],
+                "steps": {p: {k: v for k, v in s.items() if k != "replicated_hash"}
+                          for p, s in r["steps"].items()}}
+        hashes = {p: {r["steps"][p]["replicated_hash"] for r in ranks} for p in ("f32", "bf16")}
+        rec["replicated_bit_equal"] = {p: len(h) == 1 for p, h in hashes.items()}
+        out["runs"][name] = rec
+        print(f"tp_{name} " + json.dumps(rec))
+        launches[name] = {"wave_to_spec_halo": [[r["steps"][p]["launches"].get(
+                              "wave_to_spec_halo", 0) for r in ranks] for p in ("f32", "bf16")],
+                          "polar_inverse_stft": [r["infer_launches"].get("polar_inverse_stft", 0)
+                                                 for r in ranks],
+                          "lstm_stack_bf16": [r["steps"]["bf16"]["launches"].get(
+                              "lstm_stack_bf16", 0) for r in ranks],
+                          "lstm_stack_bf16_backward": [r["steps"]["bf16"]["launches"].get(
+                              "lstm_stack_bf16_backward", 0) for r in ranks]}
+        for k, ok in checks["ok"].items():
+            require(ok, f"phase 17 (c) {name}: {k}")
+        require(all(rec["replicated_bit_equal"].values()),
+                f"phase 17 (c) {name}: the model ranks' replicated parameters bit-equal")
+        for r in ranks:
+            for p, s in r["steps"].items():
+                for which in ("launches", "launches_second")[: 1 + (p == "bf16")]:
+                    require(s[which].get("wave_to_spec_halo") == 1,
+                            f"phase 17 (c) {name} {p}: K4 once a step on every rank")
+                    want = 1 if p == "bf16" else 0
+                    require(s[which].get("lstm_stack_bf16", 0) == want
+                            and s[which].get("lstm_stack_bf16_backward", 0) == want,
+                            f"phase 17 (c) {name} {p}: the LSTM stacks once a bf16 step")
+                for k in "gd":
+                    require(s["bytes"][k]["params"] < ref["param_bytes"][k],
+                            f"phase 17 (c) {name}: a rank holds less of {k} than replicated")
+            require(r["infer_launches"].get("polar_inverse_stft") == 1,
+                    f"phase 17 (c) {name}: K3 once in every rank's infer")
+    out["launches"] = launches
+    print("tensor_parallel " + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    return out
+
+
+def check_phase17(tmp: str, hpfile: str) -> dict:
+    """Phase 17: (a), (b) and (c) on phase 4's corpus."""
+    out = {"deterministic_resume": check_deterministic_resume(tmp, hpfile)}
+    mark("phase17_a")
+    out["f3_subband"] = check_f3_subband(tmp, hpfile)
+    mark("phase17_b")
+    out["tensor_parallel"] = check_tensor_parallel(tmp, hpfile)
+    mark("phase17_c")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3915,6 +4634,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     t0 = time.time()
+    mark("start")
     lib = _cuda.build()
     _cuda.library()
     build_log = (lib.parent / "build.log").read_text()
@@ -3940,10 +4660,12 @@ def main() -> int:
 
     print("attention_bf16_plans " + json.dumps(attention_bf16_plans(dev)))
 
+    mark("build")
     kernels = check_kernels(dev, rng)
     bad = [k["name"] for k in kernels if not k["within_tol"]]
     attention_api = drive_attention_api(dev)
     probe = run_int8_probe()
+    mark("kernels")
 
     with tempfile.TemporaryDirectory(prefix="qvc_smoke_") as tmp:
         cfg, net_g, hubert, files, n_frames = make_inputs(
@@ -3960,19 +4682,28 @@ def main() -> int:
             check_outputs(run, n_frames)
         print("profile " + json.dumps(profile_span(
             lambda: run_convert(files, os.path.join(tmp, "prof")), LOOP_SPAN)))
+        mark("convert")
         train = check_training(tmp, rng, files, n_frames)
+        mark("train")
         encoding = check_encoding(tmp, rng, files[2])
         check_encode_against_cpu(tmp, rng, files[2])
+        mark("encode")
         train16 = check_training_bf16(tmp, train)
+        mark("train_bf16")
         check_streaming(tmp, rng, files)
         live = check_live_sessions(dev, net_g, hubert, rng)
         check_live_bf16(live["points"])
+        mark("streaming_live")
         # phase 15, on seeds of its own: the phases before it draw what they drew
         mb = check_mb_conversion(tmp, files, n_frames)
         check_mb_training(tmp, train, train16)
         check_flac(tmp, np.random.default_rng(SEED + 21), train)
+        mark("mb_flac")
         # phase 16: data parallel; its draws from seeds of its own
         check_data_parallel(tmp, train["hpfile"])
+        mark("data_parallel")
+        # phase 17: a bit-exact resume, the sub-band loss across ranks, tensor parallelism
+        phase17 = check_phase17(tmp, train["hpfile"])
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
     expected = {name: 0 for name in launches} | {
@@ -3988,6 +4719,7 @@ def main() -> int:
                   "launches": launches, "expected_launches": expected,
                   "wave_to_mel_routes": mel_routes}
     print("convert " + json.dumps(throughput))
+    mark("tmp_cleanup")
     reference = check_against_cpu(cfg, net_g, hubert, rng)
     check_sessions_against_cpu(net_g, hubert, rng)
     bf16_session = check_bf16_session_against_cpu(net_g, hubert, rng)
@@ -3999,9 +4731,11 @@ def main() -> int:
         pallas_session = check_bf16_session_against_cpu(
             net_g, hub_pallas, rng_pallas, "pallas_bf16_session", PALLAS_BF16_TICK)
         time_pallas_bf16_session(net_g, hubert, hub_pallas, rng_pallas)
+    mark("cpu_reference_sessions")
     disc = check_disc_fused(dev, rng)
     disc16 = check_disc_fused_bf16(dev)
     run_disc_ab()
+    mark("disc_fused")
     check_train_step_against_cpu(rng)
     # the target from past the synthetic lead-in, whose s16 samples round to
     # zero, and no masked tail: over either the sub-band loss is +inf
@@ -4010,9 +4744,11 @@ def main() -> int:
                                  "train_mb_cpu_reference_check", offset=int(0.2 * SR), short=0)
     single_band = check_single_band_decoder()
     check_msgpack_reader()
+    mark("train_cpu_reference_decoders")
     _, lstm_rows = check_speaker_lstm_bf16()
     check_lstm_stack_residency()
     run_bf16_step_gate()
+    mark("lstm_bf16_gate")
     for r in lstm_rows:
         r["bound_ms"] = max(r["bound_ops_ms"], r["bound_bytes_ms"])
         r["bound_by"] = "operations" if r["bound_ops_ms"] >= r["bound_bytes_ms"] else "bytes"
@@ -4053,6 +4789,12 @@ def main() -> int:
                         "calls": single_band["k3_calls"], "check": single_band["k3_check"],
                         "device_ms": single_band["k3_device_ms"],
                         "device_ms_shape": single_band["k3_conversion_shape"]}}
+    # phase 17 (c): each kernel the TP step and infer run, its launches on every rank of each mesh
+    for k in kernels:
+        tp_launches = {mesh: v[k["name"]] for mesh, v in
+                       phase17["tensor_parallel"]["launches"].items() if k["name"] in v}
+        if tp_launches:
+            k["tp_launches"] = tp_launches
     for k in kernels:
         k["path"], counts = path_of[k["name"]]
         k["launches"] = counts[k["name"]]
@@ -4077,10 +4819,12 @@ def main() -> int:
                       "three_layer_chain_ms", "equal_to_layer_chain", "bodies", "body",
                       "three_layer_chain_device_ms", "chain_turns_ms",
                       "chain_turns_device_ms", "projections_within_ulp",
-                      "layers_equal_one_layer_kernel", "accuracy", "heads"):
+                      "layers_equal_one_layer_kernel", "accuracy", "heads", "tp_launches"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))
+    mark("report")
+    print("phase_seconds " + json.dumps(PHASE_SECONDS))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
@@ -4099,6 +4843,7 @@ def main() -> int:
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k["library_ms"]}
         | ({"status": REDESIGNED[k["name"]]} if k["name"] in REDESIGNED else {})
+        | ({"tp_launches": k["tp_launches"]} if "tp_launches" in k else {})
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

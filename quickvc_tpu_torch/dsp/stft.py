@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def hann_window(n: int, dtype=np.float32) -> np.ndarray:
@@ -29,11 +28,26 @@ def padded_window(n_fft: int, win_size: int) -> np.ndarray:
     return w
 
 
+def reflect_pad(y: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """``F.pad(y, (left, right), mode="reflect")`` on the last axis, built from
+    slices, ``flip`` and ``cat``: the same values and, since each padded
+    sample repeats one other, the same gradients (a sum of two), but a
+    backward that has a deterministic version on the card, which
+    ``ReflectionPad1d``'s has not (``torch.use_deterministic_algorithms``
+    refuses it; the trainer's ``--deterministic``)."""
+    parts = [y]
+    if left:
+        parts.insert(0, y[..., 1 : left + 1].flip(-1))
+    if right:
+        parts.append(y[..., -right - 1 : -1].flip(-1))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else y
+
+
 def wave_to_spec(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int) -> torch.Tensor:
     """Linear spectrogram: (..., T) -> (..., T//hop, n_fft//2+1), float32."""
     pad = (n_fft - hop_size) // 2
     lead = y.shape[:-1]
-    y = F.pad(y.float().reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")[:, 0]
+    y = reflect_pad(y.float().reshape(-1, y.shape[-1]), pad, pad)
     frames = y.unfold(-1, n_fft, hop_size)                # (N, Frame, n_fft)
     w = torch.as_tensor(padded_window(n_fft, win_size), device=y.device)
     z = torch.fft.rfft(frames * w, dim=-1)
@@ -68,7 +82,7 @@ def magnitude_stft(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int) ->
     pad = n_fft // 2
     lead = y.shape[:-1]
     y = y if y.dtype == torch.float64 else y.float()
-    y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")[:, 0]
+    y = reflect_pad(y.reshape(-1, y.shape[-1]), pad, pad)
     frames = y.unfold(-1, n_fft, hop_size)                # (N, Frame, n_fft)
     w = torch.as_tensor(padded_window(n_fft, win_size), device=y.device, dtype=y.dtype)
     mag = torch.fft.rfft(frames * w, dim=-1).abs()

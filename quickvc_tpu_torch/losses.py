@@ -7,19 +7,34 @@ computing them needs no host sync.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
 from quickvc_tpu_torch.dsp.stft import magnitude_stft
 
 
-def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
-    """L1 feature matching against detached real features, x2."""
+def own_rows(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``sum_ranks`` for a call that sees every row itself: (``t``, 1)."""
+    return t, 1
+
+
+def feature_loss(fmap_r, fmap_g, sum_ranks: Callable = own_rows) -> torch.Tensor:
+    """L1 feature matching against detached real features, x2.
+
+    Each term is a mean over the rows of every rank (``sum_ranks``: ``t ->
+    (the sum of t over the ranks, their number)``; by default this call's
+    rows), taken in float32 and rounded once to the feature maps' dtype (bf16
+    at ``precision: "bf16"``), as JAX's float32 trainer takes it over the
+    global batch. Its gradient is this rank's mean's, which the gradient
+    reduce averages into the global one."""
+    terms = [torch.abs(rl.detach() - gl)
+             for dr, dg in zip(fmap_r, fmap_g) for rl, gl in zip(dr, dg)]
+    means = [t.sum(dtype=torch.float32) / t.numel() for t in terms]
+    sums, world = sum_ranks(torch.stack(means).detach())
     loss = 0.0
-    for dr, dg in zip(fmap_r, fmap_g):
-        for rl, gl in zip(dr, dg):
-            loss = loss + torch.mean(torch.abs(rl.detach() - gl))
+    for s, m, t in zip(sums, means, terms):
+        loss = loss + (s / world + (m - m.detach())).to(t.dtype)
     return loss * 2.0
 
 
@@ -43,17 +58,9 @@ def kl_loss(z_p, logs_q, m_p, logs_p) -> torch.Tensor:
     return torch.mean(kl)
 
 
-def _stft_losses(x, y, n_fft: int, hop: int, win: int):
-    """(spectral convergence, log magnitude) at one resolution, in float64."""
-    x_mag = magnitude_stft(x.double(), n_fft, hop, win)
-    y_mag = magnitude_stft(y.double(), n_fft, hop, win)
-    sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
-    mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
-    return sc, mag
-
-
 def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor, fft_sizes: Sequence[int],
-                               hop_sizes: Sequence[int], win_lengths: Sequence[int]):
+                               hop_sizes: Sequence[int], win_lengths: Sequence[int],
+                               sum_ranks: Callable = own_rows):
     """(spectral convergence, log magnitude), each averaged over the resolutions;
     ``x`` the generated waves, ``y`` the targets, (..., T) each.
 
@@ -65,24 +72,44 @@ def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor, fft_sizes: Sequ
     line prints both). The JAX package computes it in float32
     (``quickvc_tpu/losses.py:45-67``); its result lies within that rounding
     of this one.
+
+    Each resolution's spectral convergence is one ratio over the rows of
+    every rank, ``sqrt(sum_r ||Y_r - X_r||^2 / sum_r ||Y_r||^2)``, the two
+    sums taken over the ranks by ``sum_ranks`` (as :func:`feature_loss`
+    takes it; one call for every resolution), as a float32 data-parallel
+    JAX step computes it over the global batch. Its gradient on this rank
+    is the global ratio's on this rank's rows times the number of ranks,
+    since the gradient reduce then takes the mean over them; ``y`` takes
+    none. The log magnitude is a mean, so equal per-rank batches average to
+    the global one as they are.
     """
     dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
-    sc_total, mag_total = 0.0, 0.0
+    num, den, mag_total = [], [], 0.0
     for n_fft, hop, win in zip(fft_sizes, hop_sizes, win_lengths):
-        sc, mag = _stft_losses(x, y, n_fft, hop, win)
-        sc_total, mag_total = sc_total + sc, mag_total + mag
+        x_mag = magnitude_stft(x.double(), n_fft, hop, win)
+        y_mag = magnitude_stft(y.double(), n_fft, hop, win)
+        num.append(torch.sum((y_mag - x_mag) ** 2))
+        den.append(torch.sum(y_mag.detach() ** 2))
+        mag_total = mag_total + torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
+    num = torch.stack(num)
+    (num_all, den_all), world = sum_ranks(torch.stack([num.detach(), torch.stack(den)]))
+    # the global sums' values, with the world times this rank's gradient
+    sc_total = torch.sqrt((num_all + world * (num - num.detach())) / den_all).sum()
     n = len(fft_sizes)
     return (sc_total / n).to(dtype), (mag_total / n).to(dtype)
 
 
 def subband_stft_loss(y_mb: torch.Tensor, y_hat_mb: torch.Tensor, fft_sizes: Sequence[int],
-                      hop_sizes: Sequence[int], win_lengths: Sequence[int]) -> torch.Tensor:
+                      hop_sizes: Sequence[int], win_lengths: Sequence[int],
+                      sum_ranks: Callable = own_rows) -> torch.Tensor:
     """Sub-band MR-STFT loss, sc + log-mag: the target bands ``y_mb`` and the
     generated ones ``y_hat_mb``, channels-first (B, Band, T) each, the bands
     folded into the batch and the generated ones cropped to the target's
-    length (``quickvc_tpu/losses.py:70-83`` takes them channels-last)."""
+    length (``quickvc_tpu/losses.py:70-83`` takes them channels-last);
+    ``sum_ranks`` as :func:`multi_resolution_stft_loss` takes it."""
     t = y_mb.shape[-1]
     y_flat = y_mb.reshape(-1, t)
     y_hat = y_hat_mb.reshape(-1, y_hat_mb.shape[-1])[:, :t]
-    sc, mag = multi_resolution_stft_loss(y_hat, y_flat, fft_sizes, hop_sizes, win_lengths)
+    sc, mag = multi_resolution_stft_loss(y_hat, y_flat, fft_sizes, hop_sizes, win_lengths,
+                                         sum_ranks)
     return sc + mag

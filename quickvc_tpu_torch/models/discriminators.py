@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from quickvc_tpu_torch.dsp.stft import reflect_pad
 from quickvc_tpu_torch.models.layers import (LRELU_SLOPE, WNConv1d, WNConv2d, cast_like,
                                              get_padding, leaky_relu)
 from quickvc_tpu_torch.ops.fused_disc_conv import conv5_lrelu
@@ -68,7 +69,7 @@ class DiscriminatorP(nn.Module):
         b, c, t = x.shape
         p = self.period
         if t % p:
-            x = F.pad(x, (0, p - t % p), mode="reflect")
+            x = reflect_pad(x, 0, p - t % p)
             t = x.shape[-1]
         x = x.view(b, c, t // p, p)
         for i, conv in enumerate(self.convs):

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from quickvc_tpu_torch.dsp.stft import reflect_pad
+
 LRELU_SLOPE = 0.1
 
 
@@ -76,7 +78,7 @@ class Linear(nn.Linear):
 
 def reflection_pad_left(x: torch.Tensor) -> torch.Tensor:
     """torch ReflectionPad1d((1, 0)) on the time axis of (B, C, T)."""
-    return F.pad(x, (1, 0), mode="reflect")
+    return reflect_pad(x, 1, 0)
 
 
 class _WeightNorm(nn.Module):

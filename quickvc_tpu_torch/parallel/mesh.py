@@ -69,14 +69,15 @@ def barrier() -> None:
         dist.barrier()
 
 
-def gloo_staged(out: torch.Tensor, *inputs: torch.Tensor):
-    """(out, inputs, copy_back) to hand a collective of the default group
-    that writes ``out`` and reads ``inputs``. Gloo moves host memory, so on
-    a gloo group CUDA tensors are swapped for host copies (``out``'s keeps
-    its values, for the in-place collectives) and ``copy_back()``, called
-    once the collective has finished, writes the result into ``out`` and
-    returns it; elsewhere the tensors pass as they are."""
-    if not (out.is_cuda and dist.get_backend() == "gloo"):
+def gloo_staged(out: torch.Tensor, *inputs: torch.Tensor, group=None):
+    """(out, inputs, copy_back) to hand a collective of ``group`` (the
+    default group if None) that writes ``out`` and reads ``inputs``. Gloo
+    moves host memory, so on a gloo group CUDA tensors are swapped for host
+    copies (``out``'s keeps its values, for the in-place collectives) and
+    ``copy_back()``, called once the collective has finished, writes the
+    result into ``out`` and returns it; elsewhere the tensors pass as they
+    are."""
+    if not (out.is_cuda and dist.get_backend(group) == "gloo"):
         return out, inputs, lambda: out
     host = out.cpu()
     return host, tuple(t.cpu() for t in inputs), lambda: out.copy_(host)

@@ -27,17 +27,27 @@ and feature-matching terms are batch means, so with equal per-rank batches
 the mean over ranks is the global one (to float32 summation order). The
 sub-band STFT loss of ``model.mb_istft_vits`` is not: its spectral
 convergence is a norm ratio over the whole batch
-(``quickvc_tpu/losses.py:47-52``), so each rank's ratio over its own rows
-is averaged. That is the JAX shard_map step's rank-local semantics; JAX's
-default GSPMD float32 path computes the global ratio instead.
+(``quickvc_tpu/losses.py:47-52``). At a float32 reduce the port computes
+that ratio from sums over the ranks (:func:`sum_over_ranks`,
+``losses.py:multi_resolution_stft_loss``), as JAX's float32 trainer does under
+GSPMD over the global batch (``quickvc_tpu/train/loop.py:131-143``), with
+its gradient scaled so that the reduce's mean is the global ratio's. At a
+bf16 reduce each rank's ratio over its own rows is averaged, as in JAX's
+explicit-collective step, which is rank-local (``shard_map``).
+
+Under tensor parallelism (:mod:`quickvc_tpu_torch.parallel.tp`) every one of
+these reductions runs over the data group alone (``group=``): the model
+ranks of one data index hold the same rows and their replicated values are
+already equal.
 
 The bf16 mean's order: at two ranks ``round_bf16(a + b) / 2`` is the same
 in XLA, gloo and NCCL; at more, NCCL's ring sums in its own order, so the
 rounding may differ from XLA's in the last bit.
 
-Without a process group every reduction is the identity, except that the
-bf16 reduce still rounds each gradient through bf16, as the JAX trainer's
-bf16-reduce step does on one device.
+Without a process group, or over a group of one rank (the data group of a
+tensor-parallel mesh with one data index), every reduction is the identity,
+except that the bf16 reduce still rounds each gradient through bf16, as
+the JAX trainer's bf16-reduce step does on one device.
 """
 
 from __future__ import annotations
@@ -57,20 +67,26 @@ def rank_seed(seed: int, rank: int) -> int:
     return seed + rank * RANK_STRIDE
 
 
+def group_size(group=None) -> int:
+    """Ranks in ``group`` (the default group if None); 1 without a process group."""
+    return dist.get_world_size(group) if is_distributed() else 1
+
+
 def grad_reduce(grads: Sequence[torch.Tensor], dtype: torch.dtype = torch.float32,
-                async_op: bool = False) -> Callable[[], list[torch.Tensor]]:
-    """The mean over ranks of every rank's ``grads``, taken in ``dtype`` and
-    cast back: returns a function that waits for it and returns the list.
-    With ``async_op`` the all-reduce is in flight until that call."""
-    if not is_distributed() and dtype == grads[0].dtype:
+                async_op: bool = False, group=None) -> Callable[[], list[torch.Tensor]]:
+    """The mean over the ranks of ``group`` (every rank if None) of each
+    rank's ``grads``, taken in ``dtype`` and cast back: returns a function
+    that waits for it and returns the list. With ``async_op`` the all-reduce
+    is in flight until that call."""
+    world = group_size(group)
+    if world == 1 and dtype == grads[0].dtype:
         return lambda: list(grads)
     # one cast of the flat buffer each way (a cast per tensor costs a launch each)
     flat = torch.cat([g.reshape(-1) for g in grads]).to(dtype)
-    world, work, copy_back = 1, None, lambda: flat
-    if is_distributed():
-        world = dist.get_world_size()
-        staged, _, copy_back = gloo_staged(flat)
-        work = dist.all_reduce(staged, async_op=async_op)
+    work, copy_back = None, lambda: flat
+    if world > 1:
+        staged, _, copy_back = gloo_staged(flat, group=group)
+        work = dist.all_reduce(staged, group=group, async_op=async_op)
 
     def wait() -> list[torch.Tensor]:
         if work is not None:
@@ -109,11 +125,18 @@ def all_gather(part: Zero1Partition, shard: torch.Tensor) -> torch.Tensor:
     return copy_back()
 
 
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """The sum over ranks of ``t``, in place."""
-    staged, _, copy_back = gloo_staged(t)
-    dist.all_reduce(staged)
+def _all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of ``t``, in place."""
+    staged, _, copy_back = gloo_staged(t, group=group)
+    dist.all_reduce(staged, group=group)
     return copy_back()
+
+
+def sum_over_ranks(t: torch.Tensor, group=None) -> tuple[torch.Tensor, int]:
+    """(the sum over the ranks of ``group`` of ``t``, their number), ``t``
+    untouched: the batch-wide losses' global sums (``losses.py``)."""
+    world = group_size(group)
+    return (t, 1) if world == 1 else (_all_reduce(t.clone(), group), world)
 
 
 def shard_stats(part: Zero1Partition, shard: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -138,13 +161,14 @@ def shard_stats(part: Zero1Partition, shard: torch.Tensor) -> tuple[torch.Tensor
     return stats[0].float(), stats[1].sqrt().float()
 
 
-def scalar_reduce(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """The float32 mean over ranks of each tensor (loss scalars, the loss
-    vectors and the logged mel images), in one all-reduce."""
-    if not is_distributed():
+def scalar_reduce(tensors: Sequence[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """The float32 mean over the ranks of ``group`` of each tensor (loss
+    scalars, the loss vectors and the logged mel images), in one all-reduce."""
+    world = group_size(group)
+    if world == 1:
         return list(tensors)
     flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
-    _all_reduce(flat).div_(dist.get_world_size())
+    _all_reduce(flat, group).div_(world)
     out, off = [], 0
     for t in tensors:
         out.append(flat[off : off + t.numel()].view_as(t))

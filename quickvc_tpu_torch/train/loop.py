@@ -2,7 +2,7 @@
 
     python -m quickvc_tpu_torch.train -c configs/quickvc.json -m NAME -mr ./logs
         [--max-steps N] [--device cuda|cpu] [--init-from-torch G.pth [D.pth]]
-        [--export-torch-every N]
+        [--export-torch-every N] [--deterministic]
     torchrun --nproc-per-node N -m quickvc_tpu_torch.train --distributed ...
 
 Port of ``quickvc_tpu/train/loop.py`` and ``train.py`` (reference
@@ -17,10 +17,14 @@ a watchdog on the step walls; reconstruction and conversion eval on
 checkpoints, the newest ``train.ckpt_max_to_keep`` of them kept. A run
 resumes from the newest pair in ``model_dir``, mid-epoch included (the
 loader skips the batches already trained on), and a resumed run takes the
-same updates as an uninterrupted one: bit for bit on the CPU; on the card
-cuDNN's convolution algorithms may sum in another order from one run to
-the next, so there the two agree to float32 rounding. Past
-``train.max_host_rss_gb`` the run checkpoints and exits with code 75, which
+same updates as an uninterrupted one: bit for bit on the CPU, and on the
+card with ``--deterministic``; without it cuDNN picks its convolution
+algorithms freely and may sum in another order from one run to the next,
+so there the two agree to float32 rounding. The flag cost 13-21% of a
+full-width float32 step on an H100 and -5% to +16% of a bf16 one, whose
+free step itself read 0.126-0.294 s over six calls (``PERF.md``), so it
+is opt-in. Past ``train.max_host_rss_gb`` the run checkpoints and exits
+with code 75, which
 ``scripts/supervise_train.py -- python -m quickvc_tpu_torch.train ...``
 answers with a relaunch.
 
@@ -49,6 +53,7 @@ without a card raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import time
@@ -423,6 +428,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="also checkpoint after every update whose prior count is a "
                         "multiple of N (kept by the pruning); overrides "
                         "train.export_torch_every")
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic algorithms on the card (cuDNN's and torch's, cuBLAS "
+                        "with a fixed workspace), so that a resumed run equals an "
+                        "uninterrupted one bit for bit; slower (PERF.md)")
     p.add_argument("--init-from-torch", type=str, nargs="+", default=None,
                    metavar=("G.pth", "D.pth"),
                    help="warm-start from reference-layout checkpoints (fresh "
@@ -435,8 +444,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """Deterministic algorithms inside the block when ``on``: cuDNN's, every
+    op of torch's (an op with no deterministic version raises rather than
+    run), cuBLAS's on a fixed workspace. ``CUBLAS_WORKSPACE_CONFIG`` is read
+    when the process makes its first cuBLAS handle, so the CLI enters this
+    before anything touches the card. The flags are restored on the way out
+    (the environment variable stays: cuBLAS has read it)."""
+    if not on:
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    before = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[1:]
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    with deterministic_algorithms(args.deterministic):
+        return _main(args)
+
+
+def _main(args: argparse.Namespace) -> dict:
     if mesh.launcher_world_size() > 1 and not args.distributed:
         raise RuntimeError(
             f"WORLD_SIZE={mesh.launcher_world_size()}: a launcher started several "

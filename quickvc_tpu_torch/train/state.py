@@ -11,6 +11,15 @@ rank's shard of the network's flattened parameters
 1/n of the replicated optimizer's moments. :func:`optimizer_state_dict` and
 :func:`load_optimizer_state_dict` convert between that and plain AdamW's
 layout (one entry per parameter), the layout checkpoints keep.
+
+With ``tp=(mesh, min_channels)`` (tensor parallelism, port of
+``quickvc_tpu/parallel/tp.py``'s ``state_shardings``) each network's wide
+parameters are split over the mesh's model axis
+(:func:`quickvc_tpu_torch.parallel.tp.param_layout`,
+``parallel/tp_layers.py:shard_modules_``) before the optimizers are made, so
+AdamW holds its moments in the same layout. The JAX package never runs
+ZeRO-1 moments or the bf16 ``shard_map`` reduce under it; the port refuses
+both there.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from quickvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
 from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
 from quickvc_tpu_torch.parallel.mesh import Zero1Partition, zero1_partition
 from quickvc_tpu_torch.parallel.shard_step import all_gather
+from quickvc_tpu_torch.parallel.tp import Mesh2D, gather_optimizer_state_dict, param_layout
+from quickvc_tpu_torch.parallel.tp_layers import shard_modules_
 from quickvc_tpu_torch.utils.weights import init_random_
 
 
@@ -39,6 +50,7 @@ class TrainState:
     step: int = 0  # optimizer steps taken (skipped updates included)
     zero_g: Zero1Partition | None = None   # ZeRO-1: this rank's part of G's moments
     zero_d: Zero1Partition | None = None
+    mesh: Mesh2D | None = None             # tensor parallelism: the (data, model) mesh
 
     def nets(self, kind: str):
         """(network, optimizer, ZeRO-1 partition or None) of "g" or "d"."""
@@ -58,16 +70,38 @@ def build_models(cfg: QuickVCConfig) -> tuple[SynthesizerTrn, MultiPeriodDiscrim
             MultiPeriodDiscriminator(width=cfg.train.disc_width))
 
 
+def check_tp(cfg: QuickVCConfig) -> None:
+    """Raise ValueError for what tensor parallelism does not run with."""
+    if cfg.train.zero_opt_state:
+        raise ValueError("train.zero_opt_state under tensor parallelism: the JAX package "
+                         "never shards the moments over data and model at once "
+                         "(zero1_state_sharding is for its data-parallel mesh)")
+    if cfg.train.grad_reduce_dtype != "f32":
+        raise ValueError("train.grad_reduce_dtype 'bf16' under tensor parallelism: JAX's "
+                         "bf16 reduce is its shard_map step over a data-parallel mesh, "
+                         "which it never runs with a model axis")
+
+
 def create_train_state(cfg: QuickVCConfig, device: torch.device,
                        net_g: SynthesizerTrn | None = None,
-                       net_d: MultiPeriodDiscriminator | None = None) -> TrainState:
+                       net_d: MultiPeriodDiscriminator | None = None,
+                       tp: tuple[Mesh2D, int] | None = None) -> TrainState:
     """Models (seeded random weights unless given), optimizers, schedules;
-    under ``train.zero_opt_state`` each optimizer over this rank's shard."""
+    under ``train.zero_opt_state`` each optimizer over this rank's shard;
+    with ``tp=(mesh, min_channels)`` the networks split over the mesh's
+    model axis (the given networks are sharded in place)."""
+    if tp is not None:
+        check_tp(cfg)
     if net_g is None or net_d is None:
         net_g, net_d = build_models(cfg)
         init_random_(net_g, cfg.train.seed)
         init_random_(net_d, cfg.train.seed + 1)
     net_g, net_d = net_g.to(device).train(), net_d.to(device).train()
+    mesh = None
+    if tp is not None:
+        mesh, min_channels = tp
+        for net in (net_g, net_d):
+            shard_modules_(net, param_layout(net, mesh.model, min_channels), mesh.model_axis)
     parts, optims = [], []
     for net in (net_g, net_d):
         params = list(net.parameters())
@@ -79,14 +113,17 @@ def create_train_state(cfg: QuickVCConfig, device: torch.device,
     return TrainState(cfg, net_g, net_d, *optims,
                       torch.optim.lr_scheduler.ExponentialLR(optims[0], gamma),
                       torch.optim.lr_scheduler.ExponentialLR(optims[1], gamma),
-                      zero_g=parts[0], zero_d=parts[1])
+                      zero_g=parts[0], zero_d=parts[1], mesh=mesh)
 
 
 def optimizer_state_dict(state: TrainState, kind: str) -> dict:
     """The optimizer's ``state_dict`` in plain AdamW's layout, one entry per
     parameter of the network ("g" or "d"). Under ZeRO-1 every rank's moments
-    are gathered first: a collective, so every rank calls it."""
+    are gathered first, under tensor parallelism every model rank's: a
+    collective, so every rank calls it."""
     net, optim, part = state.nets(kind)
+    if state.mesh is not None:
+        return gather_optimizer_state_dict(net, optim)
     sd = optim.state_dict()
     if part is None:
         return sd
@@ -103,8 +140,15 @@ def optimizer_state_dict(state: TrainState, kind: str) -> dict:
 
 def load_optimizer_state_dict(state: TrainState, kind: str, sd: dict) -> None:
     """Load a plain-layout optimizer ``state_dict`` (a checkpoint's); under
-    ZeRO-1 this rank keeps its shard of the moments."""
-    _, optim, part = state.nets(kind)
+    ZeRO-1 this rank keeps its shard of the moments, under tensor
+    parallelism its model rank's slice of each split one."""
+    net, optim, part = state.nets(kind)
+    if state.mesh is not None:   # this model rank's slice of each split moment
+        dims = [net.tp_layout[n] for n, _ in net.named_parameters()]
+        axis = state.mesh.model_axis
+        sd = dict(sd, state={i: {k: v if dims[i] is None or not v.dim() else
+                                 v.chunk(axis.size, dims[i])[axis.rank].clone()
+                                 for k, v in st.items()} for i, st in sd["state"].items()})
     if part is None:
         optim.load_state_dict(sd)
         return

@@ -39,6 +39,21 @@ With ``train.zero_opt_state`` a network's gradients arrive as this rank's
 ZeRO-1 shard of their mean (a reduce-scatter), AdamW updates that shard,
 and an all-gather returns the whole network to every rank.
 
+At a float32 reduce over more than one rank, two terms take their value
+over every rank's rows, as JAX's float32 trainer computes them under GSPMD:
+with ``model.mb_istft_vits`` the sub-band loss's spectral convergence is
+one ratio (``losses.py:multi_resolution_stft_loss``), and each
+feature-matching mean is rounded to the feature maps' dtype once, from the
+global sum (``losses.py:feature_loss``), not per rank; at a bf16 reduce
+both stay each rank's, as JAX's ``shard_map`` step has them.
+
+Under tensor parallelism (``state.mesh``, :mod:`quickvc_tpu_torch.parallel.tp`)
+the reduces above run over the data group; a split parameter's gradient is
+this model rank's slice, so the guard's per-gradient sums and
+``grad_norm/*`` add the slices' partial sums over the model group (one small
+all-reduce) and take each replicated gradient once: the replicated step's
+values. ``debug_grads`` gathers the slices.
+
 ``train.split_prior`` (``quickvc_tpu/train/step.py:183-200, 244-256``): the
 generator's forward runs without the prior encoder
 (:meth:`SynthesizerTrn.forward_posterior`); D's gradient reduce is issued
@@ -50,6 +65,7 @@ results equal the unsplit step's on the same draws.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -57,12 +73,14 @@ from quickvc_tpu_torch.dsp import pqmf
 from quickvc_tpu_torch.dsp.mel import mel_filterbank
 from quickvc_tpu_torch.dsp.stft import spec_to_mel, wave_to_mel
 from quickvc_tpu_torch.losses import (discriminator_loss, feature_loss, generator_loss, kl_loss,
-                                      subband_stft_loss)
+                                      own_rows, subband_stft_loss)
 from quickvc_tpu_torch.ops.fused_mel import wave_to_spec_halo
 from quickvc_tpu_torch.ops.slicing import slice_segments
 from quickvc_tpu_torch.parallel.mesh import Zero1Partition
 from quickvc_tpu_torch.parallel.shard_step import (all_gather, grad_reduce, grad_reduce_scatter,
-                                                   scalar_reduce, shard_stats)
+                                                   scalar_reduce, shard_stats, sum_over_ranks)
+from quickvc_tpu_torch.parallel.tp_layers import all_gather as model_all_gather
+from quickvc_tpu_torch.parallel.tp_layers import all_reduce as model_all_reduce
 from quickvc_tpu_torch.train.state import TrainState
 
 STEP_SPAN = "quickvc_train_step"
@@ -145,11 +163,14 @@ class _Update:
         net, self.optim, self.part = state.nets(kind)
         self.names, self.params = zip(*net.named_parameters())
         self.reduce_dtype = DTYPES[state.cfg.train.grad_reduce_dtype]
+        self.group = None if state.mesh is None else state.mesh.data_group
+        self.axis = None if state.mesh is None else state.mesh.model_axis
+        self.dims = [None if state.mesh is None else net.tp_layout[n] for n in self.names]
 
     def start(self, grads, async_op: bool = False):
         if self.part is not None:
             return grad_reduce_scatter(self.part, grads, async_op)
-        return grad_reduce(grads, self.reduce_dtype, async_op)
+        return grad_reduce(grads, self.reduce_dtype, async_op, self.group)
 
     def finish(self, wait, loss: torch.Tensor, cfg, guard: bool):
         """(reduced gradients or shard, ok, norm)."""
@@ -157,10 +178,23 @@ class _Update:
         if self.part is not None:
             sums, norms = shard_stats(self.part, reduced)
             norm = torch.linalg.vector_norm(norms)
+        elif self.axis is not None:
+            sums, norms = self._model_stats(reduced)
+            norm = torch.linalg.vector_norm(norms)
         else:
             sums = torch.stack([g.sum() for g in reduced]) if guard else None
             norm = _global_norm(reduced)
         return reduced, (_guard_ok(sums, loss, cfg) if guard else True), norm
+
+    def _model_stats(self, grads) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sum, 2-norm) of every gradient, whole: a split one's partial sums
+        and sums of squares added over the model ranks, a replicated one's
+        taken as this rank has it (the same on every model rank)."""
+        stats = torch.stack([torch.stack([g.sum(), torch.sum(g * g)]) for g in grads], 1)
+        split = torch.tensor([d is not None for d in self.dims], device=stats.device)
+        summed = model_all_reduce(torch.where(split, stats, torch.zeros_like(stats)), self.axis)
+        stats = torch.where(split, summed, stats)
+        return stats[0], stats[1].sqrt()
 
     def apply(self, reduced, ok: bool) -> None:
         if self.part is not None:
@@ -171,6 +205,9 @@ class _Update:
     def debug(self, reduced) -> dict[str, torch.Tensor]:
         if self.part is not None:
             reduced = self.part.split(all_gather(self.part, reduced), self.params)
+        if self.axis is not None:
+            reduced = [g if d is None else model_all_gather(g, d, self.axis)
+                       for g, d in zip(reduced, self.dims)]
         return dict(zip(self.names, reduced))
 
 
@@ -201,6 +238,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
     guard = t.guard_nonfinite or t.guard_loss_max > 0
     dt = DTYPES[t.precision]
     upd_d, upd_g = _Update(state, "d"), _Update(state, "g")
+    group = upd_g.group   # the data group under tensor parallelism, else every rank
     with torch.profiler.record_function(STEP_SPAN):
         unit, spec, wave = decode_batch(batch, cfg)
         mel = spec_to_mel(spec, basis)                                  # (B, F, 80)
@@ -230,7 +268,8 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
             # the prior's forward while D's gradient reduce is in flight
             m_p, logs_p = (x.float() for x in net_g.prior_stats(unit_in))
         # reduced before the guard: every rank must take the same decision
-        loss_disc, losses_d_r, losses_d_g = scalar_reduce([loss_disc, losses_d_r, losses_d_g])
+        loss_disc, losses_d_r, losses_d_g = scalar_reduce([loss_disc, losses_d_r, losses_d_g],
+                                                          group)
         d_grads, d_ok, d_norm = upd_d.finish(wait_d, loss_disc, cfg, guard)
         upd_d.apply(d_grads, d_ok)
 
@@ -242,12 +281,16 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
         y_mel = slice_segments(mel.transpose(1, 2), ids, seg_frames).transpose(1, 2)
         loss_mel = t.c_mel * torch.mean(torch.abs(y_mel - y_hat_mel))
         loss_kl = t.c_kl * kl_loss(z_p, logs_q, m_p, logs_p)
-        loss_fm = feature_loss(fmap_r, fmap_g)
+        # the batch-wide terms over every rank's rows at a float32 reduce, each
+        # rank's own at bf16 (JAX's shard_map step)
+        sum_ranks = (functools.partial(sum_over_ranks, group=group)
+                     if t.grad_reduce_dtype == "f32" else own_rows)
+        loss_fm = feature_loss(fmap_r, fmap_g, sum_ranks)
         loss_gen, gen_losses = generator_loss(logits_g)
         if cfg.model.mb_istft_vits:
             y_mb = pqmf.analysis(y_seg, cfg.model.subbands)              # (B, s, T / s)
             loss_sub = subband_stft_loss(y_mb, y_hat_mb, t.fft_sizes, t.hop_sizes,
-                                         t.win_lengths)
+                                         t.win_lengths, sum_ranks)
         else:
             loss_sub = torch.zeros((), device=loss_mel.device)
         loss_g_total = loss_gen + loss_fm + loss_mel + loss_kl + loss_sub
@@ -260,7 +303,7 @@ def train_step(state: TrainState, batch: dict[str, torch.Tensor], basis: torch.T
             "loss/g/mel": loss_mel, "loss/g/kl": loss_kl, "loss/g/subband": loss_sub,
             "loss/g": gen_losses, "img/mel_gen": y_hat_mel[0], "img/mel_org": y_mel[0],
             "img/mel_all": mel[0]}
-        g_metrics = dict(zip(g_metrics, scalar_reduce(list(g_metrics.values()))))
+        g_metrics = dict(zip(g_metrics, scalar_reduce(list(g_metrics.values()), group)))
         g_grads, g_ok, g_norm = upd_g.finish(wait_g, g_metrics["loss/g/total"], cfg, guard)
         upd_g.apply(g_grads, g_ok)
     state.step += 1

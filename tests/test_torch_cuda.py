@@ -29,7 +29,9 @@ K8's
 bf16 mode on the wgmma core, and the speaker LSTM's bf16 recurrence kernels
 (forward h, act and c, backward dgates; the float32 recurrence the
 yardstick), bit-equal from one launch to the next, alone and in a bf16
-speaker encoder.
+speaker encoder. The trainer with ``--deterministic`` on the card, at
+float32 and at bf16: 4 straight steps and 2 + a resume in a new process + 2
+write the same ``G_4.pth`` / ``D_4.pth`` bytes.
 """
 
 import pytest
@@ -1024,3 +1026,41 @@ def test_transformer_layer_bf16_kernel_on_the_wgmma_core(cuda, batch):
         _bf16_gates(ours, ft.transformer_layer_reference(x, layer),
                     ft.transformer_layer_kernel(x.float(), layer32))
         assert torch.equal(ours, ft.transformer_layer(x, layer))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_deterministic_resume_on_the_card_equals_straight_steps(cuda, tmp_path, precision):
+    """``python -m quickvc_tpu_torch.train --deterministic`` (each run a new
+    process, so cuBLAS reads its workspace setting at its first handle): 4
+    straight steps against 2 steps and a resume to 4, checkpoints byte for
+    byte, at a tiny config."""
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from quickvc_tpu_torch.config import config_from_dict
+    from test_torch_train_data import write_corpus
+
+    listing = write_corpus(tmp_path / "corpus", np.random.default_rng(4),
+                           [0.85, 0.9, 0.95, 1.0, 0.88, 0.92, 0.97, 0.86])
+    cfg = config_from_dict({
+        "train": {"segment_size": 2560, "max_speclen": 32, "precision": precision,
+                  "learning_rate": 1e-4, "disc_width": 0.25, "batch_size": 2,
+                  "loader_workers": 2, "log_interval": 1, "eval_interval": 0},
+        "model": {"inter_channels": 16, "hidden_channels": 16, "upsample_initial_channel": 32,
+                  "gin_channels": 16, "unit_channels": 12, "resblock_kernel_sizes": [3],
+                  "resblock_dilation_sizes": [[1, 3, 5]], "enc_wn_layers": 2,
+                  "flow_wn_layers": 2, "n_flows": 2}})
+    cfg.data.training_files = cfg.data.validation_files = listing
+    hpfile = str(tmp_path / "tiny.json")
+    cfg.save(hpfile)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, steps in (("resumed", 2), ("resumed", 4), ("straight", 4)):
+        subprocess.run([sys.executable, "-m", "quickvc_tpu_torch.train", "-c", hpfile, "-m", name,
+                        "-mr", str(tmp_path / "logs"), "--max-steps", str(steps),
+                        "--deterministic"], cwd=root, check=True, timeout=600)
+    for kind in "GD":
+        assert ((tmp_path / "logs" / "resumed" / f"{kind}_4.pth").read_bytes()
+                == (tmp_path / "logs" / "straight" / f"{kind}_4.pth").read_bytes()), kind

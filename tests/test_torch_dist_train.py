@@ -12,7 +12,10 @@ refuse:
 - ``split_prior``, ``zero_opt_state`` (its checkpoint loading into a plain
   ``AdamW``), ``grad_reduce_dtype: "bf16"`` and two processes each train a
   step;
-- several processes (``WORLD_SIZE`` > 1) without ``--distributed`` raise.
+- several processes (``WORLD_SIZE`` > 1) without ``--distributed`` raise;
+- ``--deterministic`` parses, sets torch's and cuDNN's deterministic
+  algorithms and cuBLAS's workspace for the run and restores the flags
+  after it, and a resume with it stays bit-exact.
 
 The ranks are spawned processes that import no JAX
 (``tests/torch_dist_support.py``), meeting through a ``file://``
@@ -22,6 +25,7 @@ rendezvous under ``tmp_path``.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -170,3 +174,38 @@ def test_several_processes_without_distributed_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="--distributed"):
         loop.main(["-mr", str(tmp_path), "--device", "cpu", "--max-steps", "1"])
+
+
+def test_deterministic_flag_sets_and_restores_the_flags(monkeypatch):
+    from quickvc_tpu_torch.train import loop
+
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    assert loop.parse_args(["--deterministic"]).deterministic
+    assert not loop.parse_args([]).deterministic
+    before = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    with loop.deterministic_algorithms(True):
+        assert torch.are_deterministic_algorithms_enabled()
+        assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    assert (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == before
+    with loop.deterministic_algorithms(False):
+        assert torch.are_deterministic_algorithms_enabled() == before[0]
+
+
+def test_deterministic_resume_equals_straight_steps(tmp_path, monkeypatch):
+    """With ``--deterministic``: 2 steps, then a resume to 4, write the same
+    ``G_4.pth`` and ``D_4.pth`` bytes as 4 straight steps."""
+    from quickvc_tpu_torch.train import loop
+
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    hpfile = _hpfile(tmp_path, eval_interval=0)
+    logs = tmp_path / "logs"
+    for name, steps in (("resumed", 2), ("resumed", 4), ("straight", 4)):
+        out = loop.main(_args(hpfile, logs, name, steps) + ["--deterministic"])
+        assert out["steps"] == steps
+    assert "Resumed from checkpoint at step 2" in (logs / "resumed" / "train.log").read_text()
+    for kind in "GD":
+        assert ((logs / "resumed" / f"{kind}_4.pth").read_bytes()
+                == (logs / "straight" / f"{kind}_4.pth").read_bytes()), kind

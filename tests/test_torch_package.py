@@ -44,7 +44,8 @@ bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "q
 new = ["quickvc_tpu_torch." + m for m in ("infer.streaming", "infer.realtime", "ops.int8_mm",
                                          "scripts.int8_matmul_probe", "scripts.realtime_bench",
                                          "data.native", "utils.msgpack_params", "dsp.pqmf",
-                                         "downsample", "parallel.mesh", "parallel.shard_step")]
+                                         "downsample", "parallel.mesh", "parallel.shard_step",
+                                         "parallel.tp", "parallel.tp_layers")]
 bad += [m + " not imported" for m in new if m not in sys.modules]
 print(len([n for n in sys.modules if n.startswith("quickvc_tpu_torch.")]), bad)
 sys.exit(1 if bad else 0)

@@ -15,6 +15,18 @@ single-process step and against JAX's explicit-collective step.
   per_shard_rng=False)`` on a 2-device CPU mesh (one JAX step compile),
   fed the same weights, batch and per-shard draws.
 - ``split_prior`` in one process equals the unsplit step on the same draws.
+- The multiband model's sub-band loss at two ranks: at a float32 reduce its
+  spectral convergence is one ratio over both ranks' rows, so
+  ``loss/g/subband`` and the gradients equal one process on the global
+  batch (and the old rank-local mean misses it by far more than the
+  tolerance); at a bf16 reduce it stays each rank's ratio, averaged.
+- Tensor parallelism (``parallel/tp.py``): each parameter of G and D split on
+  the torch dim that JAX's ``_kernel_spec`` splits, carried through
+  ``utils/weights.py``, at model 2 and 4; at ``configs/quickvc_tp.json`` the
+  bytes a device equal JAX's count (no allocation: the meta device and
+  ``eval_shape``); one float32 step on a 2 x 2 and a 1 x 2 (data, model)
+  mesh of gloo ranks against one process on the global batch, model ranks
+  bit-equal; ``infer`` sharded against whole; the refusals.
 """
 
 from __future__ import annotations
@@ -27,13 +39,12 @@ import jax
 import jax.numpy as jnp
 
 from torch_dist_support import spawn
-from torch_train_support import FRAMES, TINY, configs, max_rel_err
+from torch_train_support import FRAMES, MB, TINY, configs, max_rel_err
 
 import torch_port_support  # noqa: F401  (caps torch's threads)
 
 ROWS = 4   # the global batch: two rows a rank
-VARIANTS = {"f32": {}, "zero": {"zero_opt_state": True},
-            "split_bf16": {"split_prior": True, "grad_reduce_dtype": "bf16"}}
+TP_MESHES = [(2, 2), (1, 2)]   # (data, model)
 LOSSES = ("loss/d/total", "loss/g/gen", "loss/g/fm", "loss/g/mel", "loss/g/kl",
           "loss/g/subband", "loss/g/total")
 
@@ -61,6 +72,24 @@ def _batch(rng: np.random.Generator) -> dict[str, np.ndarray]:
     return {"unit": unit.astype(np.float32),
             "wave_s16": rng.integers(-6000, 6000, (ROWS, FRAMES * 320 + 960)).astype(np.int16),
             "n_take": np.array([FRAMES, FRAMES - 5, FRAMES - 2, FRAMES], np.int32)}
+
+
+def _mb_batch() -> dict[str, np.ndarray]:
+    """The case's batch for the multiband model: no masked tail (over digital
+    silence the sub-band loss is +inf, as in JAX, which compares nothing),
+    and the second rank's waves 8x quieter, so that its rows' spectral
+    convergence differs from the first rank's as utterances do."""
+    batch = _batch(np.random.default_rng(5))
+    wave = batch["wave_s16"].copy()
+    wave[ROWS // 2 :] //= 8
+    return {"n_take": np.full(ROWS, FRAMES, np.int32), "wave_s16": wave}
+
+
+VARIANTS = {"f32": {}, "zero": {"zero_opt_state": True},
+            "split_bf16": {"split_prior": True, "grad_reduce_dtype": "bf16"},
+            "mb_f32": {"model": MB, "batch": _mb_batch()},
+            "mb_bf16_reduce": {"model": MB, "grad_reduce_dtype": "bf16", "batch": _mb_batch()},
+            "bf16_step": {"precision": "bf16"}}
 
 
 def _jax_sharded_step():
@@ -116,7 +145,7 @@ def _jax_sharded_step():
             "d": discriminator_state_dict_from_jax(d_params),
             "batch": batch, "eps_q": np.concatenate(eps).astype(np.float32),
             "ids": np.concatenate(ids)}
-    return case, metrics, new_state
+    return case, metrics, new_state, (g_params, d_params)
 
 
 @pytest.fixture(scope="module")
@@ -128,35 +157,43 @@ def runs(tmp_path_factory):
     from quickvc_tpu_torch.train.step import mel_basis, train_step
 
     tmp = tmp_path_factory.mktemp("dp")
-    case, jax_metrics, jax_state = _jax_sharded_step()
+    case, jax_metrics, jax_state, jax_params = _jax_sharded_step()
     torch.save(case, tmp / "case.pt")
     ranks = spawn("step_job", 2, tmp, VARIANTS)
 
-    def one_process(**train):
+    def one_process(rows=slice(None), batch=None, **train):
         state = _case_state(case, **train)
-        batch = {k: torch.from_numpy(v.copy()) for k, v in case["batch"].items()}
+        batch = {k: torch.from_numpy(v[rows].copy()) for k, v in (case["batch"] | (batch or {})
+                                                                   ).items()}
         with torch.backends.mkldnn.flags(enabled=False):
             m = train_step(state, batch, mel_basis(state.cfg, torch.device("cpu")),
-                           eps_q=torch.from_numpy(case["eps_q"].copy()),
-                           ids_slice=torch.from_numpy(case["ids"].copy()), debug_grads=True)
+                           eps_q=torch.from_numpy(case["eps_q"][rows].copy()),
+                           ids_slice=torch.from_numpy(case["ids"][rows].copy()), debug_grads=True)
         return state, m
 
     return {"case": case, "jax_metrics": jax_metrics, "jax_state": jax_state, "ranks": ranks,
-            "one_process": one_process}
+            "one_process": one_process, "tmp": tmp, "jax_params": jax_params}
+
+
+def _assert_matches_one_process(ours: dict, single: dict,
+                                grads=("debug/d_grads", "debug/g_grads")) -> None:
+    """Losses rtol 2e-4, gradients max rel 2e-3 (the data-parallel test's gates)."""
+    for key in LOSSES + ("grad_norm/d", "grad_norm/g"):
+        np.testing.assert_allclose(float(ours[key]), float(single[key]), rtol=2e-4, atol=1e-5,
+                                   err_msg=key)
+    for kind in grads:
+        assert all(torch.isfinite(v).all() for v in single[kind].values()), kind
+        err, where = max_rel_err(ours[kind], {k: v.numpy() for k, v in single[kind].items()})
+        assert err < 2e-3, f"{kind}: rel {err} at {where}"
 
 
 def test_dp_step_matches_one_process_on_the_global_batch(runs):
     _, single = runs["one_process"]()
     ours = runs["ranks"][0]["f32"]["metrics"]
-    for key in LOSSES + ("grad_norm/d", "grad_norm/g"):
-        np.testing.assert_allclose(float(ours[key]), float(single[key]), rtol=2e-4, atol=1e-5,
-                                   err_msg=key)
+    _assert_matches_one_process(ours, single)
     for key in ("loss/g", "loss/d/r", "loss/d/g"):
         np.testing.assert_allclose(ours[key].numpy(), single[key].numpy(), rtol=2e-4,
                                    atol=1e-4, err_msg=key)
-    for kind in ("debug/d_grads", "debug/g_grads"):
-        err, where = max_rel_err(ours[kind], {k: v.numpy() for k, v in single[kind].items()})
-        assert err < 2e-3, f"{kind}: rel {err} at {where}"
 
 
 def _equal_states(a: dict, b: dict) -> list[str]:
@@ -318,3 +355,257 @@ def test_split_prior_equals_unsplit_step(runs):
     for a, b in ((split_state.net_g, plain_state.net_g), (split_state.net_d, plain_state.net_d)):
         for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
             assert torch.equal(x, y), name
+
+
+def test_mb_subband_loss_at_a_float32_reduce_is_global(runs):
+    """Two ranks, the multiband model, float32 reduce: every loss (the
+    sub-band loss among them) and G's reduced gradients equal one process on
+    the 4 rows. The control: the mean of the two ranks' own ratios (what the
+    reduce took before) misses the global ``loss/g/subband`` by more than
+    10x the loss tolerance. (D's gradients are the data-parallel test's
+    concern: at a leaky ReLU's kink the first period conv's moves by 2.3e-3
+    of its max here, as ``_d_grad_sensitivity`` says.)"""
+    _, single = runs["one_process"](**VARIANTS["mb_f32"])
+    ours = runs["ranks"][0]["mb_f32"]["metrics"]
+    assert 0 < float(single["loss/g/subband"]) < np.inf
+    _assert_matches_one_process(ours, single, grads=("debug/g_grads",))
+    local = np.mean([float(runs["one_process"](rows, **VARIANTS["mb_f32"])[1]["loss/g/subband"])
+                     for rows in (slice(0, 2), slice(2, 4))])
+    glob = float(single["loss/g/subband"])
+    assert abs(local - glob) > 10 * (1e-5 + 2e-4 * abs(glob)), (local, glob)
+
+
+def test_bf16_step_feature_loss_at_a_float32_reduce_is_global(runs):
+    """A bf16 step on two ranks, float32 reduce: each feature-matching mean
+    is the 4 rows' float32 mean rounded to bf16 once, so ``loss/g/fm`` is
+    one process's bf16 value to the bit (the ranks' rounded means averaged
+    would stand a bf16 rounding off)."""
+    _, single = runs["one_process"](precision="bf16")
+    ours = runs["ranks"][0]["bf16_step"]["metrics"]
+    assert np.isfinite(float(single["loss/g/fm"]))
+    assert float(ours["loss/g/fm"]) == float(single["loss/g/fm"])
+
+
+def test_mb_subband_loss_at_a_bf16_reduce_stays_rank_local(runs):
+    """At a bf16 reduce the two ranks average their own ratios, as JAX's
+    shard_map step does: ``loss/g/subband`` is the mean of one process's
+    value on each rank's rows."""
+    ours = float(runs["ranks"][0]["mb_bf16_reduce"]["metrics"]["loss/g/subband"])
+    local = np.mean([float(runs["one_process"](rows, **VARIANTS["mb_f32"])[1]["loss/g/subband"])
+                     for rows in (slice(0, 2), slice(2, 4))])
+    assert np.isfinite(local)
+    np.testing.assert_allclose(ours, local, rtol=2e-4, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism
+
+
+@pytest.fixture(scope="module")
+def tp_runs(runs):
+    """Each (data, model) mesh of TP_MESHES, its ranks on the case
+    (``torch_dist_support.tp_job``), and one process's float32 step on the
+    whole batch."""
+    state, single = runs["one_process"]()
+    return {"ranks": {mesh: spawn("tp_job", mesh[0] * mesh[1], runs["tmp"], *mesh)
+                      for mesh in TP_MESHES},
+            "state": state, "single": single}
+
+
+def _tagged(tree):
+    """Each leaf of a JAX parameter tree replaced by its index * 4096 plus
+    1 + the position along its last axis (exact in float32): a mapped
+    tensor tells which leaf it came from and along which dims that leaf's
+    last axis runs."""
+    import jax
+
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    tagged = [np.broadcast_to(i * 4096 + 1 + np.arange(x.shape[-1], dtype=np.float32),
+                              x.shape).copy() for i, x in enumerate(leaves)]
+    return leaves, jax.tree_util.tree_unflatten(treedef, tagged)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_tp_layout_is_jax_kernel_spec_per_leaf(runs, model):
+    """Every parameter of G and D at the tiny config (min_channels 16): the
+    port splits the torch dim along which JAX's last axis runs after
+    ``utils/weights.py``'s mapping exactly when ``_kernel_spec`` splits that
+    leaf, and nothing else. Among them: ``ConvTranspose1d`` on its input
+    channels, the LSTM weights on dim 1, the last res/skip layer of each
+    WaveNet by JAX's 2h."""
+    from quickvc_tpu.parallel.tp import _kernel_spec
+    from quickvc_tpu_torch.parallel.tp import param_layout
+    from quickvc_tpu_torch.train.state import build_models
+    from quickvc_tpu_torch.utils.weights import (discriminator_state_dict_from_jax,
+                                                 generator_state_dict_from_jax)
+
+    cfg = configs()[1]
+    net_g, net_d = build_models(cfg)
+    g_params, d_params = runs["jax_params"]
+    kinds = set()
+    for net, tree, mapping in (
+            (net_g, g_params, lambda t: generator_state_dict_from_jax(t, cfg.model)),
+            (net_d, d_params, discriminator_state_dict_from_jax)):
+        layout = param_layout(net, model, 16)
+        leaves, tagged = _tagged(tree)
+        mapped = mapping(tagged)
+        assert set(layout) <= set(mapped)
+        for name, dim in layout.items():
+            t = mapped[name].numpy()
+            leaf = leaves[int(t.flat[0] // 4096)]
+            assert np.all(t // 4096 == t.flat[0] // 4096), name
+            runs_along = [d for d in range(t.ndim) if (np.diff(t, axis=d) != 0).any()]
+            jax_split = "model" in str(_kernel_spec((), leaf, model, 16))
+            if jax_split:
+                assert runs_along == [dim], (name, dim, runs_along, leaf.shape)
+                kinds.add((name.rsplit(".", 1)[-1], dim))
+            else:
+                assert dim is None, (name, dim, leaf.shape)
+    assert {("weight_v", 0), ("weight_ih_l1", 1), ("weight_hh_l0", 1), ("bias_ih_l0", 0)} <= kinds
+    ups = [n for n, d in param_layout(net_g, model, 16).items() if n.startswith("dec.ups.")]
+    assert "dec.ups.0.weight_v" in ups   # (in, out, k): split on its 32 input channels
+
+
+def test_tp_layout_at_the_scaled_config_matches_jax_bytes():
+    """``configs/quickvc_tp.json`` (upsample_initial_channel 4096), model 8,
+    min_channels 256: the port's G (on the meta device) holds JAX's bytes in
+    all and a device, once the unused res half of each WaveNet's last
+    res/skip layer (JAX's alone) is taken out; over 2.5e9 bytes, at least 5x
+    fewer a device, over 20 split tensors (``test_scaled_tp_config_layout``'s
+    bounds)."""
+    import os
+
+    from quickvc_tpu.config import load_config as jax_load_config
+    from quickvc_tpu.parallel.tp import _kernel_spec
+    from quickvc_tpu.train.state import build_models as jax_build_models
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.models.synthesizer import SynthesizerTrn
+    from quickvc_tpu_torch.parallel.tp import param_layout
+
+    path = os.path.join(os.path.dirname(__file__), "..", "configs", "quickvc_tp.json")
+    jcfg = jax_load_config(path)
+    jnet_g, _ = jax_build_models(jcfg)
+    k, f = jax.random.PRNGKey(0), 32
+    abstract = jax.eval_shape(lambda: jnet_g.init(
+        {"params": k, "sample": k, "slice": k}, jnp.zeros((1, f, jcfg.model.unit_channels)),
+        jnp.zeros((1, f, jcfg.spec_channels)), jnp.zeros((1, f, jcfg.data.n_mel_channels))))
+    jax_total = jax_device = unused_total = unused_device = 0
+    for path_, leaf in jax.tree_util.tree_flatten_with_path(abstract["params"])[0]:
+        b = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+        split = "model" in str(_kernel_spec(path_, leaf, 8, 256))
+        jax_total += b
+        jax_device += b // 8 if split else b
+        keys = [getattr(p, "key", "") for p in path_]
+        if keys[-2:-1] == ["res_skip"]:   # (L, ..., 2h): the last layer's first h of 2h
+            n = int(np.prod(leaf.shape[1:-1])) * leaf.shape[-1] // 2 * leaf.dtype.itemsize
+            unused_total += n
+            unused_device += n // 8 if split else n
+
+    cfg = load_config(path)
+    with torch.device("meta"):
+        net_g = SynthesizerTrn(cfg.spec_channels, cfg.segment_frames, cfg.model)
+    layout = param_layout(net_g, 8, 256)
+    total = device = split_tensors = 0
+    for name, p in net_g.named_parameters():
+        b = p.numel() * p.element_size()
+        total += b
+        device += b // 8 if layout[name] is not None else b
+        split_tensors += layout[name] is not None
+    assert (total + unused_total, device + unused_device) == (jax_total, jax_device)
+    assert total > 2_500_000_000 and device * 5 < total and split_tensors > 20, (
+        total, device, split_tensors)
+
+
+def test_tp_batch_splits_over_data_only():
+    """The model ranks of one data index take the same rows, sampler batches
+    and step seed; the data indices split them."""
+    from quickvc_tpu_torch.data.dataset import BUCKET_BOUNDARIES, BucketSampler
+    from quickvc_tpu_torch.parallel.tp import Mesh2D, batch_rows, bucket_sampler, step_seed
+
+    lengths = np.random.default_rng(3).integers(20, 700, 97).tolist()
+    for d in range(2):
+        ref = BucketSampler(lengths, 3, BUCKET_BOUNDARIES, num_replicas=2, rank=d)
+        meshes = [Mesh2D(2, 2, d, m, None, None) for m in range(2)]
+        assert {batch_rows(x, 8) for x in meshes} == {slice(4 * d, 4 * d + 4)}
+        assert len({step_seed(5, x) for x in meshes}) == 1
+        for x in meshes:
+            assert list(bucket_sampler(lengths, 3, x)) == list(ref)
+    assert step_seed(5, Mesh2D(2, 2, 0, 0, None, None)) != step_seed(5, Mesh2D(2, 2, 1, 0, None,
+                                                                                  None))
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_step_matches_one_process_on_the_global_batch(tp_runs, mesh):
+    """One float32 step on the mesh: losses, grad_norm/*, the gathered
+    gradients, and the parameters and AdamW moments after it against one
+    process on the 4 rows (losses rtol 2e-4, the rest max rel 2e-3), on
+    every rank; each rank holds fewer parameter and moment bytes."""
+    state, single = tp_runs["state"], tp_runs["single"]
+    whole = {"g": state.net_g.state_dict(), "d": state.net_d.state_dict()}
+    moments = {"g": state.optim_g.state_dict()["state"], "d": state.optim_d.state_dict()["state"]}
+    worst = dict.fromkeys(("grads", "params", "moments"), 0.0)
+    for rank in tp_runs["ranks"][mesh]:
+        _assert_matches_one_process(rank["metrics"], single)
+        for kind in "gd":
+            err, _ = max_rel_err(rank["metrics"][f"debug/{kind}_grads"],
+                                 {k: v.numpy() for k, v in single[f"debug/{kind}_grads"].items()})
+            worst["grads"] = max(worst["grads"], err)
+            err, where = max_rel_err(rank[kind], {k: v.numpy() for k, v in whole[kind].items()})
+            assert err < 2e-3, f"{kind} after the step: rel {err} at {where}"
+            worst["params"] = max(worst["params"], err)
+            ours = rank[f"opt_{kind}"]["state"]
+            assert ours.keys() == moments[kind].keys()
+            for i, st in moments[kind].items():
+                for name in ("exp_avg", "exp_avg_sq"):
+                    e, _ = max_rel_err({0: ours[i][name]}, {0: st[name].numpy()})
+                    assert e < 2e-3, (kind, i, name, e)
+                    worst["moments"] = max(worst["moments"], e)
+            held = rank["bytes"][kind]
+            full = sum(v.numel() * v.element_size() for v in whole[kind].values()
+                       if v.dtype.is_floating_point)
+            assert held["params"] < full and held["moments"] == 2 * held["params"]
+    print(f"tp {mesh}: worst max rel err {worst}")
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES)
+def test_tp_model_ranks_end_bit_equal(tp_runs, mesh):
+    """After the step on the case's draws and a second drawing from the
+    generator seeded by the data index, every rank's gathered parameters
+    are bit-equal, and so are the first step's metrics."""
+    first, *rest = tp_runs["ranks"][mesh]
+    for other in rest:
+        for kind in "gd":
+            bad = [k for k, v in first["second"][kind].items()
+                   if not torch.equal(v, other["second"][kind][k])]
+            assert not bad, (kind, bad[:5])
+        for key, v in first["metrics"].items():
+            if not key.startswith("debug/"):
+                assert torch.equal(v, other["metrics"][key]), key
+
+
+def test_tp_infer_matches_replicated_infer(tp_runs):
+    """``SynthesizerTrn.infer`` with G split over two model ranks against the
+    whole G, the same noise: within 1e-5 x peak."""
+    for mesh in TP_MESHES:
+        for rank in tp_runs["ranks"][mesh]:
+            sharded, whole = rank["infer"]
+            assert sharded.shape == whole.shape
+            peak = float(whole.abs().max())
+            assert float((sharded - whole).abs().max()) <= 1e-5 * peak, mesh
+
+
+@pytest.mark.parametrize("train", [{"zero_opt_state": True}, {"grad_reduce_dtype": "bf16"}])
+def test_tp_refuses_what_jax_never_runs_under_it(train):
+    """ZeRO-1 moments and the bf16 reduce under tensor parallelism raise
+    ValueError, as does the fused K5/K6 discriminator."""
+    from quickvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from quickvc_tpu_torch.parallel.tp import Mesh2D, param_layout
+    from quickvc_tpu_torch.parallel.tp_layers import ModelAxis, shard_modules_
+    from quickvc_tpu_torch.train.state import create_train_state
+
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        create_train_state(configs(**train)[1], torch.device("cpu"),
+                           tp=(Mesh2D(1, 2, 0, 0, None, None), 16))
+    net_d = MultiPeriodDiscriminator(width=0.25, fused_conv5=True)
+    with pytest.raises(ValueError, match="fused K5/K6"):
+        shard_modules_(net_d, param_layout(net_d, 2, 16), ModelAxis(None, 2, 0))

@@ -53,39 +53,57 @@ def spawn(job: str, world: int, tmp, *args, timeout: float = 240.0) -> list:
 # jobs
 
 
-def _case_state(case: dict, **train):
+# the multiband decoder's G holds the multistream one's parameters but these
+MULTISTREAM_ONLY = ("dec.multistream_conv_post.", "dec.updown_filter")
+
+
+def _case_state(case: dict, model: dict | None = None, tp=None, **train):
+    """A train state from the case's weights, its config's train section
+    updated by ``train`` and its model section by ``model`` (the multiband
+    decoder takes the case's multistream G without its multistream-only
+    tensors); ``tp`` as ``create_train_state`` takes it."""
     from quickvc_tpu_torch.config import config_from_dict
     from quickvc_tpu_torch.train.state import build_models, create_train_state
 
     d = {k: dict(v) for k, v in case["config"].items()}
     d["train"].update(train)
+    d["model"].update(model or {})
     cfg = config_from_dict(d)
     net_g, net_d = build_models(cfg)
-    net_g.load_state_dict(case["g"], strict=True)
+    g = case["g"]
+    if cfg.model.decoder_kind == "mb_istft":
+        g = {k: v for k, v in g.items() if not k.startswith(MULTISTREAM_ONLY)}
+    net_g.load_state_dict(g, strict=True)
     net_d.load_state_dict(case["d"], strict=True)
-    return create_train_state(cfg, torch.device("cpu"), net_g, net_d)
+    return create_train_state(cfg, torch.device("cpu"), net_g, net_d, tp=tp)
 
 
-def _rows(case: dict, rank: int, world: int) -> tuple[dict, torch.Tensor, torch.Tensor]:
+def _rows(case: dict, rank: int, world: int, batch: dict | None = None
+          ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """This rank's rows of the case's batch (its arrays updated by ``batch``)
+    and of its draws."""
     n = case["ids"].shape[0] // world
     rows = slice(rank * n, (rank + 1) * n)
-    batch = {k: torch.from_numpy(v[rows].copy()) for k, v in case["batch"].items()}
+    arrays = case["batch"] | (batch or {})
+    batch = {k: torch.from_numpy(v[rows].copy()) for k, v in arrays.items()}
     return batch, torch.from_numpy(case["eps_q"][rows].copy()), torch.from_numpy(
         case["ids"][rows].copy())
 
 
 def step_job(rank: int, world: int, tmp: str, variants: dict) -> dict:
-    """One step of each variant (train-config overrides) from the case's
-    weights on this rank's rows of its batch with its draws: the metrics,
+    """One step of each variant (train-config overrides; a "model" entry
+    updates the model section, a "batch" entry the batch's arrays) from the
+    case's weights on this rank's rows of its batch with its draws: the metrics,
     the reduced gradients, the parameters after, the optimizer state in
     plain AdamW's layout and the moment bytes this rank holds."""
     from quickvc_tpu_torch.train.state import optimizer_state_dict
     from quickvc_tpu_torch.train.step import mel_basis, train_step
 
     case = torch.load(os.path.join(tmp, "case.pt"), weights_only=False)
-    batch, eps_q, ids = _rows(case, rank, world)
     out = {}
     for name, train in variants.items():
+        train = dict(train)
+        batch, eps_q, ids = _rows(case, rank, world, train.pop("batch", None))
         state = _case_state(case, **train)
         # torch's native CPU convolutions (tests/torch_train_support.py:port_step)
         with torch.backends.mkldnn.flags(enabled=False):
@@ -109,3 +127,50 @@ def trainer_job(rank: int, world: int, tmp: str, runs: list[list[str]]) -> dict:
     from quickvc_tpu_torch.train import loop
 
     return {"summaries": [loop.main(argv + ["--distributed"]) for argv in runs]}
+
+
+def tp_job(rank: int, world: int, tmp: str, data: int, model: int) -> dict:
+    """Tensor parallelism on a (data, model) mesh, ``min_channels`` 16: one
+    float32 step from the case's weights on this data index's rows with its
+    draws (the metrics, gathered gradients, the whole parameters and the
+    AdamW state after it, this rank's bytes), then a second step drawing
+    from the generator seeded by the data index (the whole parameters
+    after it); and ``infer`` of the case's G on the batch's units, sharded
+    and whole, noise drawn from one seed."""
+    from quickvc_tpu_torch.parallel import tp
+    from quickvc_tpu_torch.train.state import optimizer_state_dict
+    from quickvc_tpu_torch.train.step import mel_basis, train_step
+
+    case = torch.load(os.path.join(tmp, "case.pt"), weights_only=False)
+    mesh = tp.mesh_2d(data, model)
+    rows = tp.batch_rows(mesh, case["ids"].shape[0])
+    batch = {k: torch.from_numpy(v[rows].copy()) for k, v in case["batch"].items()}
+    state = _case_state(case, tp=(mesh, 16))
+    basis = mel_basis(state.cfg, torch.device("cpu"))
+    out = {"mesh": (mesh.data_rank, mesh.model_rank), "layout_g": state.net_g.tp_layout,
+           "layout_d": state.net_d.tp_layout}
+    with torch.backends.mkldnn.flags(enabled=False):
+        m = train_step(state, batch, basis, eps_q=torch.from_numpy(case["eps_q"][rows].copy()),
+                       ids_slice=torch.from_numpy(case["ids"][rows].copy()), debug_grads=True)
+        out |= {"metrics": m, "g": tp.gather_state_dict(state.net_g),
+                "d": tp.gather_state_dict(state.net_d),
+                "opt_g": optimizer_state_dict(state, "g"),
+                "opt_d": optimizer_state_dict(state, "d"),
+                "bytes": {k: tp.local_bytes(*state.nets(k)[:2]) for k in "gd"}}
+        gen = torch.Generator().manual_seed(tp.step_seed(7, mesh))
+        train_step(state, batch, basis, generator=gen)
+        out["second"] = {"g": tp.gather_state_dict(state.net_g),
+                         "d": tp.gather_state_dict(state.net_d)}
+
+        # infer: the case's G sharded against the same G whole
+        whole = _case_state(case).net_g.eval()
+        sharded = _case_state(case, tp=(mesh, 16)).net_g.eval()
+        unit = torch.from_numpy(case["batch"]["unit"].copy()).transpose(1, 2)
+        g_vec = torch.nn.functional.normalize(
+            torch.randn(unit.shape[0], whole.enc_spk.linear.out_features,
+                        generator=torch.Generator().manual_seed(3)), dim=1)
+        with torch.inference_mode():
+            out["infer"] = [net.infer(unit, g_vec, noise_scale=0.667,
+                                      generator=torch.Generator().manual_seed(11))
+                            for net in (sharded, whole)]
+    return out
