@@ -179,9 +179,8 @@
     config: (a) the trainer CLI under ``torchrun --nproc-per-node 1 ...
     --distributed`` (NCCL) for 3 full-width steps at batch 32, its
     ``G_3.pth`` and ``D_3.pth`` bit-equal to the plain trainer's 3 steps,
-    both run on cuDNN's deterministic algorithms, the step walls of both
-    (and of the plain trainer as users run it, cuDNN free to pick its
-    algorithms); (b) two gloo ranks sharing the card (spawned processes),
+    both run on cuDNN's deterministic algorithms, the step walls of both;
+    (b) two gloo ranks sharing the card (spawned processes),
     16 rows each of one batch of 32: 2 float32 steps and one each of the
     bf16 reduce, ZeRO-1 and ``split_prior``, the ranks' parameters
     bit-equal after every step, K4 once a step on each rank, the reduced
@@ -192,8 +191,8 @@
     and CUDA-event times from ``quickvc_tpu_torch.scripts.dp_collectives``,
     the trainer's step walls), else one line saying why it did not run.
 17. On phase 4's corpus: (a) a full-width step at float32 and at bf16 timed
-    in turns with cuDNN free and on deterministic algorithms (the trainer's
-    ``--deterministic``), K4 and the LSTM stacks bit-equal from launch to
+    in turns, twice each, with cuDNN free and on deterministic algorithms
+    (the trainer's ``--deterministic``), K4 and the LSTM stacks bit-equal from launch to
     launch on them, then the trainer CLI with ``--deterministic`` for 4
     straight steps against 2 steps and a resume in a new process to 4, at
     each precision, ``G_4.pth`` and ``D_4.pth`` byte-equal; (b) the
@@ -211,6 +210,21 @@
     LSTM stacks once a bf16 step, K3 once in every rank's ``infer``; bytes
     a rank against replicated, peak memory, step walls and the model-axis
     collectives.
+18. The profiling harness and the exporter: (a) the trainer CLI at bf16 on
+    phase 4's corpus with ``--max-steps 7 --profile-steps 2``: one Chrome
+    trace in ``model_dir/profile`` holding two ``quickvc_train_step`` spans
+    and two K4 kernel records, its LSTM stack records printed beside the two
+    of each the launch counters see (CUPTI has dropped such records), the
+    traced steps' walls beside the untraced ones; phase 4's runs (no
+    ``--profile-steps``) wrote no ``profile/``; (b) ``utils.profiling.timed``
+    and ``time_chained`` on K4 at phase 4's batch beside phase 1's event
+    time, ``time_chained`` launching K4 once a run; (c)
+    ``python -m quickvc_tpu_torch.scripts.export_params`` on phase 4's newest
+    checkpoint pair (``.msgpack`` and ``--format torch --disc-out``) and on
+    phase 2's ``hubert-soft.pt``, with no ``msgpack`` or ``flax`` imported:
+    the files read back bit-equal to the checkpoints, and the conversion
+    CLI from ``g.msgpack`` and ``hubert.msgpack`` launching K1, K2 and K3 as
+    the ``.pth`` route does and within 1e-3 x peak of its waves.
 
 Prints one JSON line per check, the card's name and power limit, the status
 of every TPU kernel of the JAX package, a ``{"kernels": [...]}`` line and,
@@ -3663,9 +3677,8 @@ def check_dp_world1(tmp: str, hpfile: str) -> dict:
     (NCCL, cuda:0) for DP_STEPS full-width steps at batch 32, and the plain
     trainer for as many in this process, both on cuDNN's deterministic
     algorithms: their ``G_3.pth`` and ``D_3.pth`` bit-equal, the step walls
-    of both printed; beside them the plain trainer as users run it, cuDNN
-    free to pick its algorithms (printed, not held: its step walls, and
-    whether its weights equal the deterministic run's)."""
+    of both printed. (Phase 17 (a) times the step with cuDNN free beside the
+    deterministic one.)"""
     hp = write_config(os.path.join(tmp, "dp_config.json"), hpfile, train={"eval_interval": 0})
     root = os.path.join(tmp, "logs_dp")
     torch.cuda.synchronize()
@@ -3675,21 +3688,15 @@ def check_dp_world1(tmp: str, hpfile: str) -> dict:
                               "--distributed"])
     with cudnn_deterministic():
         plain = run_train(hp, os.path.join(root, "plain"), DP_STEPS)
-    free = run_train(hp, os.path.join(root, "free"), DP_STEPS)
-    files = {run: {k: os.path.join(root, run, "smoke", f"{k}_{DP_STEPS}.pth") for k in "GD"}
-             for run in ("nccl", "plain", "free")}
-    equal, free_equal = {}, {}
+    equal = {}
     for k in "GD":
-        with open(files["nccl"][k], "rb") as a, open(files["plain"][k], "rb") as b:
-            equal[k] = a.read() == b.read()
-        free_equal[k] = all(torch.equal(v, torch.load(files["free"][k], weights_only=True)[
-            "model"][n]) for n, v in torch.load(files["plain"][k], weights_only=True)[
-            "model"].items())
+        a, b = (os.path.join(root, run, "smoke", f"{k}_{DP_STEPS}.pth")
+                for run in ("nccl", "plain"))
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            equal[k] = fa.read() == fb.read()
     out = {"steps": DP_STEPS, "batch": TRAIN_BATCH, "torchrun_seconds": seconds,
            "nccl_step_seconds": step_walls(os.path.join(root, "nccl", "smoke", "train.log")),
-           "plain_step_seconds": plain["step_seconds"],
-           "cudnn_free_step_seconds": free["step_seconds"],
-           "checkpoints_bit_equal": equal, "cudnn_free_weights_bit_equal": free_equal}
+           "plain_step_seconds": plain["step_seconds"], "checkpoints_bit_equal": equal}
     print("dp_world1_nccl " + json.dumps(out))
     require(len(out["nccl_step_seconds"]) == DP_STEPS, "the torchrun trainer logged every step")
     require(all(equal.values()), f"torchrun's checkpoints equal the plain trainer's: {equal}")
@@ -3956,7 +3963,7 @@ def check_data_parallel(tmp: str, hpfile: str) -> dict:
 F4_STEPS, F4_SPLIT = 4, 2      # (a): 4 straight steps against 2 + a resume + 2
 # (a): timed steps, in turns: cuDNN free, deterministic algorithms, and cuDNN
 # free with the reflect pads as F.pad (the port before --deterministic)
-F4_TURNS = ("free", "det", "fpad", "fpad", "det", "free", "free", "det", "fpad")
+F4_TURNS = ("free", "det", "fpad", "fpad", "det", "free")
 F3_MARGIN = 16                 # (b): slice starts this many frames off the crop's edges
 F3_LOSSES = DP_LOSSES + ("loss/g/subband",)
 # (c): configs/quickvc_tp.json's batch of 64 cut to 8 rows: three copies of
@@ -4619,6 +4626,222 @@ def check_phase17(tmp: str, hpfile: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the profiling harness (the trainer's --profile-steps, timed,
+# time_chained) and the parameter exporter
+
+PROFILE_MAX_STEPS, PROFILE_STEPS = 7, 2   # (a): counters 5 and 6 traced
+PROFILE_ITERS = 20                        # (b): runs a timing
+
+
+def trace_records(path: str) -> dict:
+    """What one Chrome trace holds: its host-side ``quickvc_train_step``
+    spans, the device records of the port's kernels by function, and how
+    its kernel launches (runtime and driver calls) match kernel records by
+    CUPTI's correlation id: the launches left without a record (with their
+    offset from the first step span's start, in ms) and the host-to-device
+    delay of the matched ones (the device record's start minus the
+    launch's, in us; negative only through the clocks' conversion)."""
+    from quickvc_tpu_torch.train.step import STEP_SPAN
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = sorted(e["ts"] for e in events
+                   if e.get("name") == STEP_SPAN and e.get("cat") == "user_annotation")
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e.get("name", "") and "correlation" in e.get("args", {})]
+    by_corr = {e["args"]["correlation"]: e for e in kernels if "correlation" in e.get("args", {})}
+    delays = sorted(by_corr[e["args"]["correlation"]]["ts"] - e["ts"] for e in launches
+                    if e["args"]["correlation"] in by_corr)
+    missing = [e for e in launches if e["args"]["correlation"] not in by_corr]
+    names = [e["name"] for e in kernels]
+    return {"bytes": os.path.getsize(path), "step_spans": len(spans),
+            "kernel_records": len(kernels), "kernel_launches": len(launches),
+            "launches_without_record": len(missing),
+            "missing_after_first_span_ms": [round((e["ts"] - spans[0]) / 1e3, 3)
+                                            for e in missing[:50]] if spans else [],
+            "launch_to_kernel_us": {"min": delays[0], "median": delays[len(delays) // 2]}
+            if delays else None,
+            "port_kernels": {fn: sum(fn in k for k in names) for fn in DEVICE_FUNCTIONS
+                             if any(fn in k for k in names)}}
+
+
+def check_profile_steps(tmp: str, hpfile: str) -> dict:
+    """(a) The trainer CLI at bf16 with ``--profile-steps``: one trace file,
+    a step span and a K4 record for each traced step; the LSTM stacks'
+    records printed beside what the launch counters say the window ran."""
+    import glob
+
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.train import loop
+
+    hp = write_config(os.path.join(tmp, "profile_config.json"), hpfile,
+                      train={"precision": "bf16", "eval_interval": 0})
+    root = os.path.join(tmp, "logs_profile")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = loop.main(["-c", hp, "-m", "smoke", "-mr", root, "--max-steps",
+                         str(PROFILE_MAX_STEPS), "--device", "cuda", "--profile-steps",
+                         str(PROFILE_STEPS)])
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    paths = glob.glob(os.path.join(root, "smoke", "profile", "*.pt.trace.json"))
+    require(len(paths) == 1, f"phase 18 (a): one trace file, found {paths}")
+    rec = trace_records(paths[0])
+    walls = summary["step_seconds"]
+    lo, hi = 5, 5 + PROFILE_STEPS
+    per_step = {k: v / PROFILE_MAX_STEPS for k, v in launches.items()}
+    out = {"steps": summary["steps"], "profile_steps": PROFILE_STEPS, "cli_seconds": seconds,
+           "trace": rec, "launches": launches,
+           "window_launches": {k: v * PROFILE_STEPS for k, v in per_step.items()},
+           "traced_step_seconds": walls[lo:hi], "untraced_step_seconds": walls[TRAIN_WARMUP:lo],
+           "traced_over_untraced": float(np.mean(walls[lo:hi]) / np.mean(walls[TRAIN_WARMUP:lo])),
+           "lstm_records": {fn: [rec["port_kernels"].get(fn, 0), PROFILE_STEPS]
+                            for fn in ("lstm_stack_kernel", "lstm_stack_backward_kernel")},
+           "no_profile_dir_without_the_flag": {
+               run: not os.path.exists(os.path.join(tmp, run, "smoke", "profile"))
+               for run in ("logs", "logs_bf16")}}
+    print("profile_steps " + json.dumps(out))
+    require(summary["steps"] == PROFILE_MAX_STEPS, "phase 18 (a): every step taken")
+    require(rec["step_spans"] == PROFILE_STEPS,
+            f"phase 18 (a): {PROFILE_STEPS} step spans in the trace, {rec['step_spans']} found")
+    require(rec["port_kernels"].get("wave_to_spec_halo_kernel") == PROFILE_STEPS,
+            f"phase 18 (a): K4 once a traced step in the trace: {rec['port_kernels']}")
+    require(launches == {"wave_to_spec_halo": PROFILE_MAX_STEPS,
+                         "lstm_stack_bf16": PROFILE_MAX_STEPS,
+                         "lstm_stack_bf16_backward": PROFILE_MAX_STEPS},
+            f"phase 18 (a): launches {launches}")
+    require(all(out["no_profile_dir_without_the_flag"].values()),
+            "phase 18 (a): a run without --profile-steps wrote a profile/ directory")
+    return out
+
+
+def check_timing_harness(k4_ms: float) -> dict:
+    """(b) ``timed`` and ``time_chained`` on K4 at phase 4's batch, beside
+    phase 1's CUDA-event time of K4 (``ms``); ``time_chained``'s runs each
+    launch K4 once, each on the last run's carry."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.ops import fused_mel
+    from quickvc_tpu_torch.utils.profiling import time_chained, timed
+
+    rng = np.random.default_rng(SEED + 28)
+    t_len = 512 * 320 + 960
+    wave = torch.from_numpy((np.round(np.clip(rng.standard_normal((TRAIN_BATCH, t_len)) * 0.1,
+                                              -1, 1) * 32767) / 32768.0).astype(np.float32)).cuda()
+
+    def k4(w):
+        return fused_mel.wave_to_spec_halo_kernel(w, 1280, 320, 1280)
+
+    seconds, _ = timed(k4, wave, iters=PROFILE_ITERS)
+    ops.reset_launch_counts()
+    chained = time_chained(lambda c, w: k4(w + c), PROFILE_ITERS, wave)
+    launches = ops.launch_counts()["wave_to_spec_halo"]
+    out = {"shape": list(wave.shape), "iters": PROFILE_ITERS,
+           "timed_ms": seconds / PROFILE_ITERS * 1e3,
+           "time_chained_ms": chained / PROFILE_ITERS * 1e3, "phase1_events_ms": k4_ms,
+           "time_chained_launches": launches}
+    print("timing_harness " + json.dumps(out))
+    # one untimed pass and two timed ones
+    require(launches == 3 * PROFILE_ITERS,
+            f"phase 18 (b): time_chained launched K4 {launches} times, not {3 * PROFILE_ITERS}")
+    return out
+
+
+def check_export(tmp: str, hpfile: str, files, n_frames) -> dict:
+    """(c) The exporter on phase 4's newest checkpoint pair and phase 2's
+    HuBERT, in this process: no ``msgpack`` or ``flax`` module imported;
+    the ``.msgpack`` files read back bit-equal to the checkpoints, the
+    ``--format torch`` files equal to them without the decoder's buffer and
+    with no optimizer state; the conversion CLI from the ``.msgpack`` files
+    against the ``.pth`` route's, K1, K2 and K3 launched the same."""
+    from quickvc_tpu_torch import ops
+    from quickvc_tpu_torch.config import load_config
+    from quickvc_tpu_torch.data.audio_io import read_wav
+    from quickvc_tpu_torch.scripts import export_params
+    from quickvc_tpu_torch.utils.checkpoint import latest_step
+    from quickvc_tpu_torch.utils.msgpack_params import load_params
+    from quickvc_tpu_torch.utils.weights import (generator_state_dict_from_jax,
+                                                 hubert_state_dict_from_jax)
+
+    run_dir = os.path.join(tmp, "logs", "smoke")
+    step = latest_step(run_dir)
+    out_dir = os.path.join(tmp, "export")
+    os.makedirs(out_dir)
+    path = {k: os.path.join(out_dir, k) for k in ("g.msgpack", "hubert.msgpack", "G.pth", "D.pth")}
+    walls = {}
+    for name, argv in (("msgpack", ["--model-dir", run_dir, "--out", path["g.msgpack"]]),
+                       ("torch", ["--model-dir", run_dir, "--format", "torch", "--out",
+                                  path["G.pth"], "--disc-out", path["D.pth"]]),
+                       ("hubert", ["--hubert-in", files[2], "--hubert-out",
+                                   path["hubert.msgpack"]])):
+        t0 = time.perf_counter()
+        export_params.main(argv)
+        walls[name] = time.perf_counter() - t0
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("msgpack", "flax"))
+
+    cfg = load_config(os.path.join(run_dir, "config.json"))
+    g_sd = torch.load(os.path.join(run_dir, f"G_{step}.pth"), weights_only=True)["model"]
+    d_sd = torch.load(os.path.join(run_dir, f"D_{step}.pth"), weights_only=True)["model"]
+    h_sd = torch.load(files[2], weights_only=True)["hubert"]
+
+    def equal(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(torch.equal(v, b[k]) for k, v in a.items())
+
+    g_torch = torch.load(path["G.pth"], weights_only=True)
+    d_torch = torch.load(path["D.pth"], weights_only=True)
+    checks = {
+        "g_msgpack": equal(generator_state_dict_from_jax(load_params(path["g.msgpack"]),
+                                                         cfg.model), g_sd),
+        "hubert_msgpack": equal(hubert_state_dict_from_jax(load_params(path["hubert.msgpack"])),
+                                h_sd),
+        "g_torch": equal(g_torch["model"],
+                         {k: v for k, v in g_sd.items() if k != "dec.updown_filter"}),
+        "d_torch": equal(d_torch["model"], d_sd),
+        "torch_schema": all(c["iteration"] == step and c["optimizer"] is None
+                            and c["learning_rate"] == cfg.train.learning_rate
+                            for c in (g_torch, d_torch))}
+    del g_sd, d_sd, h_sd, g_torch, d_torch
+
+    runs = {}
+    for name, g, h in (("pth", os.path.join(run_dir, f"G_{step}.pth"), files[2]),
+                       ("msgpack", path["g.msgpack"], path["hubert.msgpack"])):
+        ops.reset_launch_counts()
+        summary = run_convert([hpfile, g, h, files[3]], os.path.join(tmp, f"export_out_{name}"))
+        check_outputs(summary, n_frames)
+        runs[name] = {"launches": {k: v for k, v in ops.launch_counts().items() if v},
+                      "waves": {os.path.basename(o): read_wav(o)[0] for o, _ in summary["outputs"]}}
+    ref, ours = runs["pth"]["waves"], runs["msgpack"]["waves"]
+    worst = max(float(np.abs(ours[k] - v).max() / np.abs(v).max()) for k, v in ref.items())
+    out = {"step": step, "export_seconds": walls,
+           "bytes": {k: os.path.getsize(v) for k, v in path.items()},
+           "msgpack_or_flax_imported": imported, "checks": checks,
+           "launches": {k: v["launches"] for k, v in runs.items()},
+           "wave_max_abs_over_peak": worst}
+    print("export " + json.dumps(out))
+    require(not imported, f"phase 18 (c): the exporter imported {imported}")
+    for k, ok in checks.items():
+        require(ok, f"phase 18 (c): {k}")
+    want = {"wave_to_mel", "attention_packed", "polar_inverse_stft"}
+    require(want <= set(runs["msgpack"]["launches"])
+            and runs["msgpack"]["launches"] == runs["pth"]["launches"],
+            f"phase 18 (c): the .msgpack conversion launched {runs['msgpack']['launches']}")
+    require(worst <= 1e-3, f"phase 18 (c): .msgpack conversion {worst} x peak off the .pth one")
+    return out
+
+
+def check_phase18(tmp: str, hpfile: str, files, n_frames, k4_ms: float) -> dict:
+    """Phase 18: (a), (b) and (c)."""
+    out = {"profile_steps": check_profile_steps(tmp, hpfile)}
+    mark("phase18_a")
+    out["timing_harness"] = check_timing_harness(k4_ms)
+    mark("phase18_b")
+    out["export"] = check_export(tmp, hpfile, files, n_frames)
+    mark("phase18_c")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -4704,6 +4927,9 @@ def main() -> int:
         mark("data_parallel")
         # phase 17: a bit-exact resume, the sub-band loss across ranks, tensor parallelism
         phase17 = check_phase17(tmp, train["hpfile"])
+        # phase 18: --profile-steps, timed / time_chained, the exporter
+        k4_ms = next(k["ms"] for k in kernels if k["name"] == "wave_to_spec_halo")
+        phase18 = check_phase18(tmp, train["hpfile"], files, n_frames, k4_ms)
     buckets = Counter(int(np.ceil(s)) for s in SOURCE_SECONDS)   # 1-s length buckets
     n_batches = sum(-(-n // BATCH) for n in buckets.values())
     expected = {name: 0 for name in launches} | {
@@ -4795,6 +5021,12 @@ def main() -> int:
                        phase17["tensor_parallel"]["launches"].items() if k["name"] in v}
         if tp_launches:
             k["tp_launches"] = tp_launches
+    # phase 18: K4 and the LSTM stacks in the traced run, K1-K3 in the .msgpack conversion
+    phase18_launches = phase18["profile_steps"]["launches"] | phase18["export"]["launches"][
+        "msgpack"]
+    for k in kernels:
+        if k["name"] in phase18_launches:
+            k["phase18_launches"] = phase18_launches[k["name"]]
     for k in kernels:
         k["path"], counts = path_of[k["name"]]
         k["launches"] = counts[k["name"]]
@@ -4819,7 +5051,8 @@ def main() -> int:
                       "three_layer_chain_ms", "equal_to_layer_chain", "bodies", "body",
                       "three_layer_chain_device_ms", "chain_turns_ms",
                       "chain_turns_device_ms", "projections_within_ulp",
-                      "layers_equal_one_layer_kernel", "accuracy", "heads", "tp_launches"):
+                      "layers_equal_one_layer_kernel", "accuracy", "heads", "tp_launches",
+                      "phase18_launches"):
             if extra in k:
                 detail[extra] = k[extra]
         print("kernel_check " + json.dumps(detail))
@@ -4844,6 +5077,7 @@ def main() -> int:
          "library_ms": k["library_ms"]}
         | ({"status": REDESIGNED[k["name"]]} if k["name"] in REDESIGNED else {})
         | ({"tp_launches": k["tp_launches"]} if "tp_launches" in k else {})
+        | ({"phase18_launches": k["phase18_launches"]} if "phase18_launches" in k else {})
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
     python -m quickvc_tpu_torch.train -c configs/quickvc.json -m NAME -mr ./logs
         [--max-steps N] [--device cuda|cpu] [--init-from-torch G.pth [D.pth]]
-        [--export-torch-every N] [--deterministic]
+        [--export-torch-every N] [--deterministic] [--profile-steps N]
     torchrun --nproc-per-node N -m quickvc_tpu_torch.train --distributed ...
 
 Port of ``quickvc_tpu/train/loop.py`` and ``train.py`` (reference
@@ -46,6 +46,15 @@ collective, so restarts belong to the launcher. With several processes
 (``WORLD_SIZE`` > 1) and no ``--distributed`` the trainer raises rather
 than train that many independent copies.
 
+``--profile-steps N`` traces the steps whose update counter is 5 ... 4 + N
+(``quickvc_tpu/train/loop.py:237-245``) with
+:func:`quickvc_tpu_torch.utils.profiling.trace` into ``model_dir/profile``,
+one Chrome-trace JSON a process (a rank's own under ``--distributed``); a
+resumed run whose counter is already past 5 traces nothing. Unlike the JAX
+loop, a run that stops inside the window (``--max-steps`` < 5 + N) stops
+the trace and writes it on the way out. The traced steps' walls count in
+``step_seconds`` as the others do.
+
 Runs on the card unless ``--device cpu`` is given (gloo on the CPU); CUDA
 without a card raises.
 """
@@ -80,6 +89,7 @@ from quickvc_tpu_torch.utils.checkpoint import (latest_step, load_checkpoint, pr
                                                 save_checkpoint)
 from quickvc_tpu_torch.utils.device import resolve_device
 from quickvc_tpu_torch.utils.logging import Summarizer, get_logger, plot_spectrogram
+from quickvc_tpu_torch.utils.profiling import trace
 from quickvc_tpu_torch.utils.weights import init_random_, load_discriminator, load_generator
 
 
@@ -90,6 +100,9 @@ def _upload(v: np.ndarray, device: torch.device) -> torch.Tensor:
     if v.dtype == np.uint16:
         return torch.tensor(v.view(np.int16), device=device).view(torch.bfloat16)
     return torch.tensor(v, device=device)
+
+
+PROFILE_FIRST_STEP = 5   # --profile-steps traces from the step whose counter is 5
 
 
 def _pad_frames(x: np.ndarray, target: int) -> np.ndarray:
@@ -239,7 +252,7 @@ def _host_metrics(m: dict[str, torch.Tensor]) -> tuple[dict, dict]:
 
 
 def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
-        init_torch: tuple[str, str | None] | None = None) -> dict:
+        init_torch: tuple[str, str | None] | None = None, profile_steps: int = 0) -> dict:
     """Train; returns {"steps", "losses" (one dict per step), "step_seconds"
     (batch upload, step and sync of each step), "log_seconds" (each log
     step's metrics read, images and event writes), "evals" (one dict per
@@ -259,6 +272,9 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
     state, so an export is also a resume point; only non-export pairs past
     the newest ``ckpt_max_to_keep`` are deleted. The last step of
     ``max_steps``, and a host-memory restart, checkpoint too.
+
+    ``profile_steps`` > 0 traces the steps with ``g`` in [5, 5 +
+    ``profile_steps``) into ``model_dir/profile`` (the module docstring).
     """
     t = cfg.train
     rank, world = mesh.rank(), mesh.world_size()
@@ -320,14 +336,32 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
     # finally, so it never outlives the run
     wd_stop = walls.watchdog(log, lambda: walls.total_steps)
     unhealthy = 0
+    profile_dir = os.path.join(cfg.model_dir, "profile")
+    tracing = None   # the open trace of profile_steps
+
+    def stop_trace() -> None:
+        nonlocal tracing
+        if tracing is not None:
+            tracing.__exit__(None, None, None)
+            tracing = None
+            log.info("profile trace written to %s", profile_dir)
+
     try:
         for epoch in range(epoch0, t.epochs + 1):
             sampler.set_epoch(epoch)
             lr = state.optim_g.param_groups[0]["lr"]
             t_iter = time.perf_counter()   # the step wall includes the wait for the batch
             for host_batch in loader:
-                t0 = time.perf_counter()
                 g = state.step
+                if profile_steps and g in (PROFILE_FIRST_STEP, PROFILE_FIRST_STEP + profile_steps):
+                    stop_trace()
+                    if g == PROFILE_FIRST_STEP:
+                        tracing = trace(profile_dir)
+                        tracing.__enter__()
+                        log.info("tracing steps %d-%d into %s", g, g + profile_steps - 1,
+                                 profile_dir)
+                    t_iter = time.perf_counter()   # the profiler's start or write is no step's
+                t0 = time.perf_counter()
                 # a copy: process workers' arrays live in shared memory they reuse
                 batch = {k: _upload(v, device) for k, v in host_batch.items()}
                 del host_batch
@@ -405,6 +439,9 @@ def run(cfg: QuickVCConfig, device: torch.device, max_steps: int | None = None,
             log.info("====> Epoch %d done", epoch)
         return out
     finally:
+        # a run that ends inside the window still writes its trace (the JAX
+        # loop leaves it open)
+        stop_trace()
         wd_stop.set()
         loader.close()
         if writer is not None:
@@ -438,6 +475,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "optimizers, the step counter at G's iteration; G may be "
                         "the JAX package's .msgpack, step 0); a checkpoint pair "
                         "in the model directory wins (a resume)")
+    p.add_argument("--profile-steps", type=int, default=0, metavar="N",
+                   help=f"trace the steps whose update counter is {PROFILE_FIRST_STEP} ... "
+                        f"{PROFILE_FIRST_STEP - 1} + N into model_dir/profile (Chrome traces; "
+                        "open them in ui.perfetto.dev)")
     args = p.parse_args(argv)
     if args.init_from_torch and len(args.init_from_torch) > 2:
         p.error("--init-from-torch takes G.pth [D.pth]")
@@ -494,7 +535,7 @@ def _main(args: argparse.Namespace) -> dict:
     if args.distributed:
         device, created = mesh.init_process_group(device.type)
     try:
-        return run(cfg, device, args.max_steps, init_torch)
+        return run(cfg, device, args.max_steps, init_torch, args.profile_steps)
     except HostMemoryRestart as e:
         # checkpointed: scripts/supervise_train.py (or any process manager)
         # relaunches on this code, and the run resumes where it stopped

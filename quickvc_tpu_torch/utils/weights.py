@@ -7,6 +7,12 @@
 - :func:`disc_variant_state_dict_from_jax` maps the variants of
   ``scripts/disc_pallas_ab.py`` onto the port's A/B script.
 - :func:`hubert_state_dict_from_jax` inverts ``quickvc_tpu/utils/hubert_port.py:port_hubert``.
+- :func:`generator_params_from_state_dict` and
+  :func:`hubert_params_from_state_dict` are the port's own copies of the
+  JAX package's ports the other way (``quickvc_tpu/utils/torch_port.py:port_generator``,
+  ``quickvc_tpu/utils/hubert_port.py:port_hubert``): the port's state dicts
+  -> flax parameter trees of numpy arrays, which
+  ``quickvc_tpu_torch/scripts/export_params.py`` writes as ``.msgpack``.
 - :func:`load_generator` / :func:`load_discriminator` / :func:`load_hubert`
   read checkpoints (G and HuBERT also as the JAX package's ``.msgpack``
   parameter files) and load them with ``strict=True``.
@@ -140,6 +146,119 @@ def generator_state_dict_from_jax(params: Mapping[str, Any], model_cfg) -> dict[
         _wn_conv(sd, "dec.multistream_conv_post", dec["multistream_conv_post"])
         sd["dec.updown_filter"] = _updown_filter(model_cfg.subbands)
     return _tensors(sd)
+
+
+# --------------------------------------------------------------------------
+# the port's state dicts -> JAX parameter trees (the export direction)
+
+
+def _leaf(x) -> np.ndarray:
+    """A float32 C-order numpy copy of a tensor or array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().float().numpy()
+    return np.array(x, np.float32, order="C")
+
+
+def _jax_conv(sd, prefix: str, weight: str = "weight_v") -> np.ndarray:
+    return np.ascontiguousarray(_leaf(sd[f"{prefix}.{weight}"]).transpose(2, 1, 0))
+
+
+def _jax_wn_conv(sd, prefix: str, bias: bool = True) -> dict:
+    out = {"v": _jax_conv(sd, prefix), "g": _leaf(sd[f"{prefix}.weight_g"]).reshape(-1)}
+    if bias and f"{prefix}.bias" in sd:
+        out["bias"] = _leaf(sd[f"{prefix}.bias"])
+    return out
+
+
+def _jax_plain_conv(sd, prefix: str) -> dict:
+    out = {"kernel": _jax_conv(sd, prefix, "weight")}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _leaf(sd[f"{prefix}.bias"])
+    return out
+
+
+def _jax_wavenet(sd, prefix: str, n_layers: int, has_cond: bool) -> dict:
+    """Per-layer convs -> the JAX stack (leading layer axis). The JAX stack is
+    uniformly 2h wide: the last res/skip layer's h skip channels go to its
+    [h, 2h) slot and its unused res half is v = 0, g = 1, bias = 0, as
+    ``port_generator`` fills it (``quickvc_tpu/utils/torch_port.py:93-130``)."""
+    out: dict = {}
+    if has_cond:
+        out["cond_layer"] = _jax_wn_conv(sd, f"{prefix}.cond_layer")
+    ins = {"v": [], "g": [], "bias": []}
+    rss = {"v": [], "g": [], "bias": []}
+    for i in range(n_layers):
+        c = _jax_wn_conv(sd, f"{prefix}.in_layers.{i}")
+        h = c["v"].shape[1]
+        r = _jax_wn_conv(sd, f"{prefix}.res_skip_layers.{i}")
+        if r["v"].shape[-1] == h:
+            v = np.zeros(r["v"].shape[:-1] + (2 * h,), np.float32)
+            v[..., h:] = r["v"]
+            g = np.ones(2 * h, np.float32)
+            g[h:] = r["g"]
+            bias = np.zeros(2 * h, np.float32)
+            bias[h:] = r["bias"]
+            r = {"v": v, "g": g, "bias": bias}
+        for k in ins:
+            ins[k].append(c[k])
+            rss[k].append(r[k])
+    out["layers"] = {"in": {k: np.stack(v) for k, v in ins.items()},
+                     "res_skip": {k: np.stack(v) for k, v in rss.items()}}
+    return out
+
+
+def generator_params_from_state_dict(sd: Mapping[str, Any], model_cfg) -> dict:
+    """The port's (or the reference's) ``SynthesizerTrn`` state dict -> the
+    JAX generator's parameter tree of float32 numpy arrays, in the key order
+    ``quickvc_tpu/utils/torch_port.py:port_generator`` builds, for each
+    decoder. The constant buffers (``dec.updown_filter``, a reference
+    checkpoint's ``dec.*stft.window`` and ``dec.pqmf.*``) have no JAX
+    parameter and are left out."""
+    nk = len(model_cfg.resblock_kernel_sizes)
+    flow = {}
+    for i in range(model_cfg.n_flows):
+        tp = f"flow.flows.{2 * i}"   # couplings interleave with Flips
+        flow[f"flow_{i}"] = {"pre": _jax_plain_conv(sd, f"{tp}.pre"),
+                             "enc": _jax_wavenet(sd, f"{tp}.enc", model_cfg.flow_wn_layers, True),
+                             "post": _jax_plain_conv(sd, f"{tp}.post")}
+    lstm = {}
+    for layer in range(3):
+        for nm in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            ours = nm.replace("weight", "w").replace("bias", "b")
+            lstm[f"{ours}_l{layer}"] = _leaf(sd[f"enc_spk.lstm.{nm}_l{layer}"])
+    backbone = {"conv_pre": _jax_wn_conv(sd, "dec.conv_pre"),
+                "cond": _jax_plain_conv(sd, "dec.cond")}
+    for i in range(len(model_cfg.upsample_rates)):
+        # ConvTranspose1d: torch (in, out, k) -> JAX (k, out, in), the same transpose
+        backbone[f"up_{i}"] = _jax_wn_conv(sd, f"dec.ups.{i}")
+        for j in range(nk):
+            rp = f"dec.resblocks.{i * nk + j}"
+            rb = {}
+            for m in range(len(model_cfg.resblock_dilation_sizes[j])):
+                rb[f"conv1_{m}"] = _jax_wn_conv(sd, f"{rp}.convs1.{m}")
+                rb[f"conv2_{m}"] = _jax_wn_conv(sd, f"{rp}.convs2.{m}")
+            backbone[f"resblock_{i}_{j}"] = rb
+    dec: dict[str, Any] = {"backbone": backbone}
+    if model_cfg.decoder_kind == "istft":
+        dec["conv_post"] = _jax_wn_conv(sd, "dec.conv_post")
+    else:
+        dec["head"] = {"subband_conv_post": _jax_wn_conv(sd, "dec.subband_conv_post")}
+        if model_cfg.decoder_kind == "ms_istft":
+            dec["multistream_conv_post"] = _jax_wn_conv(sd, "dec.multistream_conv_post",
+                                                        bias=False)
+    enc = model_cfg.enc_wn_layers
+    return {"enc_q": {"pre": _jax_plain_conv(sd, "enc_q.pre"),
+                      "enc": _jax_wavenet(sd, "enc_q.enc", enc, True),
+                      "proj": _jax_plain_conv(sd, "enc_q.proj")},
+            "enc_p": {"pre": _jax_plain_conv(sd, "enc_p.pre"),
+                      "enc": _jax_wavenet(sd, "enc_p.enc", enc, False),
+                      "proj": _jax_plain_conv(sd, "enc_p.proj")},
+            "flow": flow,
+            "enc_spk": {"lstm": lstm,
+                        "linear": {"kernel": np.ascontiguousarray(
+                                       _leaf(sd["enc_spk.linear.weight"]).T),
+                                   "bias": _leaf(sd["enc_spk.linear.bias"])}},
+            "dec": dec}
 
 
 def discriminator_state_dict_from_jax(params: Mapping[str, Any],
@@ -293,8 +412,53 @@ def validate_hubert_sd(sd: Mapping[str, Any], num_layers: int = 12) -> None:
             f"  shape_mismatches={mismatched[:8]}")
 
 
+def hubert_params_from_state_dict(sd: Mapping[str, Any], num_layers: int = 12) -> dict:
+    """A bshall ``HubertSoft`` state dict -> the JAX ``HubertSoft``
+    parameter tree of float32 numpy arrays, checked first against the key
+    contract (:func:`validate_hubert_sd`), in the key order
+    ``quickvc_tpu/utils/hubert_port.py:port_hubert`` builds."""
+    validate_hubert_sd(sd, num_layers)
+    sd = {k.replace("module.", ""): v for k, v in sd.items()}
+
+    def linear(key):
+        return {"kernel": np.ascontiguousarray(_leaf(sd[key + ".weight"]).T),
+                "bias": _leaf(sd[key + ".bias"])}
+
+    def ln(key):
+        return {"scale": _leaf(sd[key + ".weight"]), "bias": _leaf(sd[key + ".bias"])}
+
+    fe = {"norm0": ln("feature_extractor.norm0")}
+    for i in range(7):
+        fe[f"conv{i}"] = {"kernel": _jax_conv(sd, f"feature_extractor.conv{i}", "weight")}
+    pos = {"v": _jax_conv(sd, "positional_embedding.conv"),
+           "g": _leaf(sd["positional_embedding.conv.weight_g"]).reshape(-1),
+           "bias": _leaf(sd["positional_embedding.conv.bias"])}
+    layers = {}
+    for i in range(num_layers):
+        p = f"encoder.layers.{i}"
+        layers[f"layer_{i}"] = {
+            "self_attn": {"in_proj_weight": _leaf(sd[f"{p}.self_attn.in_proj_weight"]),
+                          "in_proj_bias": _leaf(sd[f"{p}.self_attn.in_proj_bias"]),
+                          "out_proj": linear(f"{p}.self_attn.out_proj")},
+            "norm1": ln(f"{p}.norm1"), "norm2": ln(f"{p}.norm2"),
+            "linear1": linear(f"{p}.linear1"), "linear2": linear(f"{p}.linear2")}
+    return {"feature_extractor": fe,
+            "feature_projection": {"norm": ln("feature_projection.norm"),
+                                   "projection": linear("feature_projection.projection")},
+            "positional_embedding": pos, "norm": ln("norm"), **layers, "proj": linear("proj")}
+
+
 # --------------------------------------------------------------------------
 # checkpoint files
+
+
+def decoder_buffer(key: str) -> bool:
+    """A decoder constant that no JAX parameter holds and no export carries:
+    the multistream decoder's ``dec.updown_filter``, and a reference
+    checkpoint's iSTFT Hann window (``dec.*stft.window``) and PQMF filters
+    (``dec.pqmf.*``)."""
+    return key.startswith("dec.") and (key == "dec.updown_filter" or key.endswith("stft.window")
+                                       or key.startswith("dec.pqmf."))
 
 
 def load_generator(path: str, model: nn.Module) -> None:
@@ -307,7 +471,8 @@ def load_generator(path: str, model: nn.Module) -> None:
     ``InverseSpectrogram`` Hann window and a PQMF module's filters (the
     port's head and :mod:`quickvc_tpu_torch.dsp.pqmf` build their own) are
     dropped, and the multistream decoder's ``dec.updown_filter``, which
-    exports from the JAX package lack, is filled in. The tensors are
+    exports from the JAX package lack, is built here (:func:`decoder_buffer`
+    names all three). The tensors are
     assigned, so the model may be built on the ``meta`` device without
     initializing anything.
     """
@@ -316,12 +481,9 @@ def load_generator(path: str, model: nn.Module) -> None:
     else:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
-    sd = {k: v for k, v in sd.items()
-          if not (k.startswith("dec.") and k.endswith("stft.window"))
-          and not k.startswith("dec.pqmf.")}
+    sd = {k: v for k, v in sd.items() if not decoder_buffer(k)}
     if hasattr(model.dec, "updown_filter"):
-        sd.setdefault("dec.updown_filter",
-                      torch.from_numpy(_updown_filter(model.dec.subbands)))
+        sd["dec.updown_filter"] = torch.from_numpy(_updown_filter(model.dec.subbands))
     model.load_state_dict(sd, strict=True, assign=True)
 
 

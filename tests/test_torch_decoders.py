@@ -125,9 +125,10 @@ def test_subband_stft_loss_and_gradient_match_jax(rng):
     y_mb = (0.2 * rng.standard_normal((2, 640, 4))).astype(np.float32)
     y_hat = (0.2 * rng.standard_normal((2, 643, 4))).astype(np.float32)   # cropped to 640
 
-    def golden(dtype):
-        value, grad = jax.value_and_grad(lambda yh: jax_loss(jnp.asarray(y_mb, dtype), yh,
-                                                             *sizes))(jnp.asarray(y_hat, dtype))
+    def golden(dtype):   # one compile a dtype (op by op it took ~20 s of one core)
+        value, grad = jax.jit(jax.value_and_grad(lambda y, yh: jax_loss(y, yh, *sizes),
+                                                 argnums=1))(jnp.asarray(y_mb, dtype),
+                                                             jnp.asarray(y_hat, dtype))
         return float(value), np.asarray(grad).transpose(0, 2, 1)
 
     def ours(dtype):
@@ -159,7 +160,8 @@ def test_subband_stft_loss_on_digital_silence_matches_jax(rng):
     y_mb = (0.2 * rng.standard_normal((1, 640, 4))).astype(np.float32)
     y_mb[:, 100:800] = 0.0
     y_hat = (0.2 * rng.standard_normal((1, 640, 4))).astype(np.float32)
-    golden = float(jax_loss(jnp.asarray(y_mb), jnp.asarray(y_hat), *sizes))
+    golden = float(jax.jit(lambda y, yh: jax_loss(y, yh, *sizes))(jnp.asarray(y_mb),
+                                                                   jnp.asarray(y_hat)))
     ours = float(subband_stft_loss(t(y_mb.transpose(0, 2, 1)), t(y_hat.transpose(0, 2, 1)),
                                    *sizes))
     assert golden == ours == float("inf")

@@ -29,8 +29,8 @@ def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import neither JAX nor
     quickvc_tpu, nor tensorboard, tensorboardX, matplotlib, protobuf, soundfile,
     ml_dtypes or msgpack (the card's machine has neither ml_dtypes nor msgpack:
-    bf16 rides as uint16 bits, and the .msgpack parameter files are decoded in
-    pure Python)."""
+    bf16 rides as uint16 bits, and the .msgpack parameter files are decoded
+    and written in pure Python, the exporter included)."""
     code = """
 import importlib, pkgutil, runpy, sys
 import quickvc_tpu_torch
@@ -45,7 +45,8 @@ new = ["quickvc_tpu_torch." + m for m in ("infer.streaming", "infer.realtime", "
                                          "scripts.int8_matmul_probe", "scripts.realtime_bench",
                                          "data.native", "utils.msgpack_params", "dsp.pqmf",
                                          "downsample", "parallel.mesh", "parallel.shard_step",
-                                         "parallel.tp", "parallel.tp_layers")]
+                                         "parallel.tp", "parallel.tp_layers", "utils.profiling",
+                                         "scripts.export_params")]
 bad += [m + " not imported" for m in new if m not in sys.modules]
 print(len([n for n in sys.modules if n.startswith("quickvc_tpu_torch.")]), bad)
 sys.exit(1 if bad else 0)

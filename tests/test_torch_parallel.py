@@ -31,6 +31,8 @@ single-process step and against JAX's explicit-collective step.
 
 from __future__ import annotations
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_dist_support import spawn
+from torch_dist_support import start
 from torch_train_support import FRAMES, MB, TINY, configs, max_rel_err
 
 import torch_port_support  # noqa: F401  (caps torch's threads)
@@ -92,14 +94,14 @@ VARIANTS = {"f32": {}, "zero": {"zero_opt_state": True},
             "bf16_step": {"precision": "bf16"}}
 
 
-def _jax_sharded_step():
-    """JAX's shard_map step (split_prior, bf16 reduce, the same key on both
-    shards) on a 2-device mesh, with each shard's draws recovered."""
+def _jax_case():
+    """The case of JAX's shard_map step (split_prior, bf16 reduce, the same
+    key on both shards): weights, batch and each shard's draws recovered;
+    the JAX parameters; the step's inputs for :func:`_jax_sharded_step`."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from quickvc_tpu.dsp.mel import mel_filterbank
     from quickvc_tpu.dsp.stft import spec_to_mel, wave_to_spec_halo
-    from quickvc_tpu.parallel import data_parallel_mesh, make_sharded_train_step
     from quickvc_tpu.train.state import TrainState, build_models, make_optimizer
     from quickvc_tpu_torch.utils.weights import (discriminator_state_dict_from_jax,
                                                  generator_state_dict_from_jax)
@@ -119,13 +121,6 @@ def _jax_sharded_step():
     basis = jnp.asarray(mel_filterbank(16000, 1280, 80))
     batch = _batch(np.random.default_rng(5))
     rng = jax.random.PRNGKey(7)
-    mesh = data_parallel_mesh(2)
-    step = make_sharded_train_step(jcfg, net_g, net_d, basis, mesh, reduce_dtype=jnp.bfloat16,
-                                   per_shard_rng=False, debug_grads=True)
-    new_state, metrics = jax.device_get(step(
-        jax.device_put(state, NamedSharding(mesh, P())),
-        jax.device_put({k: jnp.asarray(v) for k, v in batch.items()},
-                       NamedSharding(mesh, P("data"))), rng))
 
     # each shard's draws: its forward_posterior with the step's sample/slice keys
     wf = jnp.asarray(batch["wave_s16"], jnp.float32) / 32768.0
@@ -145,21 +140,52 @@ def _jax_sharded_step():
             "d": discriminator_state_dict_from_jax(d_params),
             "batch": batch, "eps_q": np.concatenate(eps).astype(np.float32),
             "ids": np.concatenate(ids)}
-    return case, metrics, new_state, (g_params, d_params)
+    return case, (g_params, d_params), (jcfg, net_g, net_d, basis, state, batch, rng)
+
+
+def _jax_sharded_step(jcfg, net_g, net_d, basis, state, batch, rng):
+    """JAX's shard_map step on the case, on a 2-device mesh: (metrics, state after)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from quickvc_tpu.parallel import data_parallel_mesh, make_sharded_train_step
+
+    mesh = data_parallel_mesh(2)
+    step = make_sharded_train_step(jcfg, net_g, net_d, basis, mesh, reduce_dtype=jnp.bfloat16,
+                                   per_shard_rng=False, debug_grads=True)
+    new_state, metrics = jax.device_get(step(
+        jax.device_put(state, NamedSharding(mesh, P())),
+        jax.device_put({k: jnp.asarray(v) for k, v in batch.items()},
+                       NamedSharding(mesh, P("data"))), rng))
+    return metrics, new_state
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX reference, the two ranks' steps of every variant, and one
-    process's float32 step on the whole batch."""
+    process's float32 step on the whole batch. The case is written first;
+    then the data-parallel ranks and every tensor-parallel mesh's ranks
+    (``tp_runs``) start together, each group in a directory of its own, and
+    run while the JAX step compiles."""
     from torch_dist_support import _case_state
 
     from quickvc_tpu_torch.train.step import mel_basis, train_step
 
     tmp = tmp_path_factory.mktemp("dp")
-    case, jax_metrics, jax_state, jax_params = _jax_sharded_step()
+    case, jax_params, jax_inputs = _jax_case()
     torch.save(case, tmp / "case.pt")
-    ranks = spawn("step_job", 2, tmp, VARIANTS)
+    groups = {"dp": start("step_job", 2, tmp, VARIANTS, timeout=600)}
+    for data, model in TP_MESHES:
+        sub = tmp / f"tp_{data}x{model}"
+        sub.mkdir()
+        shutil.copy(tmp / "case.pt", sub / "case.pt")
+        groups[data, model] = start("tp_job", data * model, sub, data, model, timeout=600)
+    try:
+        jax_metrics, jax_state = _jax_sharded_step(*jax_inputs)
+        ranks = groups["dp"].join()
+    except BaseException:
+        for g in groups.values():
+            g.kill()
+        raise
 
     def one_process(rows=slice(None), batch=None, **train):
         state = _case_state(case, **train)
@@ -171,8 +197,11 @@ def runs(tmp_path_factory):
                            ids_slice=torch.from_numpy(case["ids"][rows].copy()), debug_grads=True)
         return state, m
 
-    return {"case": case, "jax_metrics": jax_metrics, "jax_state": jax_state, "ranks": ranks,
-            "one_process": one_process, "tmp": tmp, "jax_params": jax_params}
+    yield {"case": case, "jax_metrics": jax_metrics, "jax_state": jax_state, "ranks": ranks,
+           "one_process": one_process, "tmp": tmp, "jax_params": jax_params,
+           "tp_groups": {mesh: groups[mesh] for mesh in TP_MESHES}}
+    for g in groups.values():   # a run that never reached tp_runs
+        g.kill()
 
 
 def _assert_matches_one_process(ours: dict, single: dict,
@@ -407,8 +436,7 @@ def tp_runs(runs):
     (``torch_dist_support.tp_job``), and one process's float32 step on the
     whole batch."""
     state, single = runs["one_process"]()
-    return {"ranks": {mesh: spawn("tp_job", mesh[0] * mesh[1], runs["tmp"], *mesh)
-                      for mesh in TP_MESHES},
+    return {"ranks": {mesh: runs["tp_groups"][mesh].join() for mesh in TP_MESHES},
             "state": state, "single": single}
 
 

@@ -10,6 +10,7 @@ D and G gradients max relative error 2e-3, the D update within 1% of lr
 where the gradient is well determined.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -92,9 +93,12 @@ def test_trainer_cli_trains_resumes_and_converts(tmp_path):
     hpfile = str(tmp_path / "tiny.json")
     cfg.save(hpfile)
     args = ["-c", hpfile, "-m", "run", "-mr", str(tmp_path / "logs"), "--device", "cpu"]
+    # the CLI's process with this worker's torch threads (tests/torch_port_support.py):
+    # at torch's default of one a core this test took 43 s of an 8-core host, 16 s so
     proc = subprocess.run([sys.executable, "-m", "quickvc_tpu_torch.train", *args,
                            "--max-steps", "2"],
-                          cwd=REPO, capture_output=True, text=True, timeout=240)
+                          cwd=REPO, capture_output=True, text=True, timeout=240,
+                          env=dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads())))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     run_dir = tmp_path / "logs" / "run"
     assert (run_dir / "G_2.pth").exists() and (run_dir / "D_2.pth").exists()

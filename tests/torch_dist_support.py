@@ -28,25 +28,46 @@ def _rank_main(rank: int, world: int, tmp: str, job: str, args: tuple) -> None:
         torch.distributed.destroy_process_group()
 
 
+class Ranks:
+    """``world`` gloo ranks running ``job(rank, world, tmp, *args)`` of this
+    module, started and not yet waited for (:func:`start`)."""
+
+    def __init__(self, job: str, world: int, tmp, args: tuple, timeout: float):
+        self.job, self.world, self.tmp = job, world, str(tmp)
+        self.ctx = mp.start_processes(_rank_main, args=(world, self.tmp, job, args),
+                                      nprocs=world, join=False, start_method="spawn")
+        self.deadline = time.monotonic() + timeout
+
+    def join(self) -> list:
+        """Each rank's result. A rank's exception is raised here with its
+        traceback; past the deadline the ranks are killed."""
+        try:
+            while not self.ctx.join(timeout=1.0):
+                if time.monotonic() > self.deadline:
+                    raise TimeoutError(f"{self.job}: ranks still running past the deadline")
+        finally:
+            self.kill()
+        return [torch.load(os.path.join(self.tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(self.world)]
+
+    def kill(self) -> None:
+        for p in self.ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+
+
+def start(job: str, world: int, tmp, *args, timeout: float = 240.0) -> Ranks:
+    """Start ``job`` in ``world`` gloo ranks meeting under ``tmp`` (one
+    group a directory); ``join`` the result for their outputs."""
+    return Ranks(job, world, tmp, args, timeout)
+
+
 def spawn(job: str, world: int, tmp, *args, timeout: float = 240.0) -> list:
     """Run ``job(rank, world, tmp, *args)`` of this module in ``world`` gloo
     ranks; returns each rank's result. A rank's exception is raised here
     with its traceback; past ``timeout`` seconds the ranks are killed."""
-    tmp = str(tmp)
-    ctx = mp.start_processes(_rank_main, args=(world, tmp, job, args), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{job}: ranks still running after {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+    return start(job, world, tmp, *args, timeout=timeout).join()
 
 
 # --------------------------------------------------------------------------
